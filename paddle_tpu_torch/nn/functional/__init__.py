@@ -1,0 +1,4 @@
+"""Functionals (mirrors ``paddle_tpu.nn.functional``)."""
+from .attention import scaled_dot_product_attention
+
+__all__ = ["scaled_dot_product_attention"]

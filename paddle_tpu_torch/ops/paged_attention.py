@@ -1,0 +1,188 @@
+"""Ragged paged attention over a page-table KV cache (mirrors
+``paddle_tpu/ops/paged_attention.py``).
+
+One entry point, ``ragged_paged_attention``, over per-row metadata
+``(page_table row, pos0, true_len)``: a decode step is a row with
+``true_len == 1``, a prefill chunk a row with ``true_len`` up to its chunk
+width. On a CUDA tensor it launches ``csrc/ragged_paged_attention.cu``
+(the port of the TPU kernel ``_ragged_kernel``); on a CPU tensor it runs
+the plain version ``_gather_attend`` — the reference's XLA spelling:
+gather each row's pages into a contiguous ``[R, S_cap, NH, D]`` view and
+run dense masked attention with an f32 softmax. Nothing selects the plain
+version for a CUDA tensor.
+
+Layout: pools are ``[num_pages, page_size, NH, D]`` per layer; page 0 is
+the null page (writes of inactive rows land there, gathers of unallocated
+table entries read it and are masked). ``paged_kv_scatter`` writes a
+tick's KV into the pool in place (``index_put_``).
+
+Not in this slice: int8 pools with per-page scales (ROADMAP queue 1
+item 5; queue 2, the int8 path of row 5).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _cuda
+
+__all__ = ["ragged_paged_attention", "paged_decode_attention",
+           "paged_prefill_attention", "paged_kv_scatter", "RAGGED_LAUNCHES"]
+
+#: launches of the CUDA kernel (incremented once per launch, nowhere else)
+RAGGED_LAUNCHES = 0
+
+_NEG_INF = -1e9     # same masking constant as the reference
+
+_INT8_TODO = ("int8 KV pools (per-page scales) are not ported yet: "
+              "ROADMAP queue 1 item 5 (int8), queue 2 row 5 int8 path")
+
+
+def _gather_attend(q, k_pool, v_pool, page_table, qpos):
+    """The plain version: gather + mask + f32 softmax.
+
+    q           [R, T, NH, D]  queries
+    k_pool      [P, ps, NH, D] per-layer key page pool
+    v_pool      [P, ps, NH, D] per-layer value page pool
+    page_table  [R, NPs] int32 page ids per row (0 = null page)
+    qpos        [R, T] int32   last attendable cache position per query
+
+    Every reduction runs at the full slot capacity ``NPs * ps`` with
+    exact-zero weights behind the mask. A pool stored narrower than the
+    queries (bf16 pool, f32 model) is upcast after the gather; the
+    contraction runs at the wider of the two dtypes. Returns
+    ``[R, T, NH, D]`` in the query dtype.
+    """
+    r = q.shape[0]
+    nps, ps = page_table.shape[1], k_pool.shape[1]
+    nh, hd = k_pool.shape[2], k_pool.shape[3]
+    s_cap = nps * ps
+    tab = page_table.long()
+    k_c = k_pool[tab]                       # [R, NPs, ps, NH, D]
+    v_c = v_pool[tab]
+    wide = torch.promote_types(k_pool.dtype, q.dtype)
+    qw = q.to(wide)
+    k_c = k_c.to(wide).reshape(r, s_cap, nh, hd)
+    v_c = v_c.to(wide).reshape(r, s_cap, nh, hd)
+    key_pos = torch.arange(s_cap, device=q.device)
+    mask = key_pos[None, None, None, :] <= qpos[:, None, :, None]
+    att = torch.einsum("btnd,bsnd->bnts", qw, k_c) / math.sqrt(hd)
+    att = torch.where(mask, att, _NEG_INF)
+    w = torch.softmax(att.float(), dim=-1).to(wide)
+    out = torch.einsum("bnts,bsnd->btnd", w, v_c)
+    return out.to(q.dtype)
+
+
+def ragged_paged_attention(q, k_pool, v_pool, page_table, pos0, true_len,
+                           k_scale=None, v_scale=None):
+    """One attention call over ragged rows of the page pool.
+
+    q           [R, T, NH, D]  per-row query blocks
+    k_pool      [P, ps, NH, D] per-layer key page pool (f32 or bf16)
+    v_pool      [P, ps, NH, D] per-layer value page pool
+    page_table  [R, NPs] int32 page ids per row (0 = null page)
+    pos0        [R] int32      absolute position of each row's query 0
+    true_len    [R] int32      real queries in the row (1 = decode row)
+
+    Query ``i`` of row ``r`` attends cache positions ``<= pos0[r] + i``.
+    Queries at ``i >= true_len[r]`` are computed anyway and are garbage
+    the caller must ignore (the kernel reads no page past the row's last
+    real query, so the garbage differs between versions). Returns
+    ``[R, T, NH, D]`` in the query dtype.
+    """
+    if k_scale is not None or v_scale is not None:
+        raise NotImplementedError(_INT8_TODO)
+    for t in (k_pool, v_pool, page_table, pos0, true_len):
+        if t.device != q.device:
+            raise ValueError("ragged_paged_attention: all arguments must be "
+                             f"on {q.device}, got one on {t.device}")
+        if t is not k_pool and t is not v_pool and t.dtype != torch.int32:
+            raise TypeError("ragged_paged_attention: page_table, pos0 and "
+                            f"true_len must be int32, got {t.dtype}")
+    if q.device.type == "cpu":
+        t = q.shape[1]
+        qpos = pos0[:, None] + torch.arange(t, dtype=pos0.dtype)[None, :]
+        return _gather_attend(q, k_pool, v_pool, page_table, qpos)
+    return _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len)
+
+
+def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len):
+    global RAGGED_LAUNCHES
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"ragged_paged_attention: unsupported device {dev}")
+    name = "ragged_paged_attention"
+    _cuda.check_cuda(name, (q, k_pool, v_pool, page_table, pos0, true_len),
+                     dev)
+    if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"{name}: q [R, T, NH, D] and pools [P, ps, NH, D] "
+                         f"expected, got q {tuple(q.shape)} k_pool "
+                         f"{tuple(k_pool.shape)} v_pool {tuple(v_pool.shape)}")
+    r, t, nh, hd = q.shape
+    _, ps, pnh, phd = k_pool.shape
+    if (pnh, phd) != (nh, hd):
+        raise ValueError(f"{name}: pool heads/dim {(pnh, phd)} != q's "
+                         f"{(nh, hd)}")
+    if page_table.dim() != 2 or page_table.shape[0] != r or \
+            pos0.shape != (r,) or true_len.shape != (r,):
+        raise ValueError(f"{name}: page_table [R, NPs], pos0 [R] and "
+                         f"true_len [R] expected for R={r}")
+    if q.dtype not in _cuda.DTYPE_CODE or \
+            k_pool.dtype not in _cuda.DTYPE_CODE or \
+            v_pool.dtype != k_pool.dtype:
+        raise TypeError(f"{name}: q and pools must be f32 or bf16, got "
+                        f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+    if ps > 32 or hd > 256:
+        raise ValueError(f"{name}: kernel supports page_size <= 32 and "
+                         f"head_dim <= 256, got {ps} and {hd}")
+    out = torch.empty_like(q)
+    fn = _cuda.entry(name, name, "pppppppiiiiiiiifp")
+    with torch.cuda.device(dev):
+        err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                 page_table.data_ptr(), pos0.data_ptr(), true_len.data_ptr(),
+                 out.data_ptr(), r, t, nh, hd, ps, page_table.shape[1],
+                 _cuda.DTYPE_CODE[q.dtype], _cuda.DTYPE_CODE[k_pool.dtype],
+                 1.0 / math.sqrt(hd), _cuda.stream_handle(dev))
+    _cuda.raise_on_error(name, err)
+    RAGGED_LAUNCHES += 1
+    return out
+
+
+def paged_decode_attention(q, k_pool, v_pool, page_table, attend_pos):
+    """One decode step: a ragged call where every row is a single query
+    at its slot's write position. q [B, 1, NH, D]; attend_pos [B] int32.
+    Returns [B, 1, NH, D]."""
+    ones = torch.ones_like(attend_pos)
+    return ragged_paged_attention(q, k_pool, v_pool, page_table,
+                                  attend_pos, ones)
+
+
+def paged_prefill_attention(q, k_pool, v_pool, page_table, pos0):
+    """Suffix-prefill (chunked) attention: each batch row is a T-query
+    chunk starting at the shared position ``pos0``. The chunk's own KV
+    must already be in the pool. Returns [B, T, NH, D]."""
+    b, t = q.shape[0], q.shape[1]
+    row_pos0 = torch.full((b,), int(pos0), dtype=torch.int32,
+                          device=q.device)
+    tl = torch.full((b,), t, dtype=torch.int32, device=q.device)
+    return ragged_paged_attention(q, k_pool, v_pool, page_table, row_pos0, tl)
+
+
+def paged_kv_scatter(pool, scale, page, off, vals):
+    """Write one tick's per-token KV into the page pool, in place.
+
+    pool   [P, ps, NH, D]  per-layer page pool (f32/bf16)
+    scale  None            (per-page scales of int8 pools: not ported)
+    page   [NT] int        target page per token (0 = null page)
+    off    [NT] int        offset within the page
+    vals   [NT, NH, D]     the token KV (cast to the pool dtype)
+
+    Returns (pool, None): the same pool tensor, updated in place (the JAX
+    reference returns a new array; the port has no donation and saves
+    the copy).
+    """
+    if scale is not None:
+        raise NotImplementedError(_INT8_TODO)
+    pool.index_put_((page.long(), off.long()), vals.to(pool.dtype))
+    return pool, None
