@@ -291,8 +291,19 @@ def model_phase(model, dev, seq=1024, chunk=256, decode_steps=4, ps=16,
     if ref.shape != (2, seq, cfg.vocab_size) or \
             not bool(torch.isfinite(ref).all()):
         raise AssertionError(f"forward logits {tuple(ref.shape)} not finite")
-    # the ragged path: rows of `chunk` tokens up to seq - decode_steps,
-    # then decode_steps one-token rows fed the next tokens of the prompt
+    # the forward's greedy continuation: decode_steps more forwards over
+    # the growing sequence (not 128-aligned: the plain attention path)
+    seqs = toks.copy()
+    nxt = ref[:, -1].argmax(-1).cpu().numpy()
+    with torch.inference_mode():
+        for i in range(decode_steps):
+            seqs = np.concatenate([seqs, nxt[:, None]], axis=1)
+            ext = model(torch.from_numpy(seqs).to(dev))
+            nxt = ext[:, -1].argmax(-1).cpu().numpy()
+    # ext holds the forward's logits at every position of the prompt plus
+    # its decode_steps greedy tokens
+    # the ragged path: two chunk rows of `chunk` tokens up to position
+    # seq, then decode_steps one-token rows fed the forward's greedy tokens
     L, nh = cfg.num_layers, cfg.num_heads
     hd = cfg.hidden_size // nh
     npages = 2 * nps + 1
@@ -304,15 +315,15 @@ def model_phase(model, dev, seq=1024, chunk=256, decode_steps=4, ps=16,
     stacked, other = model._decode_state()
     worst = 0.0
     n_ticks = 0
-    pre = seq - decode_steps
+    total = seq + decode_steps
 
-    def run(tokens, tok_pos, row_pos0, row_len, sample_ix, nd, width,
-            limit):
+    def run(tokens, tok_pos, row_pos0, row_len, sample_ix, nd, width):
         nonlocal n_ticks
+
         def t(x, dtype=np.int32):
             return torch.from_numpy(np.asarray(x, dtype)).to(dev)
 
-        limit = np.full(len(tok_pos), limit)
+        limit = np.full(len(tok_pos), total)
         with torch.inference_mode():
             lg, _, _ = gpt_ragged_apply(
                 cfg, stacked, other, kpool, vpool, t(tokens, np.int64),
@@ -321,29 +332,27 @@ def model_phase(model, dev, seq=1024, chunk=256, decode_steps=4, ps=16,
         n_ticks += 1
         return lg
 
-    for start in range(0, pre, chunk):
-        end = min(start + chunk, pre)
-        n = end - start
+    for start in range(0, seq, chunk):
+        n = min(chunk, seq - start)
         tokens = np.zeros(2 * chunk, np.int64)
         tok_pos = np.zeros(2 * chunk, np.int32)
         for r in range(2):
-            tokens[r * chunk:r * chunk + n] = toks[r, start:end]
+            tokens[r * chunk:r * chunk + n] = toks[r, start:start + n]
             tok_pos[r * chunk:(r + 1) * chunk] = start + np.arange(chunk)
         sample = np.concatenate([np.arange(n), chunk + np.arange(n)])
-        # positions past the prompt route their KV writes to the null page
-        lg = run(tokens, tok_pos, [start, start], [n, n], sample, 0, chunk,
-                 pre)
-        want = torch.cat([ref[0, start:end], ref[1, start:end]])
-        worst = max(worst, _check_close(lg, want, f"chunk {start}:{end}"))
-    for p in range(pre, seq):
-        lg = run(toks[:, p], [p, p], [p, p], [1, 1], [0, 1], 2, 0, seq)
-        worst = max(worst, _check_close(lg, ref[:, p], f"decode {p}"))
+        lg = run(tokens, tok_pos, [start, start], [n, n], sample, 0, chunk)
+        want = torch.cat([ref[0, start:start + n], ref[1, start:start + n]])
+        worst = max(worst, _check_close(lg, want, f"chunk {start}"))
+    for p in range(seq, total):
+        lg = run(seqs[:, p], [p, p], [p, p], [1, 1], [0, 1], 2, 0)
+        worst = max(worst, _check_close(lg, ext[:, p], f"decode {p}"))
     flash, ragged = fa.FLASH_FWD_LAUNCHES - f0, pa.RAGGED_LAUNCHES - r0
     if flash != L or ragged != L * n_ticks:
         raise AssertionError(f"launch counters: flash {flash} (want {L}), "
                              f"ragged {ragged} (want {L * n_ticks})")
     row = {"phase": "model", "config": "gpt3_1_3b", "layers": L,
-           "forward": [2, seq], "ragged_ticks": n_ticks,
+           "forward": [2, seq], "decode_steps": decode_steps,
+           "ragged_ticks": n_ticks,
            "max_abs_logit_err": worst, "tolerance": MODEL_TOL,
            "tolerance_reason": "24 layers of f32 in different reduction "
                                "orders (TF32 off)",
@@ -425,10 +434,52 @@ def engine_phase(model, dev, n_req=16, max_new=32, n_check=4, seed=3,
            "prefix_hit_tokens": reg.counter(
                "serving/prefix_hit_tokens").value - hits0,
            "greedy_match_rate": rate, "checked_streams": n_check}
-    emit(row)
     if rate < 0.9:
+        emit(row)
         raise AssertionError(f"greedy match rate {rate} < 0.9")
+    row.update(warm_engine_profile(model, dev, prompts, max_new, engine_kw))
+    emit(row)
     return row
+
+
+def warm_engine_profile(model, dev, prompts, max_new, engine_kw) -> dict:
+    """The same requests again on fresh engines, now that every shape has
+    run once: one run timed plainly (warm tokens/s), one under
+    torch.profiler for the card's kernel time. Device busy share = summed
+    kernel time / the plain run's wall time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    def serve():
+        eng = ServingEngine(model, ServingConfig(**engine_kw))
+        for p in prompts:
+            eng.submit(p, max_new)
+        eng.run()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    t0 = time.perf_counter()
+    serve()
+    warm = time.perf_counter() - t0
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        serve()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    return {
+        "warm_wall_s": warm,
+        "warm_tokens_per_s": len(prompts) * max_new / warm,
+        "warm_device_kernel_ms": busy_us / 1e3 if kernels else None,
+        "warm_device_busy_share": busy_us / 1e6 / warm if kernels else None,
+        "warm_top_kernels": [
+            {"name": e.key[:70], "ms": e.self_device_time_total / 1e3,
+             "count": e.count} for e in top]}
 
 
 # ---------------------------------------------------------------------------
@@ -488,6 +539,7 @@ def main(argv=None) -> int:
         rag = kernel_phase_ragged(dev, args.iters, nh=nh, hd=hd)
         fl = kernel_phase_flash(dev, args.iters, [
             ((2, 1024, nh, hd), True, "float32"),      # the model's shape
+            ((2, 1000, nh, hd), True, "float32"),      # a ragged last tile
             ((4, 2048, nh, hd), True, "float32"),
             ((4, 2048, nh, hd), False, "float32"),
             ((4, 2048, nh, hd), True, "bfloat16"),

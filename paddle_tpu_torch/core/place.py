@@ -7,7 +7,7 @@ when the caller names it, as the tests do.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import torch
 
@@ -25,13 +25,3 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise ValueError(f"unsupported device {str(dev)!r}: cuda or cpu")
     return dev
 
-
-def device_count() -> int:
-    """Number of visible CUDA devices (0 without CUDA)."""
-    return torch.cuda.device_count() if torch.cuda.is_available() else 0
-
-
-def device_name(device: Optional[torch.device] = None) -> str:
-    """The card's name, or ``"cpu"``."""
-    dev = resolve_device(device)
-    return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"

@@ -19,10 +19,13 @@
 //    off; here a block owns (row, head, query tile) and loops only over
 //    the pages its queries can attend (loop bound, not predication), so
 //    no byte past a row's frontier is read.
-//  * The block's 4 warps split the row's pages round robin, each warp
-//    keeping its own running max / denominator / accumulator in f32
-//    registers (online softmax), and merge through shared memory at the
-//    end: 4 page streams in flight per block instead of one.
+//  * The block's warps (16 for decode rows, 4 for chunk rows) split the
+//    row's pages round robin, each warp keeping its own running max /
+//    denominator / accumulator in f32 registers (online softmax), and
+//    merge through shared memory at the end: many page streams in flight
+//    per block instead of one (a decode group has only R * NH blocks).
+//  * K/V rows of a page are loaded in groups (8 for decode rows, 2 for
+//    chunk rows) before any is used: independent loads in flight.
 //  * Each lane reads its D/32 slice of a K/V row straight from global
 //    memory (consecutive lanes, consecutive addresses); a page's K/V rows
 //    are reused from registers by every query of the tile, and a query
@@ -38,18 +41,20 @@ using namespace ptt;
 
 namespace {
 
-constexpr int kWarps = 4;
-
-template <typename QT, typename KT, int DPL, int QW>
-__global__ void __launch_bounds__(kWarps * 32)
+template <typename QT, typename KT, int DPL, int QW, int NW>
+__global__ void __launch_bounds__(NW * 32)
 ragged_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
               const KT* __restrict__ vpool, const int* __restrict__ page_table,
               const int* __restrict__ pos0, const int* __restrict__ true_len,
               QT* __restrict__ out, int T, int NH, int D, int ps, int NPs,
               float scale) {
-  __shared__ float sm_m[kWarps][QW];
-  __shared__ float sm_l[kWarps][QW];
-  __shared__ float sm_acc[kWarps][QW][DPL * 32];
+  // K/V rows of a page loaded together before use, i.e. independent
+  // loads in flight per lane: 8 for a decode row (one query, few
+  // registers), 2 for a chunk row's 8-query tile (measured best on H100)
+  constexpr int G = QW == 1 ? 8 : 2;
+  __shared__ float sm_m[NW][QW];
+  __shared__ float sm_l[NW][QW];
+  __shared__ float sm_acc[NW][QW][DPL * 32];
 
   const int r = blockIdx.x, h = blockIdx.y, t0 = blockIdx.z * QW;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -76,28 +81,37 @@ ragged_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
   const int* tab = page_table + (long)r * NPs;
   const long row_stride = (long)NH * D;         // one token of one page
   const long page_stride = (long)ps * row_stride;
-  for (int j = warp; j < n_pages; j += kWarps) {
+  for (int j = warp; j < n_pages; j += NW) {
     const long base = (long)tab[j] * page_stride + (long)h * D;
     const int gpos0 = j * ps;
     // scores: after the loop lane p holds query t's score for key p
     float s[QW];
 #pragma unroll
     for (int t = 0; t < QW; ++t) s[t] = -INFINITY;
-    for (int p = 0; p < ps; ++p) {
-      float kv[DPL];
+    for (int pb = 0; pb < ps; pb += G) {
+      float kv[G][DPL];
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        kv[i] = d < D ? to_f32(kpool[base + p * row_stride + d]) : 0.f;
+      for (int u = 0; u < G; ++u) {
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          const int d = lane + 32 * i;
+          kv[u][i] = (pb + u < ps && d < D)
+                         ? to_f32(kpool[base + (pb + u) * row_stride + d])
+                         : 0.f;
+        }
       }
 #pragma unroll
-      for (int t = 0; t < QW; ++t) {
-        float dot = 0.f;
+      for (int u = 0; u < G; ++u) {
+        const int p = pb + u;
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) dot += qr[t][i] * kv[i];
-        dot = warp_sum(dot);
-        const bool ok = t < nq && gpos0 + p <= p0 + t0 + t;
-        if (lane == p) s[t] = ok ? dot : -INFINITY;
+        for (int t = 0; t < QW; ++t) {
+          float dot = 0.f;
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) dot += qr[t][i] * kv[u][i];
+          dot = warp_sum(dot);
+          const bool ok = p < ps && t < nq && gpos0 + p <= p0 + t0 + t;
+          if (lane == p) s[t] = ok ? dot : -INFINITY;
+        }
       }
     }
     // online softmax over this page; s[t] becomes the page's weights
@@ -116,18 +130,27 @@ ragged_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
         m[t] = mn;
       }
     }
-    for (int p = 0; p < ps; ++p) {
-      float vv[DPL];
+    for (int pb = 0; pb < ps; pb += G) {
+      float vv[G][DPL];
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = lane + 32 * i;
-        vv[i] = d < D ? to_f32(vpool[base + p * row_stride + d]) : 0.f;
+      for (int u = 0; u < G; ++u) {
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          const int d = lane + 32 * i;
+          vv[u][i] = (pb + u < ps && d < D)
+                         ? to_f32(vpool[base + (pb + u) * row_stride + d])
+                         : 0.f;
+        }
       }
 #pragma unroll
-      for (int t = 0; t < QW; ++t) {
-        const float w = __shfl_sync(0xffffffffu, s[t], p);
+      for (int u = 0; u < G; ++u) {
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[t][i] += w * vv[i];
+        for (int t = 0; t < QW; ++t) {
+          // lanes past ps hold weight 0
+          const float w = __shfl_sync(0xffffffffu, s[t], (pb + u) & 31);
+#pragma unroll
+          for (int i = 0; i < DPL; ++i) acc[t][i] += w * vv[u][i];
+        }
       }
     }
   }
@@ -143,15 +166,15 @@ ragged_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
     for (int i = 0; i < DPL; ++i) sm_acc[warp][t][lane + 32 * i] = acc[t][i];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < nq * D; idx += kWarps * 32) {
+  for (int idx = threadIdx.x; idx < nq * D; idx += NW * 32) {
     const int t = idx / D, d = idx - t * D;
     float mx = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][t]);
+    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w][t]);
     float den = 0.f, num = 0.f;
     if (mx != -INFINITY) {
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
+      for (int w = 0; w < NW; ++w) {
         const float mw = sm_m[w][t];
         if (mw != -INFINITY) {
           const float c = expf(mw - mx);
@@ -170,16 +193,18 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const int* tab, const int* p0, const int* tl, void* o,
                      int R, int T, int NH, int D, int ps, int NPs, float scale,
                      cudaStream_t st) {
-  const dim3 block(kWarps * 32);
   if (T == 1) {
+    // decode rows: R * NH blocks only, so 16 warps per block split the
+    // row's pages to keep enough page streams in flight
+    constexpr int NW = 16;
     const dim3 grid(R, NH, 1);
-    ragged_kernel<QT, KT, DPL, 1><<<grid, block, 0, st>>>(
+    ragged_kernel<QT, KT, DPL, 1, NW><<<grid, NW * 32, 0, st>>>(
         (const QT*)q, (const KT*)k, (const KT*)v, tab, p0, tl, (QT*)o, T, NH,
         D, ps, NPs, scale);
   } else {
-    constexpr int QW = 8;
+    constexpr int QW = 8, NW = 4;
     const dim3 grid(R, NH, (T + QW - 1) / QW);
-    ragged_kernel<QT, KT, DPL, QW><<<grid, block, 0, st>>>(
+    ragged_kernel<QT, KT, DPL, QW, NW><<<grid, NW * 32, 0, st>>>(
         (const QT*)q, (const KT*)k, (const KT*)v, tab, p0, tl, (QT*)o, T, NH,
         D, ps, NPs, scale);
   }

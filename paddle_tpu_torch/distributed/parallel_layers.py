@@ -8,8 +8,6 @@ comes with the distributed slice.
 """
 from __future__ import annotations
 
-import torch
-
 from ..nn.layer.common import Embedding, Linear
 
 
@@ -17,10 +15,9 @@ class ColumnParallelLinear(Linear):
     """``W [in, out]`` (sharded on ``out`` once tensor parallelism lands)."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
-                 has_bias=True, gather_output=True, device=None,
-                 dtype=torch.float32):
+                 has_bias=True, gather_output=True, device=None):
         super().__init__(in_features, out_features, weight_attr=weight_attr,
-                         has_bias=has_bias, device=device, dtype=dtype)
+                         has_bias=has_bias, device=device)
         self.gather_output = gather_output
 
 
@@ -28,16 +25,15 @@ class RowParallelLinear(Linear):
     """``W [in, out]`` (sharded on ``in`` once tensor parallelism lands)."""
 
     def __init__(self, in_features, out_features, weight_attr=None,
-                 has_bias=True, input_is_parallel=False, device=None,
-                 dtype=torch.float32):
+                 has_bias=True, input_is_parallel=False, device=None):
         super().__init__(in_features, out_features, weight_attr=weight_attr,
-                         has_bias=has_bias, device=device, dtype=dtype)
+                         has_bias=has_bias, device=device)
 
 
 class VocabParallelEmbedding(Embedding):
     """Embedding table (sharded over vocab once tensor parallelism lands)."""
 
     def __init__(self, num_embeddings, embedding_dim, weight_attr=None,
-                 device=None, dtype=torch.float32):
+                 device=None):
         super().__init__(num_embeddings, embedding_dim,
-                         weight_attr=weight_attr, device=device, dtype=dtype)
+                         weight_attr=weight_attr, device=device)

@@ -10,7 +10,7 @@ Two inference paths:
 
 - ``GPT.forward(tokens)`` -> logits; each block's attention goes through
   ``nn.functional.scaled_dot_product_attention``, which reaches the flash
-  kernel for 128-aligned sequences.
+  kernel where the reference reaches its Pallas kernel.
 - ``gpt_ragged_apply`` — the serving engine's mixed prefill/decode
   forward over the paged KV cache, written over the per-layer decode
   state (``_gpt_decode_state``); a Python loop over layers replaces the
@@ -113,7 +113,7 @@ def _inits(c: GPTConfig):
 
 
 class GPTAttention(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         c = config
         init, out_init = _inits(c)
@@ -121,10 +121,10 @@ class GPTAttention(nn.Module):
         self.head_dim = c.hidden_size // c.num_heads
         self.qkv_proj = ColumnParallelLinear(
             c.hidden_size, 3 * c.hidden_size, weight_attr=init,
-            gather_output=False, device=device, dtype=dtype)
+            gather_output=False, device=device)
         self.out_proj = RowParallelLinear(
             c.hidden_size, c.hidden_size, weight_attr=out_init,
-            device=device, dtype=dtype)
+            device=device)
         self.dropout = c.dropout
 
     def forward(self, x):
@@ -139,17 +139,16 @@ class GPTAttention(nn.Module):
 
 
 class GPTMLP(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         c = config
         init, out_init = _inits(c)
         self.fc_in = ColumnParallelLinear(c.hidden_size, c.ffn_hidden_size,
                                           weight_attr=init,
                                           gather_output=False,
-                                          device=device, dtype=dtype)
+                                          device=device)
         self.fc_out = RowParallelLinear(c.ffn_hidden_size, c.hidden_size,
-                                        weight_attr=out_init, device=device,
-                                        dtype=dtype)
+                                        weight_attr=out_init, device=device)
         self.dropout = c.dropout
 
     def forward(self, x):
@@ -161,20 +160,18 @@ class GPTMLP(nn.Module):
 class GPTBlock(nn.Module):
     """Pre-norm transformer block."""
 
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         if config.moe_num_experts > 0:
             raise NotImplementedError(
-                "MoE blocks are not ported yet: ROADMAP queue 1, "
-                "distributed training slice")
+                "MoE blocks are not ported yet: ROADMAP queue 1 item 7 "
+                "(distributed training)")
         self.ln_1 = LayerNorm(config.hidden_size,
-                              epsilon=config.layer_norm_eps, device=device,
-                              dtype=dtype)
-        self.attn = GPTAttention(config, device=device, dtype=dtype)
+                              epsilon=config.layer_norm_eps, device=device)
+        self.attn = GPTAttention(config, device=device)
         self.ln_2 = LayerNorm(config.hidden_size,
-                              epsilon=config.layer_norm_eps, device=device,
-                              dtype=dtype)
-        self.mlp = GPTMLP(config, device=device, dtype=dtype)
+                              epsilon=config.layer_norm_eps, device=device)
+        self.mlp = GPTMLP(config, device=device)
 
     def forward(self, x):
         x = x + self.attn(self.ln_1(x))
@@ -183,17 +180,15 @@ class GPTBlock(nn.Module):
 
 
 class GPTEmbeddings(nn.Module):
-    def __init__(self, config: GPTConfig, device=None, dtype=torch.float32):
+    def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         c = config
         self.wte = VocabParallelEmbedding(
             c.vocab_size, c.hidden_size,
-            weight_attr=I.Normal(0.0, c.initializer_range), device=device,
-            dtype=dtype)
+            weight_attr=I.Normal(0.0, c.initializer_range), device=device)
         self.wpe = Embedding(
             c.max_seq_len, c.hidden_size,
-            weight_attr=I.Normal(0.0, c.initializer_range), device=device,
-            dtype=dtype)
+            weight_attr=I.Normal(0.0, c.initializer_range), device=device)
         self.dropout = c.dropout
 
     def forward(self, tokens):
@@ -212,23 +207,20 @@ class GPT(nn.Module):
     backward yet, so a call that could record a gradient raises.
     """
 
-    def __init__(self, config: GPTConfig, device=None,
-                 dtype: torch.dtype = torch.float32):
+    def __init__(self, config: GPTConfig, device=None):
         super().__init__()
         dev = resolve_device(device)
         self.config = config
-        self.embeddings = GPTEmbeddings(config, device=dev, dtype=dtype)
-        self.blocks = nn.ModuleList([GPTBlock(config, device=dev,
-                                              dtype=dtype)
+        self.embeddings = GPTEmbeddings(config, device=dev)
+        self.blocks = nn.ModuleList([GPTBlock(config, device=dev)
                                      for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
-                              epsilon=config.layer_norm_eps, device=dev,
-                              dtype=dtype)
+                              epsilon=config.layer_norm_eps, device=dev)
         if not config.tie_word_embeddings:
             self.lm_head = ColumnParallelLinear(
                 config.hidden_size, config.vocab_size, has_bias=False,
                 weight_attr=I.Normal(0.0, config.initializer_range),
-                gather_output=True, device=dev, dtype=dtype)
+                gather_output=True, device=dev)
 
     @property
     def device(self) -> torch.device:

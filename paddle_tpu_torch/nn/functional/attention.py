@@ -1,7 +1,8 @@
 """Attention functionals (mirrors ``paddle_tpu/nn/functional/attention.py``).
 
 Same dispatch as the reference: when ``ops.flash_attention.supported``
-holds (no mask, no dropout, 128-aligned sequences, D <= 256) the call
+holds (no mask, no dropout, D <= 256, a sequence length the reference's
+block picker accepts) the call
 goes to ``ops.flash_attention.flash_attention`` — the CUDA kernel for
 CUDA tensors, its plain version for CPU tensors; otherwise it runs the
 plain masked softmax path with the ``-1e30`` mask constant.

@@ -33,15 +33,4 @@ class Normal(Initializer):
             return t.normal_(self.mean, self.std, generator=gen)
 
 
-class Constant(Initializer):
-    """Every element set to ``value``."""
-
-    def __init__(self, value: float = 0.0):
-        self.value = float(value)
-
-    def __call__(self, t, generator=None):
-        with torch.no_grad():
-            return t.fill_(self.value)
-
-
-__all__ = ["Initializer", "Normal", "Constant"]
+__all__ = ["Initializer", "Normal"]

@@ -20,16 +20,14 @@ class Linear(nn.Module):
 
     def __init__(self, in_features: int, out_features: int,
                  weight_attr: Optional[I.Initializer] = None,
-                 has_bias: bool = True, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 has_bias: bool = True, device=None):
         super().__init__()
         dev = resolve_device(device)
         self.weight = nn.Parameter(torch.empty(in_features, out_features,
-                                               device=dev, dtype=dtype))
+                                               device=dev))
         (weight_attr or I.Normal(0.0, 0.02))(self.weight)
         if has_bias:
-            self.bias = nn.Parameter(torch.zeros(out_features, device=dev,
-                                                 dtype=dtype))
+            self.bias = nn.Parameter(torch.zeros(out_features, device=dev))
         else:
             self.register_parameter("bias", None)
 
@@ -42,12 +40,11 @@ class Embedding(nn.Module):
     """Row lookup into ``weight [num_embeddings, embedding_dim]``."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 weight_attr: Optional[I.Initializer] = None, device=None,
-                 dtype: torch.dtype = torch.float32):
+                 weight_attr: Optional[I.Initializer] = None, device=None):
         super().__init__()
         dev = resolve_device(device)
         self.weight = nn.Parameter(torch.empty(num_embeddings, embedding_dim,
-                                               device=dev, dtype=dtype))
+                                               device=dev))
         (weight_attr or I.Normal(0.0, 0.02))(self.weight)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:

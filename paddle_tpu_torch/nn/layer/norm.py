@@ -15,15 +15,13 @@ from ...core.place import resolve_device
 
 class LayerNorm(nn.Module):
     def __init__(self, normalized_shape: int, epsilon: float = 1e-5,
-                 device=None, dtype: torch.dtype = torch.float32):
+                 device=None):
         super().__init__()
         dev = resolve_device(device)
         self.normalized_shape = (int(normalized_shape),)
         self.epsilon = float(epsilon)
-        self.weight = nn.Parameter(torch.ones(normalized_shape, device=dev,
-                                              dtype=dtype))
-        self.bias = nn.Parameter(torch.zeros(normalized_shape, device=dev,
-                                             dtype=dtype))
+        self.weight = nn.Parameter(torch.ones(normalized_shape, device=dev))
+        self.bias = nn.Parameter(torch.zeros(normalized_shape, device=dev))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return TF.layer_norm(x, self.normalized_shape, self.weight,

@@ -41,8 +41,10 @@ def _pick_block(seq, cap):
 
 
 def supported(q_shape, attn_mask, dropout_p, kv_seq=None) -> bool:
-    """True when the flash kernel handles this case (the reference's rule:
-    no mask, no dropout, 128-aligned sequences, D <= 256)."""
+    """True when the flash kernel handles this case — the reference's
+    rule: no mask, no dropout, D <= 256, and sequence lengths its block
+    picker accepts (any length from 128 to 1024; beyond 1024 a multiple
+    of 128). The CUDA kernel masks a ragged last tile itself."""
     if attn_mask is not None or dropout_p:
         return False
     if len(q_shape) != 4:

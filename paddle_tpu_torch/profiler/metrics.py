@@ -98,10 +98,6 @@ class Histogram:
         with self._lock:
             return self._sk.percentile(q)
 
-    def sketch_dict(self) -> dict:
-        with self._lock:
-            return self._sk.to_dict()
-
     def snapshot(self) -> dict:
         with self._lock:
             return self._sk.snapshot()

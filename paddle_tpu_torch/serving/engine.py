@@ -58,6 +58,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core.dtype import convert_dtype
 from ..models.gpt import gpt_ragged_apply
 from ..profiler.metrics import registry as _registry
 from .paged_cache import PagePool
@@ -95,11 +96,7 @@ class ServingConfig:
     max_inflight: int = 2            # unmaterialized ticks in flight
     decode: str = "greedy"           # 'greedy' ('sampling': later slice)
     kv_dtype: Optional[str] = None   # None (model dtype) | 'f32' | 'bf16'
-    temperature: float = 1.0         # sampling knobs (unused by greedy)
-    top_k: int = 0
-    top_p: float = 1.0
     eos_token_id: Optional[int] = None
-    seed: int = 0
     attention_kernel: Optional[str] = None   # only 'legacy' is recognized
     spec: Optional[object] = None            # speculative decoding config
 
@@ -185,9 +182,9 @@ class ServingEngine:
         self._dtype = self._other["embeddings.wte.weight"].dtype
         if cfg.kv_dtype == "int8":
             raise NotImplementedError(_TODO_INT8)
-        kv_map = {None: self._dtype, "f32": torch.float32,
-                  "bf16": torch.bfloat16}
-        if cfg.kv_dtype not in kv_map:
+        kv_dtype = self._dtype if cfg.kv_dtype is None \
+            else convert_dtype(cfg.kv_dtype)
+        if kv_dtype not in (torch.float32, torch.bfloat16):
             raise ValueError(
                 f"unknown kv_dtype {cfg.kv_dtype!r}; expected one of "
                 "None (model dtype), 'f32', 'bf16'")
@@ -198,7 +195,7 @@ class ServingEngine:
         num_pages = cfg.num_pages or cfg.num_slots * pages_per_slot + 1
         self.pool = PagePool(mcfg.num_layers, num_pages, ps, nh, hd,
                              cfg.num_slots, pages_per_slot,
-                             dtype=kv_map[cfg.kv_dtype], device=self.device,
+                             dtype=kv_dtype, device=self.device,
                              prefix_cache=cfg.prefix_cache)
         self.prefill_chunk = int(cfg.prefill_chunk) or 2 * ps
         if self.prefill_chunk < 1:
@@ -215,7 +212,6 @@ class ServingEngine:
         self._slot_admit_seq = np.zeros(b_slots, np.int64)
         self._slot_admit_t = np.zeros(b_slots, np.float64)
         self._slot_wait_due = [False] * b_slots
-        self.chunk_waits_ms: deque = deque(maxlen=1024)
         self._slot_looked_up = [False] * b_slots
         self._admit_seq = 0
         self._queue: deque = deque()
@@ -231,13 +227,8 @@ class ServingEngine:
     # public API
     # ------------------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens: int,
-               temperature: Optional[float] = None,
-               top_k: Optional[int] = None,
-               top_p: Optional[float] = None,
                hold_after_prefill: bool = False) -> int:
-        """Queue one request; returns its id. ``temperature``/``top_k``/
-        ``top_p`` are accepted for the reference's signature and unused
-        under greedy decode."""
+        """Queue one request; returns its id."""
         if hold_after_prefill:
             raise NotImplementedError(
                 "hold_after_prefill (disaggregated prefill) " + _TODO_SERVING)
@@ -515,7 +506,6 @@ class ServingEngine:
             self._slot_wait_due[s] = False
             wait_ms = (time.perf_counter() - self._slot_admit_t[s]) * 1000.0
             _registry().histogram("serving/chunk_wait_ms").observe(wait_ms)
-            self.chunk_waits_ms.append(wait_ms)
         self._sched.note_open(s)
         return (s, rid, start, end, t0)
 

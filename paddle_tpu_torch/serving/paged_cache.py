@@ -130,9 +130,6 @@ class PrefixCache:
         self._root = _TrieNode((), NULL_PAGE, None)
         self._clock = 0
 
-    def __len__(self) -> int:
-        return len(self.pages())
-
     def _touch(self, node: _TrieNode) -> None:
         self._clock += 1
         node.last_use = self._clock

@@ -98,11 +98,6 @@ class ChunkScheduler:
         if tpot_ms is not None:
             self._tpot_window.append(float(tpot_ms))
 
-    def ttft_p95(self) -> float:
-        if not self._ttft_window:
-            return 0.0
-        return float(percentile(sorted(self._ttft_window), 95))
-
     # -- chunk selection ----------------------------------------------------
     def pick(self, cands: Sequence[Tuple[int, int, int]]) -> Optional[int]:
         """Next slot to open a prefill chunk from ``cands = [(slot,

@@ -9,7 +9,6 @@ against those by chip_smoke.py.
 """
 import numpy as np
 import pytest
-import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.inference.serving import ServingPredictor as JPredictor
@@ -211,5 +210,40 @@ def test_prefix_cache_lookup_insert_evict_agree_with_reference():
         look = pc.lookup(toks)
         part = pc.lookup(other)
         freed = pc.evict_for(2)
-        res.append((look, part, freed, len(pc), a.num_free))
+        res.append((look, part, freed, sorted(pc.pages()), a.num_free))
     assert res[0] == res[1]
+
+
+@pytest.mark.parametrize("policy", ["fifo", "sjf", "aged-sjf"])
+def test_chunk_scheduler_decisions_equal_reference(policy):
+    """The same random lifecycle drives both packages' ChunkScheduler:
+    every pick, budget and the starvation bookkeeping agree."""
+    from paddle_tpu.serving.sched import ChunkScheduler as JSched
+    from paddle_tpu_torch.serving.sched import ChunkScheduler as TSched
+
+    args = (policy, 4, 256, 32, 3)
+    js, ts = JSched(*args, stats_every=4), TSched(*args, stats_every=4)
+    r = np.random.RandomState(11)
+    for _ in range(200):
+        for s in (js, ts):
+            s.on_tick()
+        slot = int(r.randint(4))
+        op = r.randint(4)
+        for s in (js, ts):
+            if op == 0:
+                s.note_admit(slot)
+            elif op == 1:
+                s.note_open(slot)
+            elif op == 2:
+                s.note_release(slot)
+        if op == 3:
+            ttft, tpot = float(r.rand() * 100), float(r.rand() * 10)
+            for s in (js, ts):
+                s.note_finish(ttft, tpot)
+        cands = [(s, int(r.randint(100)), int(r.randint(1, 256)))
+                 for s in range(4) if r.rand() < 0.7]
+        assert js.pick(cands) == ts.pick(cands)
+        b = (int(r.randint(4)), int(r.randint(5)), int(r.randint(3)))
+        assert js.chunk_budget(*b) == ts.chunk_budget(*b)
+    assert js.max_wait_ticks_seen == ts.max_wait_ticks_seen
+    assert js.starvation_bound_ticks() == ts.starvation_bound_ticks()
