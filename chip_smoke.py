@@ -548,7 +548,6 @@ def main(argv=None) -> int:
                               and r["q_dtype"] == r["kv_dtype"] == "float32")
         kern["flash"] = fl[0]
 
-    torch.manual_seed(0)
     from paddle_tpu_torch.core import rng as _rng
 
     _rng.seed(0)
