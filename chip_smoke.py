@@ -385,12 +385,17 @@ def engine_phase(model, dev, n_req=16, max_new=32, n_check=4, seed=3,
     cfg = model.config
     rng = np.random.RandomState(seed)
     shared = rng.randint(0, cfg.vocab_size, prefix).astype(np.int32)
+    # the shared requests' tails open with the same 8 tokens: their first
+    # page past the prefix agrees mid-page with a cached one, so admission
+    # copies that page on write (COW) before prefilling the rest
+    head = rng.randint(0, cfg.vocab_size, 8).astype(np.int32)
     prompts = []
     for i in range(n_req):
         if i % 2 == 0:                   # half share one prefix
-            n = rng.randint(prefix + 8, hi + 1)
-            tail = rng.randint(0, cfg.vocab_size, n - prefix)
-            prompts.append(np.concatenate([shared, tail]).astype(np.int32))
+            n = rng.randint(prefix + 24, hi + 1)
+            tail = rng.randint(0, cfg.vocab_size, n - prefix - 8)
+            prompts.append(np.concatenate([shared, head, tail])
+                           .astype(np.int32))
         else:
             n = rng.randint(lo, hi + 1)
             prompts.append(rng.randint(0, cfg.vocab_size, n).astype(np.int32))
@@ -398,6 +403,7 @@ def engine_phase(model, dev, n_req=16, max_new=32, n_check=4, seed=3,
     reg = registry()
     ticks0 = reg.counter("serving/ticks").value
     hits0 = reg.counter("serving/prefix_hit_tokens").value
+    cow0 = reg.counter("cache_share/cow_copies").value
     r0 = pa.RAGGED_LAUNCHES
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -412,6 +418,9 @@ def engine_phase(model, dev, n_req=16, max_new=32, n_check=4, seed=3,
     for rid in rids:
         if out[rid].shape != (max_new,):
             raise AssertionError(f"request {rid}: {out[rid].shape} tokens")
+    cows = int(reg.counter("cache_share/cow_copies").value - cow0)
+    if cows == 0:
+        raise AssertionError("no copy-on-write page copy ran")
     if ragged < cfg.num_layers * ticks:
         raise AssertionError(f"ragged launches {ragged} < "
                              f"{cfg.num_layers} x {ticks} ticks")
@@ -433,6 +442,7 @@ def engine_phase(model, dev, n_req=16, max_new=32, n_check=4, seed=3,
            "tokens_per_s": n_req * max_new / wall,
            "prefix_hit_tokens": reg.counter(
                "serving/prefix_hit_tokens").value - hits0,
+           "cow_copies": cows,
            "greedy_match_rate": rate, "checked_streams": n_check}
     if rate < 0.9:
         emit(row)
