@@ -8,11 +8,13 @@ the card's name and power limit from nvidia-smi, and the build of every
 CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
 
 1. kernel phase — each kernel's wrapper on the card against its plain
-   PyTorch version on the same inputs, at the serving engine's and the
-   model's shapes: max abs error within the stated tolerance, kernel /
-   plain / library times (CUDA events), and the least time the card could
-   take (bytes over 3.35 TB/s or operations over the peak rate of the
-   input type, whichever is larger).
+   PyTorch version on the same inputs, at the serving engine's, the
+   model's and the trainer's shapes: max abs error within the stated
+   tolerance, kernel / plain / library times (CUDA events), and the least
+   time the card could take (bytes over 3.35 TB/s or operations over the
+   peak rate of the input type, whichever is larger). The flash backward
+   kernels run at S 1024 (the merged single-tile kernel) and S 2048 (the
+   dQ + dK/dV pair), f32 and bf16, causal and not.
 2. model phase — GPT.forward at gpt3_1_3b width (24 layers, random
    weights from a seed, f32) over 2 prompts of 1024 tokens (flash
    kernel), and gpt_ragged_apply over the same tokens through scrambled
@@ -21,12 +23,25 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
 3. engine phase — ServingEngine at gpt3_1_3b serving 16 requests (half
    share a 512-token prefix) 32 greedy tokens each; 4 streams checked
    against teacher-forced GPT.forward argmax.
+4. grad phase — GPT.loss at gpt3_1_3b width, 2 layers, f32, one
+   sequence of 2048: every parameter's gradient through the kernels
+   against a run on the plain attention functions (bound in by this
+   script), max |dg| / max |g| <= 1e-3.
+5. train phase — HybridPipelineTrainer at gpt3_1_3b, full depth, with
+   the single-chip recipe (amp, recompute, bf16 parameters and moments,
+   AdamW 0.1, warmup-cosine schedule, global-norm clip 1.0, n_micro 2):
+   8 steps on one fixed [4, 2048] batch (the loss must fall), one step
+   under torch.profiler, 2 steps on a [4, 1024] batch. Step ms, tokens/s,
+   MFU and peak memory.
 
-The launch counters are set to 0 just before phase 2 and read after
-phase 3: those are the main path's launches. Prints JSON lines per case,
-then {"kernels": [...]}, the nvidia-smi line, and as the last line
+Every launch counter is set to 0 just before each of phases 2-5 and read
+just after it: those are the main paths' launches, and each path must
+launch each of its kernels. Prints JSON lines per case, then
+{"kernels": [...]}, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
+
+    python3 chip_smoke.py --phases kernels,train   # after editing a kernel
 """
 from __future__ import annotations
 
@@ -49,6 +64,8 @@ BF16_TOL = 2e-2  # one bf16 ulp at |o| <~ 1, f32 accumulation on both sides
 # plain version run on the same bf16 values upcast (exactly) to f32; the
 # kernel's bf16 output is compared with it in f32 at BF16_TOL.
 MODEL_TOL = 1e-3  # 24 layers of f32 in different reduction orders
+BWD_F32_TOL = 3e-5  # the reference's own gradient tolerance (f32)
+GRAD_TOL = 1e-3     # max |dg| / max |g| per parameter, model gradients
 
 
 def emit(obj) -> None:
@@ -270,6 +287,121 @@ def kernel_phase_flash(dev, iters, shapes, seed=1):
     return results
 
 
+def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
+    """Each backward kernel against its plain version on the same inputs:
+    q/k/v/dO random, o and LSE from the forward kernel, delta = rowsum(dO
+    o) (or given). bf16 inputs are held to the plain version run on the
+    same values upcast to f32 (the kernels keep P and dS in f32). The
+    library yardstick is torch.autograd.grad through
+    F.scaled_dot_product_attention minus its forward (dQ, dK and dV
+    together), once per case."""
+    import torch
+    from torch.nn import functional as TF
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f32 = torch.float32
+    results = []
+    for (b, s, h, d), causal, dt, out_f32, given_delta in cases:
+        dtype = getattr(torch, dt)
+        q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev)
+                       .to(dtype) for _ in range(4))
+        scale = 1.0 / d ** 0.5
+        with torch.no_grad():
+            o, lse = (fa._flash_cuda if dev.type == "cuda" else fa._plain_fwd)(
+                q, k, v, causal, None)
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .reshape(b * h, s, 1)
+        if given_delta:       # the ring's global-row delta, passed in
+            delta = delta * 0.5 + 0.25
+        out = f32 if out_f32 else dtype
+        bq, bk = fa._blocks(s, s, causal)
+        single = s // bq == 1 and s // bk == 1
+        res, res32 = (q, k, v, lse), (q.float(), k.float(), v.float(), lse)
+        tol = BWD_F32_TOL if out == f32 else BF16_TOL
+        if single:
+            parts = [("flash_attention_bwd_single_tile", ("dq", "dk", "dv"),
+                      lambda: fa._bwd_single_tile(scale, causal, res, do,
+                                                  delta, (out,) * 3),
+                      lambda r=res32, o_=do.float():
+                      fa._plain_bwd_single_tile(scale, causal, r, o_, delta,
+                                                (f32,) * 3), 10.0)]
+        else:
+            parts = [("flash_attention_bwd_dq", ("dq",),
+                      lambda: (fa._bwd_dq(scale, causal, res, do, delta,
+                                          out),),
+                      lambda r=res32, o_=do.float():
+                      (fa._plain_bwd_dq(scale, causal, r, o_, delta, f32),),
+                      6.0),
+                     ("flash_attention_bwd_dkv", ("dk", "dv"),
+                      lambda: fa._bwd_dkv(scale, causal, res, do, delta,
+                                          (out,) * 2),
+                      lambda r=res32, o_=do.float():
+                      fa._plain_bwd_dkv(scale, causal, r, o_, delta,
+                                        (f32,) * 2), 8.0)]
+        # library: SDPA forward + backward, minus its forward
+        qg, kg, vg = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        dot = do.transpose(1, 2)
+
+        def sdpa():
+            return TF.scaled_dot_product_attention(qg, kg, vg,
+                                                   is_causal=causal)
+
+        def sdpa_grad():
+            torch.autograd.grad(sdpa(), (qg, kg, vg), dot)
+
+        with torch.no_grad():
+            lib_fwd = time_ms(sdpa, iters, dev)
+        lib_ms = time_ms(sdpa_grad, iters, dev) - lib_fwd
+        pairs = s * (s + 1) / 2 if causal else s * s
+        esz, osz = q.element_size(), torch.empty((), dtype=out).element_size()
+        case = (f"B{b}_S{s}_H{h}_D{d}_{'causal' if causal else 'full'}"
+                + ("_outf32" if out_f32 else "")
+                + ("_delta" if given_delta else ""))
+        for name, grads, kern, plain, op_factor in parts:
+            got = kern()
+            ref = plain()
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            errs = {}
+            for gname, x, y in zip(grads, got, ref):
+                if x.dtype != out or x.shape != y.shape:
+                    raise AssertionError(f"{name} {case}: {gname} "
+                                         f"{x.dtype} {tuple(x.shape)}")
+                if not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"{name} {case}: {gname} not finite")
+                errs[gname] = float((x.float() - y).abs().max())
+                if not torch.allclose(x.float(), y, rtol=tol, atol=tol):
+                    raise AssertionError(f"{name} {case} {dt}: {gname} max "
+                                         f"abs err {errs[gname]} over {tol}")
+            kern_ms = time_ms(kern, iters, dev)
+            plain_ms = time_ms(plain, max(1, iters // 4), dev)
+            nbytes = (4 * b * s * h * d * esz + 2 * b * h * s * 4
+                      + len(grads) * b * s * h * d * osz)
+            flops = op_factor * b * h * d * pairs
+            b_ms, b_by = bound(nbytes, flops, dt)
+            row = {"phase": "kernel", "kernel": name, "case": case,
+                   "dtype": dt, "out_dtype": str(out).split(".")[-1],
+                   "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
+                   "tolerance": tol,
+                   "tolerance_reason": (
+                       "f32 gradients: summation order only (the "
+                       "reference's own gradient tolerance)" if out == f32
+                       else "bf16 gradients compared in f32: one bf16 ulp, "
+                       "f32 accumulation on both sides"),
+                   "kernel_ms": kern_ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms,
+                   "library": "torch.autograd.grad through "
+                              "F.scaled_dot_product_attention minus its "
+                              "forward (dQ, dK and dV together)",
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            results.append(row)
+    return results
+
+
 # ---------------------------------------------------------------------------
 # phase 2: the model through both kernels
 # ---------------------------------------------------------------------------
@@ -458,8 +590,6 @@ def warm_engine_profile(model, dev, prompts, max_new, engine_kw) -> dict:
     torch.profiler for the card's kernel time. Device busy share = summed
     kernel time / the plain run's wall time."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
@@ -474,22 +604,204 @@ def warm_engine_profile(model, dev, prompts, max_new, engine_kw) -> dict:
     t0 = time.perf_counter()
     serve()
     warm = time.perf_counter() - t0
-    acts = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
-    with profile(activities=acts) as prof:
-        serve()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in kernels)
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
+    _, kernels = profile_kernels(dev, serve)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     return {
         "warm_wall_s": warm,
         "warm_tokens_per_s": len(prompts) * max_new / warm,
-        "warm_device_kernel_ms": busy_us / 1e3 if kernels else None,
-        "warm_device_busy_share": busy_us / 1e6 / warm if kernels else None,
-        "warm_top_kernels": [
-            {"name": e.key[:70], "ms": e.self_device_time_total / 1e3,
-             "count": e.count} for e in top]}
+        "warm_device_kernel_ms": busy_ms if kernels else None,
+        "warm_device_busy_share": busy_ms / 1e3 / warm if kernels else None,
+        "warm_top_kernels": top_kernels(kernels, 6)}
+
+
+def profile_kernels(dev, fn):
+    """(fn's result, the card's kernels by name) of one call of ``fn``
+    under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        out = fn()
+    return out, [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
+
+
+def top_kernels(kernels, n):
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n]
+    return [{"name": e.key[:70], "ms": e.self_device_time_total / 1e3,
+             "count": e.count} for e in top]
+
+
+# ---------------------------------------------------------------------------
+# phase 4: GPT.loss gradients through the backward kernels
+# ---------------------------------------------------------------------------
+PLAIN_ATTENTION = {"_flash_cuda": "_plain_fwd",
+                   "_bwd_single_tile": "_plain_bwd_single_tile",
+                   "_bwd_dq": "_plain_bwd_dq", "_bwd_dkv": "_plain_bwd_dkv"}
+
+
+def grad_phase(dev, layers=2, seq=2048, seed=5):
+    """GPT.loss at gpt3_1_3b width and `layers` deep, f32, one sequence
+    of `seq` tokens (2 x 2 tiles: the dQ + dK/dV pair): every parameter's
+    gradient through the kernels against a reference run in which this
+    script binds the plain attention functions into the module (in this
+    process only; the package has no such switch)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core import rng as _rng
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    cfg = GPTConfig.gpt3_1_3b()
+    cfg.num_layers = layers
+    _rng.seed(seed)
+    model = GPT(cfg, device=dev)
+    toks = torch.from_numpy(np.random.RandomState(seed).randint(
+        0, cfg.vocab_size, (1, seq))).to(dev)
+
+    def grads():
+        for p in model.parameters():
+            p.grad = None
+        loss = model.loss(toks)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.clone()
+                             for n, p in model.named_parameters()}
+
+    loss, got = grads()
+    saved = {k: getattr(fa, k) for k in PLAIN_ATTENTION}
+    try:
+        for k, v in PLAIN_ATTENTION.items():
+            setattr(fa, k, getattr(fa, v))
+        ref_loss, ref = grads()
+    finally:
+        for k, v in saved.items():
+            setattr(fa, k, v)
+    worst, worst_name = 0.0, None
+    for n, g in got.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"grad phase: {n} gradient not finite")
+        rel = float((g - ref[n]).abs().max()) / max(
+            float(ref[n].abs().max()), 1e-30)
+        if rel > worst:
+            worst, worst_name = rel, n
+    row = {"phase": "grad", "config": "gpt3_1_3b", "layers": layers,
+           "batch": [1, seq], "dtype": "float32", "loss": loss,
+           "reference_loss": ref_loss, "max_rel_grad_err": worst,
+           "worst_param": worst_name, "tolerance": GRAD_TOL,
+           "tolerance_reason": "max |dg| / max |g| per parameter: the same "
+                               "f32 math in different reduction orders "
+                               "(TF32 off)"}
+    emit(row)
+    if worst > GRAD_TOL or abs(loss - ref_loss) > GRAD_TOL * abs(ref_loss):
+        raise AssertionError(f"grad phase: {worst_name} rel err {worst}, "
+                             f"loss {loss} vs {ref_loss}")
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the single-chip training recipe at full size
+# ---------------------------------------------------------------------------
+def train_phase(dev, steps=8, short_steps=2, batch=4, seq=2048, n_micro=2,
+                seed=6, layers=None):
+    """HybridPipelineTrainer at gpt3_1_3b (the recipe of
+    examples/train_gpt_1p3b_single_chip.py: amp, recompute, bf16
+    parameters and moments, AdamW 0.1 under the warmup-cosine schedule,
+    global-norm clip 1.0), `steps` steps on one fixed random batch
+    [batch, seq] (the loss must fall), one more under torch.profiler, then
+    `short_steps` on a [batch, seq // 2] batch, which takes the merged
+    single-tile backward."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core import rng as _rng
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.hybrid import HybridPipelineTrainer
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    cfg = GPTConfig.gpt3_1_3b()
+    if layers:
+        cfg.num_layers = layers
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+    _rng.seed(seed)
+    model = GPT(cfg, device=dev)
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(2e-4, T_max=1000),
+                            warmup_steps=20, start_lr=1e-6, end_lr=2e-4)
+    opt = AdamW(sched, parameters=model.named_parameters(), weight_decay=0.1,
+                grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    s = DistributedStrategy()
+    s.amp = True
+    s.recompute = True
+    tr = HybridPipelineTrainer(model, opt, s, n_micro=n_micro,
+                               param_dtype="bfloat16",
+                               moment_dtype="bfloat16")
+    rng = np.random.RandomState(seed)
+    tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                          (batch, seq))).to(dev)
+
+    def run(toks):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss = float(tr.step(toks))          # syncs on the loss
+        ms = (time.perf_counter() - t0) * 1e3
+        sched.step()
+        if not np.isfinite(loss):
+            raise AssertionError(f"train phase: loss {loss} not finite")
+        return loss, ms
+
+    losses, times = zip(*[run(tokens) for _ in range(steps)])
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"train phase: loss did not fall: {losses}")
+    step_ms = float(np.median(times[2:]))
+    tok_s = batch * seq / (step_ms / 1e3)
+    row = {"phase": "train", "config": "gpt3_1_3b",
+           "layers": cfg.num_layers, "batch": [batch, seq],
+           "n_micro": n_micro, "amp": True, "recompute": True,
+           "param_dtype": "bfloat16", "moment_dtype": "bfloat16",
+           "losses": list(losses), "step_ms": list(times),
+           "step_ms_median_3_to_8": step_ms, "tokens_per_s": tok_s,
+           "mfu": tok_s * cfg.flops_per_token(seq) / PEAK_FLOPS["bfloat16"],
+           "mfu_basis": "tokens/s x GPTConfig.flops_per_token(S) / 989e12 "
+                        "(bf16 dense)",
+           "max_memory_allocated_gib": (
+               torch.cuda.max_memory_allocated(dev) / 2 ** 30
+               if dev.type == "cuda" else None)}
+    row.update(profile_step(dev, lambda: run(tokens)))
+    short = torch.from_numpy(rng.randint(0, cfg.vocab_size,
+                                         (batch, seq // 2))).to(dev)
+    row["short_batch"] = [batch, seq // 2]
+    row["short_losses"] = [run(short)[0] for _ in range(short_steps)]
+    emit(row)
+    return row
+
+
+def profile_step(dev, step) -> dict:
+    """One warm step under torch.profiler: the card's kernel time summed
+    by kind, and busy share = summed kernel time / the step's wall time."""
+    (loss, wall_ms), kernels = profile_kernels(dev, step)
+    kinds = {}
+    for e in kernels:
+        k = e.key.lower()
+        kind = ("flash_bwd" if "flash_bwd" in k else
+                "flash_fwd" if "flash_fwd" in k else
+                "matmul" if any(x in k for x in ("gemm", "nvjet", "cutlass",
+                                                 "xmma", "wgmma")) else
+                "other")
+        kinds[kind] = kinds.get(kind, 0.0) + e.self_device_time_total / 1e3
+    busy = sum(kinds.values())
+    return {"profiled_step_loss": loss, "profiled_step_wall_ms": wall_ms,
+            "profiled_device_kernel_ms": busy if kernels else None,
+            "profiled_device_busy_share": busy / wall_ms if kernels
+            else None,
+            "profiled_kernel_ms_by_kind": kinds,
+            "profiled_top_kernels": top_kernels(kernels, 8)}
 
 
 # ---------------------------------------------------------------------------
@@ -497,7 +809,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
-    ap.add_argument("--phases", default="kernels,model,engine",
+    ap.add_argument("--phases", default="kernels,model,engine,grad,train",
                     help="comma-separated subset (debugging)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -554,44 +866,88 @@ def main(argv=None) -> int:
             ((4, 2048, nh, hd), False, "float32"),
             ((4, 2048, nh, hd), True, "bfloat16"),
             ((4, 2048, nh, hd), False, "bfloat16")])
+        bw = kernel_phase_flash_bwd(dev, args.iters, [
+            # row 2: S <= 1024 is one reference tile
+            ((2, 1024, nh, hd), True, "bfloat16", False, False),
+            ((2, 1024, nh, hd), True, "float32", False, False),
+            ((2, 1000, nh, hd), True, "float32", False, False),
+            ((2, 1024, nh, hd), False, "float32", False, False),
+            # rows 3/4: gpt3_1_3b's S = 2048 is 2 x 2 tiles
+            ((2, 2048, nh, hd), True, "bfloat16", False, False),
+            ((2, 2048, nh, hd), True, "float32", False, False),
+            ((2, 2048, nh, hd), False, "float32", False, False),
+            ((2, 2048, nh, hd), True, "bfloat16", True, True)])
         kern["ragged"] = next(r for r in rag if r["case"] == "decode_R8_T1"
                               and r["q_dtype"] == r["kv_dtype"] == "float32")
         kern["flash"] = fl[0]
+        kern["bwd_single"] = bw[0]
+        kern["bwd_dq"] = next(r for r in bw if r["kernel"].endswith("_dq"))
+        kern["bwd_dkv"] = next(r for r in bw if r["kernel"].endswith("_dkv"))
 
     from paddle_tpu_torch.core import rng as _rng
 
-    _rng.seed(0)
+    # the main paths' launches: every count set to 0 just before a path
+    # and read just after it; each path must launch each of its kernels
+    counters = {"flash": (fa, "FLASH_FWD_LAUNCHES"),
+                "bwd_single": (fa, "FLASH_BWD_SINGLE_LAUNCHES"),
+                "bwd_dq": (fa, "FLASH_BWD_DQ_LAUNCHES"),
+                "bwd_dkv": (fa, "FLASH_BWD_DKV_LAUNCHES"),
+                "ragged": (pa, "RAGGED_LAUNCHES")}
+    launches = {k: 0 for k in counters}
+    by_path = {}
+
+    def drive(path, needs, fn, *a, **kw):
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        fn(*a, **kw)
+        got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        by_path[path] = got
+        for k, n in got.items():
+            launches[k] += n
+        missing = [k for k in needs if got[k] == 0]
+        if missing:
+            raise AssertionError(f"the {path} path never launched {missing}")
+
     model = None
     if phases & {"model", "engine"}:
+        _rng.seed(0)
         model = GPT(cfg, device=dev)
         model.eval()
-    # the main path's launches: counters set to 0 here, read after it
-    fa.FLASH_FWD_LAUNCHES = 0
-    pa.RAGGED_LAUNCHES = 0
     if "model" in phases:
-        model_phase(model, dev)
+        drive("model", ("flash", "ragged"), model_phase, model, dev)
     if "engine" in phases:
-        engine_phase(model, dev, num_slots=8, page_size=16,
-                     pages_per_slot=128, prefill_chunk=256,
-                     prefill_chunks_per_tick=2)
-    launches = {"flash": fa.FLASH_FWD_LAUNCHES, "ragged": pa.RAGGED_LAUNCHES}
-    if "model" in phases and launches["flash"] == 0:
-        raise AssertionError("the main path never launched the flash kernel")
-    if phases & {"model", "engine"} and launches["ragged"] == 0:
-        raise AssertionError("the main path never launched the ragged kernel")
+        drive("engine", ("ragged",), engine_phase, model, dev, num_slots=8,
+              page_size=16, pages_per_slot=128, prefill_chunk=256,
+              prefill_chunks_per_tick=2)
+    del model
+    if "grad" in phases:
+        drive("grad", ("flash", "bwd_dq", "bwd_dkv"), grad_phase, dev)
+    if "train" in phases:
+        drive("train", ("flash", "bwd_single", "bwd_dq", "bwd_dkv"),
+              train_phase, dev)
+    emit({"launches_by_path": by_path})
 
     if kern:
         line = []
+        bwd_src = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
         for key, name, src, replaces in (
                 ("flash", "flash_attention_fwd",
                  "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
                  "paddle_tpu/ops/flash_attention.py:118"),
+                ("bwd_single", "flash_attention_bwd_single_tile", bwd_src,
+                 "paddle_tpu/ops/flash_attention.py:313"),
+                ("bwd_dq", "flash_attention_bwd_dq", bwd_src,
+                 "paddle_tpu/ops/flash_attention.py:221"),
+                ("bwd_dkv", "flash_attention_bwd_dkv", bwd_src,
+                 "paddle_tpu/ops/flash_attention.py:264"),
                 ("ragged", "ragged_paged_attention",
                  "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                  "paddle_tpu/ops/paged_attention.py:294")):
             r = kern[key]
             line.append({"name": name, "route": "cuda", "source": src,
                          "replaces": replaces, "launches": launches[key],
+                         "launches_by_path": {p: n[key] for p, n in
+                                              by_path.items()},
                          "shape": r["case"],
                          "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],

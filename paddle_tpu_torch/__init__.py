@@ -10,10 +10,13 @@ tensors that lie on the CPU; on a CUDA tensor it launches the kernel.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
 
-This slice ports GPT inference: ``models.gpt.GPT.forward`` (flash
+Ported so far: GPT inference — ``models.gpt.GPT.forward`` (flash
 attention forward) and the paged continuous-batching engine
 (``serving.ServingEngine``, ragged paged attention), plus the
-``inference.serving.ServingPredictor`` front end.
+``inference.serving.ServingPredictor`` front end — and one training step
+on one device: ``GPT.loss`` (fused lm-head loss, flash attention
+backward), ``optimizer.AdamW`` with the LR schedulers and gradient
+clips, and ``distributed.hybrid.HybridPipelineTrainer`` at degree 1.
 """
 from .core.place import resolve_device
 from .core.rng import seed

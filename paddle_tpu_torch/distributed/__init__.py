@@ -1,2 +1,3 @@
-"""Distributed layers (mirrors ``paddle_tpu.distributed``). This slice has
-the tensor-parallel layers at degree 1 only."""
+"""Distributed (mirrors ``paddle_tpu.distributed``). This slice has the
+tensor-parallel layers at degree 1, the strategy config (``fleet``) and
+the single-device ``hybrid.HybridPipelineTrainer``."""

@@ -1,6 +1,6 @@
 """Models (mirrors ``paddle_tpu.models``)."""
 from .gpt import (GPT, GPTConfig, gpt_ragged_apply, gpt_tiny,
-                  load_reference_state)
+                  load_reference_state, state_to_numpy)
 
 __all__ = ["GPT", "GPTConfig", "gpt_ragged_apply", "gpt_tiny",
-           "load_reference_state"]
+           "load_reference_state", "state_to_numpy"]

@@ -1,23 +1,29 @@
-"""GPT for inference (mirrors ``paddle_tpu/models/gpt.py``).
+"""GPT (mirrors ``paddle_tpu/models/gpt.py``).
 
 Parameter names and layouts equal the reference's ``state_dict()``:
 ``Linear`` weights are ``[in, out]`` applied as ``x @ W``, the fused QKV
 projection interleaves q|k|v on its output columns, and the head is tied
 to ``embeddings.wte.weight`` (``x @ wte.T``). ``load_reference_state``
-copies the reference's weights in without transposes.
+copies the reference's weights in without transposes and
+``state_to_numpy`` hands them back.
 
-Two inference paths:
+Paths:
 
 - ``GPT.forward(tokens)`` -> logits; each block's attention goes through
   ``nn.functional.scaled_dot_product_attention``, which reaches the flash
-  kernel where the reference reaches its Pallas kernel.
+  kernels where the reference reaches its Pallas kernels.
+- ``GPT.loss(tokens, labels=None)`` -> the shifted next-token cross
+  entropy through the fused lm-head loss (``ops/fused_ce.py``), and the
+  pipeline protocol the trainer drives (``pipeline_stem``,
+  ``pipeline_blocks``, ``pipeline_head``; ``distributed/hybrid.py``).
+  Backward runs the flash backward kernels.
 - ``gpt_ragged_apply`` — the serving engine's mixed prefill/decode
   forward over the paged KV cache, written over the per-layer decode
   state (``_gpt_decode_state``); a Python loop over layers replaces the
   reference's ``lax.scan``.
 
-Not in this slice: MoE, sequence parallelism, ``generate()`` over the
-dense cache, the fused lm-head loss and the pipeline protocol.
+Not in this slice: MoE, sequence parallelism and ``generate()`` over the
+dense cache.
 """
 from __future__ import annotations
 
@@ -199,12 +205,11 @@ class GPTEmbeddings(nn.Module):
 
 
 class GPT(nn.Module):
-    """Decoder-only GPT; ``forward`` returns logits ``[B, S, V]``.
+    """Decoder-only GPT. ``forward`` returns logits ``[B, S, V]``;
+    ``loss`` computes the shifted next-token cross entropy.
 
     ``device=None`` means ``"cuda"`` (and raises without a CUDA device);
-    pass ``device="cpu"`` to run the plain versions on the CPU. Inference
-    runs under ``torch.inference_mode()``: the flash kernel has no
-    backward yet, so a call that could record a gradient raises.
+    pass ``device="cpu"`` to run the plain versions on the CPU.
     """
 
     def __init__(self, config: GPTConfig, device=None):
@@ -234,6 +239,48 @@ class GPT(nn.Module):
         if self.config.tie_word_embeddings:
             return x @ self.embeddings.wte.weight.T
         return self.lm_head(x)
+
+    # --- pipeline protocol (distributed/hybrid.py) -----------------------
+    def pipeline_stem(self, tokens):
+        return self.embeddings(tokens)
+
+    def pipeline_blocks(self):
+        return self.blocks
+
+    def pipeline_head(self, x, tokens, labels=None):
+        """Final norm + fused lm-head/CE (``ops/fused_ce.py``): the [B,S,V]
+        logits never exist. ``labels``: explicit targets instead of the
+        shifted-token LM objective."""
+        from ..ops.fused_ce import fused_linear_cross_entropy
+
+        x = self.ln_f(x)
+        lbl, next_token = (tokens, True) if labels is None \
+            else (labels, False)
+        if self.config.tie_word_embeddings:
+            return fused_linear_cross_entropy(
+                x, self.embeddings.wte.weight, lbl, chunk=256,
+                next_token=next_token)
+        return fused_linear_cross_entropy(
+            x, self.lm_head.weight, lbl, chunk=256, transpose_w=True,
+            next_token=next_token)
+
+    def pipeline_label_count(self, tokens, labels=None):
+        """Non-ignored targets of ``pipeline_head`` for this batch: the
+        trainer weighs each micro-batch's mean by it, so that the
+        accumulated loss is the whole batch's mean."""
+        from ..ops.fused_ce import IGNORE
+
+        if labels is None:
+            return tokens.shape[0] * (tokens.shape[1] - 1)
+        return int((labels != IGNORE).sum())
+
+    def loss(self, tokens, labels=None):
+        """Next-token LM loss (labels default: tokens shifted left),
+        through the fused lm-head/CE as ``pipeline_head``."""
+        x = self.embeddings(tokens)
+        for blk in self.blocks:
+            x = blk(x)
+        return self.pipeline_head(x, tokens, labels=labels)
 
     def _decode_state(self):
         """(per-layer params, other params) views of the live weights for
@@ -385,6 +432,17 @@ def load_reference_state(model: nn.Module,
             arr = np.array(arr, dtype=np.float32 if arr.dtype.kind not in
                            "fiub" else arr.dtype)
             t.copy_(torch.from_numpy(arr).to(t.dtype))
+
+
+def state_to_numpy(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The inverse of ``load_reference_state``: ``{name: f32 or int numpy
+    array}`` of ``model.state_dict()``, comparable with the reference's
+    ``{name: np.asarray(p._value)}``."""
+    out = {}
+    for name, t in model.state_dict().items():
+        t = t.detach().cpu()
+        out[name] = (t.float() if t.is_floating_point() else t).numpy()
+    return out
 
 
 def gpt_tiny(device=None, **kw):

@@ -3,9 +3,11 @@
 Same dispatch as the reference: when ``ops.flash_attention.supported``
 holds (no mask, no dropout, D <= 256, a sequence length the reference's
 block picker accepts) the call
-goes to ``ops.flash_attention.flash_attention`` — the CUDA kernel for
-CUDA tensors, its plain version for CPU tensors; otherwise it runs the
-plain masked softmax path with the ``-1e30`` mask constant.
+goes to ``ops.flash_attention.flash_attention`` — the CUDA kernels for
+CUDA tensors, their plain versions for CPU tensors — and carries
+gradients through its autograd Function (the backward kernels);
+otherwise it runs the plain masked softmax path with the ``-1e30`` mask
+constant, differentiated by PyTorch's autograd.
 """
 from __future__ import annotations
 

@@ -28,7 +28,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 
 #: every kernel source of the package, built together on first use
-SOURCES = ("flash_attention_fwd", "ragged_paged_attention")
+SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
+           "ragged_paged_attention")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

@@ -1,14 +1,32 @@
-"""Flash attention forward (mirrors ``paddle_tpu/ops/flash_attention.py``).
+"""Flash attention forward and backward (mirrors
+``paddle_tpu/ops/flash_attention.py``).
 
 ``flash_attention(q, k, v, causal, scale)`` takes the public
 ``[batch, seq, heads, head_dim]`` layout and returns ``(o, lse)``: ``o``
-in the input dtype and the natural-log logsumexp ``[B*H, S, 1]`` in f32,
-the contract the backward and ring-attention slices will read. On a CUDA
-tensor it launches ``csrc/flash_attention_fwd.cu`` (the port of the TPU
-kernel ``_fwd_kernel``); on a CPU tensor it runs the plain version
-(``mha_reference`` plus its logsumexp). Forward only: the backward
-kernels come with the training slice, so a call that could record a
-gradient raises.
+in the input dtype and the natural-log logsumexp ``[B*H, S, 1]`` in f32
+(not differentiable). It is a ``torch.autograd.Function`` (the
+reference's ``jax.custom_vjp``): the forward saves ``(q, k, v, o, lse)``
+and the backward runs ``_bwd``. Under ``torch.utils.checkpoint`` the
+forward runs again inside backward and the backward reads the recomputed
+``o`` and ``lse``.
+
+Kernels, one per TPU kernel, each with a launch counter:
+
+- forward: ``csrc/flash_attention_fwd.cu`` (``_fwd_kernel``),
+  ``FLASH_FWD_LAUNCHES``;
+- backward, chosen by ``_bwd`` with the reference's rule (blocks from
+  ``_pick_block``, ``bq = bk`` when causal): one tile each way takes the
+  merged ``flash_attention_bwd_single_tile`` (``_bwd_single_tile_kernel``,
+  ``FLASH_BWD_SINGLE_LAUNCHES``), anything else the pair
+  ``flash_attention_bwd_dq`` (``_bwd_dq_kernel``,
+  ``FLASH_BWD_DQ_LAUNCHES``) and ``flash_attention_bwd_dkv``
+  (``_bwd_dkv_kernel``, ``FLASH_BWD_DKV_LAUNCHES``), all in
+  ``csrc/flash_attention_bwd.cu``.
+
+Each kernel's plain PyTorch version sits beside it (``_plain_fwd``,
+``_plain_bwd_single_tile``, ``_plain_bwd_dq``, ``_plain_bwd_dkv``): CPU
+tensors run it, and ``chip_smoke.py`` holds the kernel against it on the
+card. A CUDA tensor always launches the kernel.
 """
 from __future__ import annotations
 
@@ -19,15 +37,20 @@ import torch
 from . import _cuda
 
 __all__ = ["flash_attention", "mha_reference", "supported",
-           "FLASH_FWD_LAUNCHES"]
+           "FLASH_FWD_LAUNCHES", "FLASH_BWD_SINGLE_LAUNCHES",
+           "FLASH_BWD_DQ_LAUNCHES", "FLASH_BWD_DKV_LAUNCHES"]
 
-#: launches of the CUDA kernel (incremented once per launch, nowhere else)
+#: launches of each CUDA kernel (incremented once per launch, nowhere else)
 FLASH_FWD_LAUNCHES = 0
+FLASH_BWD_SINGLE_LAUNCHES = 0
+FLASH_BWD_DQ_LAUNCHES = 0
+FLASH_BWD_DKV_LAUNCHES = 0
 
 _BLOCK_Q = 1024
 _BLOCK_K = 1024
 _SEQ_ALIGN = 128
 _NEG_INF = -1e30
+_LOG2E = 1.4426950408889634
 
 
 def _pick_block(seq, cap):
@@ -40,11 +63,20 @@ def _pick_block(seq, cap):
     return None
 
 
+def _blocks(sq, sk, causal):
+    """The reference's tile edges (``_flash_fwd_res``): picked per side,
+    equal under causal so the diagonal block covers its own row."""
+    bq, bk = _pick_block(sq, _BLOCK_Q), _pick_block(sk, _BLOCK_K)
+    if causal:
+        bq = bk = min(bq, bk)
+    return bq, bk
+
+
 def supported(q_shape, attn_mask, dropout_p, kv_seq=None) -> bool:
     """True when the flash kernel handles this case — the reference's
     rule: no mask, no dropout, D <= 256, and sequence lengths its block
     picker accepts (any length from 128 to 1024; beyond 1024 a multiple
-    of 128). The CUDA kernel masks a ragged last tile itself."""
+    of 128). The CUDA kernels mask a ragged last tile themselves."""
     if attn_mask is not None or dropout_p:
         return False
     if len(q_shape) != 4:
@@ -97,13 +129,33 @@ def _check(q, k, v, causal):
 
 
 def flash_attention(q, k, v, causal=False, scale=None):
-    """q, k, v ``[B, S, H, D]`` -> ``(o [B, S, H, D], lse [B*H, S, 1] f32)``."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise NotImplementedError("backward lands with the training slice")
+    """q, k, v ``[B, S, H, D]`` -> ``(o [B, S, H, D], lse [B*H, S, 1] f32)``;
+    differentiable in q, k and v."""
     _check(q, k, v, causal)
-    if q.device.type == "cpu":
-        return _plain_fwd(q, k, v, causal, scale)
-    return _flash_cuda(q, k, v, causal, scale)
+    return _FlashAttention.apply(q, k, v, causal, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        if q.device.type == "cpu":
+            o, lse = _plain_fwd(q, k, v, causal, scale)
+        else:
+            o, lse = _flash_cuda(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        ctx.mark_non_differentiable(lse)
+        return o, lse
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        s = ctx.scale if ctx.scale is not None else \
+            1.0 / math.sqrt(q.shape[3])
+        bq, bk = _blocks(q.shape[1], k.shape[1], ctx.causal)
+        dq, dk, dv = _bwd(s, ctx.causal, bq, bk, (q, k, v, o, lse),
+                          do.contiguous())
+        return dq, dk, dv, None, None
 
 
 def _flash_cuda(q, k, v, causal, scale):
@@ -131,3 +183,182 @@ def _flash_cuda(q, k, v, causal, scale):
     _cuda.raise_on_error("flash_attention_fwd", err)
     FLASH_FWD_LAUNCHES += 1
     return o, lse
+
+
+# ---------------------------------------------------------------------------
+# backward
+# ---------------------------------------------------------------------------
+
+
+def _bwd(scale, causal, block_q, block_k, res, do, delta=None,
+         out_dtype=None):
+    """The reference's ``_bwd`` (same selection rule) over the public
+    layout: ``res = (q, k, v, o, lse)`` with q/k/v/o ``[B, S, H, D]`` and
+    lse ``[B*H, Sq, 1]``, ``do`` ``[B, Sq, H, D]``. ``delta`` ``[B*H,
+    Sq, 1]`` f32 defaults to ``rowsum(do * o)`` (plain PyTorch, as in the
+    reference); ring attention passes the global row's delta and
+    ``out_dtype=torch.float32`` so its per-chunk partials do not round.
+    Returns ``(dq, dk, dv)`` in ``[B, S, H, D]``."""
+    q, k, v, o, lse = res
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    nq, nk = sq // block_q, sk // block_k
+    if delta is None:
+        delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+            .reshape(b * h, sq, 1).contiguous()
+    dtypes = (out_dtype or q.dtype, out_dtype or k.dtype,
+              out_dtype or v.dtype)
+    if nq == 1 and nk == 1:
+        return _bwd_single_tile(scale, causal, (q, k, v, lse), do, delta,
+                                dtypes)
+    dq = _bwd_dq(scale, causal, (q, k, v, lse), do, delta, dtypes[0])
+    dk, dv = _bwd_dkv(scale, causal, (q, k, v, lse), do, delta, dtypes[1:])
+    return dq, dk, dv
+
+
+def _plain_grads(scale, causal, res, do, delta, dtypes, want):
+    """The reference's backward formulas over the whole sequence, with P
+    from the saved LSE: ``P = exp2(s·log2e − lse·log2e)``, ``dS = P ∘
+    (dO·Vᵀ − δ)·scale``; P and dS are cast to the input dtype before
+    their products (f32 accumulation), as the TPU kernels do. ``want``
+    names the gradients to return, in the order (dq, dk, dv)."""
+    q, k, v, lse = res
+    b, sq, h, _ = q.shape
+    sk = k.shape[1]
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    s = torch.einsum("bhsd,bhtd->bhst", qt.float(), kt.float()) * \
+        (scale * _LOG2E)
+    if causal:
+        tril = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(tril, s, _NEG_INF)
+    p = torch.exp2(s - lse.reshape(b, h, sq, 1) * _LOG2E)
+    dp = torch.einsum("bhsd,bhtd->bhst", dot.float(), vt.float())
+    ds = p * (dp - delta.reshape(b, h, sq, 1)) * scale
+    out = []
+    if "dq" in want:
+        out.append(torch.einsum("bhst,bhtd->bhsd", ds.to(q.dtype).float(),
+                                kt.float()))
+    if "dk" in want:
+        out.append(torch.einsum("bhst,bhsd->bhtd", ds.to(q.dtype).float(),
+                                qt.float()))
+    if "dv" in want:
+        out.append(torch.einsum("bhst,bhsd->bhtd", p.to(do.dtype).float(),
+                                dot.float()))
+    return tuple(g.transpose(1, 2).to(dt).contiguous()
+                 for g, dt in zip(out, dtypes))
+
+
+def _plain_bwd_single_tile(scale, causal, res, do, delta, dtypes):
+    """Plain version of the merged single-tile kernel: (dq, dk, dv)."""
+    return _plain_grads(scale, causal, res, do, delta, dtypes,
+                        ("dq", "dk", "dv"))
+
+
+def _plain_bwd_dq(scale, causal, res, do, delta, dtype):
+    """Plain version of the dQ kernel."""
+    return _plain_grads(scale, causal, res, do, delta, (dtype,), ("dq",))[0]
+
+
+def _plain_bwd_dkv(scale, causal, res, do, delta, dtypes):
+    """Plain version of the dK/dV kernel: (dk, dv)."""
+    return _plain_grads(scale, causal, res, do, delta, dtypes, ("dk", "dv"))
+
+
+def _bwd_args(name, scale, causal, res, do, delta, out_dtypes):
+    """Checks shared by the three backward wrappers; returns the
+    leading C arguments (pointers of q, k, v, dO, LSE, δ)."""
+    q, k, v, lse = res
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {dev}")
+    _cuda.check_cuda(name, (q, k, v, do, lse, delta), dev)
+    if q.dtype not in _cuda.DTYPE_CODE or any(
+            t.dtype != q.dtype for t in (k, v, do)):
+        raise TypeError(f"{name} takes f32 or bf16 q/k/v/dO of one dtype, "
+                        f"got {q.dtype}/{k.dtype}/{v.dtype}/{do.dtype}")
+    b, sq, h, _ = q.shape
+    for t, what in ((lse, "lse"), (delta, "delta")):
+        if t.dtype != torch.float32 or t.numel() != b * h * sq:
+            raise ValueError(f"{name}: {what} must be f32 [B*H, Sq, 1]")
+    if len(set(out_dtypes)) != 1 or out_dtypes[0] not in _cuda.DTYPE_CODE:
+        raise TypeError(f"{name}: gradients of one dtype, f32 or bf16, "
+                        f"got {out_dtypes}")
+    return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr())
+
+
+def _dims(res, causal, scale):
+    q, k = res[0], res[1]
+    b, sq, h, d = q.shape
+    return (b, sq, k.shape[1], h, d, int(bool(causal)), float(scale),
+            _cuda.DTYPE_CODE[q.dtype])
+
+
+def _bwd_single_tile(scale, causal, res, do, delta, dtypes):
+    """Merged dQ/dK/dV (``_bwd_single_tile_kernel``): one launch, P and
+    dS computed once."""
+    global FLASH_BWD_SINGLE_LAUNCHES
+    if res[0].device.type == "cpu":
+        return _plain_bwd_single_tile(scale, causal, res, do, delta, dtypes)
+    name = "flash_attention_bwd_single_tile"
+    ptrs = _bwd_args(name, scale, causal, res, do, delta, dtypes)
+    q, k = res[0], res[1]
+    dev = q.device
+    out = dtypes[0]
+    dq_acc = torch.zeros(q.shape, device=dev, dtype=torch.float32)
+    if out == torch.float32:
+        dq, tickets = dq_acc, None
+    else:
+        dq = torch.empty(q.shape, device=dev, dtype=out)
+        tickets = torch.zeros(q.shape[0] * q.shape[2], device=dev,
+                              dtype=torch.int32)
+    dk = torch.empty(k.shape, device=dev, dtype=out)
+    dv = torch.empty(k.shape, device=dev, dtype=out)
+    fn = _cuda.entry("flash_attention_bwd", name, "ppppppppppp" "iiiiiifiip")
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, None if dq is dq_acc else dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
+                 None if tickets is None else tickets.data_ptr(),
+                 *_dims(res, causal, scale), _cuda.DTYPE_CODE[out],
+                 _cuda.stream_handle(dev))
+    _cuda.raise_on_error(name, err)
+    FLASH_BWD_SINGLE_LAUNCHES += 1
+    return dq, dk, dv
+
+
+def _bwd_dq(scale, causal, res, do, delta, dtype):
+    """dQ over k tiles (``_bwd_dq_kernel``)."""
+    global FLASH_BWD_DQ_LAUNCHES
+    if res[0].device.type == "cpu":
+        return _plain_bwd_dq(scale, causal, res, do, delta, dtype)
+    name = "flash_attention_bwd_dq"
+    ptrs = _bwd_args(name, scale, causal, res, do, delta, (dtype,))
+    q = res[0]
+    dq = torch.empty(q.shape, device=q.device, dtype=dtype)
+    fn = _cuda.entry("flash_attention_bwd", name, "ppppppp" "iiiiiifiip")
+    with torch.cuda.device(q.device):
+        err = fn(*ptrs, dq.data_ptr(), *_dims(res, causal, scale),
+                 _cuda.DTYPE_CODE[dtype], _cuda.stream_handle(q.device))
+    _cuda.raise_on_error(name, err)
+    FLASH_BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+def _bwd_dkv(scale, causal, res, do, delta, dtypes):
+    """dK/dV over q tiles from the diagonal on (``_bwd_dkv_kernel``)."""
+    global FLASH_BWD_DKV_LAUNCHES
+    if res[0].device.type == "cpu":
+        return _plain_bwd_dkv(scale, causal, res, do, delta, dtypes)
+    name = "flash_attention_bwd_dkv"
+    ptrs = _bwd_args(name, scale, causal, res, do, delta, dtypes)
+    k = res[1]
+    dk = torch.empty(k.shape, device=k.device, dtype=dtypes[0])
+    dv = torch.empty(k.shape, device=k.device, dtype=dtypes[1])
+    fn = _cuda.entry("flash_attention_bwd", name, "pppppppp" "iiiiiifiip")
+    with torch.cuda.device(k.device):
+        err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(),
+                 *_dims(res, causal, scale), _cuda.DTYPE_CODE[dtypes[0]],
+                 _cuda.stream_handle(k.device))
+    _cuda.raise_on_error(name, err)
+    FLASH_BWD_DKV_LAUNCHES += 1
+    return dk, dv

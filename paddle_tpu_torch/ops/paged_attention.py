@@ -17,7 +17,7 @@ table entries read it and are masked). ``paged_kv_scatter`` writes a
 tick's KV into the pool in place (``index_put_``).
 
 Not in this slice: int8 pools with per-page scales (ROADMAP queue 1
-item 5; queue 2, the int8 path of row 5).
+item 3; queue 2, the int8 path of row 5).
 """
 from __future__ import annotations
 
@@ -36,7 +36,7 @@ RAGGED_LAUNCHES = 0
 _NEG_INF = -1e9     # same masking constant as the reference
 
 _INT8_TODO = ("int8 KV pools (per-page scales) are not ported yet: "
-              "ROADMAP queue 1 item 5 (int8), queue 2 row 5 int8 path")
+              "ROADMAP queue 1 item 3 (int8), queue 2 row 5 int8 path")
 
 
 def _gather_attend(q, k_pool, v_pool, page_table, qpos):

@@ -67,11 +67,11 @@ from .sched import SCHED_POLICIES, ChunkScheduler
 __all__ = ["ServingConfig", "ServingEngine", "Request"]
 
 _TODO_SAMPLING = ("decode='sampling' is not ported yet: ROADMAP queue 1 "
-                  "item 3 (dense decode and sampling)")
-_TODO_INT8 = ("kv_dtype='int8' is not ported yet: ROADMAP queue 1 item 5 "
+                  "item 4 (dense decode and sampling)")
+_TODO_INT8 = ("kv_dtype='int8' is not ported yet: ROADMAP queue 1 item 3 "
               "(int8: kernel row 6 and the int8 path of row 5)")
 _TODO_SPEC = ("speculative decoding is not ported yet: ROADMAP queue 1 "
-              "item 4 (speculative decoding)")
+              "item 5 (speculative decoding)")
 _TODO_SERVING = ("is not ported yet: ROADMAP queue 1 item 6 (serving "
                  "remainder: legacy mode, disaggregation, chain migration)")
 

@@ -81,9 +81,19 @@ def test_sdpa_dispatch_matches_reference(s, causal):
 
 
 def test_grad_enabled_inputs_raise_not_implemented():
+    """A grad-requiring call on CPU tensors returns gradients and counts
+    no launch. (The name dates from the forward-only port, where such a
+    call raised NotImplementedError.)"""
+    counters = ("FLASH_FWD_LAUNCHES", "FLASH_BWD_SINGLE_LAUNCHES",
+                "FLASH_BWD_DQ_LAUNCHES", "FLASH_BWD_DKV_LAUNCHES")
+    before = [getattr(tfa, c) for c in counters]
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(3))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tfa.flash_attention(q, k, v, causal=True)
+    o, lse = tfa.flash_attention(q, k, v, causal=True)
+    o.sum().backward()
+    for t in (q, k, v):
+        assert t.grad is not None and t.grad.shape == t.shape
+        assert bool(torch.isfinite(t.grad).all())
+    assert [getattr(tfa, c) for c in counters] == before
 
 
 def test_bad_shapes_raise():

@@ -127,6 +127,31 @@ def test_load_reference_state_rejects_missing_extra_and_misshaped():
         tgpt.load_reference_state(net, bad)
 
 
+def test_state_to_numpy_inverts_load_reference_state():
+    jnet, net = _pair()
+    state = {k: np.asarray(v._value) for k, v in jnet.state_dict().items()}
+    back = tgpt.state_to_numpy(net)
+    assert set(back) == set(state)
+    for k, v in back.items():
+        assert v.dtype == np.float32
+        np.testing.assert_array_equal(v, state[k])
+
+
+def test_loss_is_the_pipeline_protocol_composed():
+    """GPT.loss == pipeline_head(blocks(pipeline_stem(tokens))), and the
+    label count is the shifted objective's."""
+    _, net = _pair(max_seq_len=128)
+    toks = torch.from_numpy(np.random.RandomState(4).randint(0, 128, (2, 128)))
+    with torch.no_grad():
+        x = net.pipeline_stem(toks)
+        for blk in net.pipeline_blocks():
+            x = blk(x)
+        via_protocol = net.pipeline_head(x, toks)
+        direct = net.loss(toks)
+    assert float(direct) == float(via_protocol)
+    assert net.pipeline_label_count(toks) == 2 * 127
+
+
 def test_parameter_names_and_layouts_equal_reference():
     jnet, net = _pair()
     ref = {k: tuple(v.shape) for k, v in jnet.state_dict().items()}
@@ -160,13 +185,21 @@ def test_moe_config_raises_not_implemented():
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    """Every module of paddle_tpu_torch, and chip_smoke.py, load in a
-    fresh interpreter without pulling in jax or paddle_tpu."""
+    """Every module of paddle_tpu_torch — the training slice's fused_ce,
+    optimizer, distributed.hybrid and distributed.fleet among them — and
+    chip_smoke.py load in a fresh interpreter without pulling in jax or
+    paddle_tpu."""
     code = (
         "import importlib, pkgutil, sys, runpy\n"
         "import paddle_tpu_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'paddle_tpu_torch.')]\n"
+        "need = {'paddle_tpu_torch.ops.fused_ce', "
+        "'paddle_tpu_torch.optimizer', 'paddle_tpu_torch.optimizer.lr', "
+        "'paddle_tpu_torch.optimizer.clip', "
+        "'paddle_tpu_torch.distributed.hybrid', "
+        "'paddle_tpu_torch.distributed.fleet'}\n"
+        "assert need <= set(mods), sorted(need - set(mods))\n"
         "for m in mods: importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
