@@ -81,16 +81,10 @@ class HybridPipelineTrainer:
                  param_dtype=None, moment_dtype=None,
                  offload_optimizer: bool = False,
                  offload_params: bool = False,
-                 offload_depth: int = 2,
                  stream_layers: bool = False,
-                 comp_resident: bool = True,
-                 conservative_fetch: bool = False,
-                 update_scan: bool = False,
-                 unroll_layers: Optional[bool] = None,
                  free_eager: bool = False,
                  guard_bad_steps: bool = False,
                  dp_grad_comm: str = "f32",
-                 dp_grad_block: int = 2048,
                  dp_param_comm: Optional[str] = None):
         """Knobs, as in the reference:
 
@@ -109,9 +103,6 @@ class HybridPipelineTrainer:
             parameters are converted in place.
         free_eager: accepted; there is nothing to free, because the
             trainer holds no copy of the model's parameters.
-        unroll_layers, update_scan: accepted; the layers run as a Python
-            loop and the update goes parameter by parameter, so there is
-            no scan to unroll or bound.
 
         When ``profiler.enable()`` is on, every step syncs on the loss and
         moves ``train/steps``, ``train/tokens`` and the ``hybrid/step_ms``

@@ -17,9 +17,11 @@ of its kernels on CPU tensors.
   AdamW(weight_decay 0.1), ``LinearWarmup(CosineAnnealingDecay)`` and
   ``ClipGradByGlobalNorm(1.0)``, 3 steps in each package: amp off
   (recompute on and off) at loss rtol 1e-5 and parameters atol 1e-4;
-  amp on with bf16 parameters and moments at loss atol 1e-2 (the bound
-  of the reference's ``test_bf16_state_matches_f32_early_steps``). The
-  eager ``loss.backward(); opt.step()`` loop against the trainer.
+  amp on with bf16 parameters and moments at peak 2e-2: losses at atol
+  5e-4, parameters at one bf16 ulp on most elements and moments at
+  5e-2 of their largest value (see the test for why not every
+  element). The eager ``loss.backward(); opt.step()`` loop against the
+  trainer.
 - ``AdamW`` with ``apply_decay_param_fun`` and ``lr_ratio``, the three
   clips, and the recipe's schedule over 30 steps against the JAX
   package's.
@@ -155,6 +157,15 @@ def _tokens(seed=3):
 _JAX_RUNS = {}
 
 
+def _moments(opt, net):
+    """The optimizer's accumulators by parameter name, f32 numpy (either
+    package: both key them by ``id`` of the parameter)."""
+    return {n: {k: np.asarray(v.float() if torch.is_tensor(v) else v,
+                              np.float32)
+                for k, v in opt._accumulators[id(p)].items()}
+            for n, p in net.named_parameters()}
+
+
 def _jax_train(amp, recompute, bf16, peak):
     key = (amp, recompute, bf16, peak)
     if key not in _JAX_RUNS:
@@ -173,14 +184,17 @@ def _jax_train(amp, recompute, bf16, peak):
         for _ in range(STEPS):
             losses.append(float(tr.step(_tokens())))
             sched.step()
+        jnet = tr.sync_to_layer()
         final = {k: np.asarray(v._value, np.float32)
-                 for k, v in tr.sync_to_layer().state_dict().items()}
-        _JAX_RUNS[key] = (state0, losses, final)
+                 for k, v in jnet.state_dict().items()}
+        _JAX_RUNS[key] = (state0, losses, final, _moments(opt, jnet))
     return _JAX_RUNS[key]
 
 
-def _port_train(state0, amp, recompute, bf16, peak):
+def _port_train(state0, amp, recompute, bf16, peak, block_hook=None):
     net = _port_model(state0)
+    if block_hook is not None:
+        net.blocks[0].register_forward_hook(block_hook)
     sched = _sched(tlr, peak)
     opt = AdamW(sched, parameters=net.named_parameters(), weight_decay=0.1,
                 grad_clip=tnn.ClipGradByGlobalNorm(1.0))
@@ -195,7 +209,7 @@ def _port_train(state0, amp, recompute, bf16, peak):
         assert loss.dtype == torch.float32 and loss.dim() == 0
         losses.append(float(loss))
         sched.step()
-    return losses, tgpt.state_to_numpy(tr.sync_to_layer()), opt
+    return losses, tgpt.state_to_numpy(tr.sync_to_layer()), opt, net
 
 
 @pytest.mark.parametrize("recompute,peak", [(True, 2e-4), (True, 2e-2),
@@ -203,8 +217,8 @@ def _port_train(state0, amp, recompute, bf16, peak):
 def test_trainer_f32_matches_reference(recompute, peak):
     """The recipe's schedule (peak 2e-4), and the same schedule at 2e-2,
     where three steps move the parameters far past the tolerance."""
-    state0, jlosses, jfinal = _jax_train(False, recompute, False, peak)
-    losses, final, _ = _port_train(state0, False, recompute, False, peak)
+    state0, jlosses, jfinal, _ = _jax_train(False, recompute, False, peak)
+    losses, final, _, _ = _port_train(state0, False, recompute, False, peak)
     np.testing.assert_allclose(losses, jlosses, rtol=1e-5, atol=0)
     moved = max(float(np.abs(jfinal[n] - state0[n]).max()) for n in state0)
     assert moved > (1e-3 if peak > 1e-3 else 1e-5)
@@ -214,25 +228,58 @@ def test_trainer_f32_matches_reference(recompute, peak):
 
 
 def test_trainer_amp_bf16_state_matches_reference():
-    """amp on, bf16 parameters and moments, recompute on. The JAX trainer
-    runs bf16 through its interpret-mode flash kernel on the CPU, so this
-    case keeps S 128 and both packages take the flash path."""
-    state0, jlosses, jfinal = _jax_train(True, True, True, 2e-4)
-    losses, final, opt = _port_train(state0, True, True, True, 2e-4)
-    np.testing.assert_allclose(losses, jlosses, rtol=0, atol=1e-2)
+    """amp on, bf16 parameters and moments, recompute on, at peak 2e-2,
+    where three steps move the weights by tens of bf16 ulps. The JAX
+    trainer runs bf16 through its interpret-mode flash kernel on the
+    CPU, so this case keeps S 128 and both packages take the flash path.
+
+    The packages round their bf16 products in different orders, so their
+    gradients differ by a few bf16 ulps. Adam divides each gradient
+    element by its own root mean square, so an element whose gradient is
+    rounding noise steps by about +-lr with a sign each package picks on
+    its own (the key bias's gradient is zero in exact arithmetic:
+    softmax does not see a shift of its logits). So parameters are held
+    to one bf16 ulp on most elements, not all: at least 85% of all
+    elements and 80% of each weight matrix's (measured 91% and 88%; a
+    skipped update or moments that are not written back leave about 1%).
+    The moments, which are not normalised, are held at 5e-2 of each
+    tensor's largest value (measured at most 2.4e-2). Losses at atol
+    5e-4 (measured 7e-5; dropping the moments moves step 3's by 3e-2)."""
+    state0, jlosses, jfinal, jmom = _jax_train(True, True, True, 2e-2)
+    dtypes = set()
+    losses, final, opt, net = _port_train(
+        state0, True, True, True, 2e-2,
+        block_hook=lambda m, i, o: dtypes.add(o.dtype))
+    assert dtypes == {torch.bfloat16}               # the forward is bf16
     assert all(np.isfinite(losses))
+    np.testing.assert_allclose(losses, jlosses, rtol=0, atol=5e-4)
+    ulp = 2.0 ** -7                                 # relative, 8 bits
+    mats = [n for n, v in state0.items() if v.ndim == 2]
+    moved = np.concatenate([
+        (np.abs(jfinal[n] - state0[n]) / (ulp * np.abs(jfinal[n]))).ravel()
+        for n in mats])
+    assert np.median(moved) > 8                     # measured about 25
+    within = {n: np.abs(v - jfinal[n]) <= ulp * np.abs(jfinal[n]) + 1e-6
+              for n, v in final.items()}
+    share = np.mean(np.concatenate([w.ravel() for w in within.values()]))
+    assert share >= 0.85, share
+    for n in mats:
+        assert within[n].mean() >= 0.8, (n, within[n].mean())
     for st in opt._accumulators.values():
         assert all(v.dtype == torch.bfloat16 for v in st.values())
-    for n, v in final.items():
-        np.testing.assert_allclose(v, jfinal[n], rtol=0, atol=1e-2,
-                                   err_msg=n)
+    for n, st in _moments(opt, net).items():
+        for k, v in st.items():
+            ref = jmom[n][k]
+            np.testing.assert_allclose(v, ref, rtol=0,
+                                       atol=5e-2 * np.abs(ref).max(),
+                                       err_msg=f"{n} {k}")
 
 
 def test_eager_loop_matches_trainer():
     """``loss.backward(); opt.step(); opt.clear_grad()`` on the whole
     batch equals the trainer's micro-batched step (amp off)."""
-    state0, _, _ = _jax_train(False, True, False, 2e-2)
-    losses, final, _ = _port_train(state0, False, True, False, 2e-2)
+    state0, _, _, _ = _jax_train(False, True, False, 2e-2)
+    losses, final, _, _ = _port_train(state0, False, True, False, 2e-2)
     net = _port_model(state0)
     sched = _sched(tlr, 2e-2)
     opt = AdamW(sched, parameters=net.named_parameters(), weight_decay=0.1,
