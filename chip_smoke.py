@@ -14,7 +14,13 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    time the card could take (bytes over 3.35 TB/s or operations over the
    peak rate of the input type, whichever is larger). The flash backward
    kernels run at S 1024 (the merged single-tile kernel) and S 2048 (the
-   dQ + dK/dV pair), f32 and bf16, causal and not.
+   dQ + dK/dV pair), f32 and bf16, causal and not. The ragged kernel's
+   int8 path runs the same row groups over int8 pools whose content and
+   scales the port's own paged_kv_scatter wrote, under f32 and bf16
+   queries. The int8 matmul runs the deploy model's two layer shapes
+   (f32, bf16 and int8 x, with and without ReLU + requantize) and a ragged
+   67 x 130 x 45 with and without bias: int8 outputs equal to the plain
+   version's, float outputs at rtol 1e-6 / atol 1e-5.
 2. model phase — GPT.forward at gpt3_1_3b width (24 layers, random
    weights from a seed, f32) over 2 prompts of 1024 tokens (flash
    kernel), and gpt_ragged_apply over the same tokens through scrambled
@@ -33,8 +39,23 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    8 steps on one fixed [4, 2048] batch (the loss must fall), one step
    under torch.profiler, 2 steps on a [4, 1024] batch. Step ms, tokens/s,
    MFU and peak memory.
+6. kvint8 phase — the engine phase's workload with kv_dtype="int8": every
+   ragged launch runs over int8 pools, two runs give equal streams, the
+   pool (scales included) takes <= 0.27 of the f32 pool's bytes, the null
+   page's scale rows stay 0, and gpt_ragged_apply's logits over one
+   1024-token prompt (4 chunks, then 4 decode steps) with int8 pools
+   agree with the f32-pool run within KVINT8_LOGIT_TOL. Token match rate
+   against the f32 engine's streams, tokens/s cold and warm, busy share,
+   peak memory.
+7. deploy phase — Sequential(Linear(4096, 16384), ReLU, Linear(16384,
+   4096)) through QAT().quantize -> a calibration forward ->
+   convert_to_int8_deploy -> net(x) at batch 4096 with bf16 input: the
+   fusion pass wired fc1 -> fc2, one forward is 2 launches of the int8
+   matmul kernel, the output is bf16, agrees with the plain chain (int8
+   intermediate equal) and stays within DEPLOY_QAT_TOL of the QAT-eval
+   output. ms per forward.
 
-Every launch counter is set to 0 just before each of phases 2-5 and read
+Every launch counter is set to 0 just before each of phases 2-7 and read
 just after it: those are the main paths' launches, and each path must
 launch each of its kernels. Prints JSON lines per case, then
 {"kernels": [...]}, the nvidia-smi line, and as the last line
@@ -42,6 +63,7 @@ launch each of its kernels. Prints JSON lines per case, then
 Exits non-zero without a CUDA device or outside a checkout of the repo.
 
     python3 chip_smoke.py --phases kernels,train   # after editing a kernel
+    python3 chip_smoke.py --phases kernels,kvint8,deploy   # the int8 slice
 """
 from __future__ import annotations
 
@@ -56,7 +78,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,    # f32 outside the tensor cores
-              "bfloat16": 989e12}  # bf16 dense tensor cores
+              "bfloat16": 989e12,  # bf16 dense tensor cores
+              "int8": 1979e12}     # int8 dense tensor cores (operations/s)
 
 F32_TOL = 2e-5   # as the reference holds its Pallas kernels to XLA (f32)
 BF16_TOL = 2e-2  # one bf16 ulp at |o| <~ 1, f32 accumulation on both sides
@@ -72,6 +95,20 @@ BWD_F32_TOL = 3e-5  # the reference's own gradient tolerance (f32)
 BWD_BF16_RTOL = 2.0 ** -7
 BWD_BF16_ATOL = 1e-3
 GRAD_TOL = 1e-3     # max |dg| / max |g| per parameter, model gradients
+# int8 matmul: float outputs at the reference's own tolerance between its
+# fused kernel and the unfused expression; int8 outputs must be EQUAL
+INT8_MM_RTOL, INT8_MM_ATOL = 1e-6, 1e-5
+# int8 KV pages: max |logit(int8 pools) - logit(f32 pools)| over max
+# |logit(f32 pools)| for one 1024-token prompt through 24 layers (every
+# K/V value carries up to half an int8 step of its page's and head's
+# amax / 127, about 0.4% of that amax)
+KVINT8_LOGIT_TOL = 0.05
+KVINT8_MATCH_FLOOR = 0.5   # int8 vs f32 streams, random weights: one
+#                            flipped near-tie changes the rest of a stream
+KVINT8_BYTES_RATIO = 0.27  # int8 pool + scales over the f32 pool
+# deploy: max |y_int8 - y_qat_eval| over max |y_qat_eval|: one bf16
+# rounding of x before the quantizer, the quantizer's steps, a bf16 output
+DEPLOY_QAT_TOL = 0.03
 
 
 def emit(obj) -> None:
@@ -236,6 +273,249 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128):
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
             results.append(row)
+    return results
+
+
+def quantized_pools(dev, k32, v32, tokens_per_call=2048):
+    """int8 pools + [P, NH] scales written by the port's own
+    paged_kv_scatter from f32 K/V pools, page-aligned runs of tokens per
+    call (each page's scale becomes its tokens' per-head amax / 127).
+    Page 0, the null page, is never written: its scales stay 0."""
+    import torch
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    npages, ps, nh, hd = k32.shape
+    out = []
+    for src in (k32, v32):
+        pool = torch.zeros_like(src, dtype=torch.int8)
+        scale = torch.zeros(npages, nh, device=dev)
+        page = torch.arange(1, npages, device=dev).repeat_interleave(ps)
+        off = torch.arange(ps, device=dev).repeat(npages - 1)
+        vals = src[1:].reshape(-1, nh, hd)
+        with torch.inference_mode():
+            for a in range(0, page.numel(), tokens_per_call):
+                sl = slice(a, a + tokens_per_call)
+                pa.paged_kv_scatter(pool, scale, page[sl], off[sl], vals[sl])
+        out += [pool, scale]
+    kq, ks, vq, vs = out
+    if float(ks[0].abs().max()) != 0.0 or float(vs[0].abs().max()) != 0.0:
+        raise AssertionError("null page scale moved")
+    return kq, vq, ks, vs
+
+
+def kernel_phase_ragged_int8(dev, iters, seed=7, nh=16, hd=128, ps=16,
+                             nps=128):
+    """The ragged kernel's int8 path against _gather_attend with scales,
+    on the row groups of kernel_phase_ragged (null pages in every table,
+    a pad row with an all-null table)."""
+    import numpy as np
+    import torch
+    from torch.nn import functional as TF
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    rng = np.random.RandomState(seed)
+    npages = 8 * nps + 1
+    g = torch.Generator(device=dev).manual_seed(seed)
+    k32 = torch.randn(npages, ps, nh, hd, generator=g, device=dev)
+    v32 = torch.randn(npages, ps, nh, hd, generator=g, device=dev)
+    kq, vq, ks, vs = quantized_pools(dev, k32, v32)
+    deq_err = float((kq[1:].float() * ks[1:, None, :, None]
+                     - k32[1:]).abs().max())
+    results = []
+    for name, t, p0, tl, tab in ragged_groups(rng, npages, nps, ps):
+        r = tab.shape[0]
+        q32 = torch.randn(r, t, nh, hd, generator=g, device=dev)
+        meta = [torch.from_numpy(x).to(dev) for x in (tab, p0, tl)]
+        tab_d, p0_d, tl_d = meta
+        qpos = p0_d[:, None] + torch.arange(t, device=dev,
+                                            dtype=torch.int32)[None]
+        for qdt in ("float32", "bfloat16"):
+            q = q32 if qdt == "float32" else q32.bfloat16()
+            with torch.inference_mode():
+                out = pa.ragged_paged_attention(q, kq, vq, *meta,
+                                                k_scale=ks, v_scale=vs)
+                ref = pa._gather_attend(q.float(), kq, vq, tab_d, qpos,
+                                        k_scale=ks, v_scale=vs)
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            tol = BF16_TOL if qdt == "bfloat16" else F32_TOL
+            err = 0.0
+            for i in range(r):
+                n = int(tl[i])
+                d = (out[i, :n].float() - ref[i, :n]).abs()
+                if not bool(torch.isfinite(out[i, :n]).all()):
+                    raise AssertionError(f"ragged int8 {name} {qdt}: "
+                                         "non-finite output")
+                if bool((d > tol * (1 + ref[i, :n].abs())).any()):
+                    raise AssertionError(
+                        f"ragged int8 {name} q {qdt}: max abs err "
+                        f"{float(d.max())} over tolerance")
+                err = max(err, float(d.max()))
+            # library yardstick: SDPA over the gathered, dequantized cache
+            s_cap = nps * ps
+            tl_ = tab_d.long()
+            wide = torch.float32
+            kc = (kq[tl_].to(q.dtype) * ks[tl_][:, :, None, :, None]) \
+                .reshape(r, s_cap, nh, hd).transpose(1, 2).contiguous()
+            vc = (vq[tl_].to(q.dtype) * vs[tl_][:, :, None, :, None]) \
+                .reshape(r, s_cap, nh, hd).transpose(1, 2).contiguous()
+            qt = q.to(wide).transpose(1, 2).contiguous()
+            mask = (torch.arange(s_cap, device=dev)[None, None, None, :]
+                    <= qpos[:, None, :, None])
+            with torch.inference_mode():
+                kern_ms = time_ms(lambda: pa.ragged_paged_attention(
+                    q, kq, vq, *meta, k_scale=ks, v_scale=vs), iters, dev)
+                plain_ms = time_ms(lambda: pa._gather_attend(
+                    q, kq, vq, tab_d, qpos, k_scale=ks, v_scale=vs),
+                    iters, dev)
+                lib_ms = time_ms(lambda: TF.scaled_dot_product_attention(
+                    qt, kc, vc, attn_mask=mask), iters, dev)
+            # bytes this data needs: attended K/V positions at one byte,
+            # the scale rows of the attended pages, q, o, metadata
+            attended = (p0.astype(np.int64) + tl).sum()
+            pages = sum(int(p0[i] + tl[i] - 1) // ps + 1 for i in range(r))
+            nbytes = (2 * attended * nh * hd + 2 * pages * nh * 4
+                      + 2 * r * t * nh * hd * q.element_size()
+                      + tab.nbytes + p0.nbytes + tl.nbytes)
+            keys = sum(int(tl[i]) * int(p0[i]) + int(tl[i]) * (int(tl[i]) + 1)
+                       // 2 for i in range(r))
+            b_ms, b_by = bound(nbytes, 4.0 * nh * hd * keys, qdt)
+            row = {"phase": "kernel",
+                   "kernel": "ragged_paged_attention_int8",
+                   "case": name, "q_dtype": qdt, "kv_dtype": "int8",
+                   "max_abs_err": err, "tolerance": tol,
+                   "tolerance_reason": (
+                       "against _gather_attend with scales on the same "
+                       "int8 pools, f32-upcast queries: " + (
+                           "bf16 output, one bf16 ulp at |o| <~ 1"
+                           if qdt == "bfloat16" else
+                           "online softmax reassociates the sum; the "
+                           "page scale is folded into scores and weights")),
+                   "pool_dequant_max_abs_err_vs_f32": deq_err,
+                   "kernel_ms": kern_ms, "plain_ms": plain_ms,
+                   "library_ms": lib_ms,
+                   "library": "F.scaled_dot_product_attention over the "
+                              "gathered, dequantized cache (gather and "
+                              "dequantization not timed)",
+                   "bound_ms": b_ms, "bound_by": b_by}
+            emit(row)
+            results.append(row)
+    return results
+
+
+def kernel_phase_int8_matmul(dev, iters, cases, seed=8):
+    """The fused int8 matmul kernel against its plain version.
+    cases: (M, K, N, x dtype, relu, quant_out, out dtype, bias). The
+    library yardstick is torch._int_mm on pre-quantized x plus the
+    epilogue in PyTorch operations (where _int_mm takes the shape)."""
+    import torch
+
+    from paddle_tpu_torch.ops import int8_matmul as im
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    results = []
+    for m, k, n, xdt, relu, quant_out, odt, has_bias in cases:
+        xdtype, odtype = getattr(torch, xdt), getattr(torch, odt)
+        if xdt == "int8":
+            x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
+                              dtype=torch.int32).to(torch.int8)
+        else:
+            x = (torch.randn(m, k, generator=g, device=dev) * 0.5).to(xdtype)
+        w = torch.randn(k, n, generator=g, device=dev)
+        ws = w.abs().amax(dim=0)
+        wq = torch.round(w / ws * 127.0).clamp_(-127, 127).to(torch.int8)
+        del w
+        sa = torch.tensor(2.0, device=dev)          # ~4 sigma of x
+        scale = (sa / 127.0) * (ws / 127.0)
+        bias = torch.randn(n, generator=g, device=dev) if has_bias else None
+        if quant_out:       # fold the next layer's quantizer in
+            y_amax = 0.5 * k ** 0.5 * 3.0
+            scale = scale * (127.0 / y_amax)
+            bias = None if bias is None else bias * (127.0 / y_amax)
+        qs = (127.0 / sa).reshape(1)
+        kw = dict(relu=relu, quant_out=quant_out, out_dtype=odtype)
+
+        def kern():
+            return im.int8_matmul(x, wq, scale, bias, qs, **kw)
+
+        def plain():
+            return im._plain_int8_matmul(x, wq, scale, bias, qs, relu,
+                                         quant_out, odtype, 127.0)
+
+        with torch.inference_mode():
+            out, ref = kern(), plain()
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        want_dt = torch.int8 if quant_out else odtype
+        if out.dtype != want_dt or out.shape != (m, n):
+            raise AssertionError(f"int8_matmul {m}x{k}x{n}: out {out.dtype} "
+                                 f"{tuple(out.shape)}")
+        err = float((out.float() - ref.float()).abs().max())
+        if quant_out:
+            ok = bool((out == ref).all())
+            spread = int(out.max()) - int(out.min())
+            if spread < 50:
+                raise AssertionError("int8_matmul: requantized output spans "
+                                     f"only {spread} steps: a weak check")
+        else:
+            ok = torch.allclose(out.float(), ref.float(), rtol=INT8_MM_RTOL,
+                                atol=INT8_MM_ATOL) and \
+                bool(torch.isfinite(out).all())
+        if not ok:
+            raise AssertionError(f"int8_matmul {m}x{k}x{n} x {xdt} relu "
+                                 f"{relu} quant_out {quant_out}: max abs err "
+                                 f"{err} against the plain version")
+        lib_ms = None
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            def lib():
+                xq = x if xdt == "int8" else torch.round(
+                    x.float() * qs).clamp_(-127, 127).to(torch.int8)
+                y = torch._int_mm(xq, wq).float() * scale
+                if bias is not None:
+                    y = y + bias
+                if relu:
+                    y = torch.relu(y)
+                if quant_out:
+                    return torch.round(y).clamp_(-127, 127).to(torch.int8)
+                return y.to(odtype)
+
+            with torch.inference_mode():
+                if not torch.equal(lib(), ref):
+                    raise AssertionError("the library yardstick computes "
+                                         "another function")
+                lib_ms = time_ms(lib, iters, dev)
+        with torch.inference_mode():
+            kern_ms = time_ms(kern, iters, dev)
+            plain_ms = time_ms(plain, max(1, iters // 4), dev)
+        nbytes = (x.numel() * x.element_size() + wq.numel()
+                  + out.numel() * out.element_size()
+                  + 4 * n * (2 if has_bias else 1) + 4)
+        b_ms, b_by = bound(nbytes, 2.0 * m * k * n, "int8")
+        row = {"phase": "kernel", "kernel": "int8_matmul",
+               "case": (f"M{m}_K{k}_N{n}_x{xdt}"
+                        + ("_relu" if relu else "")
+                        + ("_quantout" if quant_out else f"_out{odt}")
+                        + ("" if has_bias else "_nobias")),
+               "max_abs_err": err,
+               "tolerance": "equal" if quant_out else
+               {"rtol": INT8_MM_RTOL, "atol": INT8_MM_ATOL},
+               "tolerance_reason": (
+                   "int8 output: the int32 sum is exact and the epilogue "
+                   "rounds as the plain version does (no FMA)"
+                   if quant_out else
+                   "float output: the reference's own tolerance between "
+                   "its fused kernel and the unfused expression"),
+               "kernel_ms": kern_ms, "plain_ms": plain_ms,
+               "library_ms": lib_ms,
+               "library": "torch._int_mm on pre-quantized x + the epilogue "
+                          "in PyTorch operations" if lib_ms is not None
+               else None,
+               "bound_ms": b_ms, "bound_by": b_by,
+               "tops": 2.0 * m * k * n / (kern_ms * 1e-3) / 1e12}
+        emit(row)
+        results.append(row)
     return results
 
 
@@ -520,16 +800,11 @@ def _check_close(got, want, what) -> float:
 # ---------------------------------------------------------------------------
 # phase 3: the serving engine
 # ---------------------------------------------------------------------------
-def engine_phase(model, dev, n_req=16, max_new=32, n_check=4, seed=3,
-                 prefix=512, lo=64, hi=1024, **engine_kw):
+def engine_prompts(cfg, n_req=16, seed=3, prefix=512, lo=64, hi=1024):
+    """The serving workload: n_req prompts of lo..hi tokens, half of them
+    behind one shared prefix."""
     import numpy as np
-    import torch
 
-    from paddle_tpu_torch.ops import paged_attention as pa
-    from paddle_tpu_torch.profiler import registry
-    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
-
-    cfg = model.config
     rng = np.random.RandomState(seed)
     shared = rng.randint(0, cfg.vocab_size, prefix).astype(np.int32)
     # the shared requests' tails open with the same 8 tokens: their first
@@ -546,6 +821,22 @@ def engine_phase(model, dev, n_req=16, max_new=32, n_check=4, seed=3,
         else:
             n = rng.randint(lo, hi + 1)
             prompts.append(rng.randint(0, cfg.vocab_size, n).astype(np.int32))
+    return prompts
+
+
+def engine_phase(model, dev, n_req=16, max_new=32, n_check=4, keep=None,
+                 **engine_kw):
+    """keep: a dict that receives the prompts, the streams and the pool's
+    bytes (the kvint8 phase compares against them)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = model.config
+    prompts = engine_prompts(cfg, n_req)
     eng = ServingEngine(model, ServingConfig(**engine_kw))
     reg = registry()
     ticks0 = reg.counter("serving/ticks").value
@@ -594,31 +885,39 @@ def engine_phase(model, dev, n_req=16, max_new=32, n_check=4, seed=3,
     if rate < 0.9:
         emit(row)
         raise AssertionError(f"greedy match rate {rate} < 0.9")
-    row.update(warm_engine_profile(model, dev, prompts, max_new, engine_kw))
+    if keep is not None:
+        keep.update(prompts=prompts, streams=[out[r] for r in rids],
+                    pool_bytes=eng.pool.nbytes)
+    row.update(warm_engine_profile(model, dev, prompts, max_new,
+                                   engine_kw)[0])
     emit(row)
     return row
 
 
-def warm_engine_profile(model, dev, prompts, max_new, engine_kw) -> dict:
+def warm_engine_profile(model, dev, prompts, max_new, engine_kw):
     """The same requests again on fresh engines, now that every shape has
     run once: one run timed plainly (warm tokens/s), one under
     torch.profiler for the card's kernel time. Device busy share = summed
-    kernel time / the plain run's wall time."""
+    kernel time / the plain run's wall time. Returns (the numbers, the
+    plain run's streams)."""
     import torch
 
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
+    streams = []
+
     def serve():
         eng = ServingEngine(model, ServingConfig(**engine_kw))
-        for p in prompts:
-            eng.submit(p, max_new)
-        eng.run()
+        rids = [eng.submit(p, max_new) for p in prompts]
+        out = eng.run()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+        streams[:] = [out[r] for r in rids]
 
     t0 = time.perf_counter()
     serve()
     warm = time.perf_counter() - t0
+    warm_streams = list(streams)
     _, kernels = profile_kernels(dev, serve)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     return {
@@ -626,7 +925,7 @@ def warm_engine_profile(model, dev, prompts, max_new, engine_kw) -> dict:
         "warm_tokens_per_s": len(prompts) * max_new / warm,
         "warm_device_kernel_ms": busy_ms if kernels else None,
         "warm_device_busy_share": busy_ms / 1e3 / warm if kernels else None,
-        "warm_top_kernels": top_kernels(kernels, 6)}
+        "warm_top_kernels": top_kernels(kernels, 6)}, warm_streams
 
 
 def profile_kernels(dev, fn):
@@ -647,6 +946,278 @@ def top_kernels(kernels, n):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n]
     return [{"name": e.key[:70], "ms": e.self_device_time_total / 1e3,
              "count": e.count} for e in top]
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the serving engine on int8 KV pages
+# ---------------------------------------------------------------------------
+def ragged_prompt_logits(model, dev, toks, decode_toks=None, quantized=False,
+                         chunk=256, decode_steps=4, ps=16, nps=128,
+                         stride=8):
+    """gpt_ragged_apply over one prompt: chunks of `chunk` tokens (logits
+    at every `stride`-th position and the last), then `decode_steps`
+    one-token rows fed `decode_toks` (None: this run's own greedy tokens,
+    which it returns). f32 pools, or int8 pools with scales."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.models.gpt import gpt_ragged_apply
+
+    cfg = model.config
+    L, nh = cfg.num_layers, cfg.num_heads
+    hd = cfg.hidden_size // nh
+    seq = len(toks)
+    total = seq + decode_steps
+    kpool = torch.zeros(L, nps + 1, ps, nh, hd, device=dev,
+                        dtype=torch.int8 if quantized else torch.float32)
+    vpool = torch.zeros_like(kpool)
+    scales = {}
+    if quantized:
+        scales = dict(kscale=torch.zeros(L, nps + 1, nh, device=dev),
+                      vscale=torch.zeros(L, nps + 1, nh, device=dev))
+    tab = np.random.RandomState(seq).permutation(
+        np.arange(1, nps + 1)).astype(np.int32)[None]
+    stacked, other = model._decode_state()
+
+    def t(x, dtype=np.int32):
+        return torch.from_numpy(np.asarray(x, dtype)).to(dev)
+
+    def run(tokens, tok_pos, pos0, n, sample, nd, width):
+        with torch.inference_mode():
+            return gpt_ragged_apply(
+                cfg, stacked, other, kpool, vpool, t(tokens, np.int64),
+                t(tok_pos), t(np.full(len(tok_pos), total)), t(tab),
+                t([pos0]), t([n]), t(sample, np.int64), decode_rows=nd,
+                chunk_width=width, **scales)[0]
+
+    logits = []
+    for start in range(0, seq, chunk):
+        n = min(chunk, seq - start)
+        tokens = np.zeros(chunk, np.int64)
+        tokens[:n] = toks[start:start + n]
+        sample = sorted(set(range(0, n, stride)) | {n - 1})
+        logits.append(run(tokens, start + np.arange(chunk), start, n,
+                          sample, 0, chunk))
+    fed = []
+    nxt = int(logits[-1][-1].argmax())
+    for i in range(decode_steps):
+        tok = nxt if decode_toks is None else int(decode_toks[i])
+        fed.append(tok)
+        lg = run([tok], [seq + i], seq + i, 1, [0], 1, 0)
+        logits.append(lg)
+        nxt = int(lg[0].argmax())
+    if quantized and (float(scales["kscale"][:, 0].abs().max()) != 0.0
+                      or float(scales["vscale"][:, 0].abs().max()) != 0.0):
+        raise AssertionError("kvint8: the null page's scale moved")
+    return torch.cat(logits), fed
+
+
+def kvint8_reference(model, dev, keep, engine_kw, max_new=32, seq=1024,
+                     seed=9):
+    """What the kvint8 phase compares against, made with f32 pools before
+    its launch counts start: the f32 engine's streams and pool bytes
+    (taken from the engine phase when that ran) and the f32-pool logits of
+    one `seq`-token prompt."""
+    import numpy as np
+
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = model.config
+    if "streams" not in keep:
+        prompts = engine_prompts(cfg)
+        eng = ServingEngine(model, ServingConfig(**engine_kw))
+        rids = [eng.submit(p, max_new) for p in prompts]
+        out = eng.run()
+        keep.update(prompts=prompts, streams=[out[r] for r in rids],
+                    pool_bytes=eng.pool.nbytes)
+    toks = np.random.RandomState(seed).randint(0, cfg.vocab_size, seq)
+    logits, fed = ragged_prompt_logits(model, dev, toks)
+    keep.update(logit_toks=toks, logits=logits, fed=fed)
+    return keep
+
+
+def kvint8_phase(model, dev, ref, max_new=32, **engine_kw):
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = model.config
+    engine_kw = dict(engine_kw, kv_dtype="int8")
+    prompts = ref["prompts"]
+    # the hold on correctness: int8-pool logits against the f32-pool run
+    got, _ = ragged_prompt_logits(model, dev, ref["logit_toks"], ref["fed"],
+                                  quantized=True)
+    want = ref["logits"]
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"kvint8: logits {tuple(got.shape)} not finite")
+    rel = float((got - want).abs().max()) / float(want.abs().max())
+    argmax_match = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if rel > KVINT8_LOGIT_TOL:
+        raise AssertionError(f"kvint8: max |dlogit| / max |logit| {rel} > "
+                             f"{KVINT8_LOGIT_TOL}")
+    # the engine
+    reg = registry()
+    ticks0 = reg.counter("serving/ticks").value
+    cow0 = reg.counter("cache_share/cow_copies").value
+    r0 = pa.RAGGED_LAUNCHES
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    t0 = time.perf_counter()
+    eng = ServingEngine(model, ServingConfig(**engine_kw))
+    rids = [eng.submit(p, max_new) for p in prompts]
+    out = eng.run()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    streams = [out[r] for r in rids]
+    ticks = int(reg.counter("serving/ticks").value - ticks0)
+    ragged = pa.RAGGED_LAUNCHES - r0
+    pool = eng.pool
+    if not pool.quantized or pool.k.dtype != torch.int8:
+        raise AssertionError("kvint8: the pool is not int8")
+    if ragged < cfg.num_layers * ticks:
+        raise AssertionError(f"kvint8: ragged launches {ragged} < "
+                             f"{cfg.num_layers} x {ticks} ticks")
+    if int(reg.counter("cache_share/cow_copies").value - cow0) == 0:
+        raise AssertionError("kvint8: no copy-on-write page copy ran")
+    ratio = pool.nbytes / ref["pool_bytes"]
+    if ratio > KVINT8_BYTES_RATIO:
+        raise AssertionError(f"kvint8: pool bytes ratio {ratio}")
+    null = max(float(pool.k_scale[:, 0].abs().max()),
+               float(pool.v_scale[:, 0].abs().max()))
+    if null != 0.0:
+        raise AssertionError(f"kvint8: null-page scale {null}")
+    if eng.pool.check_consistency():
+        raise AssertionError(f"kvint8: {eng.pool.check_consistency()}")
+    match = sum(int((a == b).sum()) for a, b in zip(streams, ref["streams"]))
+    rate = match / (len(streams) * max_new)
+    row = {"phase": "kvint8", "config": "gpt3_1_3b", "requests": len(prompts),
+           "max_new_tokens": max_new, "ticks": ticks,
+           "ragged_launches": ragged, "wall_s": wall,
+           "tokens_per_s": len(prompts) * max_new / wall,
+           "pool_bytes": pool.nbytes, "f32_pool_bytes": ref["pool_bytes"],
+           "pool_bytes_ratio": ratio, "null_page_scale": null,
+           "logit_max_rel_err_vs_f32_pools": rel,
+           "logit_tolerance": KVINT8_LOGIT_TOL,
+           "logit_argmax_match": argmax_match,
+           "logit_positions": int(got.shape[0]),
+           "token_match_vs_f32_engine": rate,
+           "token_match_floor": KVINT8_MATCH_FLOOR,
+           "peak_memory_gib_above_model": (peak - mem0) / 2 ** 30}
+    if rate < KVINT8_MATCH_FLOOR:
+        emit(row)
+        raise AssertionError(f"kvint8: token match {rate} against the f32 "
+                             f"engine < {KVINT8_MATCH_FLOOR}")
+    prof, again = warm_engine_profile(model, dev, prompts, max_new, engine_kw)
+    for a, b in zip(streams, again):
+        if not np.array_equal(a, b):
+            raise AssertionError("kvint8: two int8 runs gave different "
+                                 "streams")
+    row["two_runs_equal"] = True
+    row.update(prof)
+    # every launch of this phase ran the kernel's int8 path
+    if pa.RAGGED_INT8_LAUNCHES != pa.RAGGED_LAUNCHES:
+        raise AssertionError(
+            f"kvint8: {pa.RAGGED_LAUNCHES - pa.RAGGED_INT8_LAUNCHES} ragged "
+            "launches did not run over int8 pools")
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 7: int8 deploy of a quantized MLP
+# ---------------------------------------------------------------------------
+def deploy_phase(dev, iters, batch=4096, d=4096, h=16384, seed=7):
+    """QAT().quantize -> calibration forward -> eval ->
+    convert_to_int8_deploy -> net(x) on Sequential(Linear(d, h), ReLU,
+    Linear(h, d)), calibrated on f32 x and served on the same x in bf16."""
+    import torch
+
+    from paddle_tpu_torch import nn, quantization as Q
+    from paddle_tpu_torch.core import rng as _rng
+    from paddle_tpu_torch.ops import int8_matmul as im
+
+    _rng.seed(seed)
+    net = nn.Sequential(nn.Linear(d, h, device=dev), nn.ReLU(),
+                        nn.Linear(h, d, device=dev))
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(batch, d, generator=g, device=dev) * 0.5
+    Q.QAT().quantize(net)
+    net.train()
+    with torch.no_grad():
+        net(x)                      # calibration forward
+    net.eval()
+    with torch.no_grad():
+        want = net(x)               # the QAT-eval output
+    if Q.convert_to_int8_deploy(net) != 2:
+        raise AssertionError("deploy: expected 2 converted layers")
+    fc1, fc2 = net[0], net[2]
+    if not (fc1._fuse_relu and fc1._next_scale is fc2.act_scale
+            and fc2._int8_src is fc1):
+        raise AssertionError("deploy: the fusion pass did not wire fc1 -> "
+                             "fc2")
+    xb = x.bfloat16()
+    mids = []
+    hook = fc1.register_forward_hook(lambda m, i, o: mids.append(o))
+    n0 = im.INT8_MATMUL_LAUNCHES
+    got = net(xb)
+    launches = im.INT8_MATMUL_LAUNCHES - n0
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        if launches != 2:
+            raise AssertionError(f"deploy: one forward made {launches} "
+                                 "launches of the int8 matmul, not 2")
+    if got.dtype != torch.bfloat16 or got.shape != (batch, d) or \
+            not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"deploy: output {got.dtype} "
+                             f"{tuple(got.shape)}")
+    # the plain chain: this script binds the plain version in place of the
+    # kernel launch (in this process only; the package has no such switch)
+    saved = im._int8_matmul_cuda
+    try:
+        im._int8_matmul_cuda = im._plain_int8_matmul
+        ref = net(xb)
+    finally:
+        im._int8_matmul_cuda = saved
+        hook.remove()
+    mid, mid_ref = mids
+    if mid.dtype != torch.int8 or not torch.equal(mid, mid_ref):
+        raise AssertionError("deploy: the int8 intermediate differs from "
+                             "the plain chain's")
+    if int(mid.max()) < 50 or int(mid.min()) != 0:
+        raise AssertionError("deploy: the int8 intermediate is degenerate")
+    err = float((got.float() - ref.float()).abs().max())
+    if not torch.allclose(got.float(), ref.float(), rtol=2.0 ** -7,
+                          atol=INT8_MM_ATOL):
+        raise AssertionError(f"deploy: output differs from the plain "
+                             f"chain's by {err}")
+    rel = float((got.float() - want).abs().max()) / float(want.abs().max())
+    if rel > DEPLOY_QAT_TOL:
+        raise AssertionError(f"deploy: max error against the QAT-eval "
+                             f"output {rel} of max |y| > {DEPLOY_QAT_TOL}")
+    with torch.inference_mode():
+        ms = time_ms(lambda: net(xb), iters, dev)
+    row = {"phase": "deploy", "model": f"Sequential(Linear({d}, {h}), ReLU, "
+                                       f"Linear({h}, {d}))",
+           "batch": batch, "input_dtype": "bfloat16",
+           "output_dtype": "bfloat16", "int8_matmul_launches": launches,
+           "int8_intermediate_equal_plain": True,
+           "max_abs_err_vs_plain_chain": err,
+           "plain_chain_tolerance": {"rtol": 2.0 ** -7,
+                                     "atol": INT8_MM_ATOL},
+           "plain_chain_tolerance_reason": "both round the same f32 "
+                                           "result to bf16: one bf16 ulp",
+           "max_rel_err_vs_qat_eval": rel, "qat_tolerance": DEPLOY_QAT_TOL,
+           "forward_ms": ms,
+           "tops": 4.0 * batch * d * h / (ms * 1e-3) / 1e12}
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -824,7 +1395,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
-    ap.add_argument("--phases", default="kernels,model,engine,grad,train",
+    ap.add_argument("--phases", default="kernels,model,engine,kvint8,deploy,"
+                                        "grad,train",
                     help="comma-separated subset (debugging)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -849,6 +1421,7 @@ def main(argv=None) -> int:
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import int8_matmul as im
     from paddle_tpu_torch.ops import paged_attention as pa
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -901,6 +1474,25 @@ def main(argv=None) -> int:
         kern["bwd_single"] = bw[0]
         kern["bwd_dq"] = next(r for r in bw if r["kernel"].endswith("_dq"))
         kern["bwd_dkv"] = next(r for r in bw if r["kernel"].endswith("_dkv"))
+        rq = kernel_phase_ragged_int8(dev, args.iters, nh=nh, hd=hd)
+        kern["ragged_int8"] = next(
+            r for r in rq if r["case"] == "decode_R8_T1"
+            and r["q_dtype"] == "float32")
+        # (M, K, N, x, relu, quant_out, out, bias): the deploy model's two
+        # layers (fc1 under bf16 x with ReLU + requantize is the main
+        # path's first launch, fc2 under int8 x its second), then ragged
+        # edges in M, K and N
+        mm = kernel_phase_int8_matmul(dev, args.iters, [
+            (4096, 4096, 16384, "bfloat16", True, True, "float32", True),
+            (4096, 16384, 4096, "int8", False, False, "bfloat16", True),
+            (4096, 4096, 16384, "float32", False, False, "float32", True),
+            (4096, 4096, 16384, "bfloat16", False, False, "float32", True),
+            (4096, 4096, 16384, "float32", True, True, "float32", True),
+            (67, 130, 45, "float32", False, False, "float32", True),
+            (67, 130, 45, "float32", False, False, "float32", False),
+            (67, 130, 45, "bfloat16", True, True, "float32", True),
+            (67, 130, 45, "int8", False, False, "bfloat16", False)])
+        kern["int8_matmul"] = mm[0]
 
     from paddle_tpu_torch.core import rng as _rng
 
@@ -910,7 +1502,9 @@ def main(argv=None) -> int:
                 "bwd_single": (fa, "FLASH_BWD_SINGLE_LAUNCHES"),
                 "bwd_dq": (fa, "FLASH_BWD_DQ_LAUNCHES"),
                 "bwd_dkv": (fa, "FLASH_BWD_DKV_LAUNCHES"),
-                "ragged": (pa, "RAGGED_LAUNCHES")}
+                "ragged": (pa, "RAGGED_LAUNCHES"),
+                "ragged_int8": (pa, "RAGGED_INT8_LAUNCHES"),
+                "int8_matmul": (im, "INT8_MATMUL_LAUNCHES")}
     launches = {k: 0 for k in counters}
     by_path = {}
 
@@ -927,17 +1521,25 @@ def main(argv=None) -> int:
             raise AssertionError(f"the {path} path never launched {missing}")
 
     model = None
-    if phases & {"model", "engine"}:
+    if phases & {"model", "engine", "kvint8"}:
         _rng.seed(0)
         model = GPT(cfg, device=dev)
         model.eval()
     if "model" in phases:
         drive("model", ("flash", "ragged"), model_phase, model, dev)
+    engine_kw = dict(num_slots=8, page_size=16, pages_per_slot=128,
+                     prefill_chunk=256, prefill_chunks_per_tick=2)
+    f32_run = {}
     if "engine" in phases:
-        drive("engine", ("ragged",), engine_phase, model, dev, num_slots=8,
-              page_size=16, pages_per_slot=128, prefill_chunk=256,
-              prefill_chunks_per_tick=2)
-    del model
+        drive("engine", ("ragged",), engine_phase, model, dev, keep=f32_run,
+              **engine_kw)
+    if "kvint8" in phases:
+        kvint8_reference(model, dev, f32_run, engine_kw)
+        drive("kvint8", ("ragged", "ragged_int8"), kvint8_phase, model, dev,
+              f32_run, **engine_kw)
+    del model, f32_run
+    if "deploy" in phases:
+        drive("deploy", ("int8_matmul",), deploy_phase, dev, args.iters)
     if "grad" in phases:
         drive("grad", ("flash", "bwd_dq", "bwd_dkv"), grad_phase, dev)
     if "train" in phases:
@@ -960,7 +1562,13 @@ def main(argv=None) -> int:
                  "paddle_tpu/ops/flash_attention.py:264"),
                 ("ragged", "ragged_paged_attention",
                  "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
-                 "paddle_tpu/ops/paged_attention.py:294")):
+                 "paddle_tpu/ops/paged_attention.py:294"),
+                ("ragged_int8", "ragged_paged_attention_int8",
+                 "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+                 "paddle_tpu/ops/paged_attention.py:294"),
+                ("int8_matmul", "int8_matmul",
+                 "paddle_tpu_torch/csrc/int8_matmul.cu",
+                 "paddle_tpu/ops/int8_matmul.py:50")):
             r = kern[key]
             line.append({"name": name, "route": "cuda", "source": src,
                          "replaces": replaces, "launches": launches[key],

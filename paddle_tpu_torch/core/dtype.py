@@ -6,13 +6,14 @@ import torch
 
 float32 = torch.float32
 bfloat16 = torch.bfloat16
+int8 = torch.int8
 int32 = torch.int32
 int64 = torch.int64
 
 _ALIASES = {
     "float32": float32, "fp32": float32, "float": float32, "f32": float32,
     "bfloat16": bfloat16, "bf16": bfloat16,
-    "int32": int32, "int64": int64,
+    "int8": int8, "int32": int32, "int64": int64,
 }
 
 

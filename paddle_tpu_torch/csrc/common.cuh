@@ -5,16 +5,19 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace ptt {
 
-// dtype codes passed through the C interface (ops/*.py: _DTYPE_CODE)
-enum DtypeCode { DT_F32 = 0, DT_BF16 = 1 };
+// dtype codes passed through the C interface (ops/_cuda.py: DTYPE_CODE);
+// int8 is a storage type of quantized operands only
+enum DtypeCode { DT_F32 = 0, DT_BF16 = 1, DT_INT8 = 2 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);

@@ -318,7 +318,7 @@ def gpt_block_body(xc, p, eps, nh, hd, attend):
 def gpt_ragged_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
                      tokens, tok_pos, tok_limit, row_tab, row_pos0,
                      row_len, sample_ix, decode_rows: int,
-                     chunk_width: int):
+                     chunk_width: int, kscale=None, vscale=None):
     """Mixed prefill/decode forward over the PAGED cache: every token in
     flight rides one call. ``tokens`` [NT] is the flat token buffer of
     one serving tick — ``decode_rows`` resident decode tokens followed by
@@ -340,6 +340,13 @@ def gpt_ragged_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
     through ``ops.paged_attention.ragged_paged_attention`` once per row
     group and layer: decode rows as ``[decode_rows, 1]``, chunk rows as
     ``[num_chunks, chunk_width]``. Returns (logits [S, V], kpool, vpool).
+
+    ``kscale``/``vscale`` [L, P, NH] f32: per-page per-head scales of an
+    int8 pool, updated in place like the pools. When given, every token's
+    KV write goes through the quantizing ``paged_kv_scatter`` and the
+    attention dequantizes with the same scales; the return grows to
+    (logits, kpool, vpool, kscale, vscale). Numerics are tolerance, not
+    bitwise, against the unquantized pool.
     """
     from ..ops.paged_attention import (paged_kv_scatter,
                                       ragged_paged_attention)
@@ -368,23 +375,26 @@ def gpt_ragged_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
         torch.zeros((), dtype=row_tab.dtype, device=dev))
     off = tok_pos % ps
 
+    quantized = kscale is not None
     for layer, p in enumerate(stacked):
         kpl, vpl = kpool[layer], vpool[layer]
+        ksl = kscale[layer] if quantized else None
+        vsl = vscale[layer] if quantized else None
 
         def attend(q, kk, vv):
-            paged_kv_scatter(kpl, None, page, off, kk[:, 0])
-            paged_kv_scatter(vpl, None, page, off, vv[:, 0])
+            paged_kv_scatter(kpl, ksl, page, off, kk[:, 0])
+            paged_kv_scatter(vpl, vsl, page, off, vv[:, 0])
             q = q.contiguous()
             outs = []
             if nd:
                 outs.append(ragged_paged_attention(
                     q[:nd], kpl, vpl, row_tab[:nd], row_pos0[:nd],
-                    row_len[:nd]))
+                    row_len[:nd], k_scale=ksl, v_scale=vsl))
             if nch:
                 qp = q[nd:, 0].reshape(nch, chunk_width, nh, hd)
                 op = ragged_paged_attention(
                     qp, kpl, vpl, row_tab[nd:], row_pos0[nd:],
-                    row_len[nd:])
+                    row_len[nd:], k_scale=ksl, v_scale=vsl)
                 outs.append(op.reshape(nch * chunk_width, 1, nh, hd))
             return (outs[0] if len(outs) == 1 else torch.cat(outs)), None
 
@@ -395,6 +405,8 @@ def gpt_ragged_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
         logits = last @ other["lm_head.weight"]
     else:
         logits = last @ wte.T
+    if quantized:
+        return logits, kpool, vpool, kscale, vscale
     return logits, kpool, vpool
 
 

@@ -1,10 +1,13 @@
-"""Layers, initializers, functionals and gradient-clip configs this slice
-needs (mirrors ``paddle_tpu.nn``)."""
+"""Layers, initializers, functionals and gradient-clip configs the ported
+slices need (mirrors ``paddle_tpu.nn``). ``Sequential`` and ``ReLU`` are
+PyTorch's own, beside the port's ``[in, out]`` ``Linear``."""
+from torch.nn import ReLU, Sequential
+
 from .layer.common import Embedding, Linear
 from .layer.norm import LayerNorm
 
-__all__ = ["Embedding", "Linear", "LayerNorm", "ClipGradByNorm",
-           "ClipGradByGlobalNorm", "ClipGradByValue"]
+__all__ = ["Embedding", "Linear", "LayerNorm", "ReLU", "Sequential",
+           "ClipGradByNorm", "ClipGradByGlobalNorm", "ClipGradByValue"]
 
 
 class ClipGradByNorm:

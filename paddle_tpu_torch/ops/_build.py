@@ -29,7 +29,7 @@ BUILD_DIR = _PKG / "_build"
 
 #: every kernel source of the package, built together on first use
 SOURCES = ("flash_attention_fwd", "flash_attention_bwd",
-           "ragged_paged_attention")
+           "ragged_paged_attention", "int8_matmul")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",

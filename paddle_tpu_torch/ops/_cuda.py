@@ -10,8 +10,13 @@ import torch
 
 from . import _build
 
-#: dtype codes of the kernels' C interface (csrc/common.cuh DtypeCode)
+#: dtype codes of the kernels' C interface (csrc/common.cuh DtypeCode):
+#: the float types every kernel computes in ...
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+#: ... and those plus int8, the storage type of quantized operands (KV page
+#: pools with per-page scales; x, wq and the requantized output of the
+#: int8 matmul)
+STORAGE_DTYPE_CODE = {**DTYPE_CODE, torch.int8: 2}
 
 _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _CTYPES = {"p": _VP, "i": _INT, "f": _FLOAT}

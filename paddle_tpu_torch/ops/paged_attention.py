@@ -16,8 +16,15 @@ the null page (writes of inactive rows land there, gathers of unallocated
 table entries read it and are masked). ``paged_kv_scatter`` writes a
 tick's KV into the pool in place (``index_put_``).
 
-Not in this slice: int8 pools with per-page scales (ROADMAP queue 1
-item 3; queue 2, the int8 path of row 5).
+Quantized pools (``kv_dtype="int8"``): the pools store int8 values plus
+per-page per-head f32 scales ``[P, NH]`` per layer. The write side is
+``paged_kv_scatter``: each token's per-head amax scatter-maxes into its
+page's scale, resident page content is re-quantized when the scale grows,
+and the token is quantized at the final scale; the null page's scale stays
+0. The read side dequantizes right after the gather in ``_gather_attend``
+and, on the card, inside the kernel (a page's scale for the block's head
+folded into the scores and the weights). Unquantized pools take none of
+these operations.
 """
 from __future__ import annotations
 
@@ -28,18 +35,20 @@ import torch
 from . import _cuda
 
 __all__ = ["ragged_paged_attention", "paged_decode_attention",
-           "paged_prefill_attention", "paged_kv_scatter", "RAGGED_LAUNCHES"]
+           "paged_prefill_attention", "paged_kv_scatter", "RAGGED_LAUNCHES",
+           "RAGGED_INT8_LAUNCHES"]
 
 #: launches of the CUDA kernel (incremented once per launch, nowhere else)
 RAGGED_LAUNCHES = 0
+#: those of them that ran over int8 pools (the kernel's int8 path)
+RAGGED_INT8_LAUNCHES = 0
 
 _NEG_INF = -1e9     # same masking constant as the reference
 
-_INT8_TODO = ("int8 KV pools (per-page scales) are not ported yet: "
-              "ROADMAP queue 1 item 3 (int8), queue 2 row 5 int8 path")
 
 
-def _gather_attend(q, k_pool, v_pool, page_table, qpos):
+def _gather_attend(q, k_pool, v_pool, page_table, qpos,
+                   k_scale=None, v_scale=None):
     """The plain version: gather + mask + f32 softmax.
 
     q           [R, T, NH, D]  queries
@@ -47,11 +56,18 @@ def _gather_attend(q, k_pool, v_pool, page_table, qpos):
     v_pool      [P, ps, NH, D] per-layer value page pool
     page_table  [R, NPs] int32 page ids per row (0 = null page)
     qpos        [R, T] int32   last attendable cache position per query
+    k_scale     [P, NH] f32    per-page per-head dequant scales (int8
+    v_scale     [P, NH]        pools only; None leaves the math untouched)
 
     Every reduction runs at the full slot capacity ``NPs * ps`` with
     exact-zero weights behind the mask. A pool stored narrower than the
     queries (bf16 pool, f32 model) is upcast after the gather; the
-    contraction runs at the wider of the two dtypes. Returns
+    contraction runs at the wider of the two dtypes. Quantized pools
+    dequantize right after the gather, as the reference spells it: the
+    int8 values cast to the query dtype times the gathered f32 scales
+    (null pages carry scale 0, so their bytes read as exact zeros), which
+    promotes to f32; the softmax weights are rounded to the query dtype
+    before the second contraction, as the reference's are. Returns
     ``[R, T, NH, D]`` in the query dtype.
     """
     r = q.shape[0]
@@ -61,7 +77,12 @@ def _gather_attend(q, k_pool, v_pool, page_table, qpos):
     tab = page_table.long()
     k_c = k_pool[tab]                       # [R, NPs, ps, NH, D]
     v_c = v_pool[tab]
-    wide = torch.promote_types(k_pool.dtype, q.dtype)
+    if k_scale is not None:
+        k_c = k_c.to(q.dtype) * k_scale[tab][:, :, None, :, None]
+        v_c = v_c.to(q.dtype) * v_scale[tab][:, :, None, :, None]
+        wide = k_c.dtype
+    else:
+        wide = torch.promote_types(k_pool.dtype, q.dtype)
     qw = q.to(wide)
     k_c = k_c.to(wide).reshape(r, s_cap, nh, hd)
     v_c = v_c.to(wide).reshape(r, s_cap, nh, hd)
@@ -69,7 +90,7 @@ def _gather_attend(q, k_pool, v_pool, page_table, qpos):
     mask = key_pos[None, None, None, :] <= qpos[:, None, :, None]
     att = torch.einsum("btnd,bsnd->bnts", qw, k_c) / math.sqrt(hd)
     att = torch.where(mask, att, _NEG_INF)
-    w = torch.softmax(att.float(), dim=-1).to(wide)
+    w = torch.softmax(att.float(), dim=-1).to(q.dtype).to(wide)
     out = torch.einsum("bnts,bsnd->btnd", w, v_c)
     return out.to(q.dtype)
 
@@ -79,11 +100,13 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, pos0, true_len,
     """One attention call over ragged rows of the page pool.
 
     q           [R, T, NH, D]  per-row query blocks
-    k_pool      [P, ps, NH, D] per-layer key page pool (f32 or bf16)
+    k_pool      [P, ps, NH, D] per-layer key page pool (f32, bf16, int8)
     v_pool      [P, ps, NH, D] per-layer value page pool
     page_table  [R, NPs] int32 page ids per row (0 = null page)
     pos0        [R] int32      absolute position of each row's query 0
     true_len    [R] int32      real queries in the row (1 = decode row)
+    k_scale     [P, NH] f32    dequant scales of int8 pools (both given
+    v_scale     [P, NH]        with int8 pools, neither otherwise)
 
     Query ``i`` of row ``r`` attends cache positions ``<= pos0[r] + i``.
     Queries at ``i >= true_len[r]`` are computed anyway and are garbage
@@ -91,30 +114,45 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, pos0, true_len,
     real query, so the garbage differs between versions). Returns
     ``[R, T, NH, D]`` in the query dtype.
     """
-    if k_scale is not None or v_scale is not None:
-        raise NotImplementedError(_INT8_TODO)
-    for t in (k_pool, v_pool, page_table, pos0, true_len):
+    quantized = k_pool.dtype == torch.int8
+    if (k_scale is None) != (v_scale is None) or \
+            quantized != (k_scale is not None):
+        raise ValueError("ragged_paged_attention: int8 pools come with "
+                         "k_scale and v_scale, other pools with neither")
+    scales = (k_scale, v_scale) if quantized else ()
+    for t in (k_pool, v_pool, page_table, pos0, true_len) + scales:
         if t.device != q.device:
             raise ValueError("ragged_paged_attention: all arguments must be "
                              f"on {q.device}, got one on {t.device}")
-        if t is not k_pool and t is not v_pool and t.dtype != torch.int32:
+    for t in (page_table, pos0, true_len):
+        if t.dtype != torch.int32:
             raise TypeError("ragged_paged_attention: page_table, pos0 and "
                             f"true_len must be int32, got {t.dtype}")
+    for t in scales:
+        if t.dtype != torch.float32 or \
+                tuple(t.shape) != (k_pool.shape[0], k_pool.shape[2]):
+            raise TypeError("ragged_paged_attention: k_scale and v_scale "
+                            "must be f32 [P, NH], got "
+                            f"{t.dtype} {tuple(t.shape)}")
     if q.device.type == "cpu":
         t = q.shape[1]
         qpos = pos0[:, None] + torch.arange(t, dtype=pos0.dtype)[None, :]
-        return _gather_attend(q, k_pool, v_pool, page_table, qpos)
-    return _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len)
+        return _gather_attend(q, k_pool, v_pool, page_table, qpos,
+                              k_scale=k_scale, v_scale=v_scale)
+    return _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len,
+                        k_scale, v_scale)
 
 
-def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len):
-    global RAGGED_LAUNCHES
+def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len,
+                 k_scale=None, v_scale=None):
+    global RAGGED_LAUNCHES, RAGGED_INT8_LAUNCHES
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"ragged_paged_attention: unsupported device {dev}")
     name = "ragged_paged_attention"
-    _cuda.check_cuda(name, (q, k_pool, v_pool, page_table, pos0, true_len),
-                     dev)
+    scales = () if k_scale is None else (k_scale, v_scale)
+    _cuda.check_cuda(name, (q, k_pool, v_pool, page_table, pos0, true_len)
+                     + scales, dev)
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
         raise ValueError(f"{name}: q [R, T, NH, D] and pools [P, ps, NH, D] "
                          f"expected, got q {tuple(q.shape)} k_pool "
@@ -129,36 +167,45 @@ def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len):
         raise ValueError(f"{name}: page_table [R, NPs], pos0 [R] and "
                          f"true_len [R] expected for R={r}")
     if q.dtype not in _cuda.DTYPE_CODE or \
-            k_pool.dtype not in _cuda.DTYPE_CODE or \
+            k_pool.dtype not in _cuda.STORAGE_DTYPE_CODE or \
             v_pool.dtype != k_pool.dtype:
-        raise TypeError(f"{name}: q and pools must be f32 or bf16, got "
-                        f"{q.dtype}/{k_pool.dtype}/{v_pool.dtype}")
+        raise TypeError(f"{name}: q must be f32 or bf16 and the pools f32, "
+                        f"bf16 or int8, got {q.dtype}/{k_pool.dtype}/"
+                        f"{v_pool.dtype}")
     if ps > 32 or hd > 256:
         raise ValueError(f"{name}: kernel supports page_size <= 32 and "
                          f"head_dim <= 256, got {ps} and {hd}")
     out = torch.empty_like(q)
-    fn = _cuda.entry(name, name, "pppppppiiiiiiiifp")
+    fn = _cuda.entry(name, name, "pppppppppiiiiiiiifp")
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  page_table.data_ptr(), pos0.data_ptr(), true_len.data_ptr(),
+                 None if k_scale is None else k_scale.data_ptr(),
+                 None if v_scale is None else v_scale.data_ptr(),
                  out.data_ptr(), r, t, nh, hd, ps, page_table.shape[1],
-                 _cuda.DTYPE_CODE[q.dtype], _cuda.DTYPE_CODE[k_pool.dtype],
+                 _cuda.DTYPE_CODE[q.dtype],
+                 _cuda.STORAGE_DTYPE_CODE[k_pool.dtype],
                  1.0 / math.sqrt(hd), _cuda.stream_handle(dev))
     _cuda.raise_on_error(name, err)
     RAGGED_LAUNCHES += 1
+    if k_scale is not None:
+        RAGGED_INT8_LAUNCHES += 1
     return out
 
 
-def paged_decode_attention(q, k_pool, v_pool, page_table, attend_pos):
+def paged_decode_attention(q, k_pool, v_pool, page_table, attend_pos,
+                           k_scale=None, v_scale=None):
     """One decode step: a ragged call where every row is a single query
     at its slot's write position. q [B, 1, NH, D]; attend_pos [B] int32.
     Returns [B, 1, NH, D]."""
     ones = torch.ones_like(attend_pos)
     return ragged_paged_attention(q, k_pool, v_pool, page_table,
-                                  attend_pos, ones)
+                                  attend_pos, ones, k_scale=k_scale,
+                                  v_scale=v_scale)
 
 
-def paged_prefill_attention(q, k_pool, v_pool, page_table, pos0):
+def paged_prefill_attention(q, k_pool, v_pool, page_table, pos0,
+                            k_scale=None, v_scale=None):
     """Suffix-prefill (chunked) attention: each batch row is a T-query
     chunk starting at the shared position ``pos0``. The chunk's own KV
     must already be in the pool. Returns [B, T, NH, D]."""
@@ -166,23 +213,59 @@ def paged_prefill_attention(q, k_pool, v_pool, page_table, pos0):
     row_pos0 = torch.full((b,), int(pos0), dtype=torch.int32,
                           device=q.device)
     tl = torch.full((b,), t, dtype=torch.int32, device=q.device)
-    return ragged_paged_attention(q, k_pool, v_pool, page_table, row_pos0, tl)
+    return ragged_paged_attention(q, k_pool, v_pool, page_table, row_pos0, tl,
+                                  k_scale=k_scale, v_scale=v_scale)
 
 
 def paged_kv_scatter(pool, scale, page, off, vals):
     """Write one tick's per-token KV into the page pool, in place.
 
-    pool   [P, ps, NH, D]  per-layer page pool (f32/bf16)
-    scale  None            (per-page scales of int8 pools: not ported)
+    pool   [P, ps, NH, D]  per-layer page pool (f32/bf16/int8)
+    scale  [P, NH] f32     per-page per-head scales (int8 pools; None
+                           otherwise)
     page   [NT] int        target page per token (0 = null page)
     off    [NT] int        offset within the page
     vals   [NT, NH, D]     the token KV (cast to the pool dtype)
 
-    Returns (pool, None): the same pool tensor, updated in place (the JAX
-    reference returns a new array; the port has no donation and saves
-    the copy).
+    Unquantized pools: one scatter. int8 pools quantize on write with
+    running per-page scales, as the reference does:
+
+    1. each token's per-head ``amax / 127`` scatter-maxes into its page's
+       scale row (null-page contributions masked to 0, so the null page's
+       scale stays 0);
+    2. the resident int8 content of every written page is re-quantized
+       ``round(q * s_old / s_new)`` — an exact no-op while the scale is
+       unchanged; a freshly reset page (``s_old == 0``) is zeroed;
+    3. the token is quantized at the final scale (``|q| <= 127``).
+
+    Duplicate page targets (a chunk landing several tokens in one page)
+    are safe: every duplicate computes the same rescaled page from the
+    same pre-write content, and the offset writes are disjoint. Not a
+    Pallas kernel in the reference, so plain PyTorch on both devices.
+
+    Returns (pool, scale): the same tensors, updated in place (the JAX
+    reference returns new arrays; the port has no donation and saves the
+    copies). Everything the update reads — the old scales, the gathered
+    pages, the new scales — is read before the page rewrite and the token
+    write.
     """
-    if scale is not None:
-        raise NotImplementedError(_INT8_TODO)
-    pool.index_put_((page.long(), off.long()), vals.to(pool.dtype))
-    return pool, None
+    page, off = page.long(), off.long()
+    if scale is None:
+        pool.index_put_((page, off), vals.to(pool.dtype))
+        return pool, None
+    vals = vals.float()
+    a = vals.abs().amax(dim=-1) / 127.0                     # [NT, NH]
+    a = torch.where((page > 0)[:, None], a, torch.zeros_like(a))
+    s_old = scale[page]                                     # [NT, NH]
+    scale.scatter_reduce_(0, page[:, None].expand_as(a), a, "amax",
+                          include_self=True)
+    s_new = scale[page]
+    ratio = torch.where(s_new > 0.0, s_old / s_new.clamp_min(1e-30),
+                        torch.zeros_like(s_new))
+    pg = pool[page].float()                                 # [NT, ps, NH, D]
+    pg = torch.round(pg * ratio[:, None, :, None])
+    pool.index_put_((page,), pg.to(torch.int8))
+    q = torch.round(vals / s_new.clamp_min(1e-30)[:, :, None])
+    q = q.clamp_(-127.0, 127.0)
+    pool.index_put_((page, off), q.to(torch.int8))
+    return pool, scale

@@ -28,8 +28,17 @@ bought the reference. The kernel or its plain version is chosen by the
 pools' device alone; there is no knob that selects the plain version on
 a card.
 
+``kv_dtype="int8"`` stores the pools as int8 with per-page per-head f32
+scales (about a quarter of the f32 pool's bytes): every KV write goes
+through the quantizing ``paged_kv_scatter`` and every read dequantizes
+with the same scales, in the kernel on a card. The scale rows of pages
+that were allocated or freed since the last tick are reset at the head of
+the tick, before anything reads them; a copy-on-write page keeps its
+donor's scales. Streams agree with the unquantized engine by a match
+rate, not bitwise; two int8 engines on the same schedule agree exactly.
+
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): ``decode="sampling"``, ``kv_dtype="int8"``, speculative
+ROADMAP item): ``decode="sampling"``, speculative
 decoding (``spec``), the legacy two-dispatch mode
 (``attention_kernel="legacy"``), disaggregated export/import and prefix
 chain migration. The event timeline and recompile telemetry come with
@@ -58,7 +67,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..core.dtype import convert_dtype
 from ..models.gpt import gpt_ragged_apply
 from ..profiler.metrics import registry as _registry
 from .paged_cache import PagePool
@@ -68,8 +76,6 @@ __all__ = ["ServingConfig", "ServingEngine", "Request"]
 
 _TODO_SAMPLING = ("decode='sampling' is not ported yet: ROADMAP queue 1 "
                   "item 4 (dense decode and sampling)")
-_TODO_INT8 = ("kv_dtype='int8' is not ported yet: ROADMAP queue 1 item 3 "
-              "(int8: kernel row 6 and the int8 path of row 5)")
 _TODO_SPEC = ("speculative decoding is not ported yet: ROADMAP queue 1 "
               "item 5 (speculative decoding)")
 _TODO_SERVING = ("is not ported yet: ROADMAP queue 1 item 6 (serving "
@@ -95,7 +101,7 @@ class ServingConfig:
     prefix_cache: bool = True        # share prompt-prefix pages
     max_inflight: int = 2            # unmaterialized ticks in flight
     decode: str = "greedy"           # 'greedy' ('sampling': later slice)
-    kv_dtype: Optional[str] = None   # None (model dtype) | 'f32' | 'bf16'
+    kv_dtype: Optional[str] = None   # None (model dtype)|'f32'|'bf16'|'int8'
     eos_token_id: Optional[int] = None
     attention_kernel: Optional[str] = None   # only 'legacy' is recognized
     spec: Optional[object] = None            # speculative decoding config
@@ -180,14 +186,13 @@ class ServingEngine:
         self.device = model.device
         self._stacked, self._other = model._decode_state()
         self._dtype = self._other["embeddings.wte.weight"].dtype
-        if cfg.kv_dtype == "int8":
-            raise NotImplementedError(_TODO_INT8)
-        kv_dtype = self._dtype if cfg.kv_dtype is None \
-            else convert_dtype(cfg.kv_dtype)
-        if kv_dtype not in (torch.float32, torch.bfloat16):
+        kv_map = {None: self._dtype, "f32": torch.float32,
+                  "bf16": torch.bfloat16, "int8": torch.int8}
+        if cfg.kv_dtype not in kv_map:
             raise ValueError(
                 f"unknown kv_dtype {cfg.kv_dtype!r}; expected one of "
-                "None (model dtype), 'f32', 'bf16'")
+                "None (model dtype), 'f32', 'bf16', 'int8'")
+        kv_dtype = kv_map[cfg.kv_dtype]
         nh = mcfg.num_heads
         hd = mcfg.hidden_size // nh
         ps = cfg.page_size
@@ -201,6 +206,12 @@ class ServingEngine:
         if self.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         b_slots = cfg.num_slots
+        # int8 pools: the fixed size of the per-tick scale-reset vector
+        # (paged_cache.take_fresh), past the most one scheduler step can
+        # list: decode growth (<= 1 page per slot), the selected chunks'
+        # pages, and pages freed by finishes and preemptions in between
+        self._fresh_cap = (b_slots + cfg.prefill_chunks_per_tick
+                           * (self.prefill_chunk // ps + 2) + 8)
         self._sched = ChunkScheduler(
             cfg.scheduler, b_slots, self.pool.slot_capacity,
             self.prefill_chunk, cfg.prefill_chunks_per_tick)
@@ -662,18 +673,31 @@ class ServingEngine:
                 emit[s] = 1
         # a tick without chunks runs the decode rows alone
         n_tok, n_row = (nt, ns + npf) if chunks else (ns, ns)
+        pool = self.pool
+        # int8 pools: drain the pending scale resets BEFORE the scale
+        # tensors are used (the overflow path rewrites them at once)
+        fresh = pool.take_fresh(self._fresh_cap) if pool.quantized \
+            else np.zeros(0, np.int32)
         with torch.inference_mode():
-            (pf_d, pos_d, lim_d, tab_d, p0_d, len_d, six_d,
-             emit_d) = _to_device(self.device, pf_toks, tok_pos[:n_tok],
-                                  tok_limit[:n_tok], row_tab[:n_row],
-                                  row_pos0[:n_row], row_len[:n_row],
-                                  sample_ix, emit)
+            (pf_d, pos_d, lim_d, tab_d, p0_d, len_d, six_d, emit_d,
+             fresh_d) = _to_device(self.device, pf_toks, tok_pos[:n_tok],
+                                   tok_limit[:n_tok], row_tab[:n_row],
+                                   row_pos0[:n_row], row_len[:n_row],
+                                   sample_ix, emit, fresh)
             tokens = torch.cat([self._last_tok, pf_d.long()]) if chunks \
                 else self._last_tok
-            logits, _, _ = gpt_ragged_apply(
+            scales = {}
+            if pool.quantized:
+                # the tick's scale reset (fresh pads with the null page,
+                # whose scale is 0)
+                pool.k_scale.index_fill_(1, fresh_d.long(), 0.0)
+                pool.v_scale.index_fill_(1, fresh_d.long(), 0.0)
+                scales = dict(kscale=pool.k_scale, vscale=pool.v_scale)
+            logits = gpt_ragged_apply(
                 self.model_config, self._stacked, self._other,
-                self.pool.k, self.pool.v, tokens, pos_d, lim_d, tab_d,
-                p0_d, len_d, six_d.long(), decode_rows=ns, chunk_width=w)
+                pool.k, pool.v, tokens, pos_d, lim_d, tab_d,
+                p0_d, len_d, six_d.long(), decode_rows=ns, chunk_width=w,
+                **scales)[0]
             tok = self._sample_tok(logits)
             self._last_tok = torch.where(emit_d.bool(), tok, self._last_tok)
         meta = [(s, s, self._slot_rid[s]) for s in ticking]

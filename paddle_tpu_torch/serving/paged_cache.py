@@ -15,13 +15,22 @@ re-prefilling it, and a prompt that diverges from a cached chunk
 mid-page reuses the agreeing positions by copy-on-write. Unreferenced
 cached pages are evicted LRU leaf-first when the allocator runs dry.
 
-Not in this slice: int8 pools with per-page scales, the auxiliary page
-tables of speculative decoding, and the chain hashes of the serving mesh.
+int8 pools (``dtype=torch.int8``) carry per-page per-head f32 dequant
+scales ``[L, num_pages, NH]`` beside the pools; quantize-on-write updates
+them inside the tick (``ops.paged_attention.paged_kv_scatter``). Page 0
+keeps scale 0 forever. Page content is never cleared on free, but a
+recycled page's stale scale would poison the running max of its next
+tenant, so pages are listed for a scale reset when they are allocated and
+when their last reference drops, and the engine resets the listed rows at
+the head of the next tick.
+
+Not in this slice: the auxiliary page tables of speculative decoding and
+the chain hashes of the serving mesh.
 """
 from __future__ import annotations
 
 import heapq
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +51,11 @@ class PageAllocator:
         self._free: List[int] = list(range(num_pages - 1, 0, -1))
         self._free_set = set(self._free)
         self._ref: Dict[int, int] = {}       # allocated page -> refcount
+        #: called with the pages whose LAST reference was just dropped
+        #: (they are already back on the free list). The int8 pool hooks
+        #: this to queue a scale reset at free time: a freed page's stale
+        #: running-max scale is scheduling history, not content.
+        self.on_zero: Optional[Callable[[List[int]], None]] = None
 
     @property
     def num_free(self) -> int:
@@ -87,6 +101,7 @@ class PageAllocator:
         """Drop one reference per page; a page returns to the free list
         only at refcount 0. Freeing an unallocated page raises."""
         released = 0
+        zeroed: List[int] = []
         for i in ids:
             i = int(i)
             if i == NULL_PAGE:
@@ -98,10 +113,13 @@ class PageAllocator:
                 del self._ref[i]
                 self._free.append(i)
                 self._free_set.add(i)
+                zeroed.append(i)
             else:
                 released += 1
         if released:
             _registry().counter("cache_share/releases").add(released)
+        if zeroed and self.on_zero is not None:
+            self.on_zero(zeroed)
 
 
 class _TrieNode:
@@ -275,7 +293,23 @@ class PagePool:
         shape = (num_layers, num_pages, page_size, num_heads, head_dim)
         self.k = torch.zeros(shape, dtype=dtype, device=device)
         self.v = torch.zeros(shape, dtype=dtype, device=device)
+        self.quantized = dtype == torch.int8
         self.allocator = PageAllocator(num_pages)
+        if self.quantized:
+            sshape = (num_layers, num_pages, num_heads)
+            self.k_scale = torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)
+            self.v_scale = torch.zeros(sshape, dtype=torch.float32,
+                                       device=device)
+            # pages whose scale rows await a reset (see take_fresh). The
+            # allocator's hook queues the reset of pages that just lost
+            # their last reference, so a page parked on the free list
+            # carries none of its old tenant's scales. The hook holds this
+            # list, not the pool (no reference cycle keeps a dropped
+            # pool's device memory alive), so the list is only ever
+            # mutated in place.
+            self._fresh: List[int] = []
+            self.allocator.on_zero = self._fresh.extend
         self.prefix: Optional[PrefixCache] = (
             PrefixCache(page_size, self.allocator) if prefix_cache
             else None)
@@ -288,6 +322,14 @@ class PagePool:
     @property
     def slot_capacity(self) -> int:
         return self.pages_per_slot * self.page_size
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the pools, the scales of int8 pools included."""
+        tensors = [self.k, self.v]
+        if self.quantized:
+            tensors += [self.k_scale, self.v_scale]
+        return sum(t.numel() * t.element_size() for t in tensors)
 
     def pages_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
@@ -302,7 +344,45 @@ class PagePool:
         if got is None and self.prefix is not None:
             self.prefix.evict_for(n - self.allocator.num_free)
             got = self.allocator.alloc(n)
+        if got is not None and self.quantized:
+            self._fresh.extend(got)
         return got
+
+    # -- int8 scale lifecycle (quantized pools only) -------------------
+    def take_fresh(self, cap: int) -> np.ndarray:
+        """Drain the pending-reset list into a fixed-size int32 vector
+        (padded with the null page, whose scale is 0 anyway) for the next
+        tick's scale reset. Entries beyond ``cap`` — which a correctly
+        sized cap never produces — are reset here at once instead of
+        silently dropped."""
+        fresh = list(self._fresh)
+        self._fresh.clear()
+        if len(fresh) > cap:
+            self.reset_scales(fresh[cap:])
+            fresh = fresh[:cap]
+        out = np.zeros(cap, np.int32)
+        out[:len(fresh)] = fresh
+        return out
+
+    def reset_scales(self, pages) -> None:
+        """Zero the scale rows of ``pages`` in place, all layers."""
+        idx = torch.as_tensor(np.asarray(list(pages), np.int64),
+                              device=self.k_scale.device)
+        if idx.numel() == 0:
+            return
+        self.k_scale.index_fill_(1, idx, 0.0)
+        self.v_scale.index_fill_(1, idx, 0.0)
+
+    def claim_fresh(self, page: int) -> None:
+        """Remove ``page`` from the pending-reset list: its scale was just
+        written by a device operation (the COW copy duplicates the donor
+        page's scale; resetting it afterwards would dequantize the copied
+        content at scale 0). EVERY occurrence goes: an alloc ->
+        preempt-release -> realloc cycle inside one scheduler step lists
+        the same id more than once."""
+        if self.quantized:
+            page = int(page)
+            self._fresh[:] = [p for p in self._fresh if p != page]
 
     def grow_slot(self, slot: int, n_pages: int) -> bool:
         """Extend ``slot`` by ``n_pages`` fresh pages; False (untouched)
@@ -353,9 +433,16 @@ class PagePool:
 
     def copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write: duplicate page ``src`` into ``dst`` across all
-        layers, in place."""
+        layers, in place. The scales of an int8 page travel with its
+        content (the copied values dequantize only with the same scales),
+        and ``dst`` is un-listed from the pending scale reset, which would
+        otherwise zero the copied scales at the next tick."""
         self.k[:, dst] = self.k[:, src]
         self.v[:, dst] = self.v[:, src]
+        if self.quantized:
+            self.k_scale[:, dst] = self.k_scale[:, src]
+            self.v_scale[:, dst] = self.v_scale[:, src]
+            self.claim_fresh(dst)
 
     def check_consistency(self) -> List[str]:
         """Audit the host-side refcount invariants. Returns violation

@@ -186,7 +186,8 @@ def test_moe_config_raises_not_implemented():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of paddle_tpu_torch — the training slice's fused_ce,
-    optimizer, distributed.hybrid and distributed.fleet among them — and
+    optimizer, distributed.hybrid and distributed.fleet and the int8
+    slice's ops.int8_matmul and quantization among them — and
     chip_smoke.py load in a fresh interpreter without pulling in jax or
     paddle_tpu."""
     code = (
@@ -198,7 +199,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'paddle_tpu_torch.optimizer', 'paddle_tpu_torch.optimizer.lr', "
         "'paddle_tpu_torch.optimizer.clip', "
         "'paddle_tpu_torch.distributed.hybrid', "
-        "'paddle_tpu_torch.distributed.fleet'}\n"
+        "'paddle_tpu_torch.distributed.fleet', "
+        "'paddle_tpu_torch.ops.int8_matmul', "
+        "'paddle_tpu_torch.quantization'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "for m in mods: importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"

@@ -147,16 +147,27 @@ def test_cpu_tensors_take_plain_version_without_counting_a_launch():
 
 
 def test_int8_scales_raise_not_implemented():
+    """The int8 path is ported (tests/test_torch_kv_quant.py holds it to
+    the reference), so scales no longer raise NotImplementedError. What
+    raises is a call whose scales and pools disagree: scales beside float
+    pools, int8 pools without scales, or scales of the wrong shape."""
     q, tab, p0, tl = _cases()["decode"]
     _, k, v = _pools(2)
     sc = torch.ones(P, NH)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpa.ragged_paged_attention(
-            torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
-            torch.from_numpy(tab), torch.from_numpy(p0),
-            torch.from_numpy(tl), k_scale=sc, v_scale=sc)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpa.paged_kv_scatter(torch.from_numpy(k), sc,
-                             torch.zeros(1, dtype=torch.int32),
-                             torch.zeros(1, dtype=torch.int32),
-                             torch.zeros(1, NH, HD))
+    args = [torch.from_numpy(x) for x in (q, k, v, tab, p0, tl)]
+    with pytest.raises(ValueError, match="int8 pools"):
+        tpa.ragged_paged_attention(*args, k_scale=sc, v_scale=sc)
+    args[1], args[2] = args[1].to(torch.int8), args[2].to(torch.int8)
+    with pytest.raises(ValueError, match="int8 pools"):
+        tpa.ragged_paged_attention(*args)
+    with pytest.raises(ValueError, match="int8 pools"):
+        tpa.ragged_paged_attention(*args, k_scale=sc)
+    with pytest.raises(TypeError, match=r"\[P, NH\]"):
+        tpa.ragged_paged_attention(*args, k_scale=sc[:, :2],
+                                   v_scale=sc[:, :2])
+    out = tpa.ragged_paged_attention(*args, k_scale=sc, v_scale=sc)
+    assert out.shape == q.shape and bool(torch.isfinite(out).all())
+    pool, scale = tpa.paged_kv_scatter(
+        args[1], sc, torch.zeros(1, dtype=torch.int32),
+        torch.zeros(1, dtype=torch.int32), torch.zeros(1, NH, HD))
+    assert pool is args[1] and scale is sc
