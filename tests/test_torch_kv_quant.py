@@ -474,7 +474,7 @@ def test_stale_scale_reset_on_reuse(nets):
     page's scales are reset before its first write."""
     _, net = nets
     prompts = _prompts(6, (7, 13), seed=11)
-    clean, _ = _run(net, prompts, 12, "int8", slots=2)
+    clean, clean_eng = _run(net, prompts, 12, "int8", slots=2)
     eng = ServingEngine(net, ServingConfig(
         num_slots=2, page_size=8, pages_per_slot=-(-25 // 8),
         kv_dtype="int8"))
@@ -485,6 +485,15 @@ def test_stale_scale_reset_on_reuse(nets):
     res = eng.run()
     for a, r in zip(clean, rids):
         np.testing.assert_array_equal(a, res[r])
+    # the scales themselves (greedy tokens of a small model can hide a
+    # wrong K scale): every page the clean run wrote holds the clean
+    # run's scales, K and V
+    for name in ("k_scale", "v_scale"):
+        got = getattr(eng.pool, name)
+        want = getattr(clean_eng.pool, name)
+        written = want > 0
+        assert bool(written.any())
+        assert torch.equal(got[written], want[written]), name
 
 
 def test_tick_resets_fresh_scales_before_use_even_past_the_cap(nets):
