@@ -20,7 +20,12 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    queries. The int8 matmul runs the deploy model's two layer shapes
    (f32, bf16 and int8 x, with and without ReLU + requantize) and a ragged
    67 x 130 x 45 with and without bias: int8 outputs equal to the plain
-   version's, float outputs at rtol 1e-6 / atol 1e-5.
+   version's, float outputs at rtol 1e-6 / atol 1e-5. bf16 attention at
+   head dim 64 or 128 takes the tensor-core forward and dK/dV kernels
+   (wgmma, TMA): the forward at the train step's B2 S2048, at S 1024, at a
+   ragged S 1000 and at D 64; dK/dV in every bf16 pair case, held to the
+   plain version on the same bf16 inputs. The build fails if ptxas reports
+   a spill in either tensor-core kernel.
 2. model phase — GPT.forward at gpt3_1_3b width (24 layers, random
    weights from a seed, f32) over 2 prompts of 1024 tokens (flash
    kernel), and gpt_ragged_apply over the same tokens through scrambled
@@ -29,10 +34,11 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
 3. engine phase — ServingEngine at gpt3_1_3b serving 16 requests (half
    share a 512-token prefix) 32 greedy tokens each; 4 streams checked
    against teacher-forced GPT.forward argmax.
-4. grad phase — GPT.loss at gpt3_1_3b width, 2 layers, f32, one
-   sequence of 2048: every parameter's gradient through the kernels
-   against a run on the plain attention functions (bound in by this
-   script), max |dg| / max |g| <= 1e-3.
+4. grad phase — GPT.loss at gpt3_1_3b width, 2 layers, one sequence of
+   2048: every parameter's gradient through the kernels against a run on
+   the plain attention functions (bound in by this script); f32 (the SIMT
+   kernels) at max |dg| / max |g| <= 1e-3, then the model cast to bf16
+   (the tensor-core forward and dK/dV) at GRAD_BF16_TOL.
 5. train phase — HybridPipelineTrainer at gpt3_1_3b, full depth, with
    the single-chip recipe (amp, recompute, bf16 parameters and moments,
    AdamW 0.1, warmup-cosine schedule, global-norm clip 1.0, n_micro 2):
@@ -57,12 +63,14 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
 
 Every launch counter is set to 0 just before each of phases 2-7 and read
 just after it: those are the main paths' launches, and each path must
-launch each of its kernels. Prints JSON lines per case, then
+launch each of its kernels (the train path: the tensor-core forward and
+dK/dV, and no SIMT forward or dK/dV launch). Prints JSON lines per case, then
 {"kernels": [...]}, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
 
-    python3 chip_smoke.py --phases kernels,train   # after editing a kernel
+    python3 chip_smoke.py --phases kernels,grad,train   # after editing a
+                                                        # flash kernel
     python3 chip_smoke.py --phases kernels,kvint8,deploy   # the int8 slice
 """
 from __future__ import annotations
@@ -83,18 +91,35 @@ PEAK_FLOPS = {"float32": 67e12,    # f32 outside the tensor cores
 
 F32_TOL = 2e-5   # as the reference holds its Pallas kernels to XLA (f32)
 BF16_TOL = 2e-2  # one bf16 ulp at |o| <~ 1, f32 accumulation on both sides
-# The kernels accumulate bf16 inputs in f32, so their reference is the
-# plain version run on the same bf16 values upcast (exactly) to f32; the
-# kernel's bf16 output is compared with it in f32 at BF16_TOL.
+# The forward kernels' reference is the plain version run on the same bf16
+# values upcast (exactly) to f32, and the kernel's bf16 output is compared
+# with it in f32 at BF16_TOL. The tensor-core forward also rounds P to
+# bf16 before P.V, as the reference does (a relative 2^-9 on each weight,
+# averaged over the keys: far inside one output ulp).
 MODEL_TOL = 1e-3  # 24 layers of f32 in different reduction orders
 BWD_F32_TOL = 3e-5  # the reference's own gradient tolerance (f32)
-# bf16 gradients: the kernel rounds its f32 result once, so it is held to
-# the plain f32 result rounded to bf16 within one bf16 ulp at any
-# magnitude (2^-7 relative; 8 significant bits), plus an absolute floor
-# of 1e-3 * max|ref| for elements that cancel to near 0.
+# SIMT backward kernels keep P and dS in f32, so bf16 inputs are held to the
+# plain version on the f32-upcast inputs; bf16 gradients round that f32
+# result once, so they are held to it rounded to bf16 within one bf16 ulp
+# at any magnitude (2^-7 relative; 8 significant bits), plus an absolute
+# floor of 1e-3 * max|ref| for elements that cancel to near 0.
 BWD_BF16_RTOL = 2.0 ** -7
 BWD_BF16_ATOL = 1e-3
+# The tensor-core dK/dV kernel rounds P and dS to bf16 before its products,
+# as the reference does, so it is held to the plain version on the SAME
+# bf16 inputs (S and dP in f32 from the bf16 values, P and dS rounded to
+# bf16). The two sum S and dP in different orders, so a P or dS element
+# that lies within that f32 difference of a bf16 rounding boundary rounds
+# the other way on one side: each such flip moves a gradient by 2^-8 of
+# one product term. Held at rtol BWD_F32_TOL (f32 out) or BWD_BF16_RTOL
+# (bf16 out) plus atol BWD_TC_ATOL * max|ref|.
+BWD_TC_ATOL = 2e-3
 GRAD_TOL = 1e-3     # max |dg| / max |g| per parameter, model gradients
+# bf16 model: every parameter, activation and gradient in bf16 (8
+# significant bits); the plain attention rounds its logits to bf16 where
+# the kernels keep them in f32, and the difference runs through both
+# layers' backward with a bf16 rounding at every operation
+GRAD_BF16_TOL = 5e-2
 # int8 matmul: float outputs at the reference's own tolerance between its
 # fused kernel and the unfused expression; int8 outputs must be EQUAL
 INT8_MM_RTOL, INT8_MM_ATOL = 1e-6, 1e-5
@@ -520,6 +545,9 @@ def kernel_phase_int8_matmul(dev, iters, cases, seed=8):
 
 
 def kernel_phase_flash(dev, iters, shapes, seed=1):
+    """The forward kernels against _plain_fwd on the same values upcast to
+    f32. Each case reports its route (tensor-core or SIMT); on the card
+    the launch counters must show that route ran."""
     import torch
     from torch.nn import functional as TF
 
@@ -531,10 +559,16 @@ def kernel_phase_flash(dev, iters, shapes, seed=1):
         dtype = getattr(torch, dt)
         q, k, v = (torch.randn(b, s, h, d, generator=g, device=dev)
                    .to(dtype) for _ in range(3))
+        tc = fa._tc_route(dtype, d)
+        tc0 = fa.FLASH_FWD_TC_LAUNCHES
         with torch.inference_mode():
             o, lse = fa.flash_attention(q, k, v, causal=causal)
             ref, ref_lse = fa._plain_fwd(q.float(), k.float(), v.float(),
                                          causal, None)
+        if dev.type == "cuda" and (fa.FLASH_FWD_TC_LAUNCHES > tc0) != tc:
+            raise AssertionError(f"flash {(b, s, h, d)} {dt}: the "
+                                 f"{'SIMT' if tc else 'tensor-core'} "
+                                 "kernel ran")
         tol = BF16_TOL if dt == "bfloat16" else F32_TOL
         if not bool(torch.isfinite(o).all()):
             raise AssertionError("flash: non-finite output")
@@ -557,12 +591,17 @@ def kernel_phase_flash(dev, iters, shapes, seed=1):
         flops = 4.0 * b * h * d * pairs
         nbytes = 4 * b * s * h * d * q.element_size() + 4 * b * h * s
         b_ms, b_by = bound(nbytes, flops, dt)
-        row = {"phase": "kernel", "kernel": "flash_attention_fwd",
+        row = {"phase": "kernel",
+               "kernel": "flash_attention_fwd_tc" if tc
+               else "flash_attention_fwd",
+               "route": "tensor_core" if tc else "simt",
                "case": f"B{b}_S{s}_H{h}_D{d}_{'causal' if causal else 'full'}",
                "dtype": dt, "max_abs_err": err, "lse_max_abs_err": lse_err,
                "tolerance": tol,
                "tolerance_reason": (
                    "bf16 output compared in f32: one bf16 ulp at |o| <~ 1"
+                   + ("; P rounded to bf16 before P.V as the reference does"
+                      if tc else "")
                    if dt == "bfloat16" else
                    "f32: online softmax reassociates the sum"),
                "kernel_ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -576,13 +615,16 @@ def kernel_phase_flash(dev, iters, shapes, seed=1):
 def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
     """Each backward kernel against its plain version on the same inputs:
     q/k/v/dO random, o and LSE from the forward kernel, delta = rowsum(dO
-    o) (or given). bf16 inputs are held to the plain version run on the
-    same values upcast to f32 (the kernels keep P and dS in f32): f32
-    outputs at BWD_F32_TOL, bf16 outputs against that result rounded to
-    bf16 at BWD_BF16_RTOL and BWD_BF16_ATOL * max|ref|. The
-    library yardstick is torch.autograd.grad through
-    F.scaled_dot_product_attention minus its forward (dQ, dK and dV
-    together), once per case."""
+    o) (or given). The SIMT kernels keep P and dS in f32, so their bf16
+    inputs are held to the plain version run on the same values upcast to
+    f32: f32 outputs at BWD_F32_TOL, bf16 outputs against that result
+    rounded to bf16 at BWD_BF16_RTOL and BWD_BF16_ATOL * max|ref|. The
+    tensor-core dK/dV kernel (bf16 at D 64 or 128) rounds P and dS to bf16
+    as the reference does, so it is held to the plain version run on the
+    same bf16 inputs, with BWD_TC_ATOL * max|ref| for the P and dS
+    elements that round the other way. The library yardstick is
+    torch.autograd.grad through F.scaled_dot_product_attention minus its
+    forward (dQ, dK and dV together), once per case."""
     import torch
     from torch.nn import functional as TF
 
@@ -615,16 +657,21 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                       fa._plain_bwd_single_tile(scale, causal, r, o_, delta,
                                                 (f32,) * 3), 10.0)]
         else:
+            tc = fa._tc_route(dtype, d)
+            # the tensor-core kernel's plain version takes the same bf16
+            # inputs (P and dS rounded to bf16 there too)
+            dkv_res, dkv_do = (res, do) if tc else (res32, do.float())
             parts = [("flash_attention_bwd_dq", ("dq",),
                       lambda: (fa._bwd_dq(scale, causal, res, do, delta,
                                           out),),
                       lambda r=res32, o_=do.float():
                       (fa._plain_bwd_dq(scale, causal, r, o_, delta, f32),),
                       6.0),
-                     ("flash_attention_bwd_dkv", ("dk", "dv"),
+                     ("flash_attention_bwd_dkv_tc" if tc
+                      else "flash_attention_bwd_dkv", ("dk", "dv"),
                       lambda: fa._bwd_dkv(scale, causal, res, do, delta,
                                           (out,) * 2),
-                      lambda r=res32, o_=do.float():
+                      lambda r=dkv_res, o_=dkv_do:
                       fa._plain_bwd_dkv(scale, causal, r, o_, delta,
                                         (f32,) * 2), 8.0)]
         # library: SDPA forward + backward, minus its forward
@@ -648,6 +695,7 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                 + ("_outf32" if out_f32 else "")
                 + ("_delta" if given_delta else ""))
         for name, grads, kern, plain, op_factor in parts:
+            tc = name.endswith("_tc")
             got = kern()
             ref = plain()
             if dev.type == "cuda":
@@ -661,9 +709,12 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                     raise AssertionError(f"{name} {case}: {gname} not finite")
                 if out == f32:
                     rtol = atol = BWD_F32_TOL
+                    if tc:
+                        atol = BWD_TC_ATOL * float(y.abs().max())
                 else:
                     rtol = BWD_BF16_RTOL
-                    atol = BWD_BF16_ATOL * float(y.abs().max())
+                    atol = (BWD_TC_ATOL if tc else BWD_BF16_ATOL) * \
+                        float(y.abs().max())
                     y = y.to(out).float()
                 tols[gname] = {"rtol": rtol, "atol": atol}
                 errs[gname] = float((x.float() - y).abs().max())
@@ -677,11 +728,19 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                       + len(grads) * b * s * h * d * osz)
             flops = op_factor * b * h * d * pairs
             b_ms, b_by = bound(nbytes, flops, dt)
-            row = {"phase": "kernel", "kernel": name, "case": case,
+            row = {"phase": "kernel", "kernel": name,
+                   "route": "tensor_core" if tc else "simt", "case": case,
                    "dtype": dt, "out_dtype": str(out).split(".")[-1],
                    "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
                    "tolerance": tols,
                    "tolerance_reason": (
+                       "against the plain version on the same bf16 inputs "
+                       "(P and dS rounded to bf16 on both sides): "
+                       + ("f32 gradients, summation order" if out == f32 else
+                          "bf16 gradients against the plain result rounded "
+                          "to bf16, one bf16 ulp")
+                       + ", atol 2e-3 max|ref| for P/dS elements that round "
+                       "the other way" if tc else
                        "f32 gradients: summation order only (the "
                        "reference's own gradient tolerance)" if out == f32
                        else "bf16 gradients against the f32 plain result "
@@ -1223,17 +1282,21 @@ def deploy_phase(dev, iters, batch=4096, d=4096, h=16384, seed=7):
 # ---------------------------------------------------------------------------
 # phase 4: GPT.loss gradients through the backward kernels
 # ---------------------------------------------------------------------------
-PLAIN_ATTENTION = {"_flash_cuda": "_plain_fwd",
+# every kernel wrapper of ops.flash_attention -> its plain version
+PLAIN_ATTENTION = {"_flash_simt": "_plain_fwd", "_flash_tc": "_plain_fwd",
                    "_bwd_single_tile": "_plain_bwd_single_tile",
-                   "_bwd_dq": "_plain_bwd_dq", "_bwd_dkv": "_plain_bwd_dkv"}
+                   "_bwd_dq": "_plain_bwd_dq",
+                   "_bwd_dkv_simt": "_plain_bwd_dkv",
+                   "_bwd_dkv_tc": "_plain_bwd_dkv"}
 
 
-def grad_phase(dev, layers=2, seq=2048, seed=5):
-    """GPT.loss at gpt3_1_3b width and `layers` deep, f32, one sequence
-    of `seq` tokens (2 x 2 tiles: the dQ + dK/dV pair): every parameter's
-    gradient through the kernels against a reference run in which this
-    script binds the plain attention functions into the module (in this
-    process only; the package has no such switch)."""
+def grad_phase(dev, layers=2, seq=2048, seed=5, dtype="float32"):
+    """GPT.loss at gpt3_1_3b width and `layers` deep, one sequence of
+    `seq` tokens (2 x 2 tiles: the dQ + dK/dV pair), the model in `dtype`
+    (f32: the SIMT kernels; bf16: the tensor-core forward and dK/dV):
+    every parameter's gradient through the kernels against a reference
+    run in which this script binds the plain attention functions into the
+    module (in this process only; the package has no such switch)."""
     import numpy as np
     import torch
 
@@ -1244,7 +1307,7 @@ def grad_phase(dev, layers=2, seq=2048, seed=5):
     cfg = GPTConfig.gpt3_1_3b()
     cfg.num_layers = layers
     _rng.seed(seed)
-    model = GPT(cfg, device=dev)
+    model = GPT(cfg, device=dev).to(getattr(torch, dtype))
     toks = torch.from_numpy(np.random.RandomState(seed).randint(
         0, cfg.vocab_size, (1, seq))).to(dev)
 
@@ -1269,19 +1332,23 @@ def grad_phase(dev, layers=2, seq=2048, seed=5):
     for n, g in got.items():
         if not bool(torch.isfinite(g).all()):
             raise AssertionError(f"grad phase: {n} gradient not finite")
-        rel = float((g - ref[n]).abs().max()) / max(
+        rel = float((g.float() - ref[n].float()).abs().max()) / max(
             float(ref[n].abs().max()), 1e-30)
         if rel > worst:
             worst, worst_name = rel, n
+    tol = GRAD_TOL if dtype == "float32" else GRAD_BF16_TOL
     row = {"phase": "grad", "config": "gpt3_1_3b", "layers": layers,
-           "batch": [1, seq], "dtype": "float32", "loss": loss,
+           "batch": [1, seq], "dtype": dtype, "loss": loss,
            "reference_loss": ref_loss, "max_rel_grad_err": worst,
-           "worst_param": worst_name, "tolerance": GRAD_TOL,
-           "tolerance_reason": "max |dg| / max |g| per parameter: the same "
-                               "f32 math in different reduction orders "
-                               "(TF32 off)"}
+           "worst_param": worst_name, "tolerance": tol,
+           "tolerance_reason": (
+               "max |dg| / max |g| per parameter: the same f32 math in "
+               "different reduction orders (TF32 off)" if dtype == "float32"
+               else "max |dg| / max |g| per parameter, bf16 model: 8 "
+               "significant bits everywhere; the plain attention rounds its "
+               "logits to bf16, the kernels keep them in f32")}
     emit(row)
-    if worst > GRAD_TOL or abs(loss - ref_loss) > GRAD_TOL * abs(ref_loss):
+    if worst > tol or abs(loss - ref_loss) > tol * abs(ref_loss):
         raise AssertionError(f"grad phase: {worst_name} rel err {worst}, "
                              f"loss {loss} vs {ref_loss}")
     return row
@@ -1441,6 +1508,14 @@ def main(argv=None) -> int:
              for n in _build.SOURCES}
     emit({"setup": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
+    # the tensor-core kernels hold their accumulators in registers: a
+    # spill would put them in local memory
+    for n in ("flash_attention_fwd_tc", "flash_attention_bwd_dkv_tc"):
+        spills = [ln for ln in ptxas[n] if "spill" in ln
+                  and not ln.startswith("0 bytes stack frame, 0 bytes spill "
+                                        "stores, 0 bytes spill loads")]
+        if spills or not ptxas[n]:
+            raise AssertionError(f"{n}: ptxas reports spills: {spills}")
 
     cfg = GPTConfig.gpt3_1_3b()
     nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
@@ -1453,7 +1528,13 @@ def main(argv=None) -> int:
             ((4, 2048, nh, hd), True, "float32"),
             ((4, 2048, nh, hd), False, "float32"),
             ((4, 2048, nh, hd), True, "bfloat16"),
-            ((4, 2048, nh, hd), False, "bfloat16")])
+            ((4, 2048, nh, hd), False, "bfloat16"),
+            # the tensor-core route: the train step's shape, its short
+            # steps, a ragged tile, and D 64
+            ((2, 2048, nh, hd), True, "bfloat16"),
+            ((2, 1024, nh, hd), True, "bfloat16"),
+            ((2, 1000, nh, hd), True, "bfloat16"),
+            ((2, 2048, 2 * nh, hd // 2), True, "bfloat16")])
         bw = kernel_phase_flash_bwd(dev, args.iters, [
             # row 2: S <= 1024 is one reference tile
             ((2, 1024, nh, hd), True, "bfloat16", False, False),
@@ -1464,16 +1545,24 @@ def main(argv=None) -> int:
             # the f32 tolerance
             ((2, 1024, nh, hd), True, "bfloat16", True, False),
             # rows 3/4: gpt3_1_3b's S = 2048 is 2 x 2 tiles
+            # bf16: dK/dV on the tensor cores, dQ SIMT
             ((2, 2048, nh, hd), True, "bfloat16", False, False),
             ((2, 2048, nh, hd), True, "float32", False, False),
             ((2, 2048, nh, hd), False, "float32", False, False),
-            ((2, 2048, nh, hd), True, "bfloat16", True, True)])
+            # ring attention's hooks: f32 out, a given delta
+            ((2, 2048, nh, hd), True, "bfloat16", True, True),
+            ((2, 2048, nh, hd), False, "bfloat16", False, False),
+            ((2, 2048, 2 * nh, hd // 2), True, "bfloat16", False, False)])
         kern["ragged"] = next(r for r in rag if r["case"] == "decode_R8_T1"
                               and r["q_dtype"] == r["kv_dtype"] == "float32")
         kern["flash"] = fl[0]
+        kern["flash_tc"] = next(r for r in fl if r["route"] == "tensor_core"
+                                and r["case"] == f"B2_S2048_H{nh}_D{hd}_causal")
         kern["bwd_single"] = bw[0]
         kern["bwd_dq"] = next(r for r in bw if r["kernel"].endswith("_dq"))
         kern["bwd_dkv"] = next(r for r in bw if r["kernel"].endswith("_dkv"))
+        kern["bwd_dkv_tc"] = next(r for r in bw
+                                  if r["kernel"].endswith("_dkv_tc"))
         rq = kernel_phase_ragged_int8(dev, args.iters, nh=nh, hd=hd)
         kern["ragged_int8"] = next(
             r for r in rq if r["case"] == "decode_R8_T1"
@@ -1499,16 +1588,20 @@ def main(argv=None) -> int:
     # the main paths' launches: every count set to 0 just before a path
     # and read just after it; each path must launch each of its kernels
     counters = {"flash": (fa, "FLASH_FWD_LAUNCHES"),
+                "flash_tc": (fa, "FLASH_FWD_TC_LAUNCHES"),
                 "bwd_single": (fa, "FLASH_BWD_SINGLE_LAUNCHES"),
                 "bwd_dq": (fa, "FLASH_BWD_DQ_LAUNCHES"),
                 "bwd_dkv": (fa, "FLASH_BWD_DKV_LAUNCHES"),
+                "bwd_dkv_tc": (fa, "FLASH_BWD_DKV_TC_LAUNCHES"),
                 "ragged": (pa, "RAGGED_LAUNCHES"),
                 "ragged_int8": (pa, "RAGGED_INT8_LAUNCHES"),
                 "int8_matmul": (im, "INT8_MATMUL_LAUNCHES")}
     launches = {k: 0 for k in counters}
     by_path = {}
 
-    def drive(path, needs, fn, *a, **kw):
+    def drive(path, needs, fn, *a, forbid=(), **kw):
+        """Run one main path; it must launch every kernel of `needs` and
+        none of `forbid`."""
         for mod, attr in counters.values():
             setattr(mod, attr, 0)
         fn(*a, **kw)
@@ -1519,6 +1612,9 @@ def main(argv=None) -> int:
         missing = [k for k in needs if got[k] == 0]
         if missing:
             raise AssertionError(f"the {path} path never launched {missing}")
+        stray = [k for k in forbid if got[k] != 0]
+        if stray:
+            raise AssertionError(f"the {path} path launched {stray}")
 
     model = None
     if phases & {"model", "engine", "kvint8"}:
@@ -1526,7 +1622,8 @@ def main(argv=None) -> int:
         model = GPT(cfg, device=dev)
         model.eval()
     if "model" in phases:
-        drive("model", ("flash", "ragged"), model_phase, model, dev)
+        drive("model", ("flash", "ragged"), model_phase, model, dev,
+              forbid=("flash_tc",))
     engine_kw = dict(num_slots=8, page_size=16, pages_per_slot=128,
                      prefill_chunk=256, prefill_chunks_per_tick=2)
     f32_run = {}
@@ -1541,10 +1638,13 @@ def main(argv=None) -> int:
     if "deploy" in phases:
         drive("deploy", ("int8_matmul",), deploy_phase, dev, args.iters)
     if "grad" in phases:
-        drive("grad", ("flash", "bwd_dq", "bwd_dkv"), grad_phase, dev)
+        drive("grad", ("flash", "bwd_dq", "bwd_dkv"), grad_phase, dev,
+              forbid=("flash_tc", "bwd_dkv_tc"))
+        drive("grad_bf16", ("flash_tc", "bwd_dq", "bwd_dkv_tc"), grad_phase,
+              dev, dtype="bfloat16", forbid=("flash", "bwd_dkv"))
     if "train" in phases:
-        drive("train", ("flash", "bwd_single", "bwd_dq", "bwd_dkv"),
-              train_phase, dev)
+        drive("train", ("flash_tc", "bwd_single", "bwd_dq", "bwd_dkv_tc"),
+              train_phase, dev, forbid=("flash", "bwd_dkv"))
     emit({"launches_by_path": by_path})
 
     if kern:
@@ -1554,11 +1654,17 @@ def main(argv=None) -> int:
                 ("flash", "flash_attention_fwd",
                  "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
                  "paddle_tpu/ops/flash_attention.py:118"),
+                ("flash_tc", "flash_attention_fwd_tc",
+                 "paddle_tpu_torch/csrc/flash_attention_fwd_tc.cu",
+                 "paddle_tpu/ops/flash_attention.py:118"),
                 ("bwd_single", "flash_attention_bwd_single_tile", bwd_src,
                  "paddle_tpu/ops/flash_attention.py:313"),
                 ("bwd_dq", "flash_attention_bwd_dq", bwd_src,
                  "paddle_tpu/ops/flash_attention.py:221"),
                 ("bwd_dkv", "flash_attention_bwd_dkv", bwd_src,
+                 "paddle_tpu/ops/flash_attention.py:264"),
+                ("bwd_dkv_tc", "flash_attention_bwd_dkv_tc",
+                 "paddle_tpu_torch/csrc/flash_attention_bwd_dkv_tc.cu",
                  "paddle_tpu/ops/flash_attention.py:264"),
                 ("ragged", "ragged_paged_attention",
                  "paddle_tpu_torch/csrc/ragged_paged_attention.cu",

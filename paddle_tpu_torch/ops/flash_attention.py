@@ -10,23 +10,31 @@ and the backward runs ``_bwd``. Under ``torch.utils.checkpoint`` the
 forward runs again inside backward and the backward reads the recomputed
 ``o`` and ``lse``.
 
-Kernels, one per TPU kernel, each with a launch counter:
+Kernels, each with a launch counter:
 
-- forward: ``csrc/flash_attention_fwd.cu`` (``_fwd_kernel``),
-  ``FLASH_FWD_LAUNCHES``;
+- forward (``_fwd_kernel``), two routes chosen by ``_tc_route`` before
+  the launch: bf16 at head dim 64 or 128 takes the tensor-core kernel
+  ``csrc/flash_attention_fwd_tc.cu`` (wgmma, TMA, a producer warpgroup;
+  ``FLASH_FWD_TC_LAUNCHES``); f32, and bf16 at any other head dim, the
+  SIMT kernel ``csrc/flash_attention_fwd.cu`` (``FLASH_FWD_LAUNCHES``).
+  f32 stays off the tensor cores: the port keeps TF32 off.
 - backward, chosen by ``_bwd`` with the reference's rule (blocks from
   ``_pick_block``, ``bq = bk`` when causal): one tile each way takes the
   merged ``flash_attention_bwd_single_tile`` (``_bwd_single_tile_kernel``,
   ``FLASH_BWD_SINGLE_LAUNCHES``), anything else the pair
   ``flash_attention_bwd_dq`` (``_bwd_dq_kernel``,
-  ``FLASH_BWD_DQ_LAUNCHES``) and ``flash_attention_bwd_dkv``
-  (``_bwd_dkv_kernel``, ``FLASH_BWD_DKV_LAUNCHES``), all in
-  ``csrc/flash_attention_bwd.cu``.
+  ``FLASH_BWD_DQ_LAUNCHES``) and dK/dV (``_bwd_dkv_kernel``), all SIMT in
+  ``csrc/flash_attention_bwd.cu`` — except dK/dV on the tensor-core route,
+  which takes ``csrc/flash_attention_bwd_dkv_tc.cu``
+  (``FLASH_BWD_DKV_TC_LAUNCHES``; SIMT: ``FLASH_BWD_DKV_LAUNCHES``).
 
-Each kernel's plain PyTorch version sits beside it (``_plain_fwd``,
+The tensor-core kernels are bounded by operations (989 TFLOP/s bf16);
+they round P (and dS) to bf16 before their products, as the reference
+does. Each kernel's plain PyTorch version sits beside it (``_plain_fwd``,
 ``_plain_bwd_single_tile``, ``_plain_bwd_dq``, ``_plain_bwd_dkv``): CPU
 tensors run it, and ``chip_smoke.py`` holds the kernel against it on the
-card. A CUDA tensor always launches the kernel.
+card. A CUDA tensor always launches a kernel; a failed build or launch
+raises.
 """
 from __future__ import annotations
 
@@ -37,20 +45,40 @@ import torch
 from . import _cuda
 
 __all__ = ["flash_attention", "mha_reference", "supported",
-           "FLASH_FWD_LAUNCHES", "FLASH_BWD_SINGLE_LAUNCHES",
-           "FLASH_BWD_DQ_LAUNCHES", "FLASH_BWD_DKV_LAUNCHES"]
+           "FLASH_FWD_LAUNCHES", "FLASH_FWD_TC_LAUNCHES",
+           "FLASH_BWD_SINGLE_LAUNCHES", "FLASH_BWD_DQ_LAUNCHES",
+           "FLASH_BWD_DKV_LAUNCHES", "FLASH_BWD_DKV_TC_LAUNCHES"]
 
 #: launches of each CUDA kernel (incremented once per launch, nowhere else)
 FLASH_FWD_LAUNCHES = 0
+FLASH_FWD_TC_LAUNCHES = 0
 FLASH_BWD_SINGLE_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 FLASH_BWD_DKV_LAUNCHES = 0
+FLASH_BWD_DKV_TC_LAUNCHES = 0
+
+#: head dims the tensor-core kernels are built for
+_TC_HEAD_DIMS = (64, 128)
 
 _BLOCK_Q = 1024
 _BLOCK_K = 1024
 _SEQ_ALIGN = 128
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
+
+
+def _tc_route(dtype, d) -> bool:
+    """True when a forward or dK/dV launch over ``dtype`` inputs of head
+    dim ``d`` takes the tensor-core kernel (bf16 at D 64 or 128), False
+    for the SIMT kernel (f32, and any other D)."""
+    return dtype == torch.bfloat16 and d in _TC_HEAD_DIMS
+
+
+def _tma_aligned(name, tensors):
+    """TMA reads from 16-byte aligned bases only."""
+    for i, t in enumerate(tensors):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: argument {i} is not 16-byte aligned")
 
 
 def _pick_block(seq, cap):
@@ -159,7 +187,8 @@ class _FlashAttention(torch.autograd.Function):
 
 
 def _flash_cuda(q, k, v, causal, scale):
-    global FLASH_FWD_LAUNCHES
+    """The forward on the card: the tensor-core or the SIMT kernel, by
+    ``_tc_route``."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
@@ -168,20 +197,51 @@ def _flash_cuda(q, k, v, causal, scale):
             v.dtype != q.dtype:
         raise TypeError("flash_attention kernel takes f32 or bf16 q/k/v of "
                         f"one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    kern = _flash_tc if _tc_route(q.dtype, q.shape[3]) else _flash_simt
+    return kern(q, k, v, causal, scale)
+
+
+def _fwd_outputs(q, scale):
     b, sq, h, d = q.shape
-    sk = k.shape[1]
     s = scale if scale is not None else 1.0 / math.sqrt(d)
-    o = torch.empty_like(q)
-    lse = torch.empty(b * h, sq, 1, device=dev, dtype=torch.float32)
+    lse = torch.empty(b * h, sq, 1, device=q.device, dtype=torch.float32)
+    return torch.empty_like(q), lse, float(s)
+
+
+def _flash_simt(q, k, v, causal, scale):
+    """SIMT forward (``csrc/flash_attention_fwd.cu``): f32 or bf16."""
+    global FLASH_FWD_LAUNCHES
+    b, sq, h, d = q.shape
+    o, lse, s = _fwd_outputs(q, scale)
     fn = _cuda.entry("flash_attention_fwd", "flash_attention_fwd",
                      "pppppiiiiiifip")
-    with torch.cuda.device(dev):
+    with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b, sq, sk, h, d, int(bool(causal)),
-                 float(s), _cuda.DTYPE_CODE[q.dtype],
-                 _cuda.stream_handle(dev))
+                 lse.data_ptr(), b, sq, k.shape[1], h, d, int(bool(causal)),
+                 s, _cuda.DTYPE_CODE[q.dtype], _cuda.stream_handle(q.device))
     _cuda.raise_on_error("flash_attention_fwd", err)
     FLASH_FWD_LAUNCHES += 1
+    return o, lse
+
+
+def _flash_tc(q, k, v, causal, scale):
+    """Tensor-core forward (``csrc/flash_attention_fwd_tc.cu``): bf16,
+    D 64 or 128."""
+    global FLASH_FWD_TC_LAUNCHES
+    name = "flash_attention_fwd_tc"
+    b, sq, h, d = q.shape
+    if not _tc_route(q.dtype, d):
+        raise TypeError(f"{name} takes bf16 at D in {_TC_HEAD_DIMS}, got "
+                        f"{q.dtype} at D {d}")
+    _tma_aligned(name, (q, k, v))
+    o, lse, s = _fwd_outputs(q, scale)
+    fn = _cuda.entry(name, name, "pppppiiiiiifp")
+    with torch.cuda.device(q.device):
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), b, sq, k.shape[1], h, d, int(bool(causal)),
+                 s, _cuda.stream_handle(q.device))
+    _cuda.raise_on_error(name, err)
+    FLASH_FWD_TC_LAUNCHES += 1
     return o, lse
 
 
@@ -345,10 +405,18 @@ def _bwd_dq(scale, causal, res, do, delta, dtype):
 
 
 def _bwd_dkv(scale, causal, res, do, delta, dtypes):
-    """dK/dV over q tiles from the diagonal on (``_bwd_dkv_kernel``)."""
-    global FLASH_BWD_DKV_LAUNCHES
-    if res[0].device.type == "cpu":
+    """dK/dV over q tiles from the diagonal on (``_bwd_dkv_kernel``): the
+    tensor-core or the SIMT kernel, by ``_tc_route``."""
+    q = res[0]
+    if q.device.type == "cpu":
         return _plain_bwd_dkv(scale, causal, res, do, delta, dtypes)
+    kern = _bwd_dkv_tc if _tc_route(q.dtype, q.shape[3]) else _bwd_dkv_simt
+    return kern(scale, causal, res, do, delta, dtypes)
+
+
+def _bwd_dkv_simt(scale, causal, res, do, delta, dtypes):
+    """SIMT dK/dV (``csrc/flash_attention_bwd.cu``): f32 or bf16."""
+    global FLASH_BWD_DKV_LAUNCHES
     name = "flash_attention_bwd_dkv"
     ptrs = _bwd_args(name, scale, causal, res, do, delta, dtypes)
     k = res[1]
@@ -361,4 +429,27 @@ def _bwd_dkv(scale, causal, res, do, delta, dtypes):
                  _cuda.stream_handle(k.device))
     _cuda.raise_on_error(name, err)
     FLASH_BWD_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def _bwd_dkv_tc(scale, causal, res, do, delta, dtypes):
+    """Tensor-core dK/dV (``csrc/flash_attention_bwd_dkv_tc.cu``): bf16
+    inputs at D 64 or 128, gradients in bf16 or f32."""
+    global FLASH_BWD_DKV_TC_LAUNCHES
+    name = "flash_attention_bwd_dkv_tc"
+    ptrs = _bwd_args(name, scale, causal, res, do, delta, dtypes)
+    q, k, v = res[0], res[1], res[2]
+    if not _tc_route(q.dtype, q.shape[3]):
+        raise TypeError(f"{name} takes bf16 at D in {_TC_HEAD_DIMS}, got "
+                        f"{q.dtype} at D {q.shape[3]}")
+    _tma_aligned(name, (q, k, v, do))
+    dk = torch.empty(k.shape, device=k.device, dtype=dtypes[0])
+    dv = torch.empty(k.shape, device=k.device, dtype=dtypes[1])
+    fn = _cuda.entry(name, name, "pppppppp" "iiiiiifip")
+    with torch.cuda.device(k.device):
+        err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(),
+                 *_dims(res, causal, scale)[:-1], _cuda.DTYPE_CODE[dtypes[0]],
+                 _cuda.stream_handle(k.device))
+    _cuda.raise_on_error(name, err)
+    FLASH_BWD_DKV_TC_LAUNCHES += 1
     return dk, dv
