@@ -14,18 +14,21 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    time the card could take (bytes over 3.35 TB/s or operations over the
    peak rate of the input type, whichever is larger). The flash backward
    kernels run at S 1024 (the merged single-tile kernel) and S 2048 (the
-   dQ + dK/dV pair), f32 and bf16, causal and not. The ragged kernel's
+   dQ + dK/dV pair), f32 and bf16, causal and not, cross attention with
+   a ragged side; their library time is one call of PyTorch's fused SDPA
+   backward (dQ, dK and dV together). The ragged kernel's
    int8 path runs the same row groups over int8 pools whose content and
    scales the port's own paged_kv_scatter wrote, under f32 and bf16
    queries. The int8 matmul runs the deploy model's two layer shapes
    (f32, bf16 and int8 x, with and without ReLU + requantize) and a ragged
    67 x 130 x 45 with and without bias: int8 outputs equal to the plain
    version's, float outputs at rtol 1e-6 / atol 1e-5. bf16 attention at
-   head dim 64 or 128 takes the tensor-core forward and dK/dV kernels
-   (wgmma, TMA): the forward at the train step's B2 S2048, at S 1024, at a
-   ragged S 1000 and at D 64; dK/dV in every bf16 pair case, held to the
-   plain version on the same bf16 inputs. The build fails if ptxas reports
-   a spill in either tensor-core kernel.
+   head dim 64 or 128 takes the tensor-core kernels (wgmma, TMA): the
+   forward at the train step's B2 S2048, at S 1024, at a ragged S 1000
+   and at D 64; the merged backward in every bf16 single-tile case and dQ
+   and dK/dV in every bf16 pair case, held to the plain versions on the
+   same bf16 inputs. f32, and bf16 at D 96, take the SIMT kernels. The
+   build fails if ptxas reports a spill in a tensor-core kernel.
 2. model phase — GPT.forward at gpt3_1_3b width (24 layers, random
    weights from a seed, f32) over 2 prompts of 1024 tokens (flash
    kernel), and gpt_ragged_apply over the same tokens through scrambled
@@ -37,8 +40,9 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
 4. grad phase — GPT.loss at gpt3_1_3b width, 2 layers, one sequence of
    2048: every parameter's gradient through the kernels against a run on
    the plain attention functions (bound in by this script); f32 (the SIMT
-   kernels) at max |dg| / max |g| <= 1e-3, then the model cast to bf16
-   (the tensor-core forward and dK/dV) at GRAD_BF16_TOL.
+   kernels) at max |dg| / max |g| <= 1e-3, again at S 1024 (the SIMT
+   merged kernel), then the model cast to bf16 (the tensor-core forward,
+   dQ and dK/dV) at GRAD_BF16_TOL.
 5. train phase — HybridPipelineTrainer at gpt3_1_3b, full depth, with
    the single-chip recipe (amp, recompute, bf16 parameters and moments,
    AdamW 0.1, warmup-cosine schedule, global-norm clip 1.0, n_micro 2):
@@ -63,8 +67,9 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
 
 Every launch counter is set to 0 just before each of phases 2-7 and read
 just after it: those are the main paths' launches, and each path must
-launch each of its kernels (the train path: the tensor-core forward and
-dK/dV, and no SIMT forward or dK/dV launch). Prints JSON lines per case, then
+launch each of its kernels (the train path: the four tensor-core flash
+kernels and no SIMT flash kernel; the f32 grad paths: the SIMT kernels
+and no tensor-core one). Prints JSON lines per case, then
 {"kernels": [...]}, the nvidia-smi line, and as the last line
 {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -612,6 +617,31 @@ def kernel_phase_flash(dev, iters, shapes, seed=1):
     return results
 
 
+def sdpa_backward_call(q, k, v, do, causal):
+    """One PyTorch call that computes dQ, dK and dV of attention on these
+    [B, S, H, D] inputs, for the library yardstick: the fused backward of
+    PyTorch's own SDPA kernel on the outputs and logsumexp of its forward
+    (flash for bf16; the memory-efficient kernel for f32, which flash does
+    not take). Returns (a closure of that one call, its name)."""
+    import torch
+
+    aten = torch.ops.aten
+    qt, kt, vt, dot = (x.transpose(1, 2) for x in (q, k, v, do))
+    with torch.no_grad():
+        if q.dtype == torch.float32:
+            out, lse, seed, off = aten._scaled_dot_product_efficient_attention(
+                qt, kt, vt, None, True, 0.0, causal)
+            return (lambda: aten._scaled_dot_product_efficient_attention_backward(
+                dot, qt, kt, vt, None, out, lse, seed, off, 0.0,
+                [True, True, True, False], causal),
+                "aten._scaled_dot_product_efficient_attention_backward")
+        (out, lse, cq, ck, mq, mk, seed, off,
+         _) = aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, causal)
+    return (lambda: aten._scaled_dot_product_flash_attention_backward(
+        dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, causal, seed, off),
+        "aten._scaled_dot_product_flash_attention_backward")
+
+
 def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
     """Each backward kernel against its plain version on the same inputs:
     q/k/v/dO random, o and LSE from the forward kernel, delta = rowsum(dO
@@ -619,12 +649,17 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
     inputs are held to the plain version run on the same values upcast to
     f32: f32 outputs at BWD_F32_TOL, bf16 outputs against that result
     rounded to bf16 at BWD_BF16_RTOL and BWD_BF16_ATOL * max|ref|. The
-    tensor-core dK/dV kernel (bf16 at D 64 or 128) rounds P and dS to bf16
-    as the reference does, so it is held to the plain version run on the
-    same bf16 inputs, with BWD_TC_ATOL * max|ref| for the P and dS
-    elements that round the other way. The library yardstick is
-    torch.autograd.grad through F.scaled_dot_product_attention minus its
-    forward (dQ, dK and dV together), once per case."""
+    tensor-core kernels (bf16 at D 64 or 128: merged, dQ, dK/dV) round P
+    and dS to bf16 as the reference does, so they are held to the plain
+    version run on the same bf16 inputs, with BWD_TC_ATOL * max|ref| for
+    the P and dS elements that round the other way (the merged kernel's dQ
+    is summed with atomics: f32 out at the f32 rtol, not bitwise). The
+    library yardstick is one timed call of PyTorch's own fused attention
+    backward (sdpa_backward_call: dQ, dK and dV together, so the dQ and
+    dK/dV rows are compared with it as a pair); the old yardstick,
+    autograd through F.scaled_dot_product_attention minus its forward, is
+    kept beside it. A case is ((B, Sq, Sk, H, D), causal, dtype, f32 out,
+    given delta)."""
     import torch
     from torch.nn import functional as TF
 
@@ -633,48 +668,53 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
     g = torch.Generator(device=dev).manual_seed(seed)
     f32 = torch.float32
     results = []
-    for (b, s, h, d), causal, dt, out_f32, given_delta in cases:
+    for (b, sq, sk, h, d), causal, dt, out_f32, given_delta in cases:
         dtype = getattr(torch, dt)
-        q, k, v, do = (torch.randn(b, s, h, d, generator=g, device=dev)
-                       .to(dtype) for _ in range(4))
+        q, do = (torch.randn(b, sq, h, d, generator=g, device=dev).to(dtype)
+                 for _ in range(2))
+        k, v = (torch.randn(b, sk, h, d, generator=g, device=dev).to(dtype)
+                for _ in range(2))
         scale = 1.0 / d ** 0.5
         with torch.no_grad():
             o, lse = (fa._flash_cuda if dev.type == "cuda" else fa._plain_fwd)(
                 q, k, v, causal, None)
         delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
-            .reshape(b * h, s, 1)
+            .reshape(b * h, sq, 1)
         if given_delta:       # the ring's global-row delta, passed in
             delta = delta * 0.5 + 0.25
         out = f32 if out_f32 else dtype
-        bq, bk = fa._blocks(s, s, causal)
-        single = s // bq == 1 and s // bk == 1
-        res, res32 = (q, k, v, lse), (q.float(), k.float(), v.float(), lse)
+        bq, bk = fa._blocks(sq, sk, causal)
+        single = sq // bq == 1 and sk // bk == 1
+        tc = fa._tc_route(dtype, d)
+        sfx = "_tc" if tc else ""
+        # the tensor-core kernels' plain version takes the same bf16 inputs
+        # (P and dS rounded to bf16 there too), the SIMT kernels' the f32
+        # upcast
+        pres, pdo = ((q, k, v, lse), do) if tc else \
+            ((q.float(), k.float(), v.float(), lse), do.float())
+        res = (q, k, v, lse)
         if single:
-            parts = [("flash_attention_bwd_single_tile", ("dq", "dk", "dv"),
+            parts = [("flash_attention_bwd_single_tile" + sfx,
+                      ("dq", "dk", "dv"),
                       lambda: fa._bwd_single_tile(scale, causal, res, do,
                                                   delta, (out,) * 3),
-                      lambda r=res32, o_=do.float():
-                      fa._plain_bwd_single_tile(scale, causal, r, o_, delta,
-                                                (f32,) * 3), 10.0)]
+                      lambda: fa._plain_bwd_single_tile(
+                          scale, causal, pres, pdo, delta, (f32,) * 3), 10.0)]
         else:
-            tc = fa._tc_route(dtype, d)
-            # the tensor-core kernel's plain version takes the same bf16
-            # inputs (P and dS rounded to bf16 there too)
-            dkv_res, dkv_do = (res, do) if tc else (res32, do.float())
-            parts = [("flash_attention_bwd_dq", ("dq",),
+            parts = [("flash_attention_bwd_dq" + sfx, ("dq",),
                       lambda: (fa._bwd_dq(scale, causal, res, do, delta,
                                           out),),
-                      lambda r=res32, o_=do.float():
-                      (fa._plain_bwd_dq(scale, causal, r, o_, delta, f32),),
-                      6.0),
-                     ("flash_attention_bwd_dkv_tc" if tc
-                      else "flash_attention_bwd_dkv", ("dk", "dv"),
+                      lambda: (fa._plain_bwd_dq(scale, causal, pres, pdo,
+                                                delta, f32),), 6.0),
+                     ("flash_attention_bwd_dkv" + sfx, ("dk", "dv"),
                       lambda: fa._bwd_dkv(scale, causal, res, do, delta,
                                           (out,) * 2),
-                      lambda r=dkv_res, o_=dkv_do:
-                      fa._plain_bwd_dkv(scale, causal, r, o_, delta,
-                                        (f32,) * 2), 8.0)]
-        # library: SDPA forward + backward, minus its forward
+                      lambda: fa._plain_bwd_dkv(scale, causal, pres, pdo,
+                                                delta, (f32,) * 2), 8.0)]
+        lib_call, lib_name = sdpa_backward_call(q, k, v, do, causal)
+        lib_ms = time_ms(lib_call, iters, dev)
+        # the yardstick of PRs 2-4: SDPA forward + backward, minus its
+        # forward
         qg, kg, vg = (x.transpose(1, 2).detach().requires_grad_()
                       for x in (q, k, v))
         dot = do.transpose(1, 2)
@@ -688,14 +728,15 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
 
         with torch.no_grad():
             lib_fwd = time_ms(sdpa, iters, dev)
-        lib_ms = time_ms(sdpa_grad, iters, dev) - lib_fwd
-        pairs = s * (s + 1) / 2 if causal else s * s
+        lib_diff_ms = time_ms(sdpa_grad, iters, dev) - lib_fwd
+        pairs = sq * (sq + 1) / 2 if causal else sq * sk
         esz, osz = q.element_size(), torch.empty((), dtype=out).element_size()
-        case = (f"B{b}_S{s}_H{h}_D{d}_{'causal' if causal else 'full'}"
+        shape = f"B{b}_S{sq}" + (f"x{sk}" if sk != sq else "") + \
+            f"_H{h}_D{d}"
+        case = (shape + f"_{'causal' if causal else 'full'}"
                 + ("_outf32" if out_f32 else "")
                 + ("_delta" if given_delta else ""))
         for name, grads, kern, plain, op_factor in parts:
-            tc = name.endswith("_tc")
             got = kern()
             ref = plain()
             if dev.type == "cuda":
@@ -724,8 +765,9 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                         f"{errs[gname]} over rtol {rtol} atol {atol}")
             kern_ms = time_ms(kern, iters, dev)
             plain_ms = time_ms(plain, max(1, iters // 4), dev)
-            nbytes = (4 * b * s * h * d * esz + 2 * b * h * s * 4
-                      + len(grads) * b * s * h * d * osz)
+            nbytes = (2 * b * (sq + sk) * h * d * esz + 2 * b * h * sq * 4
+                      + sum((sq if gn == "dq" else sk) for gn in grads)
+                      * b * h * d * osz)
             flops = op_factor * b * h * d * pairs
             b_ms, b_by = bound(nbytes, flops, dt)
             row = {"phase": "kernel", "kernel": name,
@@ -747,9 +789,9 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                        "rounded to bf16: one bf16 ulp, atol 1e-3 max|ref|"),
                    "kernel_ms": kern_ms, "plain_ms": plain_ms,
                    "library_ms": lib_ms,
-                   "library": "torch.autograd.grad through "
-                              "F.scaled_dot_product_attention minus its "
-                              "forward (dQ, dK and dV together)",
+                   "library": lib_name + " (dQ, dK and dV together), one "
+                              "call on its forward's outputs",
+                   "library_autograd_minus_forward_ms": lib_diff_ms,
                    "bound_ms": b_ms, "bound_by": b_by}
             emit(row)
             results.append(row)
@@ -1284,16 +1326,19 @@ def deploy_phase(dev, iters, batch=4096, d=4096, h=16384, seed=7):
 # ---------------------------------------------------------------------------
 # every kernel wrapper of ops.flash_attention -> its plain version
 PLAIN_ATTENTION = {"_flash_simt": "_plain_fwd", "_flash_tc": "_plain_fwd",
-                   "_bwd_single_tile": "_plain_bwd_single_tile",
-                   "_bwd_dq": "_plain_bwd_dq",
+                   "_bwd_single_tile_simt": "_plain_bwd_single_tile",
+                   "_bwd_single_tile_tc": "_plain_bwd_single_tile",
+                   "_bwd_dq_simt": "_plain_bwd_dq",
+                   "_bwd_dq_tc": "_plain_bwd_dq",
                    "_bwd_dkv_simt": "_plain_bwd_dkv",
                    "_bwd_dkv_tc": "_plain_bwd_dkv"}
 
 
 def grad_phase(dev, layers=2, seq=2048, seed=5, dtype="float32"):
     """GPT.loss at gpt3_1_3b width and `layers` deep, one sequence of
-    `seq` tokens (2 x 2 tiles: the dQ + dK/dV pair), the model in `dtype`
-    (f32: the SIMT kernels; bf16: the tensor-core forward and dK/dV):
+    `seq` tokens (2048: 2 x 2 tiles, the dQ + dK/dV pair; 1024: one tile,
+    the merged kernel), the model in `dtype` (f32: the SIMT kernels; bf16:
+    the tensor-core forward and backward kernels):
     every parameter's gradient through the kernels against a reference
     run in which this script binds the plain attention functions into the
     module (in this process only; the package has no such switch)."""
@@ -1510,7 +1555,9 @@ def main(argv=None) -> int:
           "ptxas": ptxas})
     # the tensor-core kernels hold their accumulators in registers: a
     # spill would put them in local memory
-    for n in ("flash_attention_fwd_tc", "flash_attention_bwd_dkv_tc"):
+    for n in ("flash_attention_fwd_tc", "flash_attention_bwd_dq_tc",
+              "flash_attention_bwd_dkv_tc",
+              "flash_attention_bwd_single_tile_tc"):
         spills = [ln for ln in ptxas[n] if "spill" in ln
                   and not ln.startswith("0 bytes stack frame, 0 bytes spill "
                                         "stores, 0 bytes spill loads")]
@@ -1536,33 +1583,60 @@ def main(argv=None) -> int:
             ((2, 1000, nh, hd), True, "bfloat16"),
             ((2, 2048, 2 * nh, hd // 2), True, "bfloat16")])
         bw = kernel_phase_flash_bwd(dev, args.iters, [
-            # row 2: S <= 1024 is one reference tile
-            ((2, 1024, nh, hd), True, "bfloat16", False, False),
-            ((2, 1024, nh, hd), True, "float32", False, False),
-            ((2, 1000, nh, hd), True, "float32", False, False),
-            ((2, 1024, nh, hd), False, "float32", False, False),
-            # bf16 in, f32 out: the atomically summed dQ scratch held at
-            # the f32 tolerance
-            ((2, 1024, nh, hd), True, "bfloat16", True, False),
-            # rows 3/4: gpt3_1_3b's S = 2048 is 2 x 2 tiles
-            # bf16: dK/dV on the tensor cores, dQ SIMT
-            ((2, 2048, nh, hd), True, "bfloat16", False, False),
-            ((2, 2048, nh, hd), True, "float32", False, False),
-            ((2, 2048, nh, hd), False, "float32", False, False),
+            # row 2: S <= 1024 is one reference tile. bf16 at D 128 or 64
+            # takes the tensor-core merged kernel: the train step's short
+            # steps, a ragged tile, cross attention, D 64, and f32 out (the
+            # atomically summed dQ scratch held at the f32 rtol)
+            ((2, 1024, 1024, nh, hd), True, "bfloat16", False, False),
+            ((2, 1000, 1000, nh, hd), True, "bfloat16", False, False),
+            ((2, 512, 1024, nh, hd), False, "bfloat16", False, False),
+            ((2, 1024, 1024, 2 * nh, hd // 2), True, "bfloat16", False,
+             False),
+            ((2, 1024, 1024, nh, hd), True, "bfloat16", True, False),
+            # f32, and bf16 at another D: the SIMT merged kernel
+            ((2, 1024, 1024, nh, hd), True, "float32", False, False),
+            ((2, 1000, 1000, nh, hd), True, "float32", False, False),
+            ((2, 1024, 1024, nh, hd), False, "float32", False, False),
+            ((2, 1024, 1024, nh, 96), True, "bfloat16", False, False),
+            # rows 3/4: gpt3_1_3b's S = 2048 is 2 x 2 tiles; bf16 takes
+            # the tensor-core dQ and dK/dV
+            ((2, 2048, 2048, nh, hd), True, "bfloat16", False, False),
+            # cross attention, ragged on either side (a pair case can be
+            # ragged only where one side is a single tile)
+            ((2, 1000, 2048, nh, hd), False, "bfloat16", False, False),
+            ((2, 2048, 1000, nh, hd), False, "bfloat16", False, False),
+            ((2, 2048, 2048, 2 * nh, hd // 2), True, "bfloat16", False,
+             False),
             # ring attention's hooks: f32 out, a given delta
-            ((2, 2048, nh, hd), True, "bfloat16", True, True),
-            ((2, 2048, nh, hd), False, "bfloat16", False, False),
-            ((2, 2048, 2 * nh, hd // 2), True, "bfloat16", False, False)])
+            ((2, 2048, 2048, nh, hd), True, "bfloat16", True, True),
+            ((2, 2048, 2048, nh, hd), False, "bfloat16", False, False),
+            # f32, and bf16 at another D: the SIMT dQ and dK/dV
+            ((2, 2048, 2048, nh, hd), True, "float32", False, False),
+            ((2, 2048, 2048, nh, hd), False, "float32", False, False),
+            ((2, 2048, 2048, nh, 96), True, "bfloat16", False, False)])
         kern["ragged"] = next(r for r in rag if r["case"] == "decode_R8_T1"
                               and r["q_dtype"] == r["kv_dtype"] == "float32")
         kern["flash"] = fl[0]
         kern["flash_tc"] = next(r for r in fl if r["route"] == "tensor_core"
                                 and r["case"] == f"B2_S2048_H{nh}_D{hd}_causal")
-        kern["bwd_single"] = bw[0]
-        kern["bwd_dq"] = next(r for r in bw if r["kernel"].endswith("_dq"))
-        kern["bwd_dkv"] = next(r for r in bw if r["kernel"].endswith("_dkv"))
-        kern["bwd_dkv_tc"] = next(r for r in bw
-                                  if r["kernel"].endswith("_dkv_tc"))
+        # each backward kernel at its main path's shape: the train step's
+        # (bf16, S 1024 and 2048) for the tensor-core kernels, the f32 grad
+        # paths' for the SIMT ones
+        for key, kname, dt, shape in (
+                ("bwd_single", "flash_attention_bwd_single_tile", "float32",
+                 f"B2_S1024_H{nh}_D{hd}_causal"),
+                ("bwd_single_tc", "flash_attention_bwd_single_tile_tc",
+                 "bfloat16", f"B2_S1024_H{nh}_D{hd}_causal"),
+                ("bwd_dq", "flash_attention_bwd_dq", "float32",
+                 f"B2_S2048_H{nh}_D{hd}_causal"),
+                ("bwd_dq_tc", "flash_attention_bwd_dq_tc", "bfloat16",
+                 f"B2_S2048_H{nh}_D{hd}_causal"),
+                ("bwd_dkv", "flash_attention_bwd_dkv", "float32",
+                 f"B2_S2048_H{nh}_D{hd}_causal"),
+                ("bwd_dkv_tc", "flash_attention_bwd_dkv_tc", "bfloat16",
+                 f"B2_S2048_H{nh}_D{hd}_causal")):
+            kern[key] = next(r for r in bw if r["kernel"] == kname
+                             and r["dtype"] == dt and r["case"] == shape)
         rq = kernel_phase_ragged_int8(dev, args.iters, nh=nh, hd=hd)
         kern["ragged_int8"] = next(
             r for r in rq if r["case"] == "decode_R8_T1"
@@ -1590,7 +1664,9 @@ def main(argv=None) -> int:
     counters = {"flash": (fa, "FLASH_FWD_LAUNCHES"),
                 "flash_tc": (fa, "FLASH_FWD_TC_LAUNCHES"),
                 "bwd_single": (fa, "FLASH_BWD_SINGLE_LAUNCHES"),
+                "bwd_single_tc": (fa, "FLASH_BWD_SINGLE_TC_LAUNCHES"),
                 "bwd_dq": (fa, "FLASH_BWD_DQ_LAUNCHES"),
+                "bwd_dq_tc": (fa, "FLASH_BWD_DQ_TC_LAUNCHES"),
                 "bwd_dkv": (fa, "FLASH_BWD_DKV_LAUNCHES"),
                 "bwd_dkv_tc": (fa, "FLASH_BWD_DKV_TC_LAUNCHES"),
                 "ragged": (pa, "RAGGED_LAUNCHES"),
@@ -1637,14 +1713,18 @@ def main(argv=None) -> int:
     del model, f32_run
     if "deploy" in phases:
         drive("deploy", ("int8_matmul",), deploy_phase, dev, args.iters)
+    tc_kernels = ("flash_tc", "bwd_single_tc", "bwd_dq_tc", "bwd_dkv_tc")
+    simt_kernels = ("flash", "bwd_single", "bwd_dq", "bwd_dkv")
     if "grad" in phases:
+        # f32: the SIMT pair at S 2048, the SIMT merged kernel at S 1024
         drive("grad", ("flash", "bwd_dq", "bwd_dkv"), grad_phase, dev,
-              forbid=("flash_tc", "bwd_dkv_tc"))
-        drive("grad_bf16", ("flash_tc", "bwd_dq", "bwd_dkv_tc"), grad_phase,
-              dev, dtype="bfloat16", forbid=("flash", "bwd_dkv"))
+              forbid=tc_kernels)
+        drive("grad_s1024", ("flash", "bwd_single"), grad_phase, dev,
+              seq=1024, forbid=tc_kernels)
+        drive("grad_bf16", ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc"),
+              grad_phase, dev, dtype="bfloat16", forbid=simt_kernels)
     if "train" in phases:
-        drive("train", ("flash_tc", "bwd_single", "bwd_dq", "bwd_dkv_tc"),
-              train_phase, dev, forbid=("flash", "bwd_dkv"))
+        drive("train", tc_kernels, train_phase, dev, forbid=simt_kernels)
     emit({"launches_by_path": by_path})
 
     if kern:
@@ -1659,7 +1739,13 @@ def main(argv=None) -> int:
                  "paddle_tpu/ops/flash_attention.py:118"),
                 ("bwd_single", "flash_attention_bwd_single_tile", bwd_src,
                  "paddle_tpu/ops/flash_attention.py:313"),
+                ("bwd_single_tc", "flash_attention_bwd_single_tile_tc",
+                 "paddle_tpu_torch/csrc/flash_attention_bwd_single_tile_tc.cu",
+                 "paddle_tpu/ops/flash_attention.py:313"),
                 ("bwd_dq", "flash_attention_bwd_dq", bwd_src,
+                 "paddle_tpu/ops/flash_attention.py:221"),
+                ("bwd_dq_tc", "flash_attention_bwd_dq_tc",
+                 "paddle_tpu_torch/csrc/flash_attention_bwd_dq_tc.cu",
                  "paddle_tpu/ops/flash_attention.py:221"),
                 ("bwd_dkv", "flash_attention_bwd_dkv", bwd_src,
                  "paddle_tpu/ops/flash_attention.py:264"),

@@ -67,36 +67,6 @@ struct DkvSmem {
   static constexpr int kBytes = kBars + 64 + 1024;    // + alignment slack
 };
 
-// C[64 x 64] = X_wg[64 x D] . Y_tile[64 x D]^T (both K-major)
-template <int D>
-__device__ __forceinline__ void nt_product(float (&c)[32], const uint8_t* x,
-                                           const uint8_t* y) {
-  using L = DkvSmem<D>;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const int half = kk / 4, off = (kk % 4) * 32;
-    wgmma_m64n64k16_ss<0>(c, desc_sw128(x + half * L::kKHalf + off, 16, 1024),
-                          desc_sw128(y + half * L::kQHalf + off, 16, 1024),
-                          kk > 0);
-  }
-}
-
-// acc[64 x D] += A[64 x 64] (registers, bf16) . Y_tile[64 x D] (MN-major)
-template <int D>
-__device__ __forceinline__ void nn_product(float (&acc)[D / 2],
-                                           const uint32_t (&a)[kBQ / 16][4],
-                                           const uint8_t* y) {
-  using L = DkvSmem<D>;
-#pragma unroll
-  for (int kk = 0; kk < kBQ / 16; ++kk) {
-    const uint64_t db = desc_sw128(y + kk * 16 * 128, L::kQHalf, 1024);
-    if constexpr (D == 128)
-      wgmma_m64n128k16_rs<1>(acc, a[kk], db, 1);
-    else
-      wgmma_m64n64k16_rs<1>(acc, a[kk], db, 1);
-  }
-}
-
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -189,8 +159,8 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       float st[32], dpt[32];
       wgmma_fence();
-      nt_product<D>(st, k_wg, q_t);
-      nt_product<D>(dpt, v_wg, do_t);
+      nt_product<D, L::kKHalf, L::kQHalf>(st, k_wg, q_t);
+      nt_product<D, L::kKHalf, L::kQHalf>(dpt, v_wg, do_t);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(st);
@@ -221,8 +191,8 @@ flash_bwd_dkv_tc_kernel(const __grid_constant__ CUtensorMap tm_q,
       fence_regs(dv_acc);
       fence_regs(dk_acc);
       wgmma_fence();
-      nn_product<D>(dv_acc, pa, do_t);
-      nn_product<D>(dk_acc, dsa, q_t);
+      nn_product<D, L::kQHalf>(dv_acc, pa, do_t);
+      nn_product<D, L::kQHalf>(dk_acc, dsa, q_t);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(dv_acc);

@@ -2,7 +2,8 @@
 // inline-PTX wrappers for mbarriers, TMA tensor loads, the wgmma
 // shared-memory descriptor of the 128-byte swizzle, warpgroup matrix
 // products (bf16 in, f32 accumulate; A from shared memory or from
-// registers), their fences, and setmaxnreg; plus the host-side encoding
+// registers), their fences, the two tile products the backward kernels
+// share, and setmaxnreg; plus the host-side encoding
 // of a TMA tensor map through the driver entry point (the kernels'
 // libraries do not link libcuda).
 //
@@ -75,6 +76,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
       "}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// order this thread's generic-proxy shared-memory writes before later
+// async-proxy reads (wgmma operands, TMA); then a barrier publishes them
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // named barrier over `count` threads (id 0 is __syncthreads')
@@ -166,7 +173,8 @@ __device__ __forceinline__ void acc_to_a(const float (&d)[R], int kk,
 }
 
 // D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B from shared memory
-template <int TRANS_B>
+// (TRANS_A = 1: A is M-major, the M dimension contiguous; bf16 allows it)
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -178,14 +186,14 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
+      "}, %32, %33, p, 1, 1, %36, %35;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A and B from shared memory
@@ -279,6 +287,37 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(float (&d)[64], const uint32
         "r"(scale_d), "n"(TRANS_B));
 }
 
+// The two products of the backward kernels, over 64-row bf16 tiles in the
+// 128-byte swizzle whose D columns are kept as D / 64 halves (XH, YH: the
+// byte distance between a tile's halves).
+// C[64 x 64] = X[64 x D] . Y[64 x D]^T, both K-major (a k step inside a
+// half adds 32 bytes)
+template <int D, int XH, int YH>
+__device__ __forceinline__ void nt_product(float (&c)[32], const uint8_t* x,
+                                           const uint8_t* y) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int half = kk / 4, off = (kk % 4) * 32;
+    wgmma_m64n64k16_ss<0>(c, desc_sw128(x + half * XH + off, 16, 1024),
+                          desc_sw128(y + half * YH + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc[64 x D] += A[64 x 64] (registers, bf16, k steps of 16) . Y[64 x D]
+// (MN-major: a k step is 16 rows, 2048 bytes)
+template <int D, int YH>
+__device__ __forceinline__ void nn_product(float (&acc)[D / 2],
+                                           const uint32_t (&a)[4][4],
+                                           const uint8_t* y) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc_sw128(y + kk * 16 * 128, YH, 1024);
+    if constexpr (D == 128)
+      wgmma_m64n128k16_rs<1>(acc, a[kk], db, 1);
+    else
+      wgmma_m64n64k16_rs<1>(acc, a[kk], db, 1);
+  }
+}
 
 // ---------------------------------------------------------------------------
 // register budget of a warpgroup (all 128 threads execute it together)

@@ -29,7 +29,8 @@ BUILD_DIR = _PKG / "_build"
 
 #: every kernel source of the package, built together on first use
 SOURCES = ("flash_attention_fwd", "flash_attention_fwd_tc",
-           "flash_attention_bwd", "flash_attention_bwd_dkv_tc",
+           "flash_attention_bwd", "flash_attention_bwd_dq_tc",
+           "flash_attention_bwd_dkv_tc", "flash_attention_bwd_single_tile_tc",
            "ragged_paged_attention", "int8_matmul")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

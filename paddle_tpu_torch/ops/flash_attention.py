@@ -20,13 +20,15 @@ Kernels, each with a launch counter:
   f32 stays off the tensor cores: the port keeps TF32 off.
 - backward, chosen by ``_bwd`` with the reference's rule (blocks from
   ``_pick_block``, ``bq = bk`` when causal): one tile each way takes the
-  merged ``flash_attention_bwd_single_tile`` (``_bwd_single_tile_kernel``,
-  ``FLASH_BWD_SINGLE_LAUNCHES``), anything else the pair
-  ``flash_attention_bwd_dq`` (``_bwd_dq_kernel``,
-  ``FLASH_BWD_DQ_LAUNCHES``) and dK/dV (``_bwd_dkv_kernel``), all SIMT in
-  ``csrc/flash_attention_bwd.cu`` — except dK/dV on the tensor-core route,
-  which takes ``csrc/flash_attention_bwd_dkv_tc.cu``
-  (``FLASH_BWD_DKV_TC_LAUNCHES``; SIMT: ``FLASH_BWD_DKV_LAUNCHES``).
+  merged kernel (``_bwd_single_tile_kernel``), anything else the pair dQ
+  (``_bwd_dq_kernel``) and dK/dV (``_bwd_dkv_kernel``). Each of the three
+  has the same two routes as the forward: on the tensor-core route
+  ``csrc/flash_attention_bwd_single_tile_tc.cu``
+  (``FLASH_BWD_SINGLE_TC_LAUNCHES``), ``csrc/flash_attention_bwd_dq_tc.cu``
+  (``FLASH_BWD_DQ_TC_LAUNCHES``) and ``csrc/flash_attention_bwd_dkv_tc.cu``
+  (``FLASH_BWD_DKV_TC_LAUNCHES``); otherwise the SIMT kernels of
+  ``csrc/flash_attention_bwd.cu`` (``FLASH_BWD_SINGLE_LAUNCHES``,
+  ``FLASH_BWD_DQ_LAUNCHES``, ``FLASH_BWD_DKV_LAUNCHES``).
 
 The tensor-core kernels are bounded by operations (989 TFLOP/s bf16);
 they round P (and dS) to bf16 before their products, as the reference
@@ -46,14 +48,17 @@ from . import _cuda
 
 __all__ = ["flash_attention", "mha_reference", "supported",
            "FLASH_FWD_LAUNCHES", "FLASH_FWD_TC_LAUNCHES",
-           "FLASH_BWD_SINGLE_LAUNCHES", "FLASH_BWD_DQ_LAUNCHES",
+           "FLASH_BWD_SINGLE_LAUNCHES", "FLASH_BWD_SINGLE_TC_LAUNCHES",
+           "FLASH_BWD_DQ_LAUNCHES", "FLASH_BWD_DQ_TC_LAUNCHES",
            "FLASH_BWD_DKV_LAUNCHES", "FLASH_BWD_DKV_TC_LAUNCHES"]
 
 #: launches of each CUDA kernel (incremented once per launch, nowhere else)
 FLASH_FWD_LAUNCHES = 0
 FLASH_FWD_TC_LAUNCHES = 0
 FLASH_BWD_SINGLE_LAUNCHES = 0
+FLASH_BWD_SINGLE_TC_LAUNCHES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
+FLASH_BWD_DQ_TC_LAUNCHES = 0
 FLASH_BWD_DKV_LAUNCHES = 0
 FLASH_BWD_DKV_TC_LAUNCHES = 0
 
@@ -68,9 +73,9 @@ _LOG2E = 1.4426950408889634
 
 
 def _tc_route(dtype, d) -> bool:
-    """True when a forward or dK/dV launch over ``dtype`` inputs of head
-    dim ``d`` takes the tensor-core kernel (bf16 at D 64 or 128), False
-    for the SIMT kernel (f32, and any other D)."""
+    """True when a flash launch (forward or any backward kernel) over
+    ``dtype`` inputs of head dim ``d`` takes the tensor-core kernel (bf16
+    at D 64 or 128), False for the SIMT kernel (f32, and any other D)."""
     return dtype == torch.bfloat16 and d in _TC_HEAD_DIMS
 
 
@@ -347,6 +352,16 @@ def _bwd_args(name, scale, causal, res, do, delta, out_dtypes):
             lse.data_ptr(), delta.data_ptr())
 
 
+def _tc_check(name, res, do):
+    """What a tensor-core backward kernel takes beyond ``_bwd_args``:
+    bf16 at D 64 or 128, TMA-aligned q/k/v/dO."""
+    q, k, v = res[0], res[1], res[2]
+    if not _tc_route(q.dtype, q.shape[3]):
+        raise TypeError(f"{name} takes bf16 at D in {_TC_HEAD_DIMS}, got "
+                        f"{q.dtype} at D {q.shape[3]}")
+    _tma_aligned(name, (q, k, v, do))
+
+
 def _dims(res, causal, scale):
     q, k = res[0], res[1]
     b, sq, h, d = q.shape
@@ -356,12 +371,20 @@ def _dims(res, causal, scale):
 
 def _bwd_single_tile(scale, causal, res, do, delta, dtypes):
     """Merged dQ/dK/dV (``_bwd_single_tile_kernel``): one launch, P and
-    dS computed once."""
-    global FLASH_BWD_SINGLE_LAUNCHES
-    if res[0].device.type == "cpu":
+    dS computed once; the tensor-core or the SIMT kernel, by
+    ``_tc_route``."""
+    q = res[0]
+    if q.device.type == "cpu":
         return _plain_bwd_single_tile(scale, causal, res, do, delta, dtypes)
-    name = "flash_attention_bwd_single_tile"
-    ptrs = _bwd_args(name, scale, causal, res, do, delta, dtypes)
+    kern = _bwd_single_tile_tc if _tc_route(q.dtype, q.shape[3]) else \
+        _bwd_single_tile_simt
+    return kern(scale, causal, res, do, delta, dtypes)
+
+
+def _single_tile_outputs(res, dtypes):
+    """The merged kernels' outputs and their zeroed f32 dQ scratch and
+    per-head tickets; with an f32 output the scratch is dQ itself (no
+    tickets)."""
     q, k = res[0], res[1]
     dev = q.device
     out = dtypes[0]
@@ -374,23 +397,60 @@ def _bwd_single_tile(scale, causal, res, do, delta, dtypes):
                               dtype=torch.int32)
     dk = torch.empty(k.shape, device=dev, dtype=out)
     dv = torch.empty(k.shape, device=dev, dtype=out)
+    return (None if dq is dq_acc else dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), dq_acc.data_ptr(),
+            None if tickets is None else tickets.data_ptr()), (dq, dk, dv)
+
+
+def _bwd_single_tile_simt(scale, causal, res, do, delta, dtypes):
+    """SIMT merged kernel (``csrc/flash_attention_bwd.cu``): f32 or
+    bf16."""
+    global FLASH_BWD_SINGLE_LAUNCHES
+    name = "flash_attention_bwd_single_tile"
+    ptrs = _bwd_args(name, scale, causal, res, do, delta, dtypes)
+    dev = res[0].device
+    out_ptrs, grads = _single_tile_outputs(res, dtypes)
     fn = _cuda.entry("flash_attention_bwd", name, "ppppppppppp" "iiiiiifiip")
     with torch.cuda.device(dev):
-        err = fn(*ptrs, None if dq is dq_acc else dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), dq_acc.data_ptr(),
-                 None if tickets is None else tickets.data_ptr(),
-                 *_dims(res, causal, scale), _cuda.DTYPE_CODE[out],
-                 _cuda.stream_handle(dev))
+        err = fn(*ptrs, *out_ptrs, *_dims(res, causal, scale),
+                 _cuda.DTYPE_CODE[dtypes[0]], _cuda.stream_handle(dev))
     _cuda.raise_on_error(name, err)
     FLASH_BWD_SINGLE_LAUNCHES += 1
-    return dq, dk, dv
+    return grads
+
+
+def _bwd_single_tile_tc(scale, causal, res, do, delta, dtypes):
+    """Tensor-core merged kernel
+    (``csrc/flash_attention_bwd_single_tile_tc.cu``): bf16 inputs at D 64
+    or 128, gradients in bf16 or f32."""
+    global FLASH_BWD_SINGLE_TC_LAUNCHES
+    name = "flash_attention_bwd_single_tile_tc"
+    ptrs = _bwd_args(name, scale, causal, res, do, delta, dtypes)
+    _tc_check(name, res, do)
+    dev = res[0].device
+    out_ptrs, grads = _single_tile_outputs(res, dtypes)
+    fn = _cuda.entry(name, name, "ppppppppppp" "iiiiiifip")
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, *out_ptrs, *_dims(res, causal, scale)[:-1],
+                 _cuda.DTYPE_CODE[dtypes[0]], _cuda.stream_handle(dev))
+    _cuda.raise_on_error(name, err)
+    FLASH_BWD_SINGLE_TC_LAUNCHES += 1
+    return grads
 
 
 def _bwd_dq(scale, causal, res, do, delta, dtype):
-    """dQ over k tiles (``_bwd_dq_kernel``)."""
-    global FLASH_BWD_DQ_LAUNCHES
-    if res[0].device.type == "cpu":
+    """dQ over k tiles (``_bwd_dq_kernel``): the tensor-core or the SIMT
+    kernel, by ``_tc_route``."""
+    q = res[0]
+    if q.device.type == "cpu":
         return _plain_bwd_dq(scale, causal, res, do, delta, dtype)
+    kern = _bwd_dq_tc if _tc_route(q.dtype, q.shape[3]) else _bwd_dq_simt
+    return kern(scale, causal, res, do, delta, dtype)
+
+
+def _bwd_dq_simt(scale, causal, res, do, delta, dtype):
+    """SIMT dQ (``csrc/flash_attention_bwd.cu``): f32 or bf16."""
+    global FLASH_BWD_DQ_LAUNCHES
     name = "flash_attention_bwd_dq"
     ptrs = _bwd_args(name, scale, causal, res, do, delta, (dtype,))
     q = res[0]
@@ -401,6 +461,24 @@ def _bwd_dq(scale, causal, res, do, delta, dtype):
                  _cuda.DTYPE_CODE[dtype], _cuda.stream_handle(q.device))
     _cuda.raise_on_error(name, err)
     FLASH_BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+def _bwd_dq_tc(scale, causal, res, do, delta, dtype):
+    """Tensor-core dQ (``csrc/flash_attention_bwd_dq_tc.cu``): bf16
+    inputs at D 64 or 128, dQ in bf16 or f32."""
+    global FLASH_BWD_DQ_TC_LAUNCHES
+    name = "flash_attention_bwd_dq_tc"
+    ptrs = _bwd_args(name, scale, causal, res, do, delta, (dtype,))
+    _tc_check(name, res, do)
+    q = res[0]
+    dq = torch.empty(q.shape, device=q.device, dtype=dtype)
+    fn = _cuda.entry(name, name, "ppppppp" "iiiiiifip")
+    with torch.cuda.device(q.device):
+        err = fn(*ptrs, dq.data_ptr(), *_dims(res, causal, scale)[:-1],
+                 _cuda.DTYPE_CODE[dtype], _cuda.stream_handle(q.device))
+    _cuda.raise_on_error(name, err)
+    FLASH_BWD_DQ_TC_LAUNCHES += 1
     return dq
 
 
@@ -438,11 +516,8 @@ def _bwd_dkv_tc(scale, causal, res, do, delta, dtypes):
     global FLASH_BWD_DKV_TC_LAUNCHES
     name = "flash_attention_bwd_dkv_tc"
     ptrs = _bwd_args(name, scale, causal, res, do, delta, dtypes)
-    q, k, v = res[0], res[1], res[2]
-    if not _tc_route(q.dtype, q.shape[3]):
-        raise TypeError(f"{name} takes bf16 at D in {_TC_HEAD_DIMS}, got "
-                        f"{q.dtype} at D {q.shape[3]}")
-    _tma_aligned(name, (q, k, v, do))
+    _tc_check(name, res, do)
+    k = res[1]
     dk = torch.empty(k.shape, device=k.device, dtype=dtypes[0])
     dv = torch.empty(k.shape, device=k.device, dtype=dtypes[1])
     fn = _cuda.entry(name, name, "pppppppp" "iiiiiifip")

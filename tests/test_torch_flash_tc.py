@@ -1,9 +1,10 @@
 """The tensor-core route of paddle_tpu_torch's flash attention, held on
 the CPU.
 
-The CUDA kernels (``csrc/flash_attention_fwd_tc.cu``,
-``csrc/flash_attention_bwd_dkv_tc.cu``) run only on the card, where
-chip_smoke.py holds them against their plain versions. Here:
+The CUDA kernels (``csrc/flash_attention_fwd_tc.cu`` and the backward's
+``csrc/flash_attention_bwd_{single_tile,dq,dkv}_tc.cu``) run only on the
+card, where chip_smoke.py holds them against their plain versions. Here
+(the bf16 backward is held in ``tests/test_torch_flash_bwd_tc.py``):
 
 - the route rule: bf16 at head dim 64 or 128 takes the tensor-core
   kernels, f32 and any other head dim the SIMT ones;
@@ -70,6 +71,8 @@ def test_plain_forward_bf16_matches_pallas_interpret(causal):
 
 def test_cpu_bf16_counts_no_launch():
     counters = ("FLASH_FWD_LAUNCHES", "FLASH_FWD_TC_LAUNCHES",
+                "FLASH_BWD_SINGLE_LAUNCHES", "FLASH_BWD_SINGLE_TC_LAUNCHES",
+                "FLASH_BWD_DQ_LAUNCHES", "FLASH_BWD_DQ_TC_LAUNCHES",
                 "FLASH_BWD_DKV_LAUNCHES", "FLASH_BWD_DKV_TC_LAUNCHES")
     before = [getattr(tfa, c) for c in counters]
     (q, k, v), _ = _bf16_qkv(12, s=128)
