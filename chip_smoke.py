@@ -28,7 +28,11 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    and at D 64; the merged backward in every bf16 single-tile case and dQ
    and dK/dV in every bf16 pair case, held to the plain versions on the
    same bf16 inputs. f32, and bf16 at D 96, take the SIMT kernels. The
-   build fails if ptxas reports a spill in a tensor-core kernel.
+   ragged kernel's chunk rows (T > 1) also run with an unaligned pos0, a
+   T 40 row and over a pool of 32-token pages; the f32 SDPA yardstick's
+   aten kernel is named from torch.profiler. The build fails if ptxas
+   reports a spill in a tensor-core kernel or in the register-tiled SIMT
+   kernels (the flash forward, the ragged chunk rows).
 2. model phase — GPT.forward at gpt3_1_3b width (24 layers, random
    weights from a seed, f32) over 2 prompts of 1024 tokens (flash
    kernel), and gpt_ragged_apply over the same tokens through scrambled
@@ -48,7 +52,8 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    AdamW 0.1, warmup-cosine schedule, global-norm clip 1.0, n_micro 2):
    8 steps on one fixed [4, 2048] batch (the loss must fall), one step
    under torch.profiler, 2 steps on a [4, 1024] batch. Step ms, tokens/s,
-   MFU and peak memory.
+   MFU and peak memory. A clip probe holds the bf16 gradient clips to one
+   rounding of g.float() * scale, bit for bit.
 6. kvint8 phase — the engine phase's workload with kv_dtype="int8": every
    ragged launch runs over int8 pools, two runs give equal streams, the
    pool (scales included) takes <= 0.27 of the f32 pool's bytes, the null
@@ -145,6 +150,21 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+def ptxas_functions(log: str) -> dict:
+    """{kernel function (mangled): {"registers": n, "spill": "..."}} from
+    the `-Xptxas -v` build log of one source."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        if "Compiling entry function '" in ln:
+            cur = ln.split("'")[1]
+            out[cur] = {"registers": None, "spill": ""}
+        elif cur and "spill stores" in ln:
+            out[cur]["spill"] = ln.strip()
+        elif cur and "Used " in ln and " registers" in ln:
+            out[cur]["registers"] = int(ln.split("Used ")[1].split()[0])
+    return out
+
+
 def gpu_info_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -209,10 +229,23 @@ def ragged_groups(rng, npages, nps, ps):
     tl = np.array([100, 1, 250], np.int32)
     tab = tables(3, [(37 + 99) // ps + 1, 0, (1000 + 249) // ps + 1])
     mix = ("mixed_pad_R3_T256", 256, p0, tl, tab)
-    return [dec, chk, mix]
+    # chunk rows whose pos0 is not page-aligned, and a T 40 row (not a
+    # multiple of the kernel's 64-query tile) whose last real query is 37
+    p0 = np.array([517, 771], np.int32)
+    tl = np.array([256, 256], np.int32)
+    una = ("chunk_unaligned_R2_T256", 256, p0, tl,
+           tables(2, (p0 + tl - 1) // ps + 1))
+    p0 = np.array([300], np.int32)
+    tl = np.array([37], np.int32)
+    t40 = ("chunk_R1_T40", 40, p0, tl, tables(1, (p0 + tl - 1) // ps + 1))
+    return [dec, chk, mix, una, t40]
 
 
-def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128):
+def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
+                        chunk_only=False):
+    """The ragged kernel against _gather_attend over f32 and bf16 pools of
+    the engine's size (8 slots of nps pages of ps). `chunk_only` keeps the
+    T > 1 groups (the page-size-32 pool runs those only)."""
     import numpy as np
     import torch
     from torch.nn import functional as TF
@@ -228,6 +261,10 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128):
              "bfloat16": (k32.bfloat16(), v32.bfloat16())}
     results = []
     for name, t, p0, tl, tab in ragged_groups(rng, npages, nps, ps):
+        if chunk_only and t == 1:
+            continue
+        if ps != 16:
+            name += f"_ps{ps}"
         r = tab.shape[0]
         q32 = torch.randn(r, t, nh, hd, generator=g, device=dev)
         meta = [torch.from_numpy(x).to(dev) for x in (tab, p0, tl)]
@@ -288,7 +325,8 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128):
                                "float32" if "float32" in (qdt, kvdt)
                                else "bfloat16")
             row = {"phase": "kernel", "kernel": "ragged_paged_attention",
-                   "case": name, "q_dtype": qdt, "kv_dtype": kvdt,
+                   "case": name, "rows": "decode" if t == 1 else "chunk",
+                   "q_dtype": qdt, "kv_dtype": kvdt,
                    "max_abs_err": err,
                    "tolerance": BF16_TOL if qdt == "bfloat16" else F32_TOL,
                    "tolerance_reason": (
@@ -414,7 +452,8 @@ def kernel_phase_ragged_int8(dev, iters, seed=7, nh=16, hd=128, ps=16,
             b_ms, b_by = bound(nbytes, 4.0 * nh * hd * keys, qdt)
             row = {"phase": "kernel",
                    "kernel": "ragged_paged_attention_int8",
-                   "case": name, "q_dtype": qdt, "kv_dtype": "int8",
+                   "case": name, "rows": "decode" if t == 1 else "chunk",
+                   "q_dtype": qdt, "kv_dtype": "int8",
                    "max_abs_err": err, "tolerance": tol,
                    "tolerance_reason": (
                        "against _gather_attend with scales on the same "
@@ -640,6 +679,27 @@ def sdpa_backward_call(q, k, v, do, causal):
     return (lambda: aten._scaled_dot_product_flash_attention_backward(
         dot, qt, kt, vt, out, lse, cq, ck, mq, mk, 0.0, causal, seed, off),
         "aten._scaled_dot_product_flash_attention_backward")
+
+
+def sdpa_f32_kernels(dev, shape, seed=2):
+    """Which aten kernels one causal f32 F.scaled_dot_product_attention
+    call (the f32 forward's library yardstick) runs on the card, from
+    torch.profiler, with TF32 off as everywhere in this script."""
+    import torch
+    from torch.nn import functional as TF
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(*shape, generator=g, device=dev).transpose(1, 2)
+               for _ in range(3))
+    with torch.inference_mode():
+        TF.scaled_dot_product_attention(q, k, v, is_causal=True)
+        _, kernels = profile_kernels(
+            dev, lambda: TF.scaled_dot_product_attention(q, k, v,
+                                                         is_causal=True))
+    return {"phase": "kernel", "library_kernels_f32_sdpa": {
+        "shape": list(shape), "causal": True,
+        "kernels": [{"name": e.key, "ms": e.self_device_time_total / 1e3}
+                    for e in kernels]}}
 
 
 def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
@@ -1021,12 +1081,20 @@ def warm_engine_profile(model, dev, prompts, max_new, engine_kw):
     warm_streams = list(streams)
     _, kernels = profile_kernels(dev, serve)
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+
+    def kernel_ms(part):
+        return sum(e.self_device_time_total for e in kernels
+                   if part in e.key) / 1e3
+
     return {
         "warm_wall_s": warm,
+        # the ragged kernel's two row kinds (chunk rows: kernel and merge)
+        "warm_ragged_chunk_rows_ms": kernel_ms("ragged_chunk"),
+        "warm_ragged_decode_rows_ms": kernel_ms("ragged_kernel"),
         "warm_tokens_per_s": len(prompts) * max_new / warm,
         "warm_device_kernel_ms": busy_ms if kernels else None,
         "warm_device_busy_share": busy_ms / 1e3 / warm if kernels else None,
-        "warm_top_kernels": top_kernels(kernels, 6)}, warm_streams
+        "warm_top_kernels": top_kernels(kernels, 8)}, warm_streams
 
 
 def profile_kernels(dev, fn):
@@ -1472,12 +1540,57 @@ def train_phase(dev, steps=8, short_steps=2, batch=4, seq=2048, n_micro=2,
                torch.cuda.max_memory_allocated(dev) / 2 ** 30
                if dev.type == "cuda" else None)}
     row.update(profile_step(dev, lambda: run(tokens)))
+    row["clip_probe"] = clip_probe(dev)
     short = torch.from_numpy(rng.randint(0, cfg.vocab_size,
                                          (batch, seq // 2))).to(dev)
     row["short_batch"] = [batch, seq // 2]
     row["short_losses"] = [run(short)[0] for _ in range(short_steps)]
     emit(row)
     return row
+
+
+def clip_probe(dev, seed=9, numel=(2048 * 2048, 8192 * 2048, 2048, 50304)):
+    """The recipe's clips on bf16 gradients at an active scale (norms far
+    above the clip), on the card: the port's functional_clip must equal
+    (g.float() * scale).to(bf16) bit for bit, one rounding as the
+    reference's (g * scale).astype(g.dtype). Also counts the elements the
+    in-place g.mul_(scale) with the 0-dim f32 device scale gets wrong on
+    the same inputs (it rounds the scale to bf16 first on CUDA)."""
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.optimizer.clip import functional_clip
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    grads = [(torch.randn(n, generator=g, device=dev) * 0.3).bfloat16()
+             for n in numel]
+    out = {"elements": sum(numel)}
+    for kind, clip in (("global_norm", nn.ClipGradByGlobalNorm(1.0)),
+                       ("by_norm", nn.ClipGradByNorm(1.0))):
+        if kind == "global_norm":
+            gn = torch.sqrt(sum(x.float().square().sum() for x in grads))
+            scales = [torch.clamp(1.0 / torch.clamp(gn, min=1e-12), max=1.0)
+                      ] * len(grads)
+        else:
+            scales = [torch.clamp(1.0 / torch.clamp(
+                torch.linalg.vector_norm(x.float()), min=1e-12), max=1.0)
+                for x in grads]
+        got = functional_clip(clip, [x.clone() for x in grads])
+        want = [(x.float() * sc).to(torch.bfloat16)
+                for x, sc in zip(grads, scales)]
+        old = [x.clone().mul_(sc) for x, sc in zip(grads, scales)]
+        bits = lambda t: t.view(torch.int16)   # noqa: E731
+        wrong = sum(int((bits(a) != bits(b)).sum())
+                    for a, b in zip(got, want))
+        old_wrong = sum(int((bits(a) != bits(b)).sum())
+                        for a, b in zip(old, want))
+        out[kind] = {"scale_max": max(float(sc) for sc in scales),
+                     "elements_off_single_rounding": wrong,
+                     "old_mul_elements_off_single_rounding": old_wrong}
+        if wrong:
+            raise AssertionError(f"clip probe {kind}: {wrong} bf16 elements "
+                                 "differ from one rounding of g * scale")
+    return out
 
 
 def profile_step(dev, step) -> dict:
@@ -1548,20 +1661,23 @@ def main(argv=None) -> int:
           "torch": torch.__version__, "cuda": torch.version.cuda})
     t0 = time.perf_counter()
     _build.build()
-    ptxas = {n: [ln.strip() for ln in _build.build_log(n).splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n in _build.SOURCES}
+    ptxas = {n: ptxas_functions(_build.build_log(n)) for n in _build.SOURCES}
     emit({"setup": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
-    # the tensor-core kernels hold their accumulators in registers: a
-    # spill would put them in local memory
-    for n in ("flash_attention_fwd_tc", "flash_attention_bwd_dq_tc",
-              "flash_attention_bwd_dkv_tc",
-              "flash_attention_bwd_single_tile_tc"):
-        spills = [ln for ln in ptxas[n] if "spill" in ln
-                  and not ln.startswith("0 bytes stack frame, 0 bytes spill "
-                                        "stores, 0 bytes spill loads")]
-        if spills or not ptxas[n]:
+    # the tensor-core kernels and the register-tiled SIMT kernels (the
+    # flash forward, the ragged chunk rows) hold their accumulators in
+    # registers: a spill would put them in local memory
+    for n, fn_part in (("flash_attention_fwd_tc", ""),
+                       ("flash_attention_bwd_dq_tc", ""),
+                       ("flash_attention_bwd_dkv_tc", ""),
+                       ("flash_attention_bwd_single_tile_tc", ""),
+                       ("flash_attention_fwd", "flash_fwd_kernel"),
+                       ("ragged_paged_attention", "ragged_chunk_kernel")):
+        fns = {f: v for f, v in ptxas[n].items() if fn_part in f}
+        spills = {f: v["spill"] for f, v in fns.items()
+                  if "0 bytes spill stores, 0 bytes spill loads"
+                  not in v["spill"]}
+        if spills or not fns:
             raise AssertionError(f"{n}: ptxas reports spills: {spills}")
 
     cfg = GPTConfig.gpt3_1_3b()
@@ -1569,8 +1685,12 @@ def main(argv=None) -> int:
     kern = {}
     if "kernels" in phases:
         rag = kernel_phase_ragged(dev, args.iters, nh=nh, hd=hd)
+        # chunk rows over a pool of 32-token pages (one page a key tile)
+        rag += kernel_phase_ragged(dev, args.iters, nh=nh, hd=hd, ps=32,
+                                   nps=64, chunk_only=True)
         fl = kernel_phase_flash(dev, args.iters, [
             ((2, 1024, nh, hd), True, "float32"),      # the model's shape
+            ((2, 1024, nh, hd), False, "float32"),
             ((2, 1000, nh, hd), True, "float32"),      # a ragged last tile
             ((4, 2048, nh, hd), True, "float32"),
             ((4, 2048, nh, hd), False, "float32"),
@@ -1581,7 +1701,10 @@ def main(argv=None) -> int:
             ((2, 2048, nh, hd), True, "bfloat16"),
             ((2, 1024, nh, hd), True, "bfloat16"),
             ((2, 1000, nh, hd), True, "bfloat16"),
-            ((2, 2048, 2 * nh, hd // 2), True, "bfloat16")])
+            ((2, 2048, 2 * nh, hd // 2), True, "bfloat16"),
+            # bf16 at a head dim the tensor cores do not take: SIMT
+            ((2, 1024, nh, 96), True, "bfloat16")])
+        emit(sdpa_f32_kernels(dev, (2, 1024, nh, hd)))
         bw = kernel_phase_flash_bwd(dev, args.iters, [
             # row 2: S <= 1024 is one reference tile. bf16 at D 128 or 64
             # takes the tensor-core merged kernel: the train step's short
@@ -1616,6 +1739,9 @@ def main(argv=None) -> int:
             ((2, 2048, 2048, nh, 96), True, "bfloat16", False, False)])
         kern["ragged"] = next(r for r in rag if r["case"] == "decode_R8_T1"
                               and r["q_dtype"] == r["kv_dtype"] == "float32")
+        kern["ragged_chunk"] = next(
+            r for r in rag if r["case"] == "chunk_R2_T256"
+            and r["q_dtype"] == r["kv_dtype"] == "float32")
         kern["flash"] = fl[0]
         kern["flash_tc"] = next(r for r in fl if r["route"] == "tensor_core"
                                 and r["case"] == f"B2_S2048_H{nh}_D{hd}_causal")
@@ -1670,6 +1796,7 @@ def main(argv=None) -> int:
                 "bwd_dkv": (fa, "FLASH_BWD_DKV_LAUNCHES"),
                 "bwd_dkv_tc": (fa, "FLASH_BWD_DKV_TC_LAUNCHES"),
                 "ragged": (pa, "RAGGED_LAUNCHES"),
+                "ragged_chunk": (pa, "RAGGED_CHUNK_LAUNCHES"),
                 "ragged_int8": (pa, "RAGGED_INT8_LAUNCHES"),
                 "int8_matmul": (im, "INT8_MATMUL_LAUNCHES")}
     launches = {k: 0 for k in counters}
@@ -1698,18 +1825,19 @@ def main(argv=None) -> int:
         model = GPT(cfg, device=dev)
         model.eval()
     if "model" in phases:
-        drive("model", ("flash", "ragged"), model_phase, model, dev,
+        drive("model", ("flash", "ragged", "ragged_chunk"), model_phase,
+              model, dev,
               forbid=("flash_tc",))
     engine_kw = dict(num_slots=8, page_size=16, pages_per_slot=128,
                      prefill_chunk=256, prefill_chunks_per_tick=2)
     f32_run = {}
     if "engine" in phases:
-        drive("engine", ("ragged",), engine_phase, model, dev, keep=f32_run,
-              **engine_kw)
+        drive("engine", ("ragged", "ragged_chunk"), engine_phase, model, dev,
+              keep=f32_run, **engine_kw)
     if "kvint8" in phases:
         kvint8_reference(model, dev, f32_run, engine_kw)
-        drive("kvint8", ("ragged", "ragged_int8"), kvint8_phase, model, dev,
-              f32_run, **engine_kw)
+        drive("kvint8", ("ragged", "ragged_chunk", "ragged_int8"),
+              kvint8_phase, model, dev, f32_run, **engine_kw)
     del model, f32_run
     if "deploy" in phases:
         drive("deploy", ("int8_matmul",), deploy_phase, dev, args.iters)
@@ -1753,6 +1881,9 @@ def main(argv=None) -> int:
                  "paddle_tpu_torch/csrc/flash_attention_bwd_dkv_tc.cu",
                  "paddle_tpu/ops/flash_attention.py:264"),
                 ("ragged", "ragged_paged_attention",
+                 "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+                 "paddle_tpu/ops/paged_attention.py:294"),
+                ("ragged_chunk", "ragged_paged_attention_chunk",
                  "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                  "paddle_tpu/ops/paged_attention.py:294"),
                 ("ragged_int8", "ragged_paged_attention_int8",

@@ -1,4 +1,5 @@
-// Flash attention forward for Hopper (sm_90a).
+// Flash attention forward for Hopper (sm_90a), SIMT route: f32, and bf16
+// at head dims the tensor-core kernel does not take.
 //
 // Replaces the TPU kernel paddle_tpu/ops/flash_attention.py::_fwd_kernel
 // (launched by _fwd). Same function: o = softmax(q k^T * scale) v with an
@@ -14,176 +15,149 @@
 //
 // What bounds it on the H100: operations. 4 * B * H * Sq * Sk * D flops
 // (halved when causal) against the f32 rate of 67 TFLOP/s outside the
-// tensor cores (f32, TF32 off) or 989 TFLOP/s for bf16 on the tensor
-// cores; the q/k/v/o bytes are far below that line at S = 2048.
-//
-// What the design does about it (simple first):
-//  * One block per (b*h, 64-query tile), 256 threads as a 16 x 16 grid:
-//    each thread owns a 4 x 4 patch of the 64 x 64 score tile and a 4 x
-//    (D/16) patch of the output accumulator, in f32 registers. The running
-//    max and denominator of each query row live in registers of the 16
-//    threads sharing the row and are combined with half-warp shuffles.
-//  * Q, K and V tiles are staged in shared memory as f32 (bf16 converted
-//    on load) with rows padded to D + 1 floats, so the strided reads of
-//    the register-blocked products hit distinct banks.
-//  * Causal: the k-tile loop stops at the diagonal tile (the TPU kernel's
-//    dead-tile skip becomes a loop bound); only the diagonal tile masks.
+// tensor cores (TF32 stays off); the q/k/v/o bytes are far below that
+// line. So the design is about feeding the FMA units:
+//  * The products are the register-tiled core of attention_simt.cuh: a
+//    block of 128 threads owns 64 queries (D <= 128) and walks key tiles
+//    of 32; each thread holds a 4 x 4 score patch and a 4 x 4 NCH output
+//    patch in registers, and reads Q and K 4 head-dim values at a time
+//    (8 FMAs per shared load in QK^T, 12.8 in P.V at D 128). P stays in
+//    the warp that made it (written once as float4, a __syncwarp).
+//  * K/V tiles arrive through a 2-stage shared-memory ring with cp.async
+//    (16 bytes a lane, no divides: a warp copies a row, a lane a chunk):
+//    tile k+1 loads while tile k computes, one barrier a tile. bf16 is
+//    copied raw and converted on the shared read.
+//  * Occupancy: 108.5 KB of shared memory a block at D 128 f32, so two
+//    blocks (8 warps) share an SM and one block's barriers hide behind
+//    the other's math. At D > 128 a thread keeps 2 query rows (32-query
+//    blocks) so the output patch stays at 64 registers.
+//  * Causal: the key loop stops at the diagonal tile, and q tiles are
+//    scheduled heaviest first (the q tile is the slow grid dimension,
+//    reversed), so the longest blocks do not form a tail.
 //  * Fully masked rows keep p = 0 and l = 0 and write o = 0, never NaN.
-// Not yet: wgmma on the tensor cores, TMA staging, warp specialization.
-#include "common.cuh"
+// Not here: split-TF32 or any tensor-core product (it would change the
+// numerics class of the f32 route).
+#include "attention_simt.cuh"
 
 using namespace ptt;
+using namespace ptt::simt;
 
 namespace {
 
-constexpr int kBQ = 64, kBK = 64, kThreads = 256;
 constexpr float kLn2 = 0.6931471805599453f;
 
-template <typename T, int NC>
-__global__ void __launch_bounds__(kThreads)
+
+template <typename T, class C, int NCH>
+__global__ void __launch_bounds__(C::THREADS, C::MINB)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
                  float* __restrict__ lse, int Sq, int Sk, int H, int D,
-                 int causal, float scale_log2) {
-  extern __shared__ float smem[];
-  const int ld = D + 1;
-  float* sQ = smem;                 // [kBQ][ld]
-  float* sK = sQ + kBQ * ld;        // [kBK][ld]
-  float* sV = sK + kBK * ld;        // [kBK][ld]
-  float* sP = sV + kBK * ld;        // [kBQ][kBK + 1]
-  const int ldp = kBK + 1;
+                 int causal, float scale_log2, int vec) {
+  constexpr int NTY = C::NTY, NTX = C::NTX, RM = C::RM, KN = C::KN;
+  constexpr int BQ = C::BQ, BK = C::BK, NW = C::NW;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int dp = pad16(D), ldk = dp + kChunk<T>, ldv = dp;
+  float* sP = reinterpret_cast<float*>(smem_raw);  // [NW][BK][TYW RM]
+  T* sQ = reinterpret_cast<T*>(sP + NW * BK * C::TYW * RM);  // [BQ][ldk]
+  T* sK = sQ + BQ * ldk;                                       // [2][BK][ldk]
+  T* sV = sK + 2 * BK * ldk;                                   // [2][BK][ldv]
 
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * kBQ;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid % NTX, ty = tid / NTX;
+  const long rs = (long)H * D;  // one sequence position
+  const T* qb = q + (long)b * Sq * rs + (long)h * D;
+  const T* kb = k + (long)b * Sk * rs + (long)h * D;
+  const T* vb = v + (long)b * Sk * rs + (long)h * D;
 
-  for (int idx = tid; idx < kBQ * D; idx += kThreads) {
-    const int rr = idx / D, d = idx - rr * D, s = q0 + rr;
-    sQ[rr * ld + d] =
-        s < Sq ? to_f32(q[(((long)b * Sq + s) * H + h) * D + d]) : 0.f;
+  for (int r = warp; r < BQ; r += NW) {
+    const bool ok = q0 + r < Sq;
+    copy_row(sQ + r * ldk, ok ? qb + (q0 + r) * rs : qb, D, dp, ok, vec,
+             lane);
   }
+  auto load_kv = [&](int kt, int stage) {
+    const int k0 = kt * BK;
+    for (int r = warp; r < BK; r += NW) {
+      const bool ok = k0 + r < Sk;
+      const long off = ok ? (k0 + r) * rs : 0;
+      copy_row(sK + (stage * BK + r) * ldk, kb + off, D, dp, ok, vec, lane);
+      copy_row(sV + (stage * BK + r) * ldv, vb + off, D, dp, ok, vec, lane);
+    }
+  };
 
-  float m[4], l[4], acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-  }
+  int nkt = (Sk + BK - 1) / BK;
+  if (causal) nkt = min(nkt, (q0 + BQ - 1) / BK + 1);
+  load_kv(0, 0);
+  cp_async_commit();
 
-  int nkt = (Sk + kBK - 1) / kBK;
-  if (causal) nkt = min(nkt, (q0 + kBQ - 1) / kBK + 1);
+  RowState<RM, NCH> st;
+  st.init();
+  float* sPw = sP + warp * BK * C::TYW * RM;
   for (int kt = 0; kt < nkt; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();  // the previous tile's sK/sV/sP reads are done
-    for (int idx = tid; idx < kBK * D; idx += kThreads) {
-      const int rr = idx / D, d = idx - rr * D, s = k0 + rr;
-      const long g = (((long)b * Sk + s) * H + h) * D + d;
-      sK[rr * ld + d] = s < Sk ? to_f32(k[g]) : 0.f;
-      sV[rr * ld + d] = s < Sk ? to_f32(v[g]) : 0.f;
-    }
+    cp_async_wait<0>();
+    // tile kt (and Q) landed for every thread, and every thread is done
+    // with tile kt - 1, whose stage the next copy refills
     __syncthreads();
-
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float a[4], bk[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = sQ[(ty * 4 + i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) bk[j] = sK[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] += a[i] * bk[j];
+    if (kt + 1 < nkt) {
+      load_kv(kt + 1, (kt + 1) & 1);
+      cp_async_commit();
     }
-
+    const T* cK = sK + (kt & 1) * BK * ldk;
+    const T* cV = sV + (kt & 1) * BK * ldv;
+    float s[RM][KN];
+    scores<RM, KN, NTY, NTX>(sQ, ldk, cK, ldk, dp, ty, tx, s);
+    const int k0 = kt * BK;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qi = q0 + ty * 4 + i;
-      float rmax = -INFINITY;
+    for (int i = 0; i < RM; ++i) {
+      const int qi = q0 + ty + NTY * i;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kj = k0 + tx + 16 * j;
-        float x = sc[i][j] * scale_log2;
-        if (kj >= Sk || (causal && kj > qi)) x = -INFINITY;
-        sc[i][j] = x;
-        rmax = fmaxf(rmax, x);
-      }
-      const float mn = fmaxf(m[i], half_warp_max(rmax));
-      float rs = 0.f, alpha = 1.f;
-      if (mn != -INFINITY) {
-        alpha = exp2f(m[i] - mn);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float pe = sc[i][j] == -INFINITY ? 0.f : exp2f(sc[i][j] - mn);
-          sc[i][j] = pe;
-          rs += pe;
-        }
-        m[i] = mn;
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-      }
-      rs = half_warp_sum(rs);
-      l[i] = l[i] * alpha + rs;
-#pragma unroll
-      for (int c = 0; c < NC; ++c) acc[i][c] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sP[(ty * 4 + i) * ldp + tx + 16 * j] = sc[i][j];
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float pr[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pr[i] = sP[(ty * 4 + i) * ldp + kk];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const int d = tx + 16 * c;
-        const float vv = d < D ? sV[kk * ld + d] : 0.f;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] += pr[i] * vv;
+      for (int j = 0; j < KN; ++j) {
+        const int kj = k0 + tx + NTX * j;
+        const bool dead = kj >= Sk || (causal && kj > qi);
+        s[i][j] = dead ? -INFINITY : s[i][j] * scale_log2;
       }
     }
+    softmax_update<RM, KN, NCH, NTX>(s, st);
+    pv<RM, KN, NCH, NTY, NTX>(s, sPw, cV, ldv, dp, ty, tx, st);
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + ty * 4 + i;
+  for (int i = 0; i < RM; ++i) {
+    const int qi = q0 + ty + NTY * i;
     if (qi >= Sq) continue;
-    const float ls = l[i] == 0.f ? 1.f : l[i];
-    const long orow = (((long)b * Sq + qi) * H + h) * D;
+    const float ls = st.l[i] == 0.f ? 1.f : st.l[i];
+    T* orow = o + ((long)b * Sq + qi) * rs + (long)h * D;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      const int d = tx + 16 * c;
-      if (d < D) o[orow + d] = from_f32<T>(acc[i][c] / ls);
-    }
-    if (tx == 0) lse[(long)bh * Sq + qi] = (m[i] + log2f(ls)) * kLn2;
+    for (int c = 0; c < NCH; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int d = tx * 4 + 4 * NTX * c + e;
+        if (d < D) orow[d] = from_f32<T>(st.o[i][c][e] / ls);
+      }
+    if (tx == 0) lse[(long)bh * Sq + qi] = (st.m[i] + log2f(ls)) * kLn2;
   }
 }
 
-template <typename T, int NC>
+// Dmax: the largest head dim of the instantiation (NCH covers it)
+template <typename T, class C, int Dmax>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int Sq, int Sk, int H, int D,
                    int causal, float scale, cudaStream_t st) {
-  const size_t smem =
-      sizeof(float) * ((size_t)(kBQ + 2 * kBK) * (D + 1) + kBQ * (kBK + 1));
+  constexpr int NCH = (Dmax + 4 * C::NTX - 1) / (4 * C::NTX);
+  const size_t smem = C::template smem<T, T>(D);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, C, NCH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Sq + kBQ - 1) / kBQ, B * H);
+  const int vec = D % kChunk<T> == 0 && (uintptr_t)q % 16 == 0 &&
+                  (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
+  const dim3 grid(B * H, (Sq + C::BQ - 1) / C::BQ);
   const float scale_log2 = scale * 1.4426950408889634f;
-  flash_fwd_kernel<T, NC><<<grid, kThreads, smem, st>>>(
+  flash_fwd_kernel<T, C, NCH><<<grid, C::THREADS, smem, st>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, Sq, Sk, H, D, causal,
-      scale_log2);
+      scale_log2, vec);
   return cudaGetLastError();
 }
 
@@ -192,10 +166,13 @@ cudaError_t launch_d(const void* q, const void* k, const void* v, void* o,
                      float* lse, int B, int Sq, int Sk, int H, int D,
                      int causal, float scale, cudaStream_t st) {
   if (D <= 64)
-    return launch<T, 4>(q, k, v, o, lse, B, Sq, Sk, H, D, causal, scale, st);
+    return launch<T, Tile128, 64>(q, k, v, o, lse, B, Sq, Sk, H, D, causal,
+                                  scale, st);
   if (D <= 128)
-    return launch<T, 8>(q, k, v, o, lse, B, Sq, Sk, H, D, causal, scale, st);
-  return launch<T, 16>(q, k, v, o, lse, B, Sq, Sk, H, D, causal, scale, st);
+    return launch<T, Tile128, 128>(q, k, v, o, lse, B, Sq, Sk, H, D, causal,
+                                   scale, st);
+  return launch<T, Tile256, 256>(q, k, v, o, lse, B, Sq, Sk, H, D, causal,
+                                 scale, st);
 }
 
 }  // namespace

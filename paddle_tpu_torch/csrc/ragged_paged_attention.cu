@@ -13,30 +13,27 @@
 // then the same online softmax. The null page carries scale 0, so its
 // bytes read as zeros.
 //
-// What bounds it on the H100: bytes. At decode (T = 1) every K/V element
+// What bounds it on the H100: bytes at decode (T = 1): every K/V element
 // of the attended pages is used once, so the least time is the attended
-// K/V bytes plus q/o over 3.35 TB/s. Chunk rows (T = 256) reuse each page
-// across the row's queries and are bound by the f32 FMA rate instead.
+// K/V bytes plus q/o over 3.35 TB/s. Chunk rows (T > 1, 256 in the
+// engine's prefill) reuse each page across the row's queries and are
+// bound by the f32 FMA rate (67 TFLOP/s, TF32 off) instead. So the two
+// kinds of row take two kernels, picked by T at the launch:
 //
-// What the design does about it:
+// Decode rows (ragged_kernel, one query a block):
 //  * The TPU grid walked every (row, page) step and predicated dead pages
-//    off; here a block owns (row, head, query tile) and loops only over
-//    the pages its queries can attend (loop bound, not predication), so
-//    no byte past a row's frontier is read.
-//  * The block's warps (16 for decode rows, 4 for chunk rows) split the
-//    row's pages round robin, each warp keeping its own running max /
-//    denominator / accumulator in f32 registers (online softmax), and
-//    merge through shared memory at the end: many page streams in flight
-//    per block instead of one (a decode group has only R * NH blocks).
-//  * K/V rows of a page are loaded in groups (8 for decode rows, 2 for
-//    chunk rows) before any is used: independent loads in flight.
-//  * Each lane reads its D/32 slice of a K/V row straight from global
-//    memory (consecutive lanes, consecutive addresses); a page's K/V rows
-//    are reused from registers by every query of the tile, and a query
-//    tile of 8 keeps chunk rows' register use bounded (a 256-query chunk
-//    row at D = 128 would need 128 KB of f32 queries in one block).
-//  * Page 0, the null page, is an ordinary readable page; masking compares
-//    global positions j * ps + p against pos0 + t, never offsets in a page.
+//    off; here a block owns (row, head) and loops only over the pages its
+//    query can attend (loop bound, not predication), so no byte past a
+//    row's frontier is read.
+//  * The block's 16 warps split the row's pages round robin, each warp
+//    keeping its own running max / denominator / accumulator in f32
+//    registers (online softmax, natural exp), and merge through shared
+//    memory at the end: many page streams in flight per block instead of
+//    one (a decode group has only R * NH blocks).
+//  * K/V rows of a page are loaded 8 at a time before any is used:
+//    independent loads in flight. Each lane reads its D/32 slice of a K/V
+//    row straight from global memory (consecutive lanes, consecutive
+//    addresses).
 //  * int8 pools: a block owns one head, so a page's scale is one scalar
 //    per block and page. It is folded into the score after the warp sum
 //    and into the page's weights before the P.V accumulation, so the
@@ -46,10 +43,17 @@
 //    and accumulator registers are laid out to match); other head widths
 //    keep d = lane + 32 i with byte loads.
 //
-// Simple first: no cp.async/TMA staging and no tensor cores yet.
+// Chunk rows (ragged_chunk_kernel, below): the register-tiled f32 core of
+// attention_simt.cuh (online softmax in base 2), K/V pages staged in
+// shared memory by cp.async, described there.
+//
+// Both: page 0, the null page, is an ordinary readable page; masking
+// compares global positions j * ps + p against pos0 + t, never offsets in
+// a page. No tensor cores yet (bf16 pools could take wgmma query tiles).
+#include <algorithm>
 #include <type_traits>
 
-#include "common.cuh"
+#include "attention_simt.cuh"
 
 using namespace ptt;
 
@@ -236,12 +240,256 @@ ragged_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
   }
 }
 
+// Chunk rows (T > 1): the register-tiled core of attention_simt.cuh. A
+// block owns (row, head, query tile of 64) and walks the key positions
+// its tile can attend in key tiles of 32: whole pages at page sizes 8, 16
+// and 32, each page row copied through the page table into a 2-stage
+// cp.async ring (tile k+1 loads while tile k computes; one barrier a
+// tile). Positions past the tile's last page are zero-filled, never
+// read. int8 pages: a key's page scales ride in shared memory beside the
+// tile; the K scale multiplies that key's score column, the V scale its
+// P column (after the row sum), so the products run on the raw values,
+// converted once a tile to f32 tiles in shared memory.
+// A prefill group has few blocks (R 2, T 256, 16 heads: 128, against 264
+// resident on the card), so when blocks are short of two waves each
+// tile's keys are split in up to max_split contiguous ranges: every split
+// writes its unnormalised accumulator, m and l to the wrapper's scratch,
+// and ragged_chunk_merge combines them.
+template <typename QT, typename KT, class C, int NCH>
+__global__ void __launch_bounds__(C::THREADS, C::MINB)
+ragged_chunk_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
+                    const KT* __restrict__ vpool,
+                    const int* __restrict__ page_table,
+                    const int* __restrict__ pos0,
+                    const int* __restrict__ true_len,
+                    const float* __restrict__ kscale,
+                    const float* __restrict__ vscale, QT* __restrict__ out,
+                    float* __restrict__ part, int T, int NH, int D, int ps,
+                    int NPs, float scale_log2, int vec, int nsplit) {
+  using namespace simt;
+  constexpr bool I8 = std::is_same<KT, int8_t>::value;
+  constexpr int NTY = C::NTY, NTX = C::NTX, RM = C::RM, KN = C::KN;
+  constexpr int BQ = C::BQ, BK = C::BK, NW = C::NW;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const int dp = pad16(D), ldq = dp + kChunk<QT>, ldk = dp + kChunk<KT>;
+  const int ldv = dp;
+  float* sP = reinterpret_cast<float*>(smem_raw);  // [NW][BK][TYW RM]
+  float* sKs = sP + C::P_FLOATS;                   // [2][BK] page scales
+  float* sVs = sKs + 2 * BK;                       // [2][BK]
+  QT* sQ = reinterpret_cast<QT*>(sVs + 2 * BK);    // [BQ][ldq]
+  KT* sK = reinterpret_cast<KT*>(sQ + BQ * ldq);   // [2][BK][ldk]
+  KT* sV = sK + 2 * BK * ldk;                      // [2][BK][ldv]
+  // int8 pools: each landed tile is converted once to f32 tiles, which
+  // the products read (16 row groups read every element)
+  using CT = std::conditional_t<I8, float, KT>;
+  float* sKf = reinterpret_cast<float*>(sV + 2 * BK * ldv);  // [BK][dp + 4]
+  float* sVf = sKf + BK * (dp + 4);                          // [BK][dp]
+
+  const int h = blockIdx.x, r = blockIdx.z / nsplit;
+  const int sp = blockIdx.z - r * nsplit;  // this block's share of the keys
+  const int t0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest tile first
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tx = tid % NTX, ty = tid / NTX;
+  const int p0 = pos0[r];
+  const int last = p0 + true_len[r] - 1;  // row's last attendable position
+  const int nq = min(BQ, T - t0);         // queries of this tile (>= 1)
+  const int tile_last = min(last, p0 + t0 + nq - 1);
+  const int n_pages = tile_last < 0 ? 0 : min(tile_last / ps + 1, NPs);
+  const int nkeys = n_pages * ps;  // positions of the pages read
+  const long row_stride = (long)NH * D;  // one token of one page
+  const int* tab = page_table + (long)r * NPs;
+
+  const QT* qb = q + ((long)r * T + t0) * row_stride + (long)h * D;
+  for (int i = warp; i < BQ; i += NW) {
+    const bool ok = i < nq;
+    copy_row(sQ + i * ldq, ok ? qb + i * row_stride : qb, D, dp, ok, vec,
+             lane);
+  }
+  auto load_kv = [&](int kt, int stage) {
+    for (int i = warp; i < BK; i += NW) {
+      const int kp = kt * BK + i;
+      const bool ok = kp < nkeys;
+      const int page = ok ? tab[kp / ps] : 0;
+      const long off =
+          ok ? ((long)page * ps + kp % ps) * row_stride + (long)h * D : 0;
+      copy_row(sK + (stage * BK + i) * ldk, kpool + off, D, dp, ok, vec,
+               lane);
+      copy_row(sV + (stage * BK + i) * ldv, vpool + off, D, dp, ok, vec,
+               lane);
+      if constexpr (I8) {
+        if (lane == 0) {
+          sKs[stage * BK + i] = ok ? kscale[(long)page * NH + h] : 0.f;
+          sVs[stage * BK + i] = ok ? vscale[(long)page * NH + h] : 0.f;
+        }
+      }
+    }
+  };
+
+  const int nkt = (nkeys + BK - 1) / BK;
+  const int kb = sp * nkt / nsplit, ke = (sp + 1) * nkt / nsplit;
+  if (kb < ke) load_kv(kb, 0);
+  cp_async_commit();
+
+  RowState<RM, NCH> st;
+  st.init();
+  float* sPw = sP + warp * BK * C::TYW * RM;
+  for (int kt = kb; kt < ke; ++kt) {
+    cp_async_wait<0>();
+    // tile kt (and Q) landed for every thread, and every thread is done
+    // with tile kt - 1, whose stage the next copy refills
+    __syncthreads();
+    if (kt + 1 < ke) {
+      load_kv(kt + 1, (kt + 1 - kb) & 1);
+      cp_async_commit();
+    }
+    const int sb = ((kt - kb) & 1) * BK;
+    const CT *cK, *cV;
+    int ldck, ldcv;
+    if constexpr (I8) {
+      for (int i = warp; i < BK; i += NW)
+        for (int c = 4 * lane; c < dp; c += 128) {
+          *reinterpret_cast<float4*>(sKf + i * (dp + 4) + c) =
+              lds4(sK + (sb + i) * ldk + c);
+          *reinterpret_cast<float4*>(sVf + i * dp + c) =
+              lds4(sV + (sb + i) * ldv + c);
+        }
+      __syncthreads();
+      cK = sKf, cV = sVf, ldck = dp + 4, ldcv = dp;
+    } else {
+      cK = sK + sb * ldk, cV = sV + sb * ldv, ldck = ldk, ldcv = ldv;
+    }
+    float s[RM][KN];
+    scores<RM, KN, NTY, NTX>(sQ, ldq, cK, ldck, dp, ty, tx, s);
+    float ksc[KN], vsc[KN];
+#pragma unroll
+    for (int j = 0; j < KN; ++j) {
+      ksc[j] = I8 ? sKs[sb + tx + NTX * j] * scale_log2 : scale_log2;
+      vsc[j] = I8 ? sVs[sb + tx + NTX * j] : 1.f;
+    }
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+      const int qpos = p0 + t0 + ty + NTY * i;
+#pragma unroll
+      for (int j = 0; j < KN; ++j) {
+        const int kp = k0 + tx + NTX * j;
+        s[i][j] = kp < nkeys && kp <= qpos ? s[i][j] * ksc[j] : -INFINITY;
+      }
+    }
+    softmax_update<RM, KN, NCH, NTX>(s, st);
+    if constexpr (I8) {
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < KN; ++j) s[i][j] *= vsc[j];
+    }
+    pv<RM, KN, NCH, NTY, NTX>(s, sPw, cV, ldcv, dp, ty, tx, st);
+  }
+  cp_async_wait<0>();  // an empty split still copied its Q tile
+
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int t = ty + NTY * i;
+    if (t >= nq) continue;
+    const long row = ((long)r * T + t0 + t) * NH + h;
+    if (nsplit == 1) {
+      const float ls = st.l[i] == 0.f ? 1.f : st.l[i];
+      QT* orow = out + row * D;
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = tx * 4 + 4 * NTX * c + e;
+          if (d < D) orow[d] = from_f32<QT>(st.o[i][c][e] / ls);
+        }
+    } else {  // this split's softmax state: [D] accumulator, m, l
+      float* prow = part + (row * nsplit + sp) * (D + 2);
+#pragma unroll
+      for (int c = 0; c < NCH; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int d = tx * 4 + 4 * NTX * c + e;
+          if (d < D) prow[d] = st.o[i][c][e];
+        }
+      if (tx == 0) {
+        prow[D] = st.m[i];
+        prow[D + 1] = st.l[i];
+      }
+    }
+  }
+}
+
+// Merge of a chunk row's key splits: one block per (row, query, head),
+// the splits' states rescaled to their common max (base 2).
+template <typename QT>
+__global__ void ragged_chunk_merge(const float* __restrict__ part,
+                                   QT* __restrict__ out, int D, int nsplit) {
+  const long row = blockIdx.x;
+  const float* pr = part + row * nsplit * (D + 2);
+  float mx = -INFINITY;
+  for (int s = 0; s < nsplit; ++s) mx = fmaxf(mx, pr[s * (D + 2) + D]);
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float den = 0.f, num = 0.f;
+    for (int s = 0; s < nsplit && mx != -INFINITY; ++s) {
+      const float m = pr[s * (D + 2) + D];
+      if (m == -INFINITY) continue;
+      const float c = exp2f(m - mx);
+      den += pr[s * (D + 2) + D + 1] * c;
+      num += pr[s * (D + 2) + d] * c;
+    }
+    out[row * D + d] = from_f32<QT>(den > 0.f ? num / den : 0.f);
+  }
+}
+
+// Dmax: the largest head dim of the instantiation (NCH covers it)
+template <typename QT, typename KT, class C, int Dmax>
+cudaError_t launch_chunk(const void* q, const void* k, const void* v,
+                         const int* tab, const int* p0, const int* tl,
+                         const float* ks, const float* vs, void* o,
+                         float* part, int max_split, int R, int T, int NH,
+                         int D, int ps, int NPs, float scale,
+                         cudaStream_t st) {
+  constexpr int NCH = (Dmax + 4 * C::NTX - 1) / (4 * C::NTX);
+  const int nqt = (T + C::BQ - 1) / C::BQ;
+  // split the keys of each (row, head, query tile) when the group has
+  // too few blocks to keep two waves of resident blocks on the card
+  int nsplit = 1;
+  if (part != nullptr && max_split > 1) {
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    const long blocks = (long)R * NH * nqt, want = 2L * C::MINB * sms;
+    nsplit = (int)std::min<long>(
+        max_split, std::max<long>(1, (want + blocks - 1) / blocks));
+  }
+  const bool i8 = std::is_same<KT, int8_t>::value;
+  const size_t smem = C::template smem<QT, KT>(
+      D, sizeof(float) * C::BK * (4 + (i8 ? 2 * simt::pad16(D) + 4 : 0)));
+  cudaError_t err = cudaFuncSetAttribute(
+      ragged_chunk_kernel<QT, KT, C, NCH>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int vec = D % simt::kChunk<QT> == 0 && D % simt::kChunk<KT> == 0 &&
+                  (uintptr_t)q % 16 == 0 && (uintptr_t)k % 16 == 0 &&
+                  (uintptr_t)v % 16 == 0;
+  const dim3 grid(NH, nqt, R * nsplit);
+  ragged_chunk_kernel<QT, KT, C, NCH><<<grid, C::THREADS, smem, st>>>(
+      (const QT*)q, (const KT*)k, (const KT*)v, tab, p0, tl, ks, vs, (QT*)o,
+      part, T, NH, D, ps, NPs, scale * 1.4426950408889634f, vec, nsplit);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || nsplit == 1) return err;
+  ragged_chunk_merge<QT><<<R * T * NH, 128, 0, st>>>(part, (QT*)o, D, nsplit);
+  return cudaGetLastError();
+}
+
 template <typename QT, typename KT, int DPL>
 cudaError_t launch_d(const void* q, const void* k, const void* v,
                      const int* tab, const int* p0, const int* tl,
-                     const float* ks, const float* vs, void* o, int R, int T,
-                     int NH, int D, int ps, int NPs, float scale,
-                     cudaStream_t st) {
+                     const float* ks, const float* vs, void* o, float* part,
+                     int max_split, int R, int T, int NH, int D, int ps,
+                     int NPs, float scale, cudaStream_t st) {
   // word loads of int8 rows: every row of a head starts word aligned
   const int vec =
       D % 4 == 0 && (uintptr_t)k % 4 == 0 && (uintptr_t)v % 4 == 0 ? 1 : 0;
@@ -253,33 +501,41 @@ cudaError_t launch_d(const void* q, const void* k, const void* v,
     ragged_kernel<QT, KT, DPL, 1, NW><<<grid, NW * 32, 0, st>>>(
         (const QT*)q, (const KT*)k, (const KT*)v, tab, p0, tl, ks, vs,
         (QT*)o, T, NH, D, ps, NPs, scale, vec);
-  } else {
-    constexpr int QW = 8, NW = 4;
-    const dim3 grid(R, NH, (T + QW - 1) / QW);
-    ragged_kernel<QT, KT, DPL, QW, NW><<<grid, NW * 32, 0, st>>>(
-        (const QT*)q, (const KT*)k, (const KT*)v, tab, p0, tl, ks, vs,
-        (QT*)o, T, NH, D, ps, NPs, scale, vec);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
+  // chunk rows: above D 128 a thread keeps 2 query rows, so its output
+  // patch stays at 64 registers
+  if constexpr (DPL <= 2)
+    return launch_chunk<QT, KT, simt::Tile128, 64>(
+        q, k, v, tab, p0, tl, ks, vs, o, part, max_split, R, T, NH, D, ps,
+        NPs, scale, st);
+  else if constexpr (DPL <= 4)
+    return launch_chunk<QT, KT, simt::Tile128, 128>(
+        q, k, v, tab, p0, tl, ks, vs, o, part, max_split, R, T, NH, D, ps,
+        NPs, scale, st);
+  else
+    return launch_chunk<QT, KT, simt::Tile256, 256>(
+        q, k, v, tab, p0, tl, ks, vs, o, part, max_split, R, T, NH, D, ps,
+        NPs, scale, st);
 }
 
 template <typename QT, typename KT>
 cudaError_t launch_t(const void* q, const void* k, const void* v,
                      const int* tab, const int* p0, const int* tl,
-                     const float* ks, const float* vs, void* o, int R, int T,
-                     int NH, int D, int ps, int NPs, float scale,
-                     cudaStream_t st) {
+                     const float* ks, const float* vs, void* o, float* part,
+                     int max_split, int R, int T, int NH, int D, int ps,
+                     int NPs, float scale, cudaStream_t st) {
   if (D <= 64)
-    return launch_d<QT, KT, 2>(q, k, v, tab, p0, tl, ks, vs, o, R, T, NH, D,
-                               ps, NPs, scale, st);
+    return launch_d<QT, KT, 2>(q, k, v, tab, p0, tl, ks, vs, o, part,
+                               max_split, R, T, NH, D, ps, NPs, scale, st);
   if (D <= 96)
-    return launch_d<QT, KT, 3>(q, k, v, tab, p0, tl, ks, vs, o, R, T, NH, D,
-                               ps, NPs, scale, st);
+    return launch_d<QT, KT, 3>(q, k, v, tab, p0, tl, ks, vs, o, part,
+                               max_split, R, T, NH, D, ps, NPs, scale, st);
   if (D <= 128)
-    return launch_d<QT, KT, 4>(q, k, v, tab, p0, tl, ks, vs, o, R, T, NH, D,
-                               ps, NPs, scale, st);
-  return launch_d<QT, KT, 8>(q, k, v, tab, p0, tl, ks, vs, o, R, T, NH, D, ps,
-                             NPs, scale, st);
+    return launch_d<QT, KT, 4>(q, k, v, tab, p0, tl, ks, vs, o, part,
+                               max_split, R, T, NH, D, ps, NPs, scale, st);
+  return launch_d<QT, KT, 8>(q, k, v, tab, p0, tl, ks, vs, o, part,
+                             max_split, R, T, NH, D, ps, NPs, scale, st);
 }
 
 }  // namespace
@@ -287,7 +543,9 @@ cudaError_t launch_t(const void* q, const void* k, const void* v,
 // C entry (ops/paged_attention.py). All tensors contiguous:
 //   q [R, T, NH, D], k_pool/v_pool [P, ps, NH, D], page_table [R, NPs]
 //   int32, pos0/true_len [R] int32, k_scale/v_scale [P, NH] f32 (int8
-//   pools; null otherwise), out [R, T, NH, D] (q dtype).
+//   pools; null otherwise), out [R, T, NH, D] (q dtype), scratch f32 of
+//   R * T * NH * max_split * (D + 2) floats for chunk rows' key splits
+//   (T > 1; null or max_split <= 1: no split).
 // dtype codes: 0 = f32, 1 = bf16, 2 = int8 (pools only). Returns the
 // launch's cudaError_t.
 extern "C" int ragged_paged_attention(const void* q, const void* k_pool,
@@ -298,6 +556,7 @@ extern "C" int ragged_paged_attention(const void* q, const void* k_pool,
                                       const float* v_scale, void* out, int R,
                                       int T, int NH, int D, int ps, int NPs,
                                       int q_dtype, int kv_dtype, float scale,
+                                      float* scratch, int max_split,
                                       void* stream) {
   if (R < 1 || T < 1 || D < 1 || D > 256 || ps < 1 || ps > 32 || NPs < 1)
     return (int)cudaErrorInvalidValue;
@@ -307,8 +566,8 @@ extern "C" int ragged_paged_attention(const void* q, const void* k_pool,
 #define PTT_RAGGED(QC, KC, QT, KT)                                          \
   if (q_dtype == QC && kv_dtype == KC)                                      \
     return (int)launch_t<QT, KT>(q, k_pool, v_pool, page_table, pos0,       \
-                                 true_len, k_scale, v_scale, out, R, T, NH, \
-                                 D, ps, NPs, scale, st);
+                                 true_len, k_scale, v_scale, out, scratch,  \
+                                 max_split, R, T, NH, D, ps, NPs, scale, st);
   PTT_RAGGED(DT_F32, DT_F32, float, float)
   PTT_RAGGED(DT_F32, DT_BF16, float, __nv_bfloat16)
   PTT_RAGGED(DT_BF16, DT_BF16, __nv_bfloat16, __nv_bfloat16)

@@ -214,7 +214,10 @@ def _fwd_outputs(q, scale):
 
 
 def _flash_simt(q, k, v, causal, scale):
-    """SIMT forward (``csrc/flash_attention_fwd.cu``): f32 or bf16."""
+    """SIMT forward (``csrc/flash_attention_fwd.cu``): f32, and bf16 at a
+    head dim the tensor-core kernel does not take. Register-tiled products
+    on the FMA units (the core of ``csrc/attention_simt.cuh``) over a
+    cp.async K/V ring; the products stay in f32 (no TF32)."""
     global FLASH_FWD_LAUNCHES
     b, sq, h, d = q.shape
     o, lse, s = _fwd_outputs(q, scale)

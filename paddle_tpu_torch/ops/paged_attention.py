@@ -5,7 +5,10 @@ One entry point, ``ragged_paged_attention``, over per-row metadata
 ``(page_table row, pos0, true_len)``: a decode step is a row with
 ``true_len == 1``, a prefill chunk a row with ``true_len`` up to its chunk
 width. On a CUDA tensor it launches ``csrc/ragged_paged_attention.cu``
-(the port of the TPU kernel ``_ragged_kernel``); on a CPU tensor it runs
+(the port of the TPU kernel ``_ragged_kernel``: a decode-row kernel for
+``T == 1`` and the register-tiled chunk-row kernel of
+``csrc/attention_simt.cuh`` for ``T > 1``, counted apart in
+``RAGGED_CHUNK_LAUNCHES``); on a CPU tensor it runs
 the plain version ``_gather_attend`` — the reference's XLA spelling:
 gather each row's pages into a contiguous ``[R, S_cap, NH, D]`` view and
 run dense masked attention with an f32 softmax. Nothing selects the plain
@@ -36,14 +39,19 @@ from . import _cuda
 
 __all__ = ["ragged_paged_attention", "paged_decode_attention",
            "paged_prefill_attention", "paged_kv_scatter", "RAGGED_LAUNCHES",
-           "RAGGED_INT8_LAUNCHES"]
+           "RAGGED_INT8_LAUNCHES", "RAGGED_CHUNK_LAUNCHES"]
 
 #: launches of the CUDA kernel (incremented once per launch, nowhere else)
 RAGGED_LAUNCHES = 0
 #: those of them that ran over int8 pools (the kernel's int8 path)
 RAGGED_INT8_LAUNCHES = 0
+#: those of them with T > 1 (chunk rows: the register-tiled kernel of the
+#: same source; T == 1 launches the decode-row kernel)
+RAGGED_CHUNK_LAUNCHES = 0
 
 _NEG_INF = -1e9     # same masking constant as the reference
+#: most key splits of a chunk-row query tile (the kernel's scratch room)
+_CHUNK_MAX_SPLIT = 4
 
 
 
@@ -145,7 +153,7 @@ def ragged_paged_attention(q, k_pool, v_pool, page_table, pos0, true_len,
 
 def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len,
                  k_scale=None, v_scale=None):
-    global RAGGED_LAUNCHES, RAGGED_INT8_LAUNCHES
+    global RAGGED_LAUNCHES, RAGGED_INT8_LAUNCHES, RAGGED_CHUNK_LAUNCHES
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"ragged_paged_attention: unsupported device {dev}")
@@ -176,7 +184,12 @@ def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len,
         raise ValueError(f"{name}: kernel supports page_size <= 32 and "
                          f"head_dim <= 256, got {ps} and {hd}")
     out = torch.empty_like(q)
-    fn = _cuda.entry(name, name, "pppppppppiiiiiiiifp")
+    # chunk rows: room for the kernel to split each query tile's keys
+    # (it splits only when the group has too few blocks for the card)
+    max_split = _CHUNK_MAX_SPLIT if t > 1 else 0
+    scratch = torch.empty(r * t * nh * max_split * (hd + 2), device=dev,
+                          dtype=torch.float32) if max_split else None
+    fn = _cuda.entry(name, name, "pppppppppiiiiiiiifpip")
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  page_table.data_ptr(), pos0.data_ptr(), true_len.data_ptr(),
@@ -185,11 +198,15 @@ def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len,
                  out.data_ptr(), r, t, nh, hd, ps, page_table.shape[1],
                  _cuda.DTYPE_CODE[q.dtype],
                  _cuda.STORAGE_DTYPE_CODE[k_pool.dtype],
-                 1.0 / math.sqrt(hd), _cuda.stream_handle(dev))
+                 1.0 / math.sqrt(hd),
+                 None if scratch is None else scratch.data_ptr(), max_split,
+                 _cuda.stream_handle(dev))
     _cuda.raise_on_error(name, err)
     RAGGED_LAUNCHES += 1
     if k_scale is not None:
         RAGGED_INT8_LAUNCHES += 1
+    if t > 1:
+        RAGGED_CHUNK_LAUNCHES += 1
     return out
 
 

@@ -30,17 +30,25 @@ def functional_clip(clip, grads: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     elif isinstance(clip, ClipGradByNorm):
         for g in grads:
             n = torch.linalg.vector_norm(g.float())
-            g.mul_(torch.clamp(clip.clip_norm / torch.clamp(n, min=1e-12),
-                               max=1.0))
+            _scale_(g, torch.clamp(clip.clip_norm / torch.clamp(n, min=1e-12),
+                                   max=1.0))
     elif isinstance(clip, ClipGradByGlobalNorm):
         gn = torch.sqrt(sum(g.float().square().sum() for g in grads))
         scale = torch.clamp(clip.clip_norm / torch.clamp(gn, min=1e-12),
                             max=1.0)
         for g in grads:
-            g.mul_(scale)
+            _scale_(g, scale)
     else:
         raise TypeError(f"Unknown grad clip type: {type(clip)}")
     return grads
+
+
+def _scale_(g: torch.Tensor, scale: torch.Tensor) -> None:
+    """``g <- g * scale`` in place, the product taken in f32 (or wider) and
+    rounded once to ``g``'s dtype. ``g.mul_(scale)`` would not do that on
+    the card: a 0-dim CUDA ``scale`` is cast to a bf16 ``g``'s dtype before
+    the product, so the result is rounded twice."""
+    g.copy_(g.to(torch.promote_types(g.dtype, scale.dtype)) * scale)
 
 
 def apply_grad_clip(clip, params) -> None:

@@ -48,6 +48,30 @@ def test_output_and_lse_match_pallas_interpret(causal):
     np.testing.assert_allclose(lse, lse_ref, **TOL)
 
 
+@pytest.mark.parametrize("sq,sk,causal", [(65, 65, True), (65, 65, False),
+                                          (127, 127, True),
+                                          (127, 127, False),
+                                          (65, 127, False), (127, 65, False)])
+def test_plain_matches_pallas_kernel_at_ragged_lengths(sq, sk, causal):
+    """The oracle of the CUDA forward at lengths that leave its 64-query
+    and 32-key tiles ragged, against the reference's Pallas forward
+    (``_fwd``, interpret mode) run as one tile of the whole length (its
+    public entry takes 128-aligned lengths only): O and the natural-log
+    LSE at 2e-5."""
+    q, _, _ = _qkv(6, s=sq)
+    _, k, v = _qkv(7, s=sk)
+    scale = 1.0 / np.sqrt(q.shape[3])
+    q3, k3, v3 = (jfa._reshape_in(jnp.asarray(x)) for x in (q, k, v))
+    o3, lse_ref = jfa._fwd(q3, k3, v3, scale, causal, sq, sk)
+    o_ref = np.asarray(jfa._reshape_out(o3, q.shape[0], q.shape[2]))
+    with torch.inference_mode():
+        o, lse = tfa._plain_fwd(torch.from_numpy(q), torch.from_numpy(k),
+                                torch.from_numpy(v), causal, None)
+    assert lse.shape == lse_ref.shape
+    np.testing.assert_allclose(o.numpy(), o_ref, **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_ref), **TOL)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 def test_output_matches_mha_reference(causal):
     q, k, v = _qkv(1)

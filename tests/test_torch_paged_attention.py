@@ -55,6 +55,39 @@ def _cases():
     return {"decode": decode, "chunk": chunk, "mixed_pad": mixed}
 
 
+def _tile_edge_cases():
+    """Row groups at the edges of the CUDA chunk-row kernel's tiles:
+    (q, table, pos0, true_len, page size). Their oracle is this plain
+    version, so it is held to the reference there too."""
+    r = np.random.RandomState(11)
+
+    def q(rows, t):
+        return r.randn(rows, t, NH, HD).astype(np.float32)
+
+    return {
+        # chunk rows whose pos0 is not page-aligned
+        "chunk_unaligned": (q(2, 16), np.array([[4, 9, 2, 0], [7, 3, 11, 0]],
+                                               np.int32),
+                            np.array([5, 13], np.int32),
+                            np.array([16, 11], np.int32), PS),
+        # T not a multiple of the kernel's query tile; last real query 37
+        "t40_true37": (q(1, 40), np.array([[6, 2, 9, 4, 11, 0]], np.int32),
+                       np.array([3], np.int32), np.array([37], np.int32),
+                       PS),
+        # pages of 16 and of 32 positions
+        "ps16": (q(2, 24), np.array([[3, 8, 1, 0], [5, 10, 2, 7]], np.int32),
+                 np.array([7, 30], np.int32), np.array([24, 20], np.int32),
+                 16),
+        "ps32": (q(2, 40), np.array([[4, 6, 0], [9, 1, 11]], np.int32),
+                 np.array([0, 45], np.int32), np.array([40, 33], np.int32),
+                 32),
+        # the attended range ends one position into its last page
+        "ends_one_into_page": (q(1, 9), np.array([[7, 3, 10, 0]], np.int32),
+                               np.array([8], np.int32),
+                               np.array([9], np.int32), PS),
+    }
+
+
 def _port(q, k, v, tab, p0, tl):
     with torch.inference_mode():
         return tpa.ragged_paged_attention(
@@ -68,11 +101,19 @@ def _real(x, tl):
     return [x[r, :int(tl[r])] for r in range(x.shape[0])]
 
 
-@pytest.mark.parametrize("case", ["decode", "chunk", "mixed_pad"])
+@pytest.mark.parametrize("case", ["decode", "chunk", "mixed_pad",
+                                  "chunk_unaligned", "t40_true37", "ps16",
+                                  "ps32", "ends_one_into_page"])
 @pytest.mark.parametrize("impl", ["pallas", "xla"])
 def test_ragged_plain_matches_reference(case, impl):
-    q, tab, p0, tl = _cases()[case]
-    _, k, v = _pools(3)
+    if case in _cases():
+        q, tab, p0, tl = _cases()[case]
+        _, k, v = _pools(3)
+    else:
+        q, tab, p0, tl, ps = _tile_edge_cases()[case]
+        r = np.random.RandomState(13)
+        k = r.randn(P, ps, NH, HD).astype(np.float32)
+        v = r.randn(P, ps, NH, HD).astype(np.float32)
     ref = np.asarray(jpa.ragged_paged_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(tab),
         jnp.asarray(p0), jnp.asarray(tl), impl=impl))
@@ -143,6 +184,12 @@ def test_cpu_tensors_take_plain_version_without_counting_a_launch():
     _, k, v = _pools(1)
     before = tpa.RAGGED_LAUNCHES
     _port(q, k, v, tab, p0, tl)
+    assert tpa.RAGGED_LAUNCHES == before
+    # chunk rows (T > 1) on the CPU count no chunk-row launch either
+    chunk = tpa.RAGGED_CHUNK_LAUNCHES
+    q, tab, p0, tl = _cases()["chunk"]
+    _port(q, k, v, tab, p0, tl)
+    assert tpa.RAGGED_CHUNK_LAUNCHES == chunk
     assert tpa.RAGGED_LAUNCHES == before
 
 

@@ -390,31 +390,59 @@ def test_adamw_decay_fun_and_lr_ratio_match_reference():
               apply_decay_param_fun=decay)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("kind", ["global", "norm", "value"])
-def test_clips_match_reference(kind):
+def test_clips_match_reference(kind, dtype):
+    """f32 gradients at 1e-6; bf16 gradients bit for bit, and (for the
+    scaling clips) equal to one rounding of the f32 product,
+    ``(g.float() * scale).to(bf16)``, as the reference's
+    ``(g * scale).astype(g.dtype)``."""
     from paddle_tpu.optimizer.clip import apply_grad_clip as japply
     from paddle_tpu_torch.optimizer.clip import apply_grad_clip
 
     _, grads = _param_sets(1)
     g = grads[0]
+    tdt = getattr(torch, dtype)
+    if dtype == "bfloat16":     # the same bf16 values on both sides
+        g = {n: torch.from_numpy(v).to(tdt).float().numpy()
+             for n, v in g.items()}
     make = {"global": lambda m: m.ClipGradByGlobalNorm(1.0),
             "norm": lambda m: m.ClipGradByNorm(2.0),
             "value": lambda m: m.ClipGradByValue(1.5, -0.5)}[kind]
     jps = []
     for n, v in g.items():
         p = paddle.create_parameter(list(v.shape), "float32")
-        p.grad = paddle.to_tensor(v)
+        p.grad = paddle.to_tensor(v, dtype=dtype)
         jps.append(p)
     japply(make(paddle.nn), jps)
     tps = []
     for v in g.values():
-        p = torch.nn.Parameter(torch.zeros(v.shape))
-        p.grad = torch.from_numpy(v.copy())
+        p = torch.nn.Parameter(torch.zeros(v.shape, dtype=tdt))
+        p.grad = torch.from_numpy(v.copy()).to(tdt)
         tps.append(p)
     apply_grad_clip(make(tnn), tps)
     for jp, tp in zip(jps, tps):
-        np.testing.assert_allclose(tp.grad.numpy(), np.asarray(jp.grad._value),
-                                   rtol=1e-6, atol=1e-6)
+        assert tp.grad.dtype == tdt
+        ref = np.asarray(jp.grad._value).astype(np.float32)
+        if dtype == "float32":
+            np.testing.assert_allclose(tp.grad.numpy(), ref, rtol=1e-6,
+                                       atol=1e-6)
+        else:
+            np.testing.assert_array_equal(tp.grad.float().numpy(), ref)
+    if dtype == "bfloat16" and kind != "value":
+        gs = [torch.from_numpy(v) for v in g.values()]
+        if kind == "global":
+            n = torch.sqrt(sum(x.square().sum() for x in gs))
+            scales = [torch.clamp(1.0 / torch.clamp(n, min=1e-12),
+                                  max=1.0)] * len(gs)
+        else:
+            scales = [torch.clamp(2.0 / torch.clamp(
+                torch.linalg.vector_norm(x), min=1e-12), max=1.0)
+                for x in gs]
+        assert max(float(sc) for sc in scales) < 1.0    # the clip is active
+        for x, sc, tp in zip(gs, scales, tps):
+            torch.testing.assert_close(tp.grad, (x * sc).to(tdt), rtol=0,
+                                       atol=0)
 
 
 def test_recipe_schedule_matches_reference_over_30_steps():
