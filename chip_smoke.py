@@ -27,12 +27,22 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    forward at the train step's B2 S2048, at S 1024, at a ragged S 1000
    and at D 64; the merged backward in every bf16 single-tile case and dQ
    and dK/dV in every bf16 pair case, held to the plain versions on the
-   same bf16 inputs. f32, and bf16 at D 96, take the SIMT kernels. The
+   same bf16 inputs. f32, and bf16 at D 96, take the SIMT forward and
+   the mma.sync backward (3xTF32 products, P and dS in f32): the pair
+   also cross and ragged, with a given delta, and the pair and the merged
+   kernel at D 40, 64, 80 and 256 (every instantiation, and head dims
+   that end inside a group of column blocks), bf16 at D 40 and 256 too;
+   their f32 rows are bounded at 165 TFLOP/s (3xTF32, the route of both
+   the kernels and the library), the 67 TFLOP/s f32 FMA line beside it.
+   The bf16 given delta at S 1024 on the wgmma merged kernel is held to
+   the plain version with one bf16 flip of P or dS allowed a row
+   (given_delta_check). The
    ragged kernel's chunk rows (T > 1) also run with an unaligned pos0, a
-   T 40 row and over a pool of 32-token pages; the f32 SDPA yardstick's
-   aten kernel is named from torch.profiler. The build fails if ptxas
-   reports a spill in a tensor-core kernel or in the register-tiled SIMT
-   kernels (the flash forward, the ragged chunk rows).
+   T 40 row and over a pool of 32-token pages; the f32 SDPA yardsticks'
+   aten kernels (forward and backward) are named from torch.profiler.
+   The build fails if ptxas reports a spill in a tensor-core kernel, in
+   the register-tiled SIMT kernels (the flash forward, the ragged chunk
+   rows) or in the mma.sync backward kernels.
 2. model phase — GPT.forward at gpt3_1_3b width (24 layers, random
    weights from a seed, f32) over 2 prompts of 1024 tokens (flash
    kernel), and gpt_ragged_apply over the same tokens through scrambled
@@ -44,9 +54,9 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
 4. grad phase — GPT.loss at gpt3_1_3b width, 2 layers, one sequence of
    2048: every parameter's gradient through the kernels against a run on
    the plain attention functions (bound in by this script); f32 (the SIMT
-   kernels) at max |dg| / max |g| <= 1e-3, again at S 1024 (the SIMT
-   merged kernel), then the model cast to bf16 (the tensor-core forward,
-   dQ and dK/dV) at GRAD_BF16_TOL.
+   forward, the mma.sync backward) at max |dg| / max |g| <= 1e-3, again
+   at S 1024 (the mma.sync merged kernel), then the model cast to bf16
+   (the tensor-core forward, dQ and dK/dV) at GRAD_BF16_TOL.
 5. train phase — HybridPipelineTrainer at gpt3_1_3b, full depth, with
    the single-chip recipe (amp, recompute, bf16 parameters and moments,
    AdamW 0.1, warmup-cosine schedule, global-norm clip 1.0, n_micro 2):
@@ -72,11 +82,11 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
 
 Every launch counter is set to 0 just before each of phases 2-7 and read
 just after it: those are the main paths' launches, and each path must
-launch each of its kernels (the train path: the four tensor-core flash
-kernels and no SIMT flash kernel; the f32 grad paths: the SIMT kernels
-and no tensor-core one). Prints JSON lines per case, then
-{"kernels": [...]}, the nvidia-smi line, and as the last line
-{"ok": true, "device": {...}}. Any failure raises: no phase is caught.
+launch each of its kernels (the train path: the four wgmma flash
+kernels and none of the f32 route's; the f32 grad paths: the SIMT
+forward and the mma.sync backward kernels and no wgmma one). Prints
+JSON lines per case, then {"kernels": [...]}, the nvidia-smi line, and
+as the last line {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
 
     python3 chip_smoke.py --phases kernels,grad,train   # after editing a
@@ -97,7 +107,11 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,    # f32 outside the tensor cores
               "bfloat16": 989e12,  # bf16 dense tensor cores
-              "int8": 1979e12}     # int8 dense tensor cores (operations/s)
+              "int8": 1979e12,     # int8 dense tensor cores (operations/s)
+              # f32 products as 3xTF32 on the tensor cores (the f32
+              # backward kernels' route): 495 TFLOP/s TF32 dense, three
+              # TF32 products per f32 product
+              "tf32x3": 495e12 / 3}
 
 F32_TOL = 2e-5   # as the reference holds its Pallas kernels to XLA (f32)
 BF16_TOL = 2e-2  # one bf16 ulp at |o| <~ 1, f32 accumulation on both sides
@@ -108,7 +122,8 @@ BF16_TOL = 2e-2  # one bf16 ulp at |o| <~ 1, f32 accumulation on both sides
 # averaged over the keys: far inside one output ulp).
 MODEL_TOL = 1e-3  # 24 layers of f32 in different reduction orders
 BWD_F32_TOL = 3e-5  # the reference's own gradient tolerance (f32)
-# SIMT backward kernels keep P and dS in f32, so bf16 inputs are held to the
+# The mma.sync backward kernels (f32, and bf16 at D 96) keep P and dS in
+# f32 (3xTF32 products: f32 accuracy), so bf16 inputs are held to the
 # plain version on the f32-upcast inputs; bf16 gradients round that f32
 # result once, so they are held to it rounded to bf16 within one bf16 ulp
 # at any magnitude (2^-7 relative; 8 significant bits), plus an absolute
@@ -638,7 +653,7 @@ def kernel_phase_flash(dev, iters, shapes, seed=1):
         row = {"phase": "kernel",
                "kernel": "flash_attention_fwd_tc" if tc
                else "flash_attention_fwd",
-               "route": "tensor_core" if tc else "simt",
+               "route": "wgmma" if tc else "simt",
                "case": f"B{b}_S{s}_H{h}_D{d}_{'causal' if causal else 'full'}",
                "dtype": dt, "max_abs_err": err, "lse_max_abs_err": lse_err,
                "tolerance": tol,
@@ -702,13 +717,33 @@ def sdpa_f32_kernels(dev, shape, seed=2):
                     for e in kernels]}}
 
 
+def sdpa_f32_bwd_kernels(dev, shape, seed=3):
+    """Which aten kernels the f32 backward yardstick (sdpa_backward_call:
+    PyTorch's memory-efficient attention backward, causal) runs on the
+    card, from torch.profiler, with TF32 off as everywhere in this
+    script."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(*shape, generator=g, device=dev)
+                   for _ in range(4))
+    call, name = sdpa_backward_call(q, k, v, do, True)
+    call()
+    _, kernels = profile_kernels(dev, call)
+    return {"phase": "kernel", "library_kernels_f32_sdpa_backward": {
+        "call": name, "shape": list(shape), "causal": True,
+        "kernels": [{"name": e.key, "ms": e.self_device_time_total / 1e3}
+                    for e in kernels]}}
+
+
 def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
     """Each backward kernel against its plain version on the same inputs:
     q/k/v/dO random, o and LSE from the forward kernel, delta = rowsum(dO
-    o) (or given). The SIMT kernels keep P and dS in f32, so their bf16
-    inputs are held to the plain version run on the same values upcast to
-    f32: f32 outputs at BWD_F32_TOL, bf16 outputs against that result
-    rounded to bf16 at BWD_BF16_RTOL and BWD_BF16_ATOL * max|ref|. The
+    o) (or given). The mma.sync kernels (3xTF32 products) keep P and dS
+    in f32, so their bf16 inputs are held to the plain version run on the
+    same values upcast to f32: f32 outputs at BWD_F32_TOL, bf16 outputs
+    against that result rounded to bf16 at BWD_BF16_RTOL and
+    BWD_BF16_ATOL * max|ref|. The
     tensor-core kernels (bf16 at D 64 or 128: merged, dQ, dK/dV) round P
     and dS to bf16 as the reference does, so they are held to the plain
     version run on the same bf16 inputs, with BWD_TC_ATOL * max|ref| for
@@ -748,8 +783,8 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
         tc = fa._tc_route(dtype, d)
         sfx = "_tc" if tc else ""
         # the tensor-core kernels' plain version takes the same bf16 inputs
-        # (P and dS rounded to bf16 there too), the SIMT kernels' the f32
-        # upcast
+        # (P and dS rounded to bf16 there too), the mma.sync kernels' the
+        # f32 upcast
         pres, pdo = ((q, k, v, lse), do) if tc else \
             ((q.float(), k.float(), v.float(), lse), do.float())
         res = (q, k, v, lse)
@@ -829,9 +864,18 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                       + sum((sq if gn == "dq" else sk) for gn in grads)
                       * b * h * d * osz)
             flops = op_factor * b * h * d * pairs
-            b_ms, b_by = bound(nbytes, flops, dt)
+            extra = {}
+            if dt == "float32":
+                # f32 products run on the tensor cores as 3xTF32 (here and
+                # in the library's f32 backward), so the card's rate for
+                # this work is the 3xTF32 one; the f32 FMA line beside it
+                b_ms, b_by = bound(nbytes, flops, "tf32x3")
+                extra["bound_f32_fma_ms"] = bound(nbytes, flops, dt)[0]
+            else:
+                b_ms, b_by = bound(nbytes, flops, dt)
             row = {"phase": "kernel", "kernel": name,
-                   "route": "tensor_core" if tc else "simt", "case": case,
+                   "route": "wgmma" if tc else "mma_sync",
+                   "case": case,
                    "dtype": dt, "out_dtype": str(out).split(".")[-1],
                    "max_abs_err": max(errs.values()), "max_abs_err_by": errs,
                    "tolerance": tols,
@@ -843,8 +887,9 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                           "to bf16, one bf16 ulp")
                        + ", atol 2e-3 max|ref| for P/dS elements that round "
                        "the other way" if tc else
-                       "f32 gradients: summation order only (the "
-                       "reference's own gradient tolerance)" if out == f32
+                       "f32 gradients: summation order and 3xTF32 "
+                       "products (a few 2^-22 each; the reference's own "
+                       "gradient tolerance)" if out == f32
                        else "bf16 gradients against the f32 plain result "
                        "rounded to bf16: one bf16 ulp, atol 1e-3 max|ref|"),
                    "kernel_ms": kern_ms, "plain_ms": plain_ms,
@@ -852,10 +897,73 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                    "library": lib_name + " (dQ, dK and dV together), one "
                               "call on its forward's outputs",
                    "library_autograd_minus_forward_ms": lib_diff_ms,
-                   "bound_ms": b_ms, "bound_by": b_by}
+                   "bound_ms": b_ms, "bound_by": b_by, **extra}
             emit(row)
             results.append(row)
     return results
+
+
+def given_delta_check(dev, nh, hd, seed=4):
+    """Ring attention's given delta at S 1024 causal on bf16 inputs,
+    through the wgmma merged kernel with f32 gradients (ROADMAP queue 3
+    item 2), against the plain version on the same inputs (both round P
+    and dS to bf16). BWD_TC_ATOL * max|ref| does not bound one P or dS
+    element that rounds the other way on the two sides: it moves dQ[s, :]
+    by one bf16 ulp (at most 2^-7 of |dS[s, t]|) times a row of K, dK[t, :]
+    by that of dS[s, t] times a row of q, dV[t, :] by that of P[s, t]
+    times a row of dO. So each output row is held at rtol BWD_F32_TOL plus
+    atol BWD_TC_ATOL max|ref| plus 2^-7 of its row scale: max_t |dS[s, t]|
+    max|K| (dQ), max_s |dS[s, t]| max|q| (dK), max_s P[s, t] max|dO| (dV).
+    Reported beside it: the elements outside the element-wise check, and
+    the largest row error over its row scale."""
+    import torch
+
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    # the inputs kernel_phase_flash_bwd draws for this case as its first
+    g = torch.Generator(device=dev).manual_seed(seed)
+    b, s, f32 = 2, 1024, torch.float32
+    q, do, k, v = (torch.randn(b, s, nh, hd, generator=g, device=dev)
+                   .to(torch.bfloat16) for _ in range(4))
+    scale = 1.0 / hd ** 0.5
+    o, lse = (fa._flash_cuda if dev.type == "cuda" else fa._plain_fwd)(
+        q, k, v, True, None)
+    delta = (do.float() * o.float()).sum(-1).transpose(1, 2) \
+        .reshape(b * nh, s, 1) * 0.5 + 0.25
+    res = (q, k, v, lse)
+    got = fa._bwd_single_tile(scale, True, res, do, delta, (f32,) * 3)
+    ref = fa._plain_bwd_single_tile(scale, True, res, do, delta, (f32,) * 3)
+    # P and dS of the plain version, [B, H, Sq, Sk]
+    qt, kt, vt, dot = (x.transpose(1, 2).float() for x in (q, k, v, do))
+    sc = qt @ kt.transpose(-1, -2) * (scale * fa._LOG2E)
+    p = torch.exp2(sc - lse.reshape(b, nh, s, 1) * fa._LOG2E)
+    p = torch.where(torch.ones(s, s, dtype=torch.bool, device=dev).tril(),
+                    p, 0.0)
+    ds = (p * (dot @ vt.transpose(-1, -2) - delta.reshape(b, nh, s, 1))
+          * scale).abs()
+    row_scale = {"dq": ds.amax(-1) * float(kt.abs().max()),
+                 "dk": ds.amax(-2) * float(qt.abs().max()),
+                 "dv": p.amax(-2) * float(dot.abs().max())}
+    del sc, p, ds
+    out = {}
+    for name, x, y in zip(("dq", "dk", "dv"), got, ref):
+        err = (x - y).abs()
+        elem = BWD_TC_ATOL * float(y.abs().max()) + BWD_F32_TOL * y.abs()
+        rs_ = row_scale[name].transpose(1, 2).unsqueeze(-1)  # [B, S, H, 1]
+        ratio = ((err - elem).clamp_min(0) / rs_.clamp_min(1e-30))
+        out[name] = {"max_abs_err": float(err.max()),
+                     "outside_elementwise": int((err > elem).sum()),
+                     "max_row_excess_over_row_scale": float(ratio.max())}
+        if not bool(torch.isfinite(x).all()) or \
+                not bool((err <= elem + 2.0 ** -7 * rs_).all()):
+            raise AssertionError(f"given delta S {s} bf16: {name} {out[name]}"
+                                 " over one bf16 flip a row")
+    row = {"phase": "kernel", "given_delta_check": {
+        "case": f"B{b}_S{s}_H{nh}_D{hd}_causal_outf32_delta",
+        "kernel": "flash_attention_bwd_single_tile_tc", "dtype": "bfloat16",
+        "row_allowance": "2^-7 of the row scale", "errors": out}}
+    emit(row)
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -1394,22 +1502,23 @@ def deploy_phase(dev, iters, batch=4096, d=4096, h=16384, seed=7):
 # ---------------------------------------------------------------------------
 # every kernel wrapper of ops.flash_attention -> its plain version
 PLAIN_ATTENTION = {"_flash_simt": "_plain_fwd", "_flash_tc": "_plain_fwd",
-                   "_bwd_single_tile_simt": "_plain_bwd_single_tile",
+                   "_bwd_single_tile_mma": "_plain_bwd_single_tile",
                    "_bwd_single_tile_tc": "_plain_bwd_single_tile",
-                   "_bwd_dq_simt": "_plain_bwd_dq",
+                   "_bwd_dq_mma": "_plain_bwd_dq",
                    "_bwd_dq_tc": "_plain_bwd_dq",
-                   "_bwd_dkv_simt": "_plain_bwd_dkv",
+                   "_bwd_dkv_mma": "_plain_bwd_dkv",
                    "_bwd_dkv_tc": "_plain_bwd_dkv"}
 
 
 def grad_phase(dev, layers=2, seq=2048, seed=5, dtype="float32"):
     """GPT.loss at gpt3_1_3b width and `layers` deep, one sequence of
     `seq` tokens (2048: 2 x 2 tiles, the dQ + dK/dV pair; 1024: one tile,
-    the merged kernel), the model in `dtype` (f32: the SIMT kernels; bf16:
-    the tensor-core forward and backward kernels):
-    every parameter's gradient through the kernels against a reference
-    run in which this script binds the plain attention functions into the
-    module (in this process only; the package has no such switch)."""
+    the merged kernel), the model in `dtype` (f32: the SIMT forward and
+    the mma.sync backward; bf16: the tensor-core forward and backward
+    kernels): every parameter's gradient through the kernels against a
+    reference run in which this script binds the plain attention
+    functions into the module (in this process only; the package has no
+    such switch)."""
     import numpy as np
     import torch
 
@@ -1664,15 +1773,18 @@ def main(argv=None) -> int:
     ptxas = {n: ptxas_functions(_build.build_log(n)) for n in _build.SOURCES}
     emit({"setup": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
-    # the tensor-core kernels and the register-tiled SIMT kernels (the
-    # flash forward, the ragged chunk rows) hold their accumulators in
-    # registers: a spill would put them in local memory
+    # the tensor-core kernels, the register-tiled SIMT kernels (the flash
+    # forward, the ragged chunk rows) and the mma.sync backward kernels
+    # hold their accumulators in registers: a spill would put them in
+    # local memory
     for n, fn_part in (("flash_attention_fwd_tc", ""),
                        ("flash_attention_bwd_dq_tc", ""),
                        ("flash_attention_bwd_dkv_tc", ""),
                        ("flash_attention_bwd_single_tile_tc", ""),
                        ("flash_attention_fwd", "flash_fwd_kernel"),
-                       ("ragged_paged_attention", "ragged_chunk_kernel")):
+                       ("ragged_paged_attention", "ragged_chunk_kernel"),
+                       ("flash_attention_bwd", "flash_bwd_dq_kernel"),
+                       ("flash_attention_bwd", "flash_bwd_dkv_kernel")):
         fns = {f: v for f, v in ptxas[n].items() if fn_part in f}
         spills = {f: v["spill"] for f, v in fns.items()
                   if "0 bytes spill stores, 0 bytes spill loads"
@@ -1705,6 +1817,7 @@ def main(argv=None) -> int:
             # bf16 at a head dim the tensor cores do not take: SIMT
             ((2, 1024, nh, 96), True, "bfloat16")])
         emit(sdpa_f32_kernels(dev, (2, 1024, nh, hd)))
+        emit(sdpa_f32_bwd_kernels(dev, (2, 2048, nh, hd)))
         bw = kernel_phase_flash_bwd(dev, args.iters, [
             # row 2: S <= 1024 is one reference tile. bf16 at D 128 or 64
             # takes the tensor-core merged kernel: the train step's short
@@ -1716,11 +1829,22 @@ def main(argv=None) -> int:
             ((2, 1024, 1024, 2 * nh, hd // 2), True, "bfloat16", False,
              False),
             ((2, 1024, 1024, nh, hd), True, "bfloat16", True, False),
-            # f32, and bf16 at another D: the SIMT merged kernel
+            # f32, and bf16 at another D: the mma.sync merged kernel; D 256
+            # takes its 4-warp, two-pass instantiation
             ((2, 1024, 1024, nh, hd), True, "float32", False, False),
             ((2, 1000, 1000, nh, hd), True, "float32", False, False),
             ((2, 1024, 1024, nh, hd), False, "float32", False, False),
+            ((2, 1024, 1024, nh, hd), True, "float32", True, True),
+            ((2, 1024, 1024, 8, 256), True, "float32", False, False),
             ((2, 1024, 1024, nh, 96), True, "bfloat16", False, False),
+            # every other instantiation: f32 D 64, bf16 D <= 64 and D 256;
+            # D 40 and 80 end inside a group of column blocks
+            ((2, 1024, 1024, 2 * nh, hd // 2), True, "float32", False,
+             False),
+            ((2, 1024, 1024, nh, 40), True, "float32", False, False),
+            ((2, 1024, 1024, nh, 80), False, "float32", False, False),
+            ((2, 1024, 1024, nh, 40), True, "bfloat16", False, False),
+            ((2, 1024, 1024, 8, 256), True, "bfloat16", False, False),
             # rows 3/4: gpt3_1_3b's S = 2048 is 2 x 2 tiles; bf16 takes
             # the tensor-core dQ and dK/dV
             ((2, 2048, 2048, nh, hd), True, "bfloat16", False, False),
@@ -1733,21 +1857,33 @@ def main(argv=None) -> int:
             # ring attention's hooks: f32 out, a given delta
             ((2, 2048, 2048, nh, hd), True, "bfloat16", True, True),
             ((2, 2048, 2048, nh, hd), False, "bfloat16", False, False),
-            # f32, and bf16 at another D: the SIMT dQ and dK/dV
+            # f32, and bf16 at another D: the mma.sync dQ and dK/dV; cross
+            # and ragged sides, D 64, D 256, a given delta
             ((2, 2048, 2048, nh, hd), True, "float32", False, False),
             ((2, 2048, 2048, nh, hd), False, "float32", False, False),
-            ((2, 2048, 2048, nh, 96), True, "bfloat16", False, False)])
+            ((2, 1000, 2048, nh, hd), False, "float32", False, False),
+            ((2, 2048, 1000, nh, hd), False, "float32", False, False),
+            ((2, 2048, 2048, 2 * nh, hd // 2), True, "float32", False,
+             False),
+            ((2, 2048, 2048, 8, 256), True, "float32", False, False),
+            ((2, 2048, 2048, nh, hd), True, "float32", True, True),
+            ((2, 2048, 2048, nh, 96), True, "bfloat16", False, False),
+            ((2, 2048, 2048, nh, 40), True, "float32", False, False),
+            ((2, 2048, 2048, nh, 80), False, "float32", False, False),
+            ((2, 2048, 2048, nh, 40), True, "bfloat16", False, False),
+            ((2, 2048, 2048, 8, 256), True, "bfloat16", False, False)])
+        given_delta_check(dev, nh, hd)
         kern["ragged"] = next(r for r in rag if r["case"] == "decode_R8_T1"
                               and r["q_dtype"] == r["kv_dtype"] == "float32")
         kern["ragged_chunk"] = next(
             r for r in rag if r["case"] == "chunk_R2_T256"
             and r["q_dtype"] == r["kv_dtype"] == "float32")
         kern["flash"] = fl[0]
-        kern["flash_tc"] = next(r for r in fl if r["route"] == "tensor_core"
+        kern["flash_tc"] = next(r for r in fl if r["route"] == "wgmma"
                                 and r["case"] == f"B2_S2048_H{nh}_D{hd}_causal")
         # each backward kernel at its main path's shape: the train step's
-        # (bf16, S 1024 and 2048) for the tensor-core kernels, the f32 grad
-        # paths' for the SIMT ones
+        # (bf16, S 1024 and 2048) for the wgmma kernels, the f32 grad
+        # paths' for the mma.sync ones
         for key, kname, dt, shape in (
                 ("bwd_single", "flash_attention_bwd_single_tile", "float32",
                  f"B2_S1024_H{nh}_D{hd}_causal"),
@@ -1842,17 +1978,18 @@ def main(argv=None) -> int:
     if "deploy" in phases:
         drive("deploy", ("int8_matmul",), deploy_phase, dev, args.iters)
     tc_kernels = ("flash_tc", "bwd_single_tc", "bwd_dq_tc", "bwd_dkv_tc")
-    simt_kernels = ("flash", "bwd_single", "bwd_dq", "bwd_dkv")
+    # the f32 route: the SIMT forward and the mma.sync backward kernels
+    f32_kernels = ("flash", "bwd_single", "bwd_dq", "bwd_dkv")
     if "grad" in phases:
-        # f32: the SIMT pair at S 2048, the SIMT merged kernel at S 1024
+        # f32: the mma.sync pair at S 2048, the merged kernel at S 1024
         drive("grad", ("flash", "bwd_dq", "bwd_dkv"), grad_phase, dev,
               forbid=tc_kernels)
         drive("grad_s1024", ("flash", "bwd_single"), grad_phase, dev,
               seq=1024, forbid=tc_kernels)
         drive("grad_bf16", ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc"),
-              grad_phase, dev, dtype="bfloat16", forbid=simt_kernels)
+              grad_phase, dev, dtype="bfloat16", forbid=f32_kernels)
     if "train" in phases:
-        drive("train", tc_kernels, train_phase, dev, forbid=simt_kernels)
+        drive("train", tc_kernels, train_phase, dev, forbid=f32_kernels)
     emit({"launches_by_path": by_path})
 
     if kern:
@@ -1893,6 +2030,8 @@ def main(argv=None) -> int:
                  "paddle_tpu_torch/csrc/int8_matmul.cu",
                  "paddle_tpu/ops/int8_matmul.py:50")):
             r = kern[key]
+            extra = ({"bound_f32_fma_ms": r["bound_f32_fma_ms"]}
+                     if "bound_f32_fma_ms" in r else {})
             line.append({"name": name, "route": "cuda", "source": src,
                          "replaces": replaces, "launches": launches[key],
                          "launches_by_path": {p: n[key] for p, n in
@@ -1901,7 +2040,7 @@ def main(argv=None) -> int:
                          "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"],
-                         "library_ms": r["library_ms"]})
+                         "library_ms": r["library_ms"], **extra})
         emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

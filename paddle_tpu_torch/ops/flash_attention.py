@@ -22,17 +22,21 @@ Kernels, each with a launch counter:
   ``_pick_block``, ``bq = bk`` when causal): one tile each way takes the
   merged kernel (``_bwd_single_tile_kernel``), anything else the pair dQ
   (``_bwd_dq_kernel``) and dK/dV (``_bwd_dkv_kernel``). Each of the three
-  has the same two routes as the forward: on the tensor-core route
+  has the same two routes as the forward: on the wgmma route
   ``csrc/flash_attention_bwd_single_tile_tc.cu``
   (``FLASH_BWD_SINGLE_TC_LAUNCHES``), ``csrc/flash_attention_bwd_dq_tc.cu``
   (``FLASH_BWD_DQ_TC_LAUNCHES``) and ``csrc/flash_attention_bwd_dkv_tc.cu``
-  (``FLASH_BWD_DKV_TC_LAUNCHES``); otherwise the SIMT kernels of
+  (``FLASH_BWD_DKV_TC_LAUNCHES``); otherwise the kernels of
   ``csrc/flash_attention_bwd.cu`` (``FLASH_BWD_SINGLE_LAUNCHES``,
-  ``FLASH_BWD_DQ_LAUNCHES``, ``FLASH_BWD_DKV_LAUNCHES``).
+  ``FLASH_BWD_DQ_LAUNCHES``, ``FLASH_BWD_DKV_LAUNCHES``), whose products
+  run on the tensor cores through ``mma.sync`` as 3xTF32 (each f32
+  operand split into two TF32 halves, three products; f32 accuracy
+  whatever ``allow_tf32`` says).
 
-The tensor-core kernels are bounded by operations (989 TFLOP/s bf16);
+The wgmma kernels are bounded by operations (989 TFLOP/s bf16);
 they round P (and dS) to bf16 before their products, as the reference
-does. Each kernel's plain PyTorch version sits beside it (``_plain_fwd``,
+does; the ``mma.sync`` kernels keep P and dS in f32. Each kernel's
+plain PyTorch version sits beside it (``_plain_fwd``,
 ``_plain_bwd_single_tile``, ``_plain_bwd_dq``, ``_plain_bwd_dkv``): CPU
 tensors run it, and ``chip_smoke.py`` holds the kernel against it on the
 card. A CUDA tensor always launches a kernel; a failed build or launch
@@ -74,8 +78,9 @@ _LOG2E = 1.4426950408889634
 
 def _tc_route(dtype, d) -> bool:
     """True when a flash launch (forward or any backward kernel) over
-    ``dtype`` inputs of head dim ``d`` takes the tensor-core kernel (bf16
-    at D 64 or 128), False for the SIMT kernel (f32, and any other D)."""
+    ``dtype`` inputs of head dim ``d`` takes the wgmma kernel (bf16 at D
+    64 or 128), False for the other kernel (f32, and any other D): the
+    SIMT forward, the mma.sync (3xTF32) backward."""
     return dtype == torch.bfloat16 and d in _TC_HEAD_DIMS
 
 
@@ -374,13 +379,13 @@ def _dims(res, causal, scale):
 
 def _bwd_single_tile(scale, causal, res, do, delta, dtypes):
     """Merged dQ/dK/dV (``_bwd_single_tile_kernel``): one launch, P and
-    dS computed once; the tensor-core or the SIMT kernel, by
+    dS computed once; the wgmma or the mma.sync kernel, by
     ``_tc_route``."""
     q = res[0]
     if q.device.type == "cpu":
         return _plain_bwd_single_tile(scale, causal, res, do, delta, dtypes)
     kern = _bwd_single_tile_tc if _tc_route(q.dtype, q.shape[3]) else \
-        _bwd_single_tile_simt
+        _bwd_single_tile_mma
     return kern(scale, causal, res, do, delta, dtypes)
 
 
@@ -405,9 +410,9 @@ def _single_tile_outputs(res, dtypes):
             None if tickets is None else tickets.data_ptr()), (dq, dk, dv)
 
 
-def _bwd_single_tile_simt(scale, causal, res, do, delta, dtypes):
-    """SIMT merged kernel (``csrc/flash_attention_bwd.cu``): f32 or
-    bf16."""
+def _bwd_single_tile_mma(scale, causal, res, do, delta, dtypes):
+    """mma.sync merged kernel (``csrc/flash_attention_bwd.cu``, 3xTF32):
+    f32, or bf16 at a head dim the wgmma kernel does not take."""
     global FLASH_BWD_SINGLE_LAUNCHES
     name = "flash_attention_bwd_single_tile"
     ptrs = _bwd_args(name, scale, causal, res, do, delta, dtypes)
@@ -442,17 +447,18 @@ def _bwd_single_tile_tc(scale, causal, res, do, delta, dtypes):
 
 
 def _bwd_dq(scale, causal, res, do, delta, dtype):
-    """dQ over k tiles (``_bwd_dq_kernel``): the tensor-core or the SIMT
+    """dQ over k tiles (``_bwd_dq_kernel``): the wgmma or the mma.sync
     kernel, by ``_tc_route``."""
     q = res[0]
     if q.device.type == "cpu":
         return _plain_bwd_dq(scale, causal, res, do, delta, dtype)
-    kern = _bwd_dq_tc if _tc_route(q.dtype, q.shape[3]) else _bwd_dq_simt
+    kern = _bwd_dq_tc if _tc_route(q.dtype, q.shape[3]) else _bwd_dq_mma
     return kern(scale, causal, res, do, delta, dtype)
 
 
-def _bwd_dq_simt(scale, causal, res, do, delta, dtype):
-    """SIMT dQ (``csrc/flash_attention_bwd.cu``): f32 or bf16."""
+def _bwd_dq_mma(scale, causal, res, do, delta, dtype):
+    """mma.sync dQ (``csrc/flash_attention_bwd.cu``, 3xTF32): f32, or
+    bf16 at a head dim the wgmma kernel does not take."""
     global FLASH_BWD_DQ_LAUNCHES
     name = "flash_attention_bwd_dq"
     ptrs = _bwd_args(name, scale, causal, res, do, delta, (dtype,))
@@ -487,16 +493,17 @@ def _bwd_dq_tc(scale, causal, res, do, delta, dtype):
 
 def _bwd_dkv(scale, causal, res, do, delta, dtypes):
     """dK/dV over q tiles from the diagonal on (``_bwd_dkv_kernel``): the
-    tensor-core or the SIMT kernel, by ``_tc_route``."""
+    wgmma or the mma.sync kernel, by ``_tc_route``."""
     q = res[0]
     if q.device.type == "cpu":
         return _plain_bwd_dkv(scale, causal, res, do, delta, dtypes)
-    kern = _bwd_dkv_tc if _tc_route(q.dtype, q.shape[3]) else _bwd_dkv_simt
+    kern = _bwd_dkv_tc if _tc_route(q.dtype, q.shape[3]) else _bwd_dkv_mma
     return kern(scale, causal, res, do, delta, dtypes)
 
 
-def _bwd_dkv_simt(scale, causal, res, do, delta, dtypes):
-    """SIMT dK/dV (``csrc/flash_attention_bwd.cu``): f32 or bf16."""
+def _bwd_dkv_mma(scale, causal, res, do, delta, dtypes):
+    """mma.sync dK/dV (``csrc/flash_attention_bwd.cu``, 3xTF32): f32, or
+    bf16 at a head dim the wgmma kernel does not take."""
     global FLASH_BWD_DKV_LAUNCHES
     name = "flash_attention_bwd_dkv"
     ptrs = _bwd_args(name, scale, causal, res, do, delta, dtypes)

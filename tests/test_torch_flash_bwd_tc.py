@@ -14,7 +14,7 @@ round P and dS to bf16 and accumulate in f32, in different orders, then
 round the gradients to bf16: held at atol = rtol = 2e-2 (one bf16 ulp at
 |g| <~ 2, plus the few P/dS elements that round the other way).
 
-Also: each backward entry picks its tensor-core or SIMT wrapper by
+Also: each backward entry picks its wgmma or mma.sync wrapper by
 ``_tc_route`` (checked on "meta" tensors, which reach the selection
 without a card), and every kernel wrapper refuses a CPU tensor before it
 builds anything.
@@ -104,7 +104,7 @@ def test_backward_entries_pick_the_route_of_tc_route(monkeypatch, dtype, d,
                                                      tc):
     calls = []
     for base in _ROUTED:
-        for route in ("tc", "simt"):
+        for route in ("tc", "mma"):
             name = f"{base}_{route}"
             monkeypatch.setattr(
                 tfa, name, lambda *a, _n=name, **kw: calls.append(_n))
@@ -114,12 +114,12 @@ def test_backward_entries_pick_the_route_of_tc_route(monkeypatch, dtype, d,
     tfa._bwd_single_tile(0.125, True, res, q, lse, (dtype,) * 3)
     tfa._bwd_dq(0.125, True, res, q, lse, dtype)
     tfa._bwd_dkv(0.125, True, res, q, lse, (dtype,) * 2)
-    want = "tc" if tc else "simt"
+    want = "tc" if tc else "mma"
     assert calls == [f"{base}_{want}" for base in _ROUTED]
 
 
 @pytest.mark.parametrize("name", [f"{base}_{route}" for base in _ROUTED
-                                  for route in ("tc", "simt")])
+                                  for route in ("tc", "mma")])
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     q = torch.zeros(1, 128, 2, 64, dtype=torch.bfloat16)
     lse = torch.zeros(2, 128, 1)
