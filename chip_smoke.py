@@ -10,19 +10,30 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
 1. kernel phase — each kernel's wrapper on the card against its plain
    PyTorch version on the same inputs, at the serving engine's, the
    model's and the trainer's shapes: max abs error within the stated
-   tolerance, kernel / plain / library times (CUDA events), and the least
-   time the card could take (bytes over 3.35 TB/s or operations over the
-   peak rate of the input type, whichever is larger). The flash backward
+   tolerance, kernel / plain / library times on the device alone (CUDA
+   events around calls queued behind a torch.cuda._sleep that outlasts
+   the host's loop: `timed`), the host loop's own time per call beside
+   the kernel's (host_ms), and the least time the card could take (bytes
+   over 3.35 TB/s or operations over the peak rate of the input type,
+   whichever is larger). The flash backward
    kernels run at S 1024 (the merged single-tile kernel) and S 2048 (the
    dQ + dK/dV pair), f32 and bf16, causal and not, cross attention with
    a ragged side; their library time is one call of PyTorch's fused SDPA
    backward (dQ, dK and dV together). The ragged kernel's
    int8 path runs the same row groups over int8 pools whose content and
    scales the port's own paged_kv_scatter wrote, under f32 and bf16
-   queries. The int8 matmul runs the deploy model's two layer shapes
-   (f32, bf16 and int8 x, with and without ReLU + requantize) and a ragged
-   67 x 130 x 45 with and without bias: int8 outputs equal to the plain
-   version's, float outputs at rtol 1e-6 / atol 1e-5. bf16 attention at
+   queries. The decode rows also run a group of a one-page row beside a
+   row whose table is full (the page split; each decode row reports its
+   split count). The int8 matmul runs the deploy model's two layer shapes
+   (f32, bf16 and int8 x, with and without ReLU + requantize) and ragged
+   M and N (4100 x 4096 x 16390, 67 x 144 x 45) on the wgmma route, a
+   ragged 67 x 130 x 45 with and without bias on the mma route, and fc1
+   and fc2 forced onto the mma route beside their wgmma times: int8
+   outputs equal to the plain version's, float outputs at rtol 1e-6 /
+   atol 1e-5, the route that ran checked on the counters, the quantize
+   pass timed apart (quantize_ms); the quantize pass alone is held bit
+   for bit to its plain version on x with exact .5 ties and values past
+   +-127. bf16 attention at
    head dim 64 or 128 takes the tensor-core kernels (wgmma, TMA): the
    forward at the train step's B2 S2048, at S 1024, at a ragged S 1000
    and at D 64; the merged backward in every bf16 single-tile case and dQ
@@ -40,9 +51,10 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    ragged kernel's chunk rows (T > 1) also run with an unaligned pos0, a
    T 40 row and over a pool of 32-token pages; the f32 SDPA yardsticks'
    aten kernels (forward and backward) are named from torch.profiler.
-   The build fails if ptxas reports a spill in a tensor-core kernel, in
-   the register-tiled SIMT kernels (the flash forward, the ragged chunk
-   rows) or in the mma.sync backward kernels.
+   The build fails if ptxas reports a spill in a tensor-core kernel (the
+   int8 wgmma product included), in the register-tiled SIMT kernels (the
+   flash forward, the ragged chunk rows), in the decode rows or in the
+   mma.sync backward kernels.
 2. model phase — GPT.forward at gpt3_1_3b width (24 layers, random
    weights from a seed, f32) over 2 prompts of 1024 tokens (flash
    kernel), and gpt_ragged_apply over the same tokens through scrambled
@@ -75,16 +87,20 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
 7. deploy phase — Sequential(Linear(4096, 16384), ReLU, Linear(16384,
    4096)) through QAT().quantize -> a calibration forward ->
    convert_to_int8_deploy -> net(x) at batch 4096 with bf16 input: the
-   fusion pass wired fc1 -> fc2, one forward is 2 launches of the int8
-   matmul kernel, the output is bf16, agrees with the plain chain (int8
-   intermediate equal) and stays within DEPLOY_QAT_TOL of the QAT-eval
-   output. ms per forward.
+   fusion pass wired fc1 -> fc2, one forward is 2 launches of the wgmma
+   int8 matmul and 1 of the quantize pass (the mma route is forbidden),
+   the output is bf16, agrees with the plain chain (int8 intermediate
+   equal) and stays within DEPLOY_QAT_TOL of the QAT-eval output. ms per
+   forward (device and host loop) and share of the int8 rate.
 
 Every launch counter is set to 0 just before each of phases 2-7 and read
 just after it: those are the main paths' launches, and each path must
 launch each of its kernels (the train path: the four wgmma flash
 kernels and none of the f32 route's; the f32 grad paths: the SIMT
-forward and the mma.sync backward kernels and no wgmma one). Prints
+forward and the mma.sync backward kernels and no wgmma one; the deploy
+path: the wgmma int8 product and the quantize pass, not the mma.sync
+int8 kernel, whose kernels-line entry is timed at fc1's shape and has no
+main-path launch). Prints
 JSON lines per case, then {"kernels": [...]}, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -96,6 +112,7 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -188,27 +205,66 @@ def gpu_info_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, dev) -> float:
-    """Mean milliseconds per call over ``iters`` calls after warm-up,
-    CUDA events on the card (host clock only in a CPU rehearsal)."""
+_SLEEP_MAX_MS = 200.0        # longest hold on the stream
+
+
+@functools.lru_cache(maxsize=None)
+def _sleep_cycles_per_ms(dev) -> float:
+    """torch.cuda._sleep's cycles per millisecond on ``dev``, measured
+    once."""
+    import torch
+
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles // 10)            # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def timed(fn, iters: int, dev):
+    """(device ms, host ms) per call over ``iters`` calls after warm-up.
+
+    Host ms: the host's own loop of ``iters`` calls, from its first call
+    to its last return, then a sync (what a caller's loop pays when the
+    card keeps up). Device ms: the card's time alone. The stream is held
+    by ``torch.cuda._sleep`` for longer than that host loop takes, the
+    start event and all ``iters`` calls are enqueued behind it, then the
+    end event: the calls run back to back, never waiting on the host, so
+    a kernel shorter than its wrapper's dispatch is timed by the card. In
+    a CPU rehearsal both are the host loop."""
     import torch
 
     for _ in range(2):
         fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host = (time.perf_counter() - t0) * 1e3 / iters
     if dev.type != "cuda":
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        return (time.perf_counter() - t0) * 1e3 / iters
+        return host, host
     torch.cuda.synchronize(dev)
+    hold_ms = min(_SLEEP_MAX_MS, 1.5 * host * iters + 0.1)
+    cycles = int(hold_ms * _sleep_cycles_per_ms(dev))
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(cycles)
     start.record()
     for _ in range(iters):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / iters
+    return start.elapsed_time(end) / iters, host
+
+
+def time_ms(fn, iters: int, dev) -> float:
+    """Device milliseconds per call (``timed``)."""
+    return timed(fn, iters, dev)[0]
 
 
 def bound(nbytes: float, flops: float, dtype_name: str):
@@ -253,7 +309,12 @@ def ragged_groups(rng, npages, nps, ps):
     p0 = np.array([300], np.int32)
     tl = np.array([37], np.int32)
     t40 = ("chunk_R1_T40", 40, p0, tl, tables(1, (p0 + tl - 1) // ps + 1))
-    return [dec, chk, mix, una, t40]
+    # decode rows split over their pages: a one-page row beside a row
+    # whose table is full (all nps pages attended)
+    p0 = np.array([5, nps * ps - 1], np.int32)
+    dsp = ("decode_split_R2_T1", 1, p0, np.ones(2, np.int32),
+           tables(2, p0 // ps + 1))
+    return [dec, chk, mix, una, t40, dsp]
 
 
 def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
@@ -320,7 +381,7 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
             mask = (torch.arange(s_cap, device=dev)[None, None, None, :]
                     <= qpos[:, None, :, None])
             with torch.inference_mode():
-                kern_ms = time_ms(lambda: pa.ragged_paged_attention(
+                kern_ms, host_ms = timed(lambda: pa.ragged_paged_attention(
                     q, k, v, *meta), iters, dev)
                 plain_ms = time_ms(lambda: pa._gather_attend(
                     q, k, v, tab_d, qpos), iters, dev)
@@ -342,6 +403,7 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
             row = {"phase": "kernel", "kernel": "ragged_paged_attention",
                    "case": name, "rows": "decode" if t == 1 else "chunk",
                    "q_dtype": qdt, "kv_dtype": kvdt,
+                   "splits": decode_splits(q, k, tab_d),
                    "max_abs_err": err,
                    "tolerance": BF16_TOL if qdt == "bfloat16" else F32_TOL,
                    "tolerance_reason": (
@@ -349,7 +411,8 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
                        "accumulation on both sides" if qdt == "bfloat16"
                        else "f32: online softmax reassociates the sum "
                        "(the reference's own Pallas-vs-XLA tolerance)"),
-                   "kernel_ms": kern_ms, "plain_ms": plain_ms,
+                   "kernel_ms": kern_ms, "host_ms": host_ms,
+                   "plain_ms": plain_ms,
                    "library_ms": lib_ms,
                    "library": "F.scaled_dot_product_attention over the "
                               "gathered cache (gather not timed)",
@@ -357,6 +420,16 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
             emit(row)
             results.append(row)
     return results
+
+
+def decode_splits(q, k_pool, tab):
+    """The decode-row kernel's page ranges a row for a T == 1 call on the
+    card (None for chunk rows and in a CPU rehearsal)."""
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    if q.shape[1] != 1 or q.device.type != "cuda":
+        return None
+    return pa._decode_splits(q, k_pool, tab)
 
 
 def quantized_pools(dev, k32, v32, tokens_per_call=2048):
@@ -448,7 +521,7 @@ def kernel_phase_ragged_int8(dev, iters, seed=7, nh=16, hd=128, ps=16,
             mask = (torch.arange(s_cap, device=dev)[None, None, None, :]
                     <= qpos[:, None, :, None])
             with torch.inference_mode():
-                kern_ms = time_ms(lambda: pa.ragged_paged_attention(
+                kern_ms, host_ms = timed(lambda: pa.ragged_paged_attention(
                     q, kq, vq, *meta, k_scale=ks, v_scale=vs), iters, dev)
                 plain_ms = time_ms(lambda: pa._gather_attend(
                     q, kq, vq, tab_d, qpos, k_scale=ks, v_scale=vs),
@@ -469,6 +542,7 @@ def kernel_phase_ragged_int8(dev, iters, seed=7, nh=16, hd=128, ps=16,
                    "kernel": "ragged_paged_attention_int8",
                    "case": name, "rows": "decode" if t == 1 else "chunk",
                    "q_dtype": qdt, "kv_dtype": "int8",
+                   "splits": decode_splits(q, kq, tab_d),
                    "max_abs_err": err, "tolerance": tol,
                    "tolerance_reason": (
                        "against _gather_attend with scales on the same "
@@ -478,7 +552,8 @@ def kernel_phase_ragged_int8(dev, iters, seed=7, nh=16, hd=128, ps=16,
                            "online softmax reassociates the sum; the "
                            "page scale is folded into scores and weights")),
                    "pool_dequant_max_abs_err_vs_f32": deq_err,
-                   "kernel_ms": kern_ms, "plain_ms": plain_ms,
+                   "kernel_ms": kern_ms, "host_ms": host_ms,
+                   "plain_ms": plain_ms,
                    "library_ms": lib_ms,
                    "library": "F.scaled_dot_product_attention over the "
                               "gathered, dequantized cache (gather and "
@@ -490,17 +565,22 @@ def kernel_phase_ragged_int8(dev, iters, seed=7, nh=16, hd=128, ps=16,
 
 
 def kernel_phase_int8_matmul(dev, iters, cases, seed=8):
-    """The fused int8 matmul kernel against its plain version.
-    cases: (M, K, N, x dtype, relu, quant_out, out dtype, bias). The
-    library yardstick is torch._int_mm on pre-quantized x plus the
-    epilogue in PyTorch operations (where _int_mm takes the shape)."""
+    """The fused int8 matmul kernels against their plain version.
+    cases: (M, K, N, x dtype, relu, quant_out, out dtype, bias[, route]):
+    each case runs the route _mm_route picks, or the route named (the mma
+    kernel at a shape the wgmma route takes, to set the two side by side).
+    wgmma cases get wq's K-major copy made once, as Int8Linear keeps it,
+    and report the quantize pass of a float x apart (quantize_ms, inside
+    kernel_ms). The library yardstick is torch._int_mm on pre-quantized x
+    plus the epilogue in PyTorch operations (where _int_mm takes the
+    shape)."""
     import torch
 
     from paddle_tpu_torch.ops import int8_matmul as im
 
     g = torch.Generator(device=dev).manual_seed(seed)
     results = []
-    for m, k, n, xdt, relu, quant_out, odt, has_bias in cases:
+    for m, k, n, xdt, relu, quant_out, odt, has_bias, *force in cases:
         xdtype, odtype = getattr(torch, xdt), getattr(torch, odt)
         if xdt == "int8":
             x = torch.randint(-127, 128, (m, k), generator=g, device=dev,
@@ -511,6 +591,7 @@ def kernel_phase_int8_matmul(dev, iters, cases, seed=8):
         ws = w.abs().amax(dim=0)
         wq = torch.round(w / ws * 127.0).clamp_(-127, 127).to(torch.int8)
         del w
+        wq_kn = wq.t().contiguous()
         sa = torch.tensor(2.0, device=dev)          # ~4 sigma of x
         scale = (sa / 127.0) * (ws / 127.0)
         bias = torch.randn(n, generator=g, device=dev) if has_bias else None
@@ -520,18 +601,32 @@ def kernel_phase_int8_matmul(dev, iters, cases, seed=8):
             bias = None if bias is None else bias * (127.0 / y_amax)
         qs = (127.0 / sa).reshape(1)
         kw = dict(relu=relu, quant_out=quant_out, out_dtype=odtype)
+        route = force[0] if force else im._mm_route(x, wq_kn)
+        if force and force != ["mma"]:
+            raise ValueError(f"int8 matmul case: unknown route {force}")
 
         def kern():
-            return im.int8_matmul(x, wq, scale, bias, qs, **kw)
+            if force:
+                return im._mm_mma(x, wq, scale, bias,
+                                  None if xdt == "int8" else qs, relu,
+                                  quant_out, odtype, 127.0)
+            return im.int8_matmul(x, wq, scale, bias, qs, wq_kn=wq_kn, **kw)
 
         def plain():
             return im._plain_int8_matmul(x, wq, scale, bias, qs, relu,
                                          quant_out, odtype, 127.0)
 
+        counts = (im.INT8_MATMUL_LAUNCHES, im.INT8_MATMUL_WGMMA_LAUNCHES)
         with torch.inference_mode():
             out, ref = kern(), plain()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+            ran = ("mma" if im.INT8_MATMUL_LAUNCHES > counts[0] else
+                   "wgmma" if im.INT8_MATMUL_WGMMA_LAUNCHES > counts[1]
+                   else None)
+            if ran != route:
+                raise AssertionError(f"int8_matmul {m}x{k}x{n}: route "
+                                     f"{route} expected, {ran} ran")
         want_dt = torch.int8 if quant_out else odtype
         if out.dtype != want_dt or out.shape != (m, n):
             raise AssertionError(f"int8_matmul {m}x{k}x{n}: out {out.dtype} "
@@ -549,8 +644,9 @@ def kernel_phase_int8_matmul(dev, iters, cases, seed=8):
                 bool(torch.isfinite(out).all())
         if not ok:
             raise AssertionError(f"int8_matmul {m}x{k}x{n} x {xdt} relu "
-                                 f"{relu} quant_out {quant_out}: max abs err "
-                                 f"{err} against the plain version")
+                                 f"{relu} quant_out {quant_out} route "
+                                 f"{route}: max abs err {err} against the "
+                                 "plain version")
         lib_ms = None
         if m > 16 and k % 8 == 0 and n % 8 == 0:
             def lib():
@@ -570,14 +666,20 @@ def kernel_phase_int8_matmul(dev, iters, cases, seed=8):
                     raise AssertionError("the library yardstick computes "
                                          "another function")
                 lib_ms = time_ms(lib, iters, dev)
+        quant_ms = None
         with torch.inference_mode():
-            kern_ms = time_ms(kern, iters, dev)
+            kern_ms, host_ms = timed(kern, iters, dev)
             plain_ms = time_ms(plain, max(1, iters // 4), dev)
+            if route == "wgmma" and xdt != "int8":
+                quant_ms = time_ms(lambda: im.quantize_x(x, qs), iters, dev)
         nbytes = (x.numel() * x.element_size() + wq.numel()
                   + out.numel() * out.element_size()
                   + 4 * n * (2 if has_bias else 1) + 4)
         b_ms, b_by = bound(nbytes, 2.0 * m * k * n, "int8")
-        row = {"phase": "kernel", "kernel": "int8_matmul",
+        row = {"phase": "kernel",
+               "kernel": "int8_matmul_wgmma" if route == "wgmma"
+               else "int8_matmul",
+               "route": route,
                "case": (f"M{m}_K{k}_N{n}_x{xdt}"
                         + ("_relu" if relu else "")
                         + ("_quantout" if quant_out else f"_out{odt}")
@@ -591,13 +693,69 @@ def kernel_phase_int8_matmul(dev, iters, cases, seed=8):
                    if quant_out else
                    "float output: the reference's own tolerance between "
                    "its fused kernel and the unfused expression"),
-               "kernel_ms": kern_ms, "plain_ms": plain_ms,
+               "kernel_ms": kern_ms, "host_ms": host_ms,
+               "quantize_ms": quant_ms, "plain_ms": plain_ms,
                "library_ms": lib_ms,
                "library": "torch._int_mm on pre-quantized x + the epilogue "
                           "in PyTorch operations" if lib_ms is not None
                else None,
                "bound_ms": b_ms, "bound_by": b_by,
-               "tops": 2.0 * m * k * n / (kern_ms * 1e-3) / 1e12}
+               "tops": 2.0 * m * k * n / (kern_ms * 1e-3) / 1e12,
+               "int8_rate_share": b_ms / kern_ms}
+        emit(row)
+        results.append(row)
+    return results
+
+
+def kernel_phase_int8_quantize(dev, iters, shapes, seed=6):
+    """The wgmma route's quantize pass (quantize_x) against its plain
+    version: bit-equal int8. shapes: (M, K, x dtype). Besides normal
+    values, x holds exact .5 ties of x * qscale (qscale 2: x = k / 4 for
+    odd k, which round half to even) and values past +-amax."""
+    import torch
+
+    from paddle_tpu_torch.ops import int8_matmul as im
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    results = []
+    for m, k, xdt in shapes:
+        xdtype = getattr(torch, xdt)
+        x = torch.randn(m, k, generator=g, device=dev) * 30.0
+        # odd / 4 with |odd| < 256 (exact in bf16): x * 2 = odd / 2
+        ties = (torch.randint(-128, 128, (m, k), generator=g, device=dev)
+                * 2 + 1).float() / 4.0
+        pick = torch.rand(m, k, generator=g, device=dev) < 0.5
+        x = torch.where(pick, ties, x).to(xdtype)
+        qs = torch.full((1,), 2.0, device=dev)
+        with torch.inference_mode():
+            out = im.quantize_x(x, qs)
+            ref = im._plain_quantize_x(x, qs, 127.0)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        xs = x.float() * 2.0
+        n_ties = int((xs - xs.floor() == 0.5).sum())
+        n_clip = int((xs.abs() > 127.5).sum())
+        if n_ties < m * k // 8 or n_clip == 0:
+            raise AssertionError("quantize_x: too few ties or clipped values "
+                                 "for a strong check")
+        if out.dtype != torch.int8 or not torch.equal(out, ref):
+            raise AssertionError(f"quantize_x {m}x{k} {xdt}: "
+                                 f"{int((out != ref).sum())} values differ "
+                                 "from the plain version")
+        with torch.inference_mode():
+            kern_ms, host_ms = timed(lambda: im.quantize_x(x, qs), iters, dev)
+            plain_ms = time_ms(lambda: im._plain_quantize_x(x, qs, 127.0),
+                               iters, dev)
+        nbytes = x.numel() * (x.element_size() + 1) + 4
+        b_ms, b_by = bound(nbytes, 3.0 * x.numel(), "float32")
+        row = {"phase": "kernel", "kernel": "int8_quantize",
+               "case": f"M{m}_K{k}_x{xdt}", "max_abs_err": 0.0,
+               "tolerance": "equal", "ties": n_ties, "clipped": n_clip,
+               "tolerance_reason": "one f32 product, round half to even, "
+                                   "clip: the plain version's operations",
+               "kernel_ms": kern_ms, "host_ms": host_ms,
+               "plain_ms": plain_ms, "library_ms": None, "library": None,
+               "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         results.append(row)
     return results
@@ -640,8 +798,8 @@ def kernel_phase_flash(dev, iters, shapes, seed=1):
                                  f"{dt}: o err {err} lse err {lse_err}")
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         with torch.inference_mode():
-            kern_ms = time_ms(lambda: fa.flash_attention(q, k, v, causal),
-                              iters, dev)
+            kern_ms, host_ms = timed(
+                lambda: fa.flash_attention(q, k, v, causal), iters, dev)
             plain_ms = time_ms(lambda: fa._plain_fwd(q, k, v, causal, None),
                                max(1, iters // 4), dev)
             lib_ms = time_ms(lambda: TF.scaled_dot_product_attention(
@@ -663,7 +821,8 @@ def kernel_phase_flash(dev, iters, shapes, seed=1):
                       if tc else "")
                    if dt == "bfloat16" else
                    "f32: online softmax reassociates the sum"),
-               "kernel_ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+               "kernel_ms": kern_ms, "host_ms": host_ms,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
                "library": "F.scaled_dot_product_attention",
                "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
@@ -858,7 +1017,7 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                     raise AssertionError(
                         f"{name} {case} {dt}: {gname} max abs err "
                         f"{errs[gname]} over rtol {rtol} atol {atol}")
-            kern_ms = time_ms(kern, iters, dev)
+            kern_ms, host_ms = timed(kern, iters, dev)
             plain_ms = time_ms(plain, max(1, iters // 4), dev)
             nbytes = (2 * b * (sq + sk) * h * d * esz + 2 * b * h * sq * 4
                       + sum((sq if gn == "dq" else sk) for gn in grads)
@@ -892,7 +1051,8 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                        "gradient tolerance)" if out == f32
                        else "bf16 gradients against the f32 plain result "
                        "rounded to bf16: one bf16 ulp, atol 1e-3 max|ref|"),
-                   "kernel_ms": kern_ms, "plain_ms": plain_ms,
+                   "kernel_ms": kern_ms, "host_ms": host_ms,
+                   "plain_ms": plain_ms,
                    "library_ms": lib_ms,
                    "library": lib_name + " (dQ, dK and dV together), one "
                               "call on its forward's outputs",
@@ -1442,14 +1602,18 @@ def deploy_phase(dev, iters, batch=4096, d=4096, h=16384, seed=7):
     xb = x.bfloat16()
     mids = []
     hook = fc1.register_forward_hook(lambda m, i, o: mids.append(o))
-    n0 = im.INT8_MATMUL_LAUNCHES
+    n0 = (im.INT8_MATMUL_WGMMA_LAUNCHES, im.INT8_QUANTIZE_LAUNCHES)
     got = net(xb)
-    launches = im.INT8_MATMUL_LAUNCHES - n0
+    launches = im.INT8_MATMUL_WGMMA_LAUNCHES - n0[0]
+    quantize = im.INT8_QUANTIZE_LAUNCHES - n0[1]
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-        if launches != 2:
+        # fc1 quantizes its bf16 x once; fc2 takes fc1's int8 output
+        if launches != 2 or quantize != 1:
             raise AssertionError(f"deploy: one forward made {launches} "
-                                 "launches of the int8 matmul, not 2")
+                                 "launches of the wgmma int8 matmul and "
+                                 f"{quantize} of the quantize pass, not 2 "
+                                 "and 1")
     if got.dtype != torch.bfloat16 or got.shape != (batch, d) or \
             not bool(torch.isfinite(got).all()):
         raise AssertionError(f"deploy: output {got.dtype} "
@@ -1458,7 +1622,8 @@ def deploy_phase(dev, iters, batch=4096, d=4096, h=16384, seed=7):
     # kernel launch (in this process only; the package has no such switch)
     saved = im._int8_matmul_cuda
     try:
-        im._int8_matmul_cuda = im._plain_int8_matmul
+        im._int8_matmul_cuda = \
+            lambda *a, wq_kn=None: im._plain_int8_matmul(*a)
         ref = net(xb)
     finally:
         im._int8_matmul_cuda = saved
@@ -1479,11 +1644,13 @@ def deploy_phase(dev, iters, batch=4096, d=4096, h=16384, seed=7):
         raise AssertionError(f"deploy: max error against the QAT-eval "
                              f"output {rel} of max |y| > {DEPLOY_QAT_TOL}")
     with torch.inference_mode():
-        ms = time_ms(lambda: net(xb), iters, dev)
+        ms, host_ms = timed(lambda: net(xb), iters, dev)
     row = {"phase": "deploy", "model": f"Sequential(Linear({d}, {h}), ReLU, "
                                        f"Linear({h}, {d}))",
            "batch": batch, "input_dtype": "bfloat16",
-           "output_dtype": "bfloat16", "int8_matmul_launches": launches,
+           "output_dtype": "bfloat16",
+           "int8_matmul_wgmma_launches": launches,
+           "int8_quantize_launches": quantize,
            "int8_intermediate_equal_plain": True,
            "max_abs_err_vs_plain_chain": err,
            "plain_chain_tolerance": {"rtol": 2.0 ** -7,
@@ -1491,8 +1658,10 @@ def deploy_phase(dev, iters, batch=4096, d=4096, h=16384, seed=7):
            "plain_chain_tolerance_reason": "both round the same f32 "
                                            "result to bf16: one bf16 ulp",
            "max_rel_err_vs_qat_eval": rel, "qat_tolerance": DEPLOY_QAT_TOL,
-           "forward_ms": ms,
-           "tops": 4.0 * batch * d * h / (ms * 1e-3) / 1e12}
+           "forward_ms": ms, "forward_host_ms": host_ms,
+           "tops": 4.0 * batch * d * h / (ms * 1e-3) / 1e12,
+           "int8_rate_share": 4.0 * batch * d * h / PEAK_FLOPS["int8"]
+           / (ms * 1e-3)}
     emit(row)
     return row
 
@@ -1773,16 +1942,19 @@ def main(argv=None) -> int:
     ptxas = {n: ptxas_functions(_build.build_log(n)) for n in _build.SOURCES}
     emit({"setup": "build", "seconds": time.perf_counter() - t0,
           "ptxas": ptxas})
-    # the tensor-core kernels, the register-tiled SIMT kernels (the flash
-    # forward, the ragged chunk rows) and the mma.sync backward kernels
-    # hold their accumulators in registers: a spill would put them in
-    # local memory
+    # the tensor-core kernels (the int8 wgmma product too), the
+    # register-tiled SIMT kernels (the flash forward, the ragged chunk
+    # rows), the decode rows (K/V loads in flight) and the mma.sync
+    # backward kernels hold their accumulators in registers: a spill
+    # would put them in local memory
     for n, fn_part in (("flash_attention_fwd_tc", ""),
                        ("flash_attention_bwd_dq_tc", ""),
                        ("flash_attention_bwd_dkv_tc", ""),
                        ("flash_attention_bwd_single_tile_tc", ""),
                        ("flash_attention_fwd", "flash_fwd_kernel"),
                        ("ragged_paged_attention", "ragged_chunk_kernel"),
+                       ("ragged_paged_attention", "ragged_kernel"),
+                       ("int8_matmul", "int8_matmul_wgmma_kernel"),
                        ("flash_attention_bwd", "flash_bwd_dq_kernel"),
                        ("flash_attention_bwd", "flash_bwd_dkv_kernel")):
         fns = {f: v for f, v in ptxas[n].items() if fn_part in f}
@@ -1903,21 +2075,37 @@ def main(argv=None) -> int:
         kern["ragged_int8"] = next(
             r for r in rq if r["case"] == "decode_R8_T1"
             and r["q_dtype"] == "float32")
-        # (M, K, N, x, relu, quant_out, out, bias): the deploy model's two
-        # layers (fc1 under bf16 x with ReLU + requantize is the main
-        # path's first launch, fc2 under int8 x its second), then ragged
-        # edges in M, K and N
+        # (M, K, N, x, relu, quant_out, out, bias[, route]): the deploy
+        # model's two layers (fc1 under bf16 x with ReLU + requantize is
+        # the main path's first product, fc2 under int8 x its second) on
+        # the wgmma route, then ragged M and N with K % 16 == 0 (wgmma),
+        # K 130 (the mma route), and fc1 and fc2 forced onto the mma route
         mm = kernel_phase_int8_matmul(dev, args.iters, [
             (4096, 4096, 16384, "bfloat16", True, True, "float32", True),
             (4096, 16384, 4096, "int8", False, False, "bfloat16", True),
             (4096, 4096, 16384, "float32", False, False, "float32", True),
             (4096, 4096, 16384, "bfloat16", False, False, "float32", True),
             (4096, 4096, 16384, "float32", True, True, "float32", True),
+            (4100, 4096, 16390, "bfloat16", True, True, "float32", True),
+            (4100, 4096, 16390, "float32", False, False, "bfloat16", False),
+            (67, 144, 45, "int8", False, False, "float32", True),
             (67, 130, 45, "float32", False, False, "float32", True),
             (67, 130, 45, "float32", False, False, "float32", False),
             (67, 130, 45, "bfloat16", True, True, "float32", True),
-            (67, 130, 45, "int8", False, False, "bfloat16", False)])
-        kern["int8_matmul"] = mm[0]
+            (67, 130, 45, "int8", False, False, "bfloat16", False),
+            (4096, 4096, 16384, "bfloat16", True, True, "float32", True,
+             "mma"),
+            (4096, 16384, 4096, "int8", False, False, "bfloat16", True,
+             "mma")])
+        kern["int8_matmul_wgmma"] = mm[0]
+        kern["int8_matmul"] = next(r for r in mm if r["route"] == "mma"
+                                   and r["case"] == mm[0]["case"])
+        # the quantize pass at fc1's x (bf16, the main path's), f32 x, and
+        # a ragged element count
+        iq = kernel_phase_int8_quantize(dev, args.iters, [
+            (4096, 4096, "bfloat16"), (4096, 4096, "float32"),
+            (67, 130, "bfloat16")])
+        kern["int8_quantize"] = iq[0]
 
     from paddle_tpu_torch.core import rng as _rng
 
@@ -1934,7 +2122,9 @@ def main(argv=None) -> int:
                 "ragged": (pa, "RAGGED_LAUNCHES"),
                 "ragged_chunk": (pa, "RAGGED_CHUNK_LAUNCHES"),
                 "ragged_int8": (pa, "RAGGED_INT8_LAUNCHES"),
-                "int8_matmul": (im, "INT8_MATMUL_LAUNCHES")}
+                "int8_matmul": (im, "INT8_MATMUL_LAUNCHES"),
+                "int8_matmul_wgmma": (im, "INT8_MATMUL_WGMMA_LAUNCHES"),
+                "int8_quantize": (im, "INT8_QUANTIZE_LAUNCHES")}
     launches = {k: 0 for k in counters}
     by_path = {}
 
@@ -1976,7 +2166,8 @@ def main(argv=None) -> int:
               kvint8_phase, model, dev, f32_run, **engine_kw)
     del model, f32_run
     if "deploy" in phases:
-        drive("deploy", ("int8_matmul",), deploy_phase, dev, args.iters)
+        drive("deploy", ("int8_matmul_wgmma", "int8_quantize"),
+              deploy_phase, dev, args.iters, forbid=("int8_matmul",))
     tc_kernels = ("flash_tc", "bwd_single_tc", "bwd_dq_tc", "bwd_dkv_tc")
     # the f32 route: the SIMT forward and the mma.sync backward kernels
     f32_kernels = ("flash", "bwd_single", "bwd_dq", "bwd_dkv")
@@ -2028,6 +2219,12 @@ def main(argv=None) -> int:
                  "paddle_tpu/ops/paged_attention.py:294"),
                 ("int8_matmul", "int8_matmul",
                  "paddle_tpu_torch/csrc/int8_matmul.cu",
+                 "paddle_tpu/ops/int8_matmul.py:50"),
+                ("int8_matmul_wgmma", "int8_matmul_wgmma",
+                 "paddle_tpu_torch/csrc/int8_matmul.cu",
+                 "paddle_tpu/ops/int8_matmul.py:50"),
+                ("int8_quantize", "int8_quantize",
+                 "paddle_tpu_torch/csrc/int8_matmul.cu",
                  "paddle_tpu/ops/int8_matmul.py:50")):
             r = kern[key]
             extra = ({"bound_f32_fma_ms": r["bound_f32_fma_ms"]}
@@ -2038,6 +2235,7 @@ def main(argv=None) -> int:
                                               by_path.items()},
                          "shape": r["case"],
                          "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                         "host_ms": r["host_ms"],
                          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                          "bound_by": r["bound_by"],
                          "library_ms": r["library_ms"], **extra})

@@ -1,5 +1,5 @@
 // Fused int8 matmul for Hopper (sm_90a): quantize -> int8 x int8 -> int32
-// product -> dequant / bias / ReLU / requantize epilogue, in one kernel.
+// product -> dequant / bias / ReLU / requantize epilogue.
 //
 // Replaces the TPU kernel paddle_tpu/ops/int8_matmul.py::_kernel (launched
 // by int8_matmul). Same function:
@@ -13,14 +13,42 @@
 // float outputs differ from it by nothing but the output cast.
 //
 // What bounds it on the H100: operations (2 M K N at the int8 tensor-core
-// rate) once M, N and K are in the thousands; the bytes (x, wq, out once
-// each) are several times cheaper.
+// rate, 1,979 TOP/s) once M, N and K are in the thousands; the bytes (x,
+// wq, out once each) are several times cheaper.
 //
-// What the design does about it, and what it leaves for later:
-//  * The product runs on the tensor cores through mma.sync.m16n8k32 (s8 x
-//    s8 -> s32), not on dp4a: a 128 x 128 output tile per block of 8 warps
-//    (2 x 4, each 64 x 32), int32 accumulators in registers for the whole
-//    K loop (the TPU kernel carried them in scratch across a grid axis).
+// Two routes, picked by shape before the launch (ops/int8_matmul.py:
+// _mm_route):
+//
+// wgmma (K a multiple of 16, 16-byte aligned operands: TMA's row stride):
+//  * x is quantized once, by int8_quantize_kernel, into an int8 copy
+//    xq [M, K] (one f32 product, rint half-even, clip; 16 values a
+//    thread); int8 x goes to the product as it is.
+//  * wgmma reads 8-bit operands K-major only (the transpose flags exist
+//    for 16-bit types), so the product reads wq as [N, K]. Int8Linear
+//    keeps that copy beside its weight_q [K, N] (built once); a bare
+//    int8_matmul call makes one per call.
+//  * The product: wgmma.mma_async m64n256k32 s8 x s8 -> s32, both
+//    operands from 128-byte-swizzled shared tiles that TMA wrote. A block
+//    owns a 128 x 256 output tile: one producer warpgroup (one thread
+//    issues every TMA load, setmaxnreg 24) streams [128 x 128] xq and
+//    [256 x 128] wq tiles through a 4-stage ring of 48 KB (full / empty
+//    mbarriers); two consumer warpgroups (setmaxnreg 240) each keep a
+//    64 x 256 s32 accumulator (128 registers a thread) for the whole K
+//    loop, one commit group of 4 products per k tile in flight while the
+//    next waits. Blocks walk the tiles in groups of 8 row tiles, so the
+//    blocks resident at once share their wq column tiles in L2.
+//  * Epilogue: the same two-rounding math, staged in shared memory (the
+//    ring, free by then) as 64 rows of 256 outputs a warpgroup, then
+//    written with coalesced 16-byte stores (element stores at a ragged
+//    column edge or an unaligned row pitch).
+//  * Ragged M, N and K: TMA fills rows and columns past the extent with
+//    zeros; rows and columns past M and N are never stored.
+//
+// mma (any other shape):
+//  * mma.sync.m16n8k32 (s8 x s8 -> s32): a 128 x 128 output tile per block
+//    of 8 warps (2 x 4, each 64 x 32), int32 accumulators in registers for
+//    the whole K loop (the TPU kernel carried them in scratch across a
+//    grid axis).
 //  * mma wants both operands K-major (4 consecutive k of one row or column
 //    in a 32-bit word). x [M, K] already is. wq [K, N] is N-major, so each
 //    thread stages a 4 x 4 byte block and transposes it with byte_perm on
@@ -33,13 +61,16 @@
 //  * No padded copies of x or wq: ragged edges in M, N and K are zero
 //    filled while staging and masked in the epilogue; rows that are not
 //    word aligned (K or N not a multiple of 4) take byte loads.
-//  * qscale, scale and bias are device pointers (no host sync).
-//  * Simple first: one shared buffer, no cp.async / TMA pipeline, no
-//    wgmma. Two blocks per SM overlap one block's staging with the
-//    other's products.
+//  * One shared buffer, no cp.async / TMA pipeline. Two blocks per SM
+//    overlap one block's staging with the other's products.
+//
+// qscale, scale and bias are device pointers (no host sync).
 #include <stdint.h>
 
+#include <algorithm>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace ptt;
 
@@ -306,6 +337,260 @@ cudaError_t launch_x(const void* x, const void* wq, const void* qscale,
   return cudaErrorInvalidValue;
 }
 
+// ---------------------------------------------------------------------------
+// wgmma route: x quantized once, then the TMA-fed tensor-core product
+// ---------------------------------------------------------------------------
+constexpr int kQuantThreads = 256;  // 16 values a thread
+
+__device__ __forceinline__ void load16(const float* p, float (&v)[16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float4 f = reinterpret_cast<const float4*>(p)[i];
+    v[4 * i] = f.x;
+    v[4 * i + 1] = f.y;
+    v[4 * i + 2] = f.z;
+    v[4 * i + 3] = f.w;
+  }
+}
+__device__ __forceinline__ void load16(const __nv_bfloat16* p,
+                                       float (&v)[16]) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const uint4 u = reinterpret_cast<const uint4*>(p)[i];
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[8 * i + 2 * j] = __uint_as_float(w[j] << 16);
+      v[8 * i + 2 * j + 1] = __uint_as_float(w[j] & 0xffff0000u);
+    }
+  }
+}
+
+// xq[i] = clip(rint(f32(x[i]) * qscale), +-amax), n values; `vec`: x and
+// xq 16-byte aligned (a thread's 16 values are one or more 16-byte loads
+// and one 16-byte store)
+template <typename XT>
+__global__ void __launch_bounds__(kQuantThreads)
+int8_quantize_kernel(const XT* __restrict__ x,
+                     const float* __restrict__ qscale,
+                     int8_t* __restrict__ xq, long n, float amax, int vec) {
+  const float qs = qscale[0];
+  const long stride = (long)gridDim.x * kQuantThreads * 16;
+  for (long i = ((long)blockIdx.x * kQuantThreads + threadIdx.x) * 16; i < n;
+       i += stride) {
+    if (vec && i + 16 <= n) {
+      float v[16];
+      load16(x + i, v);
+      uint32_t w[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        w[j] = pack4(quant_byte(v[4 * j], qs, amax),
+                     quant_byte(v[4 * j + 1], qs, amax),
+                     quant_byte(v[4 * j + 2], qs, amax),
+                     quant_byte(v[4 * j + 3], qs, amax));
+      *reinterpret_cast<uint4*>(xq + i) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+      for (long e = i; e < i + 16 && e < n; ++e)
+        xq[e] = (int8_t)quant_byte(to_f32(x[e]), qs, amax);
+    }
+  }
+}
+
+namespace wg {
+constexpr int BM = 128, BN = 256, BK = 128;  // BK in int8 values (bytes)
+constexpr int kStages = 4, kThreads = 384, kGroupM = 8;
+constexpr int kABytes = BM * BK;            // 16 KB
+constexpr int kBBytes = BN * BK;            // 32 KB
+constexpr int kStage = kABytes + kBBytes;   // 48 KB
+constexpr int kBars = kStages * kStage;     // full[kStages], empty[kStages]
+constexpr int kSmem = kBars + 16 * kStages + 1024;  // + alignment slack
+// a staged output row: 256 values and 16 bytes of padding (the 8 rows a
+// warp writes at once fall in distinct banks)
+template <typename OT>
+constexpr int kPitch = BN * (int)sizeof(OT) + 16;
+static_assert(2 * 64 * kPitch<float> <= kBars, "epilogue fits the ring");
+}  // namespace wg
+
+// two adjacent outputs into the staged row
+__device__ __forceinline__ void stage2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void stage2(__nv_bfloat16* p, __nv_bfloat16 a,
+                                       __nv_bfloat16 b) {
+  __nv_bfloat162 v;
+  v.x = a;
+  v.y = b;
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+}
+__device__ __forceinline__ void stage2(int8_t* p, int8_t a, int8_t b) {
+  *reinterpret_cast<uint16_t*>(p) =
+      (uint16_t)((uint32_t)(uint8_t)a | ((uint32_t)(uint8_t)b << 8));
+}
+
+template <typename OT>
+__global__ void __launch_bounds__(wg::kThreads, 1)
+int8_matmul_wgmma_kernel(const __grid_constant__ CUtensorMap tm_x,
+                         const __grid_constant__ CUtensorMap tm_w,
+                         const float* __restrict__ scale,
+                         const float* __restrict__ bias,
+                         OT* __restrict__ out, int M, int K, int N,
+                         float amax, int relu, int vec_out) {
+  using namespace ptt::hopper;
+  // this route's tile (the mma route's BM, BN, BK are other sizes)
+  constexpr int BM = wg::BM, BN = wg::BN, BK = wg::BK;
+  constexpr int kStages = wg::kStages, kStage = wg::kStage;
+  constexpr int kABytes = wg::kABytes, kGroupM = wg::kGroupM;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + wg::kBars);
+  uint64_t* empty = full + kStages;
+
+  // tile order: groups of kGroupM row tiles, column tiles outer inside a
+  // group, so the blocks resident together share wq's column tiles
+  const int mt = (M + BM - 1) / BM, nt = (N + BN - 1) / BN;
+  const int per_group = kGroupM * nt;
+  const int group = blockIdx.x / per_group, local = blockIdx.x % per_group;
+  const int first_m = group * kGroupM, gm = min(mt - first_m, kGroupM);
+  const int m0 = (first_m + local % gm) * BM, n0 = (local / gm) * BN;
+  const int nk = (K + BK - 1) / BK;
+  const int wgi = threadIdx.x / 128, tid = threadIdx.x % 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wgi == 2) {
+    // ---------------- producer ----------------
+    setmaxnreg_dec<24>();
+    if (tid == 0) {
+      for (int kt = 0; kt < nk; ++kt) {
+        const int s = kt % kStages;
+        mbar_wait(&empty[s], ((kt / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], kStage);
+        uint8_t* dst = smem + s * kStage;
+        tma_load_2d(dst, &tm_x, &full[s], kt * BK, m0);
+        tma_load_2d(dst + kABytes, &tm_w, &full[s], kt * BK, n0);
+      }
+    }
+    return;
+  }
+  // ---------------- consumers: rows m0 + 64 wgi .. + 63 ----------------
+  setmaxnreg_inc<240>();
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  int acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int s = kt % kStages;
+    mbar_wait(&full[s], (kt / kStages) & 1);
+    const uint8_t* a = smem + s * kStage + wgi * 64 * BK;
+    const uint8_t* b = smem + s * kStage + kABytes;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 32; ++kk)
+      wgmma_m64n256k32_s8(acc, desc_sw128(a + kk * 32, 16, 1024),
+                          desc_sw128(b + kk * 32, 16, 1024), 1);
+    wgmma_commit();
+    // the previous k tile's products are done: its stage may be refilled
+    wgmma_wait<1>();
+    if (kt > 0 && lane == 0) mbar_arrive(&empty[(kt - 1) % kStages]);
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+
+  // epilogue: y = f32(acc) * scale + bias as two separately rounded
+  // operations, staged in the ring once both consumers are done with it
+  named_bar_sync(1, 256);
+  constexpr int P = wg::kPitch<OT>;
+  uint8_t* st = smem + wgi * 64 * P;
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    const int c = 8 * j + 2 * t, col = n0 + c;
+    float sc[2], bi[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool ok = col + e < N;
+      sc[e] = ok ? scale[col + e] : 0.f;
+      bi[e] = ok && bias != nullptr ? bias[col + e] : 0.f;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float y[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        y[e] = __fadd_rn(__fmul_rn(__int2float_rn(acc[4 * j + 2 * r + e]),
+                                   sc[e]),
+                         bi[e]);
+        if (relu) y[e] = fmaxf(y[e], 0.f);
+      }
+      const int row = 16 * warp + g + 8 * r;
+      stage2(reinterpret_cast<OT*>(st + row * P) + c, finish<OT>(y[0], amax),
+             finish<OT>(y[1], amax));
+    }
+  }
+  named_bar_sync(2 + wgi, 128);
+  constexpr int VE = 16 / (int)sizeof(OT);  // outputs a 16-byte chunk
+  constexpr int CPR = BN / VE;              // chunks a row
+  for (int idx = tid; idx < 64 * CPR; idx += 128) {
+    const int row = idx / CPR, c = (idx % CPR) * VE;
+    const int grow = m0 + wgi * 64 + row, gcol = n0 + c;
+    if (grow >= M || gcol >= N) continue;
+    const uint8_t* src = st + row * P + c * (int)sizeof(OT);
+    OT* dst = out + (long)grow * N + gcol;
+    if (vec_out && gcol + VE <= N) {
+      *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+    } else {
+      const OT* sv = reinterpret_cast<const OT*>(src);
+      for (int e = 0; e < VE && gcol + e < N; ++e) dst[e] = sv[e];
+    }
+  }
+}
+
+template <typename XT>
+cudaError_t launch_quantize(const void* x, const void* qscale, void* xq,
+                            long n, float amax, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int vec = (uintptr_t)x % 16 == 0 && (uintptr_t)xq % 16 == 0;
+  const long chunks = (n + 15) / 16;
+  const long blocks = std::min<long>((chunks + kQuantThreads - 1) /
+                                         kQuantThreads,
+                                     32L * sms);
+  int8_quantize_kernel<XT><<<(int)blocks, kQuantThreads, 0, st>>>(
+      (const XT*)x, (const float*)qscale, (int8_t*)xq, n, amax, vec);
+  return cudaGetLastError();
+}
+
+template <typename OT>
+cudaError_t launch_wgmma(const void* xq, const void* wt, const void* scale,
+                         const void* bias, void* out, int M, int K, int N,
+                         float amax, int relu, cudaStream_t st) {
+  CUtensorMap tx, tw;
+  cudaError_t err = kmajor_s8_tensor_map(&tx, xq, M, K, wg::BM);
+  if (err == cudaSuccess) err = kmajor_s8_tensor_map(&tw, wt, N, K, wg::BN);
+  if (err != cudaSuccess) return err;
+  auto kern = int8_matmul_wgmma_kernel<OT>;
+  err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             wg::kSmem);
+  if (err != cudaSuccess) return err;
+  const long tiles = (long)((M + wg::BM - 1) / wg::BM) *
+                     ((N + wg::BN - 1) / wg::BN);
+  const int vec_out = ((long)N * (long)sizeof(OT)) % 16 == 0 &&
+                      (uintptr_t)out % 16 == 0;
+  kern<<<(unsigned)tiles, wg::kThreads, wg::kSmem, st>>>(
+      tx, tw, (const float*)scale, (const float*)bias, (OT*)out, M, K, N,
+      amax, relu, vec_out);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // C entry (ops/int8_matmul.py). All tensors contiguous:
@@ -331,5 +616,43 @@ extern "C" int int8_matmul(const void* x, const void* wq, const void* qscale,
   if (x_dtype == DT_BF16)
     return (int)launch_x<__nv_bfloat16>(x, wq, qscale, scale, bias, out, M, K,
                                         N, out_dtype, amax, relu, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// C entry (ops/int8_matmul.py, the wgmma route's quantize pass): xq [n]
+// int8 = clip(rint(f32(x) * qscale[0]), +-amax) from x [n] f32 / bf16.
+extern "C" int int8_quantize(const void* x, const void* qscale, void* xq,
+                             long long n, int x_dtype, float amax,
+                             void* stream) {
+  if (n < 1 || qscale == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (x_dtype == DT_F32)
+    return (int)launch_quantize<float>(x, qscale, xq, n, amax, st);
+  if (x_dtype == DT_BF16)
+    return (int)launch_quantize<__nv_bfloat16>(x, qscale, xq, n, amax, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// C entry (ops/int8_matmul.py, the wgmma route): xq [M, K] int8, wt [N, K]
+// int8 (wq K-major), both 16-byte aligned with K a multiple of 16; scale
+// [N] f32; bias [N] f32 or null; out [M, N] f32 / bf16 / int8 (dtype code
+// 0 / 1 / 2). Returns the launch's cudaError_t.
+extern "C" int int8_matmul_wgmma(const void* xq, const void* wt,
+                                 const void* scale, const void* bias,
+                                 void* out, int M, int K, int N,
+                                 int out_dtype, float amax, int relu,
+                                 void* stream) {
+  if (M < 1 || K < 1 || N < 1 || K % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (out_dtype == DT_F32)
+    return (int)launch_wgmma<float>(xq, wt, scale, bias, out, M, K, N, amax,
+                                    relu, st);
+  if (out_dtype == DT_BF16)
+    return (int)launch_wgmma<__nv_bfloat16>(xq, wt, scale, bias, out, M, K,
+                                            N, amax, relu, st);
+  if (out_dtype == DT_INT8)
+    return (int)launch_wgmma<int8_t>(xq, wt, scale, bias, out, M, K, N, amax,
+                                     relu, st);
   return (int)cudaErrorInvalidValue;
 }

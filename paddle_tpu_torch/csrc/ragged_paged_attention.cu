@@ -20,28 +20,33 @@
 // bound by the f32 FMA rate (67 TFLOP/s, TF32 off) instead. So the two
 // kinds of row take two kernels, picked by T at the launch:
 //
-// Decode rows (ragged_kernel, one query a block):
+// Decode rows (ragged_kernel, one query a row):
 //  * The TPU grid walked every (row, page) step and predicated dead pages
-//    off; here a block owns (row, head) and loops only over the pages its
-//    query can attend (loop bound, not predication), so no byte past a
-//    row's frontier is read.
-//  * The block's 16 warps split the row's pages round robin, each warp
-//    keeping its own running max / denominator / accumulator in f32
-//    registers (online softmax, natural exp), and merge through shared
-//    memory at the end: many page streams in flight per block instead of
-//    one (a decode group has only R * NH blocks).
-//  * K/V rows of a page are loaded 8 at a time before any is used:
-//    independent loads in flight. Each lane reads its D/32 slice of a K/V
-//    row straight from global memory (consecutive lanes, consecutive
-//    addresses).
-//  * int8 pools: a block owns one head, so a page's scale is one scalar
-//    per block and page. It is folded into the score after the warp sum
-//    and into the page's weights before the P.V accumulation, so the
-//    inner loops multiply raw int8 values (converted to f32) and the
-//    dequantized page never exists. At D a multiple of 128 a lane reads 4
-//    consecutive bytes as one 32-bit word (d = 4 lane + i, and the query
-//    and accumulator registers are laid out to match); other head widths
-//    keep d = lane + 32 i with byte loads.
+//    off; here a block loops only over pages its query can attend (loop
+//    bound, not predication), and the rows of the last page past the
+//    row's frontier are not loaded either.
+//  * Every byte arrives by a 16-byte load. A group of LG lanes covers one
+//    K/V row: at D 128, 32 lanes for f32, 16 for bf16 (two rows a load
+//    instruction) and 8 for int8 (four rows); the query and accumulator
+//    registers follow the same layout. Dots reduce by shuffles inside the
+//    group; the accumulators stay partial per group until the end.
+//  * A warp issues all K and V loads of a chunk of rows (8 f32 rows, 16
+//    bf16 or int8 rows: 8 KB at D 128 for f32 and bf16, 4 KB for int8)
+//    before it uses any.
+//  * A decode group has only R * NH (row, head) pairs, 128 in the
+//    engine's tick: short of two waves, each row's pages are split over
+//    blocks of 4 warps (flash-decoding), as many ranges as one wave of
+//    blocks holds and none under 4 pages; each split writes its
+//    unnormalised state (acc, max, sum) to the wrapper's scratch, and the
+//    split that finishes last (a ticket a row and head) merges them, so
+//    a decode call stays one launch.
+//  * int8 pools: a chunk lies in one page, so a page's scale for the
+//    block's head is one scalar per chunk. It is folded into the score
+//    after the group sum and into the weights before the P.V
+//    accumulation, so the inner loops multiply raw int8 values (converted
+//    to f32) and the dequantized page never exists.
+//  * Online softmax in base 2 (scores scaled by scale * log2 e), as the
+//    chunk rows and the merge kernel use.
 //
 // Chunk rows (ragged_chunk_kernel, below): the register-tiled f32 core of
 // attention_simt.cuh (online softmax in base 2), K/V pages staged in
@@ -49,7 +54,8 @@
 //
 // Both: page 0, the null page, is an ordinary readable page; masking
 // compares global positions j * ps + p against pos0 + t, never offsets in
-// a page. No tensor cores yet (bf16 pools could take wgmma query tiles).
+// a page. No tensor cores yet (bf16 chunk rows could take wgmma query
+// tiles).
 #include <algorithm>
 #include <type_traits>
 
@@ -59,185 +65,347 @@ using namespace ptt;
 
 namespace {
 
-// Which head-dim element lane `lane` keeps in its register i. Word layout
-// (int8 pools, DPL a multiple of 4): 4 consecutive elements per lane and
-// 128-element group; otherwise consecutive lanes, consecutive elements.
-template <bool WORDS>
-__device__ __forceinline__ int dmap(int lane, int i) {
-  return WORDS ? lane * 4 + (i & 3) + 128 * (i >> 2) : lane + 32 * i;
+// ---------------------------------------------------------------------------
+// Decode rows (T == 1)
+// ---------------------------------------------------------------------------
+// 4 warps a block, at least 3 blocks an SM (168 registers a thread at
+// most, for the K and V loads in flight). Compared on the H100 with
+// blocks of 8 and of 16 warps (8 rows of 200-1900 positions, 16 heads,
+// D 128, and the serving engine's decode groups): no slower for f32
+// pools, within 2 microseconds for bf16, faster for int8 pools and for
+// groups of few rows.
+constexpr int kDecWarps = 4;
+constexpr int kDecThreads = kDecWarps * 32;
+constexpr int kDecMinBlocks = 3;
+constexpr int kDecMinPagesPerSplit = kDecWarps;  // a page a warp at least
+constexpr int kDecMaxSplit = 64;  // page splits a row (the merge's room)
+
+// 16 bytes of a K/V row as f32: 4 f32, 8 bf16 (a bf16 is the high half of
+// its f32) or 16 int8 values, lowest address first
+__device__ __forceinline__ void unpack16(const uint4& w, float (&o)[4]) {
+  o[0] = __uint_as_float(w.x);
+  o[1] = __uint_as_float(w.y);
+  o[2] = __uint_as_float(w.z);
+  o[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& w, float (&o)[8]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = __uint_as_float(u[i] << 16);
+    o[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+// int8: byte b + 128 placed in the low mantissa bits of 2^23 (one byte
+// permute) is the float 2^23 + b + 128 exactly; one subtraction leaves b,
+// which spares the quarter-rate integer-to-float conversion
+__device__ __forceinline__ void unpack16(const uint4& w, float (&o)[16]) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t b = u[i] ^ 0x80808080u;  // two's complement + 128
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      o[4 * i + k] = __uint_as_float(__byte_perm(b, 0x4B000000u,
+                                                 0x7540u | k)) -
+                     8388736.0f;  // 2^23 + 128
+  }
 }
 
-// One K or V row of one head into registers (f32), zeros past D or when
-// the row is past the page (`ok` false). `vec`: the row is word aligned.
-template <typename KT, int DPL, bool WORDS>
-__device__ __forceinline__ void load_row(const KT* __restrict__ row, int lane,
-                                         int D, bool ok, bool vec,
-                                         float (&out)[DPL]) {
-  if constexpr (WORDS) {
-    if (vec) {
+// The 16-byte chunk of a K/V row that starts at element d0, raw; zeros past
+// D or when `ok` is false. `vec`: rows are 16-byte aligned and D a whole
+// number of chunks (one 16-byte load); otherwise element loads.
+template <typename KT>
+__device__ __forceinline__ uint4 load_chunk(const KT* __restrict__ row,
+                                            int d0, int D, bool ok,
+                                            bool vec) {
+  constexpr int VE = 16 / (int)sizeof(KT);
+  // the element's bits as a plain integer type of its size
+  using RT = std::conditional_t<
+      sizeof(KT) == 4, uint32_t,
+      std::conditional_t<sizeof(KT) == 2, uint16_t, uint8_t>>;
+  union {
+    uint4 u;
+    RT e[VE];
+  } c;
+  c.u = make_uint4(0u, 0u, 0u, 0u);
+  if (!ok || d0 >= D) return c.u;
+  if (vec) return *reinterpret_cast<const uint4*>(row + d0);
+  const RT* src = reinterpret_cast<const RT*>(row) + d0;
 #pragma unroll
-      for (int w = 0; w < DPL / 4; ++w) {
-        const int d0 = lane * 4 + 128 * w;
-        const uint32_t word =
-            ok && d0 < D ? *reinterpret_cast<const uint32_t*>(row + d0) : 0u;
+  for (int e = 0; e < VE; ++e)
+    if (d0 + e < D) c.e[e] = src[e];
+  return c.u;
+}
+
+// Sums of G partial dot products over the LG lanes of each lane group,
+// scattered: G - 1 shuffles halve the set at each step (the lane with bit
+// o set keeps the upper half), then the LG / G lanes left holding the
+// same row add up. Lane lg of a group returns the total of its row
+// u = lg / (LG / G): fewer shuffles than G separate reductions, and the
+// scores land one a lane.
+template <int N, int O, int G>
+__device__ __forceinline__ void halve(float (&v)[G], int lane) {
+  if constexpr (N > 1) {
+    const bool upper = (lane & O) != 0;
 #pragma unroll
-        for (int b = 0; b < 4; ++b)
-          out[4 * w + b] = (float)(int8_t)(word >> (8 * b));
-      }
-      return;
+    for (int k = 0; k < N / 2; ++k) {
+      const float send = upper ? v[k] : v[k + N / 2];
+      const float keep = upper ? v[k + N / 2] : v[k];
+      v[k] = keep + __shfl_xor_sync(0xffffffffu, send, O);
     }
-  }
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    const int d = dmap<WORDS>(lane, i);
-    out[i] = ok && d < D ? to_f32(row[d]) : 0.f;
+    halve<N / 2, O / 2>(v, lane);
   }
 }
 
-template <typename QT, typename KT, int DPL, int QW, int NW>
-__global__ void __launch_bounds__(NW * 32)
+template <int LG, int G>
+__device__ __forceinline__ float reduce_scatter(float (&v)[G], int lane) {
+  halve<G, LG / 2>(v, lane);
+  float x = v[0];
+#pragma unroll
+  for (int o = LG / G / 2; o > 0; o >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Merge of a decode row's page splits, run by the block of the split that
+// finished last: the splits' max and sum are read once, in parallel,
+// into shared memory with each split's weight exp2(m - max) (0 for a split
+// that attended nothing); then each thread sums its head-dim values over
+// the splits that attended something, the loads independent of each
+// other. `pr`: the row's nsplit states (D values, max, sum) in L2.
+template <typename QT>
+__device__ __forceinline__ void merge_splits(const float* pr, QT* orow,
+                                             int D, int nsplit,
+                                             float* sm_m, float* sm_l,
+                                             float* sm_c) {
+  const int tid = threadIdx.x;
+  if (tid < nsplit) {
+    sm_m[tid] = __ldcg(pr + tid * (D + 2) + D);
+    sm_l[tid] = __ldcg(pr + tid * (D + 2) + D + 1);
+  }
+  __syncthreads();
+  float mx = -INFINITY;
+  for (int sp = 0; sp < nsplit; ++sp) mx = fmaxf(mx, sm_m[sp]);
+  if (tid < nsplit)
+    sm_c[tid] = sm_m[tid] == -INFINITY ? 0.f : exp2f(sm_m[tid] - mx);
+  __syncthreads();
+  float den = 0.f;
+  for (int sp = 0; sp < nsplit; ++sp) den += sm_l[sp] * sm_c[sp];
+  for (int d = tid; d < D; d += blockDim.x) {
+    float num = 0.f;
+#pragma unroll 4
+    for (int sp = 0; sp < nsplit; ++sp)
+      if (sm_c[sp] != 0.f) num += __ldcg(pr + sp * (D + 2) + d) * sm_c[sp];
+    orow[d] = from_f32<QT>(den > 0.f ? num / den : 0.f);
+  }
+}
+
+// One block per (head, split, row): the row's attendable pages are cut in
+// up to `nsplit` equal ranges (flash-decoding), and the
+// block's 4 warps take the range's chunks of CR rows in turn. A lane group
+// of LG lanes covers one K/V row with 16-byte loads (lane lg of the group
+// holds head-dim chunks lg, lg + LG, ..: CPL chunks of VE values), so one
+// load instruction of the warp reads RPW = 32 / LG rows. For each chunk a
+// warp issues all its K and V loads (2 G instructions) before it uses any,
+// then: scores (G dots a lane, reduced and scattered over the group, one
+// row a lane), an online-softmax step in base 2 (one warp max; the
+// denominator stays a per-lane partial), and P.V into per-group partial
+// accumulators that are summed across the groups once, at the end. Every
+// step runs on all G rows, without a branch, so the rows' independent
+// chains overlap. The warps merge through shared memory; with nsplit > 1
+// the block writes its unnormalised accumulator, max and denominator to
+// `part` and takes a ticket of its (row, head); the block whose ticket
+// completes the row merges all its splits (merge_splits) and puts the
+// ticket back to 0 for the next call.
+template <typename QT, typename KT, int LG, int CPL>
+__global__ void __launch_bounds__(kDecThreads, kDecMinBlocks)
 ragged_kernel(const QT* __restrict__ q, const KT* __restrict__ kpool,
               const KT* __restrict__ vpool, const int* __restrict__ page_table,
               const int* __restrict__ pos0, const int* __restrict__ true_len,
               const float* __restrict__ kscale,
-              const float* __restrict__ vscale, QT* __restrict__ out, int T,
-              int NH, int D, int ps, int NPs, float scale, int vec) {
+              const float* __restrict__ vscale, QT* __restrict__ out,
+              float* __restrict__ part, int* __restrict__ tickets, int NH,
+              int D, int ps, int NPs, float scale_log2, int vec,
+              int nsplit) {
   constexpr bool I8 = std::is_same<KT, int8_t>::value;
-  constexpr bool WORDS = I8 && DPL % 4 == 0;
-  // K/V rows of a page loaded together before use, i.e. independent
-  // loads in flight per lane: 8 for a decode row (one query, few
-  // registers), 2 for a chunk row's 8-query tile (measured best on H100)
-  constexpr int G = QW == 1 ? 8 : 2;
-  __shared__ float sm_m[NW][QW];
-  __shared__ float sm_l[NW][QW];
-  __shared__ float sm_acc[NW][QW][DPL * 32];
+  constexpr int VE = 16 / (int)sizeof(KT);  // values a 16-byte chunk
+  constexpr int RPW = 32 / LG;              // rows a warp-wide load
+  constexpr int NV = CPL * VE;              // values a lane keeps a row
+  // K (and V) loads a chunk: up to 8 16-byte loads a lane, at most 16
+  // rows (a page of the engine), no more rows than a group has lanes
+  constexpr int G0 = 8 / CPL < 16 / RPW ? 8 / CPL : 16 / RPW;
+  constexpr int G = G0 < LG ? G0 : LG;
+  constexpr int CR = G * RPW;               // rows a chunk (<= 16)
+  constexpr int DUP = LG / G;               // lanes holding one row's score
+  constexpr unsigned FULL = 0xffffffffu;
+  __shared__ float sm_m[kDecWarps], sm_l[kDecWarps];
+  __shared__ float sm_acc[kDecWarps][LG * NV];
 
-  const int r = blockIdx.x, h = blockIdx.y, t0 = blockIdx.z * QW;
+  const int h = blockIdx.x, sp = blockIdx.y, r = blockIdx.z;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lg = lane % LG, sub = lane / LG;
+  const int crow = sub + RPW * (lg / DUP);  // the chunk row scored here
+  const bool rep = lg % DUP == 0;           // the row's one counted copy
   const int p0 = pos0[r];
-  const int last = p0 + true_len[r] - 1;  // row's last attendable position
-  const int nq = min(QW, T - t0);         // queries of this tile (>= 1)
-  const int tile_last = min(last, p0 + t0 + nq - 1);
-  const int n_pages = tile_last < 0 ? 0 : min(tile_last / ps + 1, NPs);
+  // the query attends positions <= p0, and no page past the row's last
+  // real position is read
+  const int last = min(p0 + true_len[r] - 1, p0);
+  const int n_pages = last < 0 ? 0 : min(last / ps + 1, NPs);
+  // this row's own splits: up to nsplit equal shares of its pages, none
+  // under kDecMinPagesPerSplit pages (a short row takes fewer blocks and
+  // merges fewer states; a row of one share writes its output itself)
+  const int rs = max(1, min(nsplit, (n_pages + kDecMinPagesPerSplit - 1) /
+                                        kDecMinPagesPerSplit));
+  if (sp >= rs) return;
+  const int jb = (int)((long)sp * n_pages / rs);
+  const int je = (int)((long)(sp + 1) * n_pages / rs);
+  const int cpp = (ps + CR - 1) / CR;  // chunks a page
+  const int items = max(0, je - jb) * cpp;
 
-  float qr[QW][DPL], acc[QW][DPL], m[QW], l[QW];
+  float qr[NV], acc[NV];
+  const QT* qrow = q + ((long)r * NH + h) * D;
 #pragma unroll
-  for (int t = 0; t < QW; ++t) {
-    const long qrow = ((long)(r * T + t0 + t) * NH + h) * D;
+  for (int i = 0; i < CPL; ++i)
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      const int d = dmap<WORDS>(lane, i);
-      qr[t][i] = (t < nq && d < D) ? to_f32(q[qrow + d]) * scale : 0.f;
-      acc[t][i] = 0.f;
+    for (int e = 0; e < VE; ++e) {
+      const int d = (lg + LG * i) * VE + e;
+      qr[i * VE + e] = d < D ? to_f32(qrow[d]) * scale_log2 : 0.f;
+      acc[i * VE + e] = 0.f;
     }
-    m[t] = -INFINITY;
-    l[t] = 0.f;
-  }
+  float m = -INFINITY, l = 0.f;  // l: this lane's share of the sum
 
   const int* tab = page_table + (long)r * NPs;
-  const long row_stride = (long)NH * D;         // one token of one page
+  const long row_stride = (long)NH * D;  // one token of one page
   const long page_stride = (long)ps * row_stride;
-  for (int j = warp; j < n_pages; j += NW) {
-    const long base = (long)tab[j] * page_stride + (long)h * D;
-    const int gpos0 = j * ps;
-    // int8 pools: this page's scales for head h (1 otherwise)
+  // the page of the warp's next chunk is read a chunk ahead
+  int page_next = warp < items ? tab[jb + warp / cpp] : 0;
+  for (int it = warp; it < items; it += kDecWarps) {
+    const int j = jb + it / cpp, pb = (it % cpp) * CR;
+    const int page = page_next;
+    if (it + kDecWarps < items) page_next = tab[jb + (it + kDecWarps) / cpp];
+    const KT* kb = kpool + (long)page * page_stride + (long)h * D;
+    const KT* vb = vpool + (long)page * page_stride + (long)h * D;
+    const int lim = min(ps, last - j * ps + 1);  // rows of the page read
+    uint4 kr[G][CPL], vr[G][CPL];
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int p = pb + sub + RPW * u;
+#pragma unroll
+      for (int i = 0; i < CPL; ++i)
+        kr[u][i] = load_chunk(kb + p * row_stride, (lg + LG * i) * VE, D,
+                              p < lim, vec != 0);
+    }
+#pragma unroll
+    for (int u = 0; u < G; ++u) {
+      const int p = pb + sub + RPW * u;
+#pragma unroll
+      for (int i = 0; i < CPL; ++i)
+        vr[u][i] = load_chunk(vb + p * row_stride, (lg + LG * i) * VE, D,
+                              p < lim, vec != 0);
+    }
     float ksc = 1.f, vsc = 1.f;
     if constexpr (I8) {
-      ksc = kscale[(long)tab[j] * NH + h];
-      vsc = vscale[(long)tab[j] * NH + h];
+      ksc = kscale[(long)page * NH + h];
+      vsc = vscale[(long)page * NH + h];
     }
-    // scores: after the loop lane p holds query t's score for key p
-    float s[QW];
+    // scores: this lane ends with chunk row crow's (base-2, scaled) score
+    float dots[G];
 #pragma unroll
-    for (int t = 0; t < QW; ++t) s[t] = -INFINITY;
-    for (int pb = 0; pb < ps; pb += G) {
-      float kv[G][DPL];
+    for (int u = 0; u < G; ++u) {
+      dots[u] = 0.f;
 #pragma unroll
-      for (int u = 0; u < G; ++u)
-        load_row<KT, DPL, WORDS>(kpool + base + (pb + u) * row_stride, lane,
-                                 D, pb + u < ps, vec != 0, kv[u]);
+      for (int i = 0; i < CPL; ++i) {
+        float kv[VE];
+        unpack16(kr[u][i], kv);
 #pragma unroll
-      for (int u = 0; u < G; ++u) {
-        const int p = pb + u;
-#pragma unroll
-        for (int t = 0; t < QW; ++t) {
-          float dot = 0.f;
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) dot += qr[t][i] * kv[u][i];
-          dot = warp_sum(dot);
-          if constexpr (I8) dot *= ksc;
-          const bool ok = p < ps && t < nq && gpos0 + p <= p0 + t0 + t;
-          if (lane == p) s[t] = ok ? dot : -INFINITY;
-        }
+        for (int e = 0; e < VE; ++e) dots[u] += qr[i * VE + e] * kv[e];
       }
     }
-    // online softmax over this page; s[t] becomes the page's weights
+    float sc = reduce_scatter<LG, G>(dots, lane);
+    if constexpr (I8) sc *= ksc;
+    if (pb + crow >= lim) sc = -INFINITY;
+    const float mn = fmaxf(m, warp_max(sc));
+    if (mn == -INFINITY) continue;  // nothing attendable yet (uniform)
+    const float alpha = exp2f(m - mn);
+    const float pe = exp2f(sc - mn);  // 0 for rows not attended
+    l = l * alpha + (rep ? pe : 0.f);
+    m = mn;
 #pragma unroll
-    for (int t = 0; t < QW; ++t) {
-      const float mn = fmaxf(m[t], warp_max(s[t]));
-      if (mn == -INFINITY) {
-        s[t] = 0.f;  // nothing attendable for this query yet
-      } else {
-        const float alpha = expf(m[t] - mn);
-        const float pe = s[t] == -INFINITY ? 0.f : expf(s[t] - mn);
-        l[t] = l[t] * alpha + warp_sum(pe);
-        s[t] = I8 ? pe * vsc : pe;  // the V scale rides the page's weights
+    for (int k = 0; k < NV; ++k) acc[k] *= alpha;
+    const float wl = I8 ? pe * vsc : pe;  // the V scale rides the weights
 #pragma unroll
-        for (int i = 0; i < DPL; ++i) acc[t][i] *= alpha;
-        m[t] = mn;
-      }
-    }
-    for (int pb = 0; pb < ps; pb += G) {
-      float vv[G][DPL];
+    for (int u = 0; u < G; ++u) {
+      const float w = __shfl_sync(FULL, wl, sub * LG + u * DUP);
 #pragma unroll
-      for (int u = 0; u < G; ++u)
-        load_row<KT, DPL, WORDS>(vpool + base + (pb + u) * row_stride, lane,
-                                 D, pb + u < ps, vec != 0, vv[u]);
+      for (int i = 0; i < CPL; ++i) {
+        float vv[VE];
+        unpack16(vr[u][i], vv);
 #pragma unroll
-      for (int u = 0; u < G; ++u) {
-#pragma unroll
-        for (int t = 0; t < QW; ++t) {
-          // lanes past ps hold weight 0
-          const float w = __shfl_sync(0xffffffffu, s[t], (pb + u) & 31);
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[t][i] += w * vv[u][i];
-        }
+        for (int e = 0; e < VE; ++e) acc[i * VE + e] += w * vv[e];
       }
     }
   }
 
-  // merge the warps' partial softmax states
+  // the warp's state: denominator over its lanes, accumulator over its
+  // lane groups
+  l = warp_sum(l);
 #pragma unroll
-  for (int t = 0; t < QW; ++t) {
-    if (lane == 0) {
-      sm_m[warp][t] = m[t];
-      sm_l[warp][t] = l[t];
-    }
+  for (int o = LG; o < 32; o <<= 1)
 #pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      sm_acc[warp][t][dmap<WORDS>(lane, i)] = acc[t][i];
+    for (int k = 0; k < NV; ++k) acc[k] += __shfl_xor_sync(FULL, acc[k], o);
+  if (lane == 0) {
+    sm_m[warp] = m;
+    sm_l[warp] = l;
+  }
+  if (sub == 0) {
+#pragma unroll
+    for (int i = 0; i < CPL; ++i)
+#pragma unroll
+      for (int e = 0; e < VE; ++e)
+        sm_acc[warp][(lg + LG * i) * VE + e] = acc[i * VE + e];
   }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < nq * D; idx += NW * 32) {
-    const int t = idx / D, d = idx - t * D;
-    float mx = -INFINITY;
+  float mx = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w][t]);
-    float den = 0.f, num = 0.f;
-    if (mx != -INFINITY) {
+  for (int w = 0; w < kDecWarps; ++w) mx = fmaxf(mx, sm_m[w]);
+  float cw[kDecWarps], den = 0.f;
 #pragma unroll
-      for (int w = 0; w < NW; ++w) {
-        const float mw = sm_m[w][t];
-        if (mw != -INFINITY) {
-          const float c = expf(mw - mx);
-          den += sm_l[w][t] * c;
-          num += sm_acc[w][t][d] * c;
-        }
-      }
-    }
-    out[((long)(r * T + t0 + t) * NH + h) * D + d] =
-        from_f32<QT>(den > 0.f ? num / den : 0.f);
+  for (int w = 0; w < kDecWarps; ++w) {
+    cw[w] = sm_m[w] == -INFINITY ? 0.f : exp2f(sm_m[w] - mx);
+    den += sm_l[w] * cw[w];
   }
+  const long row = (long)r * NH + h;
+  float* prow = part + (row * nsplit + sp) * (D + 2);
+  for (int d = threadIdx.x; d < D; d += kDecThreads) {
+    float num = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecWarps; ++w) num += sm_acc[w][d] * cw[w];
+    if (rs == 1)
+      out[row * D + d] = from_f32<QT>(den > 0.f ? num / den : 0.f);
+    else
+      prow[d] = num;
+  }
+  if (rs == 1) return;
+  if (threadIdx.x == 0) {
+    prow[D] = mx;  // -inf for a split with nothing attendable
+    prow[D + 1] = den;
+  }
+  // this split's state is visible to every block before its ticket is
+  __threadfence();
+  __syncthreads();
+  __shared__ int sm_last;
+  if (threadIdx.x == 0) {
+    sm_last = atomicAdd(tickets + row, 1) == rs - 1;
+    if (sm_last) tickets[row] = 0;
+  }
+  __syncthreads();
+  if (!sm_last) return;
+  __threadfence();
+  __shared__ float sm_sm[kDecMaxSplit], sm_sl[kDecMaxSplit],
+      sm_sc[kDecMaxSplit];
+  merge_splits<QT>(part + row * nsplit * (D + 2), out + row * D, D, rs,
+                   sm_sm, sm_sl, sm_sc);
 }
 
 // Chunk rows (T > 1): the register-tiled core of attention_simt.cuh. A
@@ -484,58 +652,117 @@ cudaError_t launch_chunk(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename QT, typename KT, int DPL>
-cudaError_t launch_d(const void* q, const void* k, const void* v,
-                     const int* tab, const int* p0, const int* tl,
-                     const float* ks, const float* vs, void* o, float* part,
-                     int max_split, int R, int T, int NH, int D, int ps,
-                     int NPs, float scale, cudaStream_t st) {
-  // word loads of int8 rows: every row of a head starts word aligned
-  const int vec =
-      D % 4 == 0 && (uintptr_t)k % 4 == 0 && (uintptr_t)v % 4 == 0 ? 1 : 0;
-  if (T == 1) {
-    // decode rows: R * NH blocks only, so 16 warps per block split the
-    // row's pages to keep enough page streams in flight
-    constexpr int NW = 16;
-    const dim3 grid(R, NH, 1);
-    ragged_kernel<QT, KT, DPL, 1, NW><<<grid, NW * 32, 0, st>>>(
-        (const QT*)q, (const KT*)k, (const KT*)v, tab, p0, tl, ks, vs,
-        (QT*)o, T, NH, D, ps, NPs, scale, vec);
-    return cudaGetLastError();
+// Decode rows: how many page ranges each row is split in (at most
+// max_split, of at least kDecMinPagesPerSplit pages). A decode group of 8
+// rows by 16 heads has 128 blocks.
+template <typename QT, typename KT, int LG, int CPL>
+cudaError_t decode_splits(int max_split, int R, int NH, int NPs,
+                          int* nsplit) {
+  *nsplit = 1;
+  max_split = std::min(max_split, kDecMaxSplit);
+  if (max_split <= 1) return cudaSuccess;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, ragged_kernel<QT, KT, LG, CPL>, kDecThreads, 0);
+  if (e != cudaSuccess) return e;
+  // a group short of two waves of resident blocks is cut in as many page
+  // ranges as one wave holds (a second, partial wave costs more than the
+  // ranges gain)
+  const long blocks = (long)R * NH, wave = (long)per_sm * sms;
+  if (blocks < 2 * wave)
+    *nsplit = (int)std::max<long>(
+        1, std::min<long>({(long)max_split, wave / blocks,
+                           (NPs + kDecMinPagesPerSplit - 1) /
+                               kDecMinPagesPerSplit}));
+  return cudaSuccess;
+}
+
+// Decode rows: the launch of one (LG, CPL) kernel and, when it split the
+// rows, the merge. Given `nsplit_out`, it reports the split count there
+// and launches nothing.
+template <typename QT, typename KT, int LG, int CPL>
+cudaError_t launch_decode_lg(const void* q, const void* k, const void* v,
+                             const int* tab, const int* p0, const int* tl,
+                             const float* ks, const float* vs, void* o,
+                             float* part, int* tickets, int max_split, int R,
+                             int NH, int D, int ps, int NPs, float scale,
+                             cudaStream_t st, int* nsplit_out) {
+  auto kern = ragged_kernel<QT, KT, LG, CPL>;
+  int nsplit = 1;
+  cudaError_t err = decode_splits<QT, KT, LG, CPL>(
+      (part != nullptr && tickets != nullptr) || nsplit_out != nullptr
+          ? max_split
+          : 1,
+      R, NH, NPs, &nsplit);
+  if (err != cudaSuccess) return err;
+  if (nsplit_out != nullptr) {
+    *nsplit_out = nsplit;
+    return cudaSuccess;
   }
-  // chunk rows: above D 128 a thread keeps 2 query rows, so its output
-  // patch stays at 64 registers
-  if constexpr (DPL <= 2)
-    return launch_chunk<QT, KT, simt::Tile128, 64>(
-        q, k, v, tab, p0, tl, ks, vs, o, part, max_split, R, T, NH, D, ps,
-        NPs, scale, st);
-  else if constexpr (DPL <= 4)
-    return launch_chunk<QT, KT, simt::Tile128, 128>(
-        q, k, v, tab, p0, tl, ks, vs, o, part, max_split, R, T, NH, D, ps,
-        NPs, scale, st);
-  else
-    return launch_chunk<QT, KT, simt::Tile256, 256>(
-        q, k, v, tab, p0, tl, ks, vs, o, part, max_split, R, T, NH, D, ps,
-        NPs, scale, st);
+  const int vec = (D * (int)sizeof(KT)) % 16 == 0 &&
+                  (uintptr_t)k % 16 == 0 && (uintptr_t)v % 16 == 0;
+  const dim3 grid(NH, nsplit, R);
+  kern<<<grid, kDecThreads, 0, st>>>(
+      (const QT*)q, (const KT*)k, (const KT*)v, tab, p0, tl, ks, vs, (QT*)o,
+      part, tickets, NH, D, ps, NPs, scale * 1.4426950408889634f, vec,
+      nsplit);
+  return cudaGetLastError();
+}
+
+// Decode rows: a lane group just wide enough for a row's 16-byte chunks
+template <typename QT, typename KT>
+cudaError_t launch_decode(const void* q, const void* k, const void* v,
+                          const int* tab, const int* p0, const int* tl,
+                          const float* ks, const float* vs, void* o,
+                          float* part, int* tickets, int max_split, int R,
+                          int NH, int D, int ps, int NPs, float scale,
+                          cudaStream_t st, int* nsplit_out = nullptr) {
+  constexpr int VE = 16 / (int)sizeof(KT);
+  const int nch = (D + VE - 1) / VE;  // 16-byte chunks a row
+#define PTT_DECODE(LG, CPL)                                                  \
+  return launch_decode_lg<QT, KT, LG, CPL>(                                  \
+      q, k, v, tab, p0, tl, ks, vs, o, part, tickets, max_split, R, NH, D,   \
+      ps, NPs, scale, st, nsplit_out)
+  if (nch <= 4) PTT_DECODE(4, 1);
+  if (nch <= 8) PTT_DECODE(8, 1);
+  if (nch <= 16) PTT_DECODE(16, 1);
+  if constexpr (VE <= 8) {  // f32 and bf16 rows of more than 16 chunks
+    if (nch <= 32) PTT_DECODE(32, 1);
+  }
+  if constexpr (VE == 4) {  // f32 above D 128
+    if (nch <= 64) PTT_DECODE(32, 2);
+  }
+#undef PTT_DECODE
+  return cudaErrorInvalidValue;
 }
 
 template <typename QT, typename KT>
 cudaError_t launch_t(const void* q, const void* k, const void* v,
                      const int* tab, const int* p0, const int* tl,
                      const float* ks, const float* vs, void* o, float* part,
-                     int max_split, int R, int T, int NH, int D, int ps,
-                     int NPs, float scale, cudaStream_t st) {
+                     int* tickets, int max_split, int R, int T, int NH, int D,
+                     int ps, int NPs, float scale, cudaStream_t st) {
+  if (T == 1)
+    return launch_decode<QT, KT>(q, k, v, tab, p0, tl, ks, vs, o, part,
+                                 tickets, max_split, R, NH, D, ps, NPs, scale,
+                                 st);
+  // chunk rows: above D 128 a thread keeps 2 query rows, so its output
+  // patch stays at 64 registers
   if (D <= 64)
-    return launch_d<QT, KT, 2>(q, k, v, tab, p0, tl, ks, vs, o, part,
-                               max_split, R, T, NH, D, ps, NPs, scale, st);
-  if (D <= 96)
-    return launch_d<QT, KT, 3>(q, k, v, tab, p0, tl, ks, vs, o, part,
-                               max_split, R, T, NH, D, ps, NPs, scale, st);
+    return launch_chunk<QT, KT, simt::Tile128, 64>(
+        q, k, v, tab, p0, tl, ks, vs, o, part, max_split, R, T, NH, D, ps,
+        NPs, scale, st);
   if (D <= 128)
-    return launch_d<QT, KT, 4>(q, k, v, tab, p0, tl, ks, vs, o, part,
-                               max_split, R, T, NH, D, ps, NPs, scale, st);
-  return launch_d<QT, KT, 8>(q, k, v, tab, p0, tl, ks, vs, o, part,
-                             max_split, R, T, NH, D, ps, NPs, scale, st);
+    return launch_chunk<QT, KT, simt::Tile128, 128>(
+        q, k, v, tab, p0, tl, ks, vs, o, part, max_split, R, T, NH, D, ps,
+        NPs, scale, st);
+  return launch_chunk<QT, KT, simt::Tile256, 256>(
+      q, k, v, tab, p0, tl, ks, vs, o, part, max_split, R, T, NH, D, ps, NPs,
+      scale, st);
 }
 
 }  // namespace
@@ -544,8 +771,11 @@ cudaError_t launch_t(const void* q, const void* k, const void* v,
 //   q [R, T, NH, D], k_pool/v_pool [P, ps, NH, D], page_table [R, NPs]
 //   int32, pos0/true_len [R] int32, k_scale/v_scale [P, NH] f32 (int8
 //   pools; null otherwise), out [R, T, NH, D] (q dtype), scratch f32 of
-//   R * T * NH * max_split * (D + 2) floats for chunk rows' key splits
-//   (T > 1; null or max_split <= 1: no split).
+//   R * T * NH * max_split * (D + 2) floats for the splits of a row's
+//   keys: chunk rows' key ranges (T > 1), decode rows' page ranges
+//   (T == 1); null or max_split <= 1: no split. tickets: R * NH int32,
+//   all 0 (decode rows split only with them; each call leaves them 0),
+//   one set a stream.
 // dtype codes: 0 = f32, 1 = bf16, 2 = int8 (pools only). Returns the
 // launch's cudaError_t.
 extern "C" int ragged_paged_attention(const void* q, const void* k_pool,
@@ -557,7 +787,7 @@ extern "C" int ragged_paged_attention(const void* q, const void* k_pool,
                                       int T, int NH, int D, int ps, int NPs,
                                       int q_dtype, int kv_dtype, float scale,
                                       float* scratch, int max_split,
-                                      void* stream) {
+                                      int* tickets, void* stream) {
   if (R < 1 || T < 1 || D < 1 || D > 256 || ps < 1 || ps > 32 || NPs < 1)
     return (int)cudaErrorInvalidValue;
   if ((kv_dtype == DT_INT8) != (k_scale != nullptr && v_scale != nullptr))
@@ -567,7 +797,8 @@ extern "C" int ragged_paged_attention(const void* q, const void* k_pool,
   if (q_dtype == QC && kv_dtype == KC)                                      \
     return (int)launch_t<QT, KT>(q, k_pool, v_pool, page_table, pos0,       \
                                  true_len, k_scale, v_scale, out, scratch,  \
-                                 max_split, R, T, NH, D, ps, NPs, scale, st);
+                                 tickets, max_split, R, T, NH, D, ps, NPs,  \
+                                 scale, st);
   PTT_RAGGED(DT_F32, DT_F32, float, float)
   PTT_RAGGED(DT_F32, DT_BF16, float, __nv_bfloat16)
   PTT_RAGGED(DT_BF16, DT_BF16, __nv_bfloat16, __nv_bfloat16)
@@ -576,4 +807,31 @@ extern "C" int ragged_paged_attention(const void* q, const void* k_pool,
   PTT_RAGGED(DT_BF16, DT_INT8, __nv_bfloat16, int8_t)
 #undef PTT_RAGGED
   return (int)cudaErrorInvalidValue;
+}
+
+// How many page ranges the decode-row kernel splits each row of a T == 1
+// call in, for these sizes on the current device (what
+// ragged_paged_attention would launch with this max_split); -1 on an
+// unknown dtype pair or size.
+extern "C" int ragged_decode_splits(int R, int NH, int D, int NPs,
+                                    int q_dtype, int kv_dtype,
+                                    int max_split) {
+  int n = -1;
+#define PTT_SPLITS(QC, KC, QT, KT)                                           \
+  if (q_dtype == QC && kv_dtype == KC)                                       \
+    return launch_decode<QT, KT>(nullptr, nullptr, nullptr, nullptr,         \
+                                 nullptr, nullptr, nullptr, nullptr,         \
+                                 nullptr, nullptr, nullptr, max_split, R,    \
+                                 NH, D, 16, NPs, 1.f, nullptr,               \
+                                 &n) == cudaSuccess                          \
+               ? n                                                           \
+               : -1;
+  PTT_SPLITS(DT_F32, DT_F32, float, float)
+  PTT_SPLITS(DT_F32, DT_BF16, float, __nv_bfloat16)
+  PTT_SPLITS(DT_BF16, DT_BF16, __nv_bfloat16, __nv_bfloat16)
+  PTT_SPLITS(DT_BF16, DT_F32, __nv_bfloat16, float)
+  PTT_SPLITS(DT_F32, DT_INT8, float, int8_t)
+  PTT_SPLITS(DT_BF16, DT_INT8, __nv_bfloat16, int8_t)
+#undef PTT_SPLITS
+  return -1;
 }

@@ -19,14 +19,15 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 STORAGE_DTYPE_CODE = {**DTYPE_CODE, torch.int8: 2}
 
 _VP, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_CTYPES = {"p": _VP, "i": _INT, "f": _FLOAT}
+_CTYPES = {"p": _VP, "i": _INT, "l": ctypes.c_longlong, "f": _FLOAT}
 
 
 def entry(lib_name: str, fn_name: str, signature: str):
     """The C function ``fn_name`` of kernel library ``lib_name`` with its
     ``argtypes`` set from ``signature`` (one letter per argument: ``p``
-    pointer or stream, ``i`` int, ``f`` float) and an ``int`` (the
-    ``cudaError_t``) result. Builds the kernels on first use."""
+    pointer or stream, ``i`` int, ``l`` long long, ``f`` float) and an
+    ``int`` (the ``cudaError_t``) result. Builds the kernels on first
+    use."""
     fn = getattr(_build.load(lib_name), fn_name)
     if fn.argtypes is None:
         fn.argtypes = [_CTYPES[c] for c in signature]

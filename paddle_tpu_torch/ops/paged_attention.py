@@ -6,9 +6,10 @@ One entry point, ``ragged_paged_attention``, over per-row metadata
 ``true_len == 1``, a prefill chunk a row with ``true_len`` up to its chunk
 width. On a CUDA tensor it launches ``csrc/ragged_paged_attention.cu``
 (the port of the TPU kernel ``_ragged_kernel``: a decode-row kernel for
-``T == 1`` and the register-tiled chunk-row kernel of
-``csrc/attention_simt.cuh`` for ``T > 1``, counted apart in
-``RAGGED_CHUNK_LAUNCHES``); on a CPU tensor it runs
+``T == 1``, 16-byte loads and each row's pages split over blocks, and
+the register-tiled chunk-row kernel of ``csrc/attention_simt.cuh`` for
+``T > 1``, counted apart in ``RAGGED_CHUNK_LAUNCHES``; either may add
+its merge kernel, counted with it); on a CPU tensor it runs
 the plain version ``_gather_attend`` — the reference's XLA spelling:
 gather each row's pages into a contiguous ``[R, S_cap, NH, D]`` view and
 run dense masked attention with an f32 softmax. Nothing selects the plain
@@ -52,6 +53,12 @@ RAGGED_CHUNK_LAUNCHES = 0
 _NEG_INF = -1e9     # same masking constant as the reference
 #: most key splits of a chunk-row query tile (the kernel's scratch room)
 _CHUNK_MAX_SPLIT = 4
+#: most page splits of a decode row (T == 1; the kernel's scratch room)
+_DECODE_MAX_SPLIT = 32
+#: the decode rows' split tickets, int32, one set per (device, stream):
+#: every call leaves them 0 (the split that merges a row resets its
+#: ticket), so they are zeroed once, when made or grown
+_DECODE_TICKETS = {}
 
 
 
@@ -184,12 +191,14 @@ def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len,
         raise ValueError(f"{name}: kernel supports page_size <= 32 and "
                          f"head_dim <= 256, got {ps} and {hd}")
     out = torch.empty_like(q)
-    # chunk rows: room for the kernel to split each query tile's keys
-    # (it splits only when the group has too few blocks for the card)
-    max_split = _CHUNK_MAX_SPLIT if t > 1 else 0
+    # room for the kernel to split each chunk-row query tile's keys, or
+    # each decode row's pages (it splits only when the group has too few
+    # blocks for the card)
+    max_split = _CHUNK_MAX_SPLIT if t > 1 else _DECODE_MAX_SPLIT
     scratch = torch.empty(r * t * nh * max_split * (hd + 2), device=dev,
-                          dtype=torch.float32) if max_split else None
-    fn = _cuda.entry(name, name, "pppppppppiiiiiiiifpip")
+                          dtype=torch.float32)
+    tickets = _decode_tickets(dev, r * nh) if t == 1 else None
+    fn = _cuda.entry(name, name, "pppppppppiiiiiiiifpipp")
     with torch.cuda.device(dev):
         err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                  page_table.data_ptr(), pos0.data_ptr(), true_len.data_ptr(),
@@ -199,7 +208,8 @@ def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len,
                  _cuda.DTYPE_CODE[q.dtype],
                  _cuda.STORAGE_DTYPE_CODE[k_pool.dtype],
                  1.0 / math.sqrt(hd),
-                 None if scratch is None else scratch.data_ptr(), max_split,
+                 scratch.data_ptr(), max_split,
+                 None if tickets is None else tickets.data_ptr(),
                  _cuda.stream_handle(dev))
     _cuda.raise_on_error(name, err)
     RAGGED_LAUNCHES += 1
@@ -208,6 +218,30 @@ def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len,
     if t > 1:
         RAGGED_CHUNK_LAUNCHES += 1
     return out
+
+
+def _decode_tickets(dev, n):
+    """At least ``n`` zeroed int32 tickets for the decode rows' page
+    splits on ``dev``'s current stream (calls on one stream run in order,
+    so they share a set; another stream gets its own)."""
+    key = (dev.index, _cuda.stream_handle(dev))
+    tickets = _DECODE_TICKETS.get(key)
+    if tickets is None or tickets.numel() < n:
+        tickets = torch.zeros(max(n, 1024), dtype=torch.int32, device=dev)
+        _DECODE_TICKETS[key] = tickets
+    return tickets
+
+
+def _decode_splits(q, k_pool, page_table) -> int:
+    """The most page ranges the decode-row kernel cuts a row of this
+    ``T == 1`` call in on q's card (1: no split; a row shorter than that
+    many ranges of 4 pages takes fewer). CUDA tensors only."""
+    fn = _cuda.entry("ragged_paged_attention", "ragged_decode_splits",
+                     "iiiiiii")
+    r, _, nh, hd = q.shape
+    with torch.cuda.device(q.device):
+        return fn(r, nh, hd, page_table.shape[1], _cuda.DTYPE_CODE[q.dtype],
+                  _cuda.STORAGE_DTYPE_CODE[k_pool.dtype], _DECODE_MAX_SPLIT)
 
 
 def paged_decode_attention(q, k_pool, v_pool, page_table, attend_pos,

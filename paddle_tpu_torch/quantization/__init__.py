@@ -238,6 +238,14 @@ class Int8Linear(nn.Module):
         q = np.clip(np.round(w / scale * self._wmax),
                     -self._wmax, self._wmax).astype(np.int8)
         self.register_buffer("weight_q", torch.from_numpy(q).to(dev))
+        # weight_q K-major ([out, in]), what the kernel's wgmma route reads
+        # (it takes 8-bit operands K-major only): built once, kept out of
+        # the state_dict (whose keys and layout stay the reference's),
+        # moved by .to() with the other buffers, and rebuilt by
+        # _weight_kn() if weight_q changes (an in-place load)
+        self.register_buffer("weight_kn", self.weight_q.t().contiguous(),
+                             persistent=False)
+        self._kn_of = self._weight_key()
         self.register_buffer("w_scale", torch.from_numpy(
             np.ascontiguousarray(scales, np.float32)).to(dev))
         self.register_buffer("act_scale", torch.tensor(
@@ -274,6 +282,22 @@ class Int8Linear(nn.Module):
         ref = self._int8_src_ref
         return None if ref is None else ref()
 
+    def _weight_key(self):
+        """What identifies weight_q's content: its storage and, where it
+        keeps one, its version counter (bumped by every in-place write)."""
+        wq = self.weight_q
+        return (wq.data_ptr(), wq.device,
+                None if wq.is_inference() else wq._version)
+
+    def _weight_kn(self) -> torch.Tensor:
+        """``weight_q.T.contiguous()``, rebuilt only when weight_q has
+        changed since it was made."""
+        key = self._weight_key()
+        if key != self._kn_of:
+            self.weight_kn = self.weight_q.t().contiguous()
+            self._kn_of = key
+        return self.weight_kn
+
     def forward(self, x):
         if x.dtype == torch.int8:
             # int8 input from a chain-fused producer: restore the float
@@ -288,7 +312,8 @@ class Int8Linear(nn.Module):
             return int8_linear_fused(
                 x, self.weight_q, self.w_scale, self.act_scale, self.bias,
                 wmax=self._wmax, amax=self._amax, relu=self._fuse_relu,
-                next_act_scale=self._next_scale, out_dtype=odt)
+                next_act_scale=self._next_scale, out_dtype=odt,
+                wq_kn=self._weight_kn())
 
 
 class Int8Conv2D(nn.Module):

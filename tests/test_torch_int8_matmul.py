@@ -201,3 +201,105 @@ def test_wrapper_checks_and_cpu_counts_no_launch():
     with pytest.raises(TypeError, match="out_dtype"):
         tim.int8_matmul(_t(x), _t(wq), scale, qscale=torch.ones(1),
                         out_dtype=torch.float16)
+
+
+# ---------------------------------------------------------------------------
+# the two CUDA routes and the wgmma route's quantize pass
+# ---------------------------------------------------------------------------
+def _meta(shape, dtype, offset=0):
+    """A "meta" tensor (no data) whose data_ptr is `offset` bytes past an
+    aligned base when dtype is int8."""
+    n = int(np.prod(shape))
+    base = torch.empty(n + offset, dtype=dtype, device="meta")
+    return base[offset:].reshape(shape)
+
+
+@pytest.mark.parametrize("k,xdt,x_off,kn_off,route", [
+    (4096, torch.bfloat16, 0, None, "wgmma"),   # fc1: a float x, no copy
+    (16384, torch.int8, 0, 0, "wgmma"),         # fc2: int8 x, a given copy
+    (144, torch.float32, 0, 0, "wgmma"),
+    (130, torch.float32, 0, None, "mma"),       # rows not 16-byte strided
+    (136, torch.int8, 0, 0, "mma"),
+    (4096, torch.int8, 3, 0, "mma"),            # int8 x off a 16-byte base
+    (4096, torch.bfloat16, 0, 5, "mma"),        # the K-major copy off it
+    (4096, torch.float32, 0, None, "wgmma")],
+    ids=["fc1", "fc2", "k144", "k130", "k136", "x_unaligned",
+         "copy_unaligned", "f32_no_copy"])
+def test_mm_route_by_k_and_alignment(k, xdt, x_off, kn_off, route):
+    """``_mm_route`` picks the wgmma route when TMA can read what the
+    kernel reads: K a multiple of 16 and 16-byte aligned int8 operands (a
+    float x is read through its own fresh quantized copy)."""
+    x = _meta((64, k), xdt, x_off if xdt == torch.int8 else 0)
+    wq_kn = None if kn_off is None else _meta((256, k), torch.int8, kn_off)
+    assert tim._mm_route(x, wq_kn) == route
+
+
+def test_cpu_takes_the_plain_version_on_either_route_counting_nothing():
+    """CPU tensors of both routes' shapes run the plain version and count
+    no launch on any of the three counters."""
+    counters = ("INT8_MATMUL_LAUNCHES", "INT8_MATMUL_WGMMA_LAUNCHES",
+                "INT8_QUANTIZE_LAUNCHES")
+    before = [getattr(tim, c) for c in counters]
+    rng = np.random.RandomState(9)
+    for k in (144, 130):
+        x = (rng.randn(20, k) * 0.5).astype(np.float32)
+        wq, ws = _quantize_weights(rng.randn(k, 24).astype(np.float32))
+        sa = np.float32(np.abs(x).max())
+        route = tim._mm_route(_t(x), None)
+        assert route == ("wgmma" if k == 144 else "mma")
+        got = _port(x, wq, ws, sa, wq_kn=_t(np.ascontiguousarray(wq.T)))
+        np.testing.assert_allclose(got.numpy(), _ref(x, wq, ws, sa), **TOL)
+        xq = tim.quantize_x(_t(x), _t(np.float32(127.0 / sa)).reshape(1))
+        assert xq.dtype == torch.int8
+    assert [getattr(tim, c) for c in counters] == before
+
+
+def _tie_x(rng, m, k, qs):
+    """x whose products with qs hold exact .5 ties (odd multiples of
+    0.5 / qs, exact in bf16) and values past +-127, beside normal ones."""
+    ties = (rng.randint(-128, 128, (m, k)) * 2 + 1) * (0.5 / qs)
+    big = rng.choice([-1.0, 1.0], (m, k)) * rng.uniform(128, 400, (m, k)) \
+        / qs
+    normal = rng.randn(m, k) * 30.0 / qs
+    pick = rng.randint(0, 3, (m, k))
+    return np.where(pick == 0, ties, np.where(pick == 1, big, normal)) \
+        .astype(np.float32)
+
+
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_quantize_pass_plain_version_is_bit_equal_to_reference(xdt):
+    """The wgmma route's quantize pass (``quantize_x``, its plain version
+    on the CPU) against the reference's quantizer: the JAX int8_matmul in
+    interpret mode times the identity with scale 1 returns its int8 x as
+    exact f32 values. Exact .5 ties round half to even on both sides."""
+    rng = np.random.RandomState(10)
+    m, k, qs = 24, 64, np.float32(2.0)
+    x = _tie_x(rng, m, k, qs)
+    xj = jnp.asarray(x).astype(getattr(jnp, xdt))
+    xt = _t(x).to(getattr(torch, xdt))
+    xs = xt.float().numpy() * qs
+    assert (xs - np.floor(xs) == 0.5).sum() > m * k // 8   # ties kept
+    assert (np.abs(xs) > 127.5).sum() > m * k // 8          # clipped
+    eye = np.eye(k, dtype=np.int8)
+    ref = np.asarray(jim.int8_matmul(
+        xj, jnp.asarray(eye), jnp.ones((k,), jnp.float32), None,
+        jnp.asarray(qs)))
+    got = tim.quantize_x(xt, _t(qs).reshape(1))
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy().astype(np.float32), ref)
+    np.testing.assert_array_equal(
+        got.numpy(), tim._plain_quantize_x(xt, _t(qs).reshape(1),
+                                           127.0).numpy())
+
+
+def test_wq_kn_is_checked_and_never_read_on_the_cpu():
+    x, wq, ws, b, sa = _setup(8, 32, 6, seed=12)
+    kn = np.ascontiguousarray(wq.T)
+    with pytest.raises(ValueError, match="wq_kn"):
+        _port(x, wq, ws, sa, b, wq_kn=_t(kn).T)        # [K, N], not [N, K]
+    with pytest.raises(ValueError, match="wq_kn"):
+        _port(x, wq, ws, sa, b, wq_kn=_t(kn).float())
+    # the plain version reads wq: a copy that disagrees changes nothing
+    np.testing.assert_array_equal(
+        _port(x, wq, ws, sa, b, wq_kn=torch.zeros(6, 32, dtype=torch.int8))
+        .numpy(), _port(x, wq, ws, sa, b).numpy())

@@ -218,3 +218,69 @@ def test_int8_scales_raise_not_implemented():
         args[1], sc, torch.zeros(1, dtype=torch.int32),
         torch.zeros(1, dtype=torch.int32), torch.zeros(1, NH, HD))
     assert pool is args[1] and scale is sc
+
+
+def _decode_rows(ps, nps=4):
+    """One decode group at the lengths where the CUDA decode-row kernel's
+    chunks and page splits have their edges: 1 position, exactly one
+    page, a page plus one, the full table (nps pages), and a row whose
+    only page is the null page. Returns (table, pos0, P)."""
+    pages = iter(np.random.RandomState(ps).permutation(
+        np.arange(1, 1 + 4 * nps)))
+    lengths = [1, ps, ps + 1, nps * ps]
+    tab = np.zeros((len(lengths) + 1, nps), np.int32)
+    for i, n in enumerate(lengths):
+        for j in range((n - 1) // ps + 1):
+            tab[i, j] = next(pages)
+    pos0 = np.array([n - 1 for n in lengths] + [0], np.int32)
+    return tab, pos0, 1 + 4 * nps
+
+
+@pytest.mark.parametrize("ps", [16, 32])
+@pytest.mark.parametrize("pools", ["bf16", "int8"])
+def test_decode_rows_plain_matches_pallas_at_page_edges(pools, ps):
+    """Decode rows (T == 1) over bf16 pools with bf16 queries, and over
+    int8 pools with per-page, per-head scales (the null page at scale 0)
+    under f32 queries: the port's plain version against the reference's
+    Pallas kernel in interpret mode. int8: f32 on both sides, at TOL.
+    bf16: the plain version contracts in bf16 (scores and weights rounded
+    to bf16, as the reference's XLA spelling does), the Pallas kernel in
+    f32; one bf16 rounding of a score moves a weight by 2^-9 of itself,
+    so the outputs agree within one bf16 ulp: rtol 2^-7 plus atol 1e-2
+    (an ulp at |o| just over 1)."""
+    tab, pos0, npages = _decode_rows(ps)
+    r = np.random.RandomState(21 + ps)
+    tl = np.ones(len(pos0), np.int32)
+    q = r.randn(len(pos0), 1, NH, HD).astype(np.float32)
+    if pools == "bf16":
+        k = r.randn(npages, ps, NH, HD).astype(np.float32)
+        v = r.randn(npages, ps, NH, HD).astype(np.float32)
+        qj, kj, vj = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+        qt, kt, vt = (torch.from_numpy(np.array(a.astype(jnp.float32)))
+                      .bfloat16() for a in (qj, kj, vj))
+        scales_j, scales_t = {}, {}
+        tol = dict(rtol=2 ** -7, atol=1e-2)
+    else:
+        k = r.randint(-127, 128, (npages, ps, NH, HD)).astype(np.int8)
+        v = r.randint(-127, 128, (npages, ps, NH, HD)).astype(np.int8)
+        ks = (r.rand(npages, NH) * 0.02 + 0.001).astype(np.float32)
+        vs = (r.rand(npages, NH) * 0.02 + 0.001).astype(np.float32)
+        ks[0] = vs[0] = 0.0                       # the null page
+        qj, kj, vj = jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)
+        qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
+        scales_j = dict(k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
+        scales_t = dict(k_scale=torch.from_numpy(ks),
+                        v_scale=torch.from_numpy(vs))
+        tol = TOL
+    ref = jpa.ragged_paged_attention(
+        qj, kj, vj, jnp.asarray(tab), jnp.asarray(pos0), jnp.asarray(tl),
+        impl="pallas", **scales_j)
+    with torch.inference_mode():
+        got = tpa.ragged_paged_attention(
+            qt, kt, vt, torch.from_numpy(tab), torch.from_numpy(pos0),
+            torch.from_numpy(tl), **scales_t)
+    assert got.dtype == qt.dtype and got.shape == qt.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(ref.astype(jnp.float32)), **tol)
+    if pools == "int8":      # the null-page row reads exact zeros
+        assert float(got[-1].abs().max()) == 0.0

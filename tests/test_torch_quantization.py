@@ -277,6 +277,41 @@ def test_per_tensor_weight_quantization_matches_reference():
                                   np.asarray(jnet[0].w_scale._value))
 
 
+def test_int8_linear_k_major_copy_stays_out_of_the_state_dict(monkeypatch):
+    """Each Int8Linear keeps ``weight_q.T.contiguous()`` (what the int8
+    kernel's wgmma route reads) as a non-persistent buffer: the state_dict
+    keys stay the reference layer's, the copy equals the transpose, moves
+    with ``.to()``, is rebuilt when weight_q is loaded in place, and the
+    fc1 -> fc2 chain still agrees with the reference."""
+    jnet, net, x, _, _ = _qat_pair((32, 64, 16), seed=14)
+    jq.convert_to_int8_deploy(jnet)
+    tq.convert_to_int8_deploy(net)
+    assert sorted(net.state_dict()) == sorted(_state(jnet))
+    for lin in (net[0], net[2]):
+        assert "weight_kn" not in lin.state_dict()
+        assert lin.weight_kn.dtype == torch.int8
+        assert lin.weight_kn.is_contiguous()
+        assert torch.equal(lin.weight_kn, lin.weight_q.t().contiguous())
+        assert lin._weight_kn() is lin.weight_kn          # built once
+    monkeypatch.setenv("PADDLE_TPU_INT8_PALLAS", "1")
+    ref = np.asarray(jnet(paddle.to_tensor(x))._value)
+    got = net(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-4)
+    # an in-place load of other weights rebuilds the copy on next use
+    jnet2, _, _, _, _ = _qat_pair((32, 64, 16), seed=15)
+    jq.convert_to_int8_deploy(jnet2)
+    tq.load_reference_state(net, _state(jnet2))
+    for lin in (net[0], net[2]):
+        assert torch.equal(lin._weight_kn(), lin.weight_q.t().contiguous())
+    np.testing.assert_allclose(
+        net(torch.from_numpy(x)).numpy(),
+        np.asarray(jnet2(paddle.to_tensor(x))._value), rtol=1e-5, atol=1e-4)
+    # the copy follows the module to another device with its buffers
+    net.to("meta")
+    assert net[0].weight_kn.device.type == "meta"
+    assert net[0].weight_kn.shape == (64, 32)
+
+
 # ---------------------------------------------------------------------------
 # errors and what waits for later slices
 # ---------------------------------------------------------------------------
