@@ -49,7 +49,9 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    the plain version with one bf16 flip of P or dS allowed a row
    (given_delta_check). The
    ragged kernel's chunk rows (T > 1) also run with an unaligned pos0, a
-   T 40 row and over a pool of 32-token pages; the f32 SDPA yardsticks'
+   T 40 row and over a pool of 32-token pages, and both row kinds at the
+   generate phase's paged shapes (4 slots of 34 pages: one 512-token
+   chunk row from position 0, 4 decode rows); the f32 SDPA yardsticks'
    aten kernels (forward and backward) are named from torch.profiler.
    The build fails if ptxas reports a spill in a tensor-core kernel (the
    int8 wgmma product included), in the register-tiled SIMT kernels (the
@@ -92,10 +94,33 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    the output is bf16, agrees with the plain chain (int8 intermediate
    equal) and stays within DEPLOY_QAT_TOL of the QAT-eval output. ms per
    forward (device and host loop) and share of the int8 rate.
+8. generate phase — GPT.generate on the engine phase's f32 gpt3_1_3b
+   model: dense greedy over 4 prompts of 512 seeded tokens, 32 new
+   (S_max 544; held to teacher-forced GPT.forward argmax at >= 0.9), the
+   same with paged=True (page 16, 34 pages a slot, 512-token chunk rows:
+   the ragged kernel, >= layers x ticks launches; >= 0.9 of its tokens
+   equal the dense streams'), paged sampling (temperature 0.8, top_k 50,
+   top_p 0.95, seed 11: two calls equal, top_k=1 equal to paged greedy,
+   >= 0.99 of the tokens inside the teacher-forced top 50), an engine
+   with decode="sampling" serving the engine phase's 16 requests with
+   per-request overrides (all finish, two runs equal; the widest tick's
+   draw equals the same call on the CPU wherever the two best perturbed
+   scores are more than 1e-5 apart, as on most rows), the threefry
+   generator on the card (bits for 8 keys x 50304 equal to the CPU's; a
+   TV test of 65536 draws from one top-50 row, under a bound derived from
+   the sample size) and beam search (B 2, 128-token prompts, 4 beams, 16
+   new: num_beams=1 equals dense greedy, 4 beams score >= greedy's
+   log-prob - 1e-3). ms per step and tokens/s warm for dense greedy,
+   paged greedy and paged sampling (each warm call on prompts not seen
+   before, so a paged call prefills all of its prompt as a dense call
+   does; the phase fails if one hits the prefix cache), the sampling
+   step's share of kernel and wall time under torch.profiler, busy
+   share, kernel launches per dense step and peak memory.
 
-Every launch counter is set to 0 just before each of phases 2-7 and read
+Every launch counter is set to 0 just before each of phases 2-8 and read
 just after it: those are the main paths' launches, and each path must
-launch each of its kernels (the train path: the four wgmma flash
+launch each of its kernels (the generate path: the ragged decode and
+chunk rows, never the int8 path; the train path: the four wgmma flash
 kernels and none of the f32 route's; the f32 grad paths: the SIMT
 forward and the mma.sync backward kernels and no wgmma one; the deploy
 path: the wgmma int8 product and the quantize pass, not the mma.sync
@@ -108,6 +133,7 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
     python3 chip_smoke.py --phases kernels,grad,train   # after editing a
                                                         # flash kernel
     python3 chip_smoke.py --phases kernels,kvint8,deploy   # the int8 slice
+    python3 chip_smoke.py --phases generate        # decode and sampling
 """
 from __future__ import annotations
 
@@ -317,11 +343,38 @@ def ragged_groups(rng, npages, nps, ps):
     return [dec, chk, mix, una, t40, dsp]
 
 
+def generate_ragged_groups(rng, npages, nps, ps, prompt_len=512,
+                           max_new=32, n_rows=4):
+    """Row groups at the generate phase's paged shapes: the engine there
+    has one slot a prompt, nps = (prompt + max_new) / ps pages a slot and
+    chunks of the whole prompt, so a prefill tick is one chunk row of
+    prompt_len queries from position 0, and a decode tick n_rows rows
+    between the prompt's end and the slot's last position."""
+    import numpy as np
+
+    def tables(n_used):
+        tab = np.zeros((len(n_used), nps), np.int32)
+        for i, n in enumerate(n_used):
+            tab[i, :n] = rng.choice(np.arange(1, npages), n, replace=False)
+        return tab
+
+    p0 = np.zeros(1, np.int32)
+    tl = np.array([prompt_len], np.int32)
+    chk = (f"chunk_R1_T{prompt_len}", prompt_len, p0, tl,
+           tables((p0 + tl - 1) // ps + 1))
+    p0 = rng.randint(prompt_len, prompt_len + max_new, n_rows)
+    p0 = p0.astype(np.int32)
+    dec = (f"decode_R{n_rows}_T1", 1, p0, np.ones(n_rows, np.int32),
+           tables(p0 // ps + 1))
+    return [chk, dec]
+
+
 def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
-                        chunk_only=False):
+                        chunk_only=False, slots=8, groups=ragged_groups):
     """The ragged kernel against _gather_attend over f32 and bf16 pools of
-    the engine's size (8 slots of nps pages of ps). `chunk_only` keeps the
-    T > 1 groups (the page-size-32 pool runs those only)."""
+    `slots` slots of nps pages of ps (the engine's size by default), at
+    the row groups `groups` gives. `chunk_only` keeps the T > 1 groups
+    (the page-size-32 pool runs those only)."""
     import numpy as np
     import torch
     from torch.nn import functional as TF
@@ -329,14 +382,14 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
     from paddle_tpu_torch.ops import paged_attention as pa
 
     rng = np.random.RandomState(seed)
-    npages = 8 * nps + 1                 # the engine's default pool
+    npages = slots * nps + 1             # the engine's pool
     g = torch.Generator(device=dev).manual_seed(seed)
     k32 = torch.randn(npages, ps, nh, hd, generator=g, device=dev)
     v32 = torch.randn(npages, ps, nh, hd, generator=g, device=dev)
     pools = {"float32": (k32, v32),
              "bfloat16": (k32.bfloat16(), v32.bfloat16())}
     results = []
-    for name, t, p0, tl, tab in ragged_groups(rng, npages, nps, ps):
+    for name, t, p0, tl, tab in groups(rng, npages, nps, ps):
         if chunk_only and t == 1:
             continue
         if ps != 16:
@@ -1365,18 +1418,36 @@ def warm_engine_profile(model, dev, prompts, max_new, engine_kw):
         "warm_top_kernels": top_kernels(kernels, 8)}, warm_streams
 
 
-def profile_kernels(dev, fn):
+def profile_kernels(dev, fn, label=None):
     """(fn's result, the card's kernels by name) of one call of ``fn``
-    under torch.profiler."""
+    under torch.profiler. With a ``label`` (a ``record_function`` range
+    that ``fn`` opens) it also returns the ranges and fn's wall seconds
+    inside the profiler: the ranges' count, the host time inside them
+    (cpu_ms), the summed time of the kernels launched inside them
+    (device_ms), and their span on the card's timeline (span_ms: first to
+    last kernel, gaps included). The kernel list leaves the ranges' own
+    device-side entries out."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
     with profile(activities=acts) as prof:
-        out = fn()
-    return out, [e for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA]
+        out, wall = _timed_call(dev, fn)
+    avg = prof.key_averages()
+    kernels = [e for e in avg if e.device_type == DeviceType.CUDA
+               and e.key != label]
+    if label is None:
+        return out, kernels
+    host = [e for e in avg if e.key == label
+            and e.device_type == DeviceType.CPU]
+    span = [e for e in avg if e.key == label
+            and e.device_type != DeviceType.CPU]
+    info = {"count": sum(e.count for e in host),
+            "cpu_ms": sum(e.cpu_time_total for e in host) / 1e3,
+            "device_ms": sum(e.device_time_total for e in host) / 1e3,
+            "span_ms": sum(e.self_device_time_total for e in span) / 1e3}
+    return out, kernels, info, wall
 
 
 def top_kernels(kernels, n):
@@ -1563,6 +1634,365 @@ def kvint8_phase(model, dev, ref, max_new=32, **engine_kw):
         raise AssertionError(
             f"kvint8: {pa.RAGGED_LAUNCHES - pa.RAGGED_INT8_LAUNCHES} ragged "
             "launches did not run over int8 pools")
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
+# phase 8: GPT.generate (dense and paged), sampling, beam search
+# ---------------------------------------------------------------------------
+def _teacher_logits(model, dev, prompts, streams):
+    """GPT.forward over each prompt + its stream (all but the last token):
+    the logits that predicted every emitted token, [B, max_new, V]."""
+    import torch
+
+    seq = torch.cat([prompts, streams[:, :-1]], dim=1).to(dev)
+    with torch.inference_mode():
+        lg = model(seq)
+    return lg[:, prompts.shape[1] - 1:]
+
+
+def _timed_call(dev, fn):
+    """(fn's result, wall seconds to the end of its device work)."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return out, time.perf_counter() - t0
+
+
+def _warm_calls(dev, fn, prompt_sets):
+    """Time ``fn(prompts)`` once on each set of ``prompt_sets`` (each call
+    to the end of its device work). Every set is new to the model, so a
+    paged call finds none of it in its engine's prefix cache and prefills
+    all of it, as a dense call does. Returns (median wall seconds, every
+    wall, each call's prefix-hit tokens)."""
+    from paddle_tpu_torch.profiler import registry
+
+    hit_tokens = registry().counter("serving/prefix_hit_tokens")
+    walls, hits = [], []
+    for p in prompt_sets:
+        h0 = hit_tokens.value
+        _, wall = _timed_call(dev, lambda: fn(p))
+        walls.append(wall)
+        hits.append(int(hit_tokens.value - h0))
+    return sorted(walls)[len(walls) // 2], walls, hits
+
+
+def sampling_tv(dev, vocab=50304, top_k=50, draws=65536, chunk=4096,
+                seed=11):
+    """Draw `draws` times from one fixed filtered row (the rows of a tick:
+    each draw's key is the request key folded by its position 0..draws-1)
+    and return (total-variation distance to the filtered softmax, the
+    bound, the support size). The bound is E[TV] <= sqrt(k / n) / 2 plus
+    McDiarmid's deviation sqrt(ln(1e6) / (2 n)): a correct sampler exceeds
+    it with probability under 1e-6."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core import random as R
+    from paddle_tpu_torch.ops.decoding import apply_top_k_top_p
+
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    row = (torch.randn(vocab, generator=g) * 3.0).to(dev)
+    lp = torch.log_softmax(apply_top_k_top_p(row[None], top_k)[0], dim=-1)
+    p = torch.exp(lp.double()).cpu().numpy()
+    key = R.PRNGKey(seed, device=dev)
+    counts = np.zeros(vocab, np.int64)
+    for c0 in range(0, draws, chunk):
+        pos = torch.arange(c0, min(c0 + chunk, draws), device=dev)
+        tok = R.categorical(R.fold_in(key, pos),
+                            lp[None].expand(pos.shape[0], vocab))
+        counts += np.bincount(tok.cpu().numpy(), minlength=vocab)
+    tv = 0.5 * float(np.abs(counts / draws - p).sum())
+    support = int((p > 0).sum())
+    bnd = 0.5 * math.sqrt(support / draws) + \
+        math.sqrt(math.log(1e6) / (2 * draws))
+    return tv, bnd, support
+
+
+def generate_phase(model, dev, engine_kw, n_prompt=4, prompt_len=512,
+                   max_new=32, beam_prompt=128, beam_new=16, seed=11):
+    """GPT.generate at gpt3_1_3b: dense greedy (held to teacher-forced
+    GPT.forward argmax), paged greedy (held to the dense streams, through
+    the ragged kernel), paged sampling (reproducible, top_k=1 is greedy,
+    tokens inside the teacher-forced top 50), an engine with per-request
+    sampling overrides (one tick's draw held against the same call on the
+    CPU), the generator on the card (bits equal to the CPU's, a
+    65536-draw TV test) and beam search (num_beams=1 is greedy; 4 beams
+    score at least greedy's log-prob). Warm calls are timed on prompts
+    the model has not seen, so every call prefills its whole prompt."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core import random as R
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.ops.decoding import apply_top_k_top_p_per_row
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    cfg = model.config
+    rng = np.random.RandomState(seed)
+
+    def prompt_set():
+        return torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, (n_prompt, prompt_len)).astype(np.int64))
+
+    def gen(p, **kw):
+        return model.generate(p, max_new_tokens=max_new, **kw)
+
+    def fresh(n=3):
+        return [prompt_set() for _ in range(n)]
+
+    prompts = prompt_set()
+    sample_kw = dict(decode_strategy="sampling", temperature=0.8, top_k=50,
+                     top_p=0.95, seed=seed)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    row = {"phase": "generate", "config": "gpt3_1_3b", "batch": n_prompt,
+           "prompt_tokens": prompt_len, "max_new_tokens": max_new}
+    reg = registry()
+    hit_tokens = reg.counter("serving/prefix_hit_tokens")
+
+    def again(kw, ref, what):
+        """The same prompts once more: equal ids (a paged call now finds
+        all but the last token of each prompt in its prefix cache)."""
+        h0 = hit_tokens.value
+        if not torch.equal(gen(prompts, **kw)[0], ref):
+            raise AssertionError(f"generate: two {what} calls differ")
+        return int(hit_tokens.value - h0)
+
+    # dense greedy: cold, the same prompts again, warm on new prompts, and
+    # prefill + one step for the step time
+    (dense, _), row["dense_cold_s"] = _timed_call(dev, lambda: gen(prompts))
+    if dense.shape != (n_prompt, max_new):
+        raise AssertionError(f"generate: dense greedy {tuple(dense.shape)}")
+    again({}, dense, "dense greedy")
+    warm, row["dense_warm_walls_s"], _ = _warm_calls(dev, gen, fresh())
+    one, _, _ = _warm_calls(
+        dev, lambda p: model.generate(p, max_new_tokens=1), fresh())
+    pred = _teacher_logits(model, dev, prompts, dense.cpu()).argmax(-1)
+    rate = float((pred.cpu() == dense.cpu()).float().mean())
+    row.update(dense_greedy_match=rate, dense_warm_s=warm,
+               dense_ms_per_step=warm * 1e3 / max_new,
+               dense_decode_step_ms=(warm - one) * 1e3 / (max_new - 1),
+               dense_tokens_per_s=n_prompt * max_new / warm)
+    if rate < 0.9:
+        emit(row)
+        raise AssertionError(f"generate: dense greedy match {rate} < 0.9")
+
+    # paged greedy through the engine (page 16, 34 pages a slot, 512-token
+    # chunk rows): the ragged kernel on the card
+    ticks0 = reg.counter("serving/ticks").value
+    r0, c0 = pa.RAGGED_LAUNCHES, pa.RAGGED_CHUNK_LAUNCHES
+    paged, _ = gen(prompts, paged=True)
+    ticks = int(reg.counter("serving/ticks").value - ticks0)
+    ragged = pa.RAGGED_LAUNCHES - r0
+    chunks = pa.RAGGED_CHUNK_LAUNCHES - c0
+    row["paged_repeat_prefix_hit_tokens"] = again(
+        dict(paged=True), paged, "paged greedy")
+    pwarm, row["paged_warm_walls_s"], phits = _warm_calls(
+        dev, lambda p: gen(p, paged=True), fresh())
+    prate = float((paged.cpu() == dense.cpu()).float().mean())
+    row.update(paged_ticks=ticks, paged_ragged_launches=ragged,
+               paged_chunk_launches=chunks,
+               paged_vs_dense_match=prate, paged_warm_s=pwarm,
+               paged_warm_prefix_hit_tokens=phits,
+               paged_ms_per_step=pwarm * 1e3 / max_new,
+               paged_tokens_per_s=n_prompt * max_new / pwarm)
+    if ragged < cfg.num_layers * ticks:
+        emit(row)
+        raise AssertionError(f"generate: paged ragged launches {ragged} < "
+                             f"{cfg.num_layers} x {ticks} ticks")
+    if prate < 0.9:
+        emit(row)
+        raise AssertionError(f"generate: paged vs dense match {prate} < 0.9")
+
+    # paged sampling: reproducible, top_k=1 is greedy, inside the top 50
+    samp, _ = gen(prompts, paged=True, **sample_kw)
+    row["sampling_repeat_prefix_hit_tokens"] = again(
+        dict(paged=True, **sample_kw), samp, "paged sampling")
+    swarm, row["sampling_warm_walls_s"], shits = _warm_calls(
+        dev, lambda p: gen(p, paged=True, **sample_kw), fresh())
+    k1, _ = gen(prompts, paged=True, **dict(sample_kw, top_k=1))
+    tl = _teacher_logits(model, dev, prompts, samp.cpu())
+    top = tl.topk(sample_kw["top_k"], dim=-1).indices.cpu()
+    inside = float((top == samp.cpu()[..., None]).any(-1).float().mean())
+    row.update(sampling_top_k1_is_greedy=bool(torch.equal(k1, paged)),
+               sampling_inside_top_k=inside,
+               sampling_distinct_from_greedy=float(
+                   (samp.cpu() != paged.cpu()).float().mean()),
+               sampling_warm_s=swarm,
+               sampling_warm_prefix_hit_tokens=shits,
+               sampling_ms_per_step=swarm * 1e3 / max_new,
+               sampling_tokens_per_s=n_prompt * max_new / swarm)
+    if not row["sampling_top_k1_is_greedy"] or inside < 0.99:
+        emit(row)
+        raise AssertionError("generate: top_k=1 is not greedy, or sampled "
+                             "tokens lie outside the top 50")
+    if any(phits) or any(shits):
+        emit(row)
+        raise AssertionError("generate: a warm paged call on new prompts "
+                             "hit the prefix cache")
+
+    # where the time goes: the sampling step's share of the tick under
+    # torch.profiler (its kernels and its host time), and the dense decode
+    # step's kernels against its wall; each on new prompts
+    orig = ServingEngine.__dict__["_sample_tok"]
+    host_s = []
+
+    def annotated(*a, **kw):
+        with torch.profiler.record_function("sample_tok"):
+            return orig.__func__(*a, **kw)
+
+    def clocked(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig.__func__(*a, **kw)
+        host_s.append(time.perf_counter() - t0)
+        return out
+
+    p_prof, p_clock = fresh(2)
+    try:
+        ServingEngine._sample_tok = staticmethod(annotated)
+        _, kernels, annot, pwall = profile_kernels(
+            dev, lambda: gen(p_prof, paged=True, **sample_kw), "sample_tok")
+        # the host time of the step without the profiler's own cost
+        ServingEngine._sample_tok = staticmethod(clocked)
+        _, cwall = _timed_call(
+            dev, lambda: gen(p_clock, paged=True, **sample_kw))
+    finally:
+        ServingEngine._sample_tok = orig
+    kern_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    row.update(sampling_profiled_wall_s=pwall,
+               sampling_kernel_ms=kern_ms,
+               sampling_busy_share=kern_ms / 1e3 / swarm,
+               sample_step_calls=annot["count"],
+               sample_step_kernel_ms=annot["device_ms"],
+               sample_step_span_ms=annot["span_ms"],
+               sample_step_share_of_kernel_time=(
+                   annot["device_ms"] / kern_ms if kern_ms else None),
+               sample_step_host_ms_profiled=annot["cpu_ms"],
+               sample_step_share_of_wall_profiled=annot["cpu_ms"] / 1e3
+               / pwall,
+               sample_step_host_ms=sum(host_s) * 1e3,
+               sample_step_share_of_wall=sum(host_s) / cwall,
+               sampling_top_kernels=top_kernels(kernels, 6))
+    # the dense step's kernels: 32 new tokens against 1 (the prefill and
+    # one step) gives the decode steps' own
+    _, dkern = profile_kernels(
+        dev, lambda: model.generate(prompts, max_new_tokens=max_new))
+    _, dkern1 = profile_kernels(
+        dev, lambda: model.generate(prompts, max_new_tokens=1))
+    dk_ms = sum(e.self_device_time_total for e in dkern) / 1e3
+    dk1_ms = sum(e.self_device_time_total for e in dkern1) / 1e3
+    step_kern = (dk_ms - dk1_ms) / (max_new - 1)
+    row.update(dense_kernel_ms=dk_ms, dense_busy_share=dk_ms / 1e3 / warm,
+               dense_decode_step_kernel_ms=step_kern,
+               dense_decode_step_busy_share=step_kern
+               / row["dense_decode_step_ms"],
+               dense_launches_per_decode_step=(
+                   sum(e.count for e in dkern) - sum(e.count for e in dkern1))
+               / (max_new - 1),
+               dense_top_kernels=top_kernels(dkern, 6))
+
+    # an engine with per-request sampling overrides: 16 requests, two
+    # runs; the second keeps its widest tick's draw (inputs and tokens)
+    eprompts = engine_prompts(cfg)
+    over = [dict(temperature=0.6 + 0.05 * i,
+                 top_k=(0, 20, 50, 1)[i % 4],
+                 top_p=(1.0, 0.9, 0.8)[i % 3]) for i in range(len(eprompts))]
+    tick = {}
+
+    def kept(logits, *law):
+        tok = orig.__func__(logits, *law)
+        if law and logits.shape[0] > tick.get("rows", 0):
+            tick.update(rows=logits.shape[0], logits=logits.cpu(),
+                        law=[x.cpu() for x in law], tok=tok.cpu())
+        return tok
+
+    def serve():
+        eng = ServingEngine(model, ServingConfig(
+            decode="sampling", seed=seed, **engine_kw))
+        rids = [eng.submit(p, max_new, **o) for p, o in zip(eprompts, over)]
+        out = eng.run()
+        return [out.get(r) for r in rids]
+
+    first, ewall = _timed_call(dev, serve)
+    try:
+        ServingEngine._sample_tok = staticmethod(kept)
+        second = serve()
+    finally:
+        ServingEngine._sample_tok = orig
+    for i, (a, b) in enumerate(zip(first, second)):
+        if a is None or a.shape != (max_new,) or not np.array_equal(a, b):
+            raise AssertionError(f"generate: override request {i} did not "
+                                 "finish or two runs differ")
+    # that tick's draw on the CPU from the same logits, keys, positions
+    # and knobs: equal tokens wherever the two best perturbed scores are
+    # more than 1e-5 apart (the card's log may differ from the CPU's by
+    # an ulp), and most rows must be that far apart
+    lg, law = tick["logits"], tick["law"]
+    cpu_tok = ServingEngine._sample_tok(lg, *law)
+    pos, keys, temps, top_ks, top_ps = law
+    filt = apply_top_k_top_p_per_row(
+        lg.float() / torch.clamp(temps, min=1e-6)[:, None], top_ks, top_ps)
+    score = R.gumbel(R.fold_in(keys, pos), lg.shape[1:]) + \
+        torch.log_softmax(filt, dim=-1)
+    best2 = score.topk(2, dim=-1).values
+    firm = (best2[:, 0] - best2[:, 1]) > 1e-5
+    equal = cpu_tok == tick["tok"]
+    row.update(override_requests=len(eprompts), override_wall_s=ewall,
+               override_tokens_per_s=len(eprompts) * max_new / ewall,
+               sample_tick_rows=tick["rows"],
+               sample_tick_rows_held=int(firm.sum()),
+               sample_tick_rows_equal_cpu=int(equal.sum()))
+    if 2 * int(firm.sum()) < tick["rows"] or not bool(equal[firm].all()):
+        emit(row)
+        raise AssertionError("generate: the card's sampling tick differs "
+                             "from the same draw on the CPU")
+
+    # the generator on the card: bits equal to the CPU's; the law by TV
+    keys = R.split(R.PRNGKey(seed, device="cpu"), 8)
+    on_card = R.bits(keys.to(dev), (cfg.vocab_size,)).cpu()
+    if not torch.equal(on_card, R.bits(keys, (cfg.vocab_size,))):
+        raise AssertionError("generate: threefry bits on the card differ "
+                             "from the CPU's")
+    draws = 65536
+    tv, tv_bound, support = sampling_tv(dev, cfg.vocab_size, draws=draws)
+    row.update(bits_equal_cpu=True, tv_draws=draws, tv_support=support,
+               tv_distance=tv, tv_bound=tv_bound)
+    if tv > tv_bound:
+        emit(row)
+        raise AssertionError(f"generate: TV {tv} > bound {tv_bound}")
+
+    # beam search: num_beams=1 is greedy, 4 beams score >= greedy
+    bp = prompts[:2, :beam_prompt]
+    greedy, _ = model.generate(bp, max_new_tokens=beam_new)
+    b1, s1 = model.generate(bp, max_new_tokens=beam_new,
+                            decode_strategy="beam_search", num_beams=1)
+    (b4, s4), bwall = _timed_call(
+        dev, lambda: model.generate(bp, max_new_tokens=beam_new,
+                                    decode_strategy="beam_search",
+                                    num_beams=4))
+    row.update(beam1_is_greedy=bool(torch.equal(b1, greedy)),
+               beam4_scores=s4.cpu().tolist(),
+               greedy_logprob=s1.cpu().tolist(), beam4_wall_s=bwall)
+    if not row["beam1_is_greedy"] or \
+            bool((s4 < s1 - 1e-3).any()) or b4.shape != (2, beam_new):
+        emit(row)
+        raise AssertionError("generate: beam 1 is not greedy, or 4 beams "
+                             "score below greedy")
+    if dev.type == "cuda":
+        row["peak_memory_gib_above_model"] = \
+            (torch.cuda.max_memory_allocated(dev) - mem0) / 2 ** 30
     emit(row)
     return row
 
@@ -1898,8 +2328,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
-    ap.add_argument("--phases", default="kernels,model,engine,kvint8,deploy,"
-                                        "grad,train",
+    ap.add_argument("--phases", default="kernels,model,engine,kvint8,"
+                                        "generate,deploy,grad,train",
                     help="comma-separated subset (debugging)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -1972,6 +2402,10 @@ def main(argv=None) -> int:
         # chunk rows over a pool of 32-token pages (one page a key tile)
         rag += kernel_phase_ragged(dev, args.iters, nh=nh, hd=hd, ps=32,
                                    nps=64, chunk_only=True)
+        # the generate phase's paged shapes: 4 slots of 34 pages, one
+        # 512-token chunk row a prefill tick, 4 decode rows
+        rag += kernel_phase_ragged(dev, args.iters, nh=nh, hd=hd, nps=34,
+                                   slots=4, groups=generate_ragged_groups)
         fl = kernel_phase_flash(dev, args.iters, [
             ((2, 1024, nh, hd), True, "float32"),      # the model's shape
             ((2, 1024, nh, hd), False, "float32"),
@@ -2146,7 +2580,7 @@ def main(argv=None) -> int:
             raise AssertionError(f"the {path} path launched {stray}")
 
     model = None
-    if phases & {"model", "engine", "kvint8"}:
+    if phases & {"model", "engine", "kvint8", "generate"}:
         _rng.seed(0)
         model = GPT(cfg, device=dev)
         model.eval()
@@ -2164,6 +2598,9 @@ def main(argv=None) -> int:
         kvint8_reference(model, dev, f32_run, engine_kw)
         drive("kvint8", ("ragged", "ragged_chunk", "ragged_int8"),
               kvint8_phase, model, dev, f32_run, **engine_kw)
+    if "generate" in phases:
+        drive("generate", ("ragged", "ragged_chunk"), generate_phase, model,
+              dev, engine_kw, forbid=("ragged_int8",))
     del model, f32_run
     if "deploy" in phases:
         drive("deploy", ("int8_matmul_wgmma", "int8_quantize"),

@@ -21,9 +21,14 @@ Paths:
   forward over the paged KV cache, written over the per-layer decode
   state (``_gpt_decode_state``); a Python loop over layers replaces the
   reference's ``lax.scan``.
+- ``GPT.generate`` — greedy, sampling and beam search
+  (``ops/decoding.py``) over the dense KV cache (``gpt_cached_apply``,
+  plain attention as in the reference), or greedy and sampling over the
+  paged serving engine with ``paged=True``. ``GPTForGeneration`` wraps
+  it as a module.
 
-Not in this slice: MoE, sequence parallelism and ``generate()`` over the
-dense cache.
+Not in this slice: MoE, sequence parallelism, and the export of
+``GPTForGeneration`` (ROADMAP queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -284,9 +289,169 @@ class GPT(nn.Module):
 
     def _decode_state(self):
         """(per-layer params, other params) views of the live weights for
-        ``gpt_ragged_apply``; they share storage with the parameters, so
-        an in-place weight update is seen without a rebuild."""
+        ``gpt_ragged_apply`` and ``gpt_cached_apply``; they share storage
+        with the parameters, so an in-place weight update is seen without
+        a rebuild."""
         return _gpt_decode_state(self)
+
+    # --- decoding (ops/decoding.py loops over the KV-cached forward) -----
+    #: LRU capacity for cached paged serving engines (``paged=True``)
+    PAGED_ENGINE_CACHE_SIZE = 4
+
+    def generate(self, input_ids, max_new_tokens: int = 32,
+                 decode_strategy: str = "greedy_search", top_k: int = 0,
+                 top_p: float = 1.0, temperature: float = 1.0,
+                 num_beams: int = 4, length_penalty: float = 0.0,
+                 eos_token_id=None, seed: int = 0, paged: bool = False,
+                 page_size: int = 0, kv_dtype=None):
+        """Autoregressive generation with a preallocated KV cache: a
+        prefill through ``gpt_cached_apply``, then the ``ops.decoding``
+        loop, one cached step a token.
+
+        decode_strategy: 'greedy_search' | 'sampling' | 'beam_search'.
+        Returns ``(ids [B, max_new_tokens] int64, scores [B] f32)`` on the
+        model's device (scores are the best beam's under beam search,
+        zeros otherwise). Sampling draws from ``core.random`` keys, the
+        threefry generator bit-equal to ``jax.random``: the same ``seed``
+        gives the reference's tokens on the same logits.
+
+        ``paged=True`` serves the rows through ``serving.ServingEngine``
+        (one slot a row, slot capacity prompt + max_new_tokens, page size
+        the largest of 16/8/4/2/1 dividing it unless ``page_size`` is
+        given; row ``i`` draws from ``fold_in(PRNGKey(seed), i)``), so the
+        paged attention kernel serves it on a card. Beam search has no
+        paged path. ``kv_dtype`` (paged only) is the page pool's storage
+        dtype (``None``, 'f32', 'bf16' or 'int8').
+
+        The reference compiles each (shape, strategy) into one program
+        and keeps the executables in an LRU (``GEN_JIT_CACHE_SIZE``). The
+        dense path here runs eagerly and has no compiled program to hold;
+        a CUDA graph for each shape would be its counterpart (ROADMAP).
+        """
+        from ..core import random as R
+        from ..ops import decoding as D
+
+        dev = self.device
+        ids_v = torch.as_tensor(np.asarray(input_ids) if not isinstance(
+            input_ids, torch.Tensor) else input_ids).to(dev).long()
+        b, t0 = ids_v.shape
+        smax = t0 + max_new_tokens
+        if smax > self.config.max_seq_len:
+            raise ValueError(
+                f"prompt {t0} + max_new_tokens {max_new_tokens} exceeds "
+                f"max_seq_len {self.config.max_seq_len}")
+        if decode_strategy not in ("greedy_search", "sampling",
+                                   "beam_search"):
+            raise ValueError(f"unknown decode_strategy {decode_strategy!r}")
+        if paged:
+            if decode_strategy == "beam_search":
+                raise NotImplementedError(
+                    "paged decode supports greedy_search/sampling; beam "
+                    "reordering needs per-beam page aliasing (ROADMAP)")
+            return self._generate_paged(
+                ids_v.cpu().numpy().astype(np.int32), max_new_tokens,
+                decode_strategy, top_k, top_p, temperature, eos_token_id,
+                seed, page_size, kv_dtype)
+        if kv_dtype is not None:
+            raise ValueError("kv_dtype is a paged-cache knob; the dense "
+                             "cache follows the model dtype (use "
+                             "paged=True)")
+        stacked, other = self._decode_state()
+        cfg = self.config
+        nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
+        dt = other["embeddings.wte.weight"].dtype
+        with torch.inference_mode():
+            ck = torch.zeros((b, cfg.num_layers, smax, nh, hd), dtype=dt,
+                             device=dev)
+            cv = torch.zeros_like(ck)
+            logits, ck, cv = gpt_cached_apply(cfg, stacked, other, ck, cv,
+                                              ids_v, 0)
+
+            def step(cache, tok, pos):
+                ck, cv = cache
+                lg, ck, cv = gpt_cached_apply(cfg, stacked, other, ck, cv,
+                                              tok[:, None], pos)
+                return lg, (ck, cv)
+
+            if decode_strategy == "beam_search":
+                cache = D.tile_cache_for_beams((ck, cv), num_beams)
+                return D.beam_search_decode(
+                    step, cache, logits, t0, max_new_tokens, num_beams,
+                    length_penalty=length_penalty,
+                    eos_token_id=eos_token_id)
+            if decode_strategy == "sampling":
+                ids, _ = D.sampling_decode(
+                    step, (ck, cv), logits, t0, max_new_tokens,
+                    R.PRNGKey(seed, device=dev), top_k=top_k, top_p=top_p,
+                    temperature=temperature, eos_token_id=eos_token_id)
+            else:
+                ids, _ = D.greedy_decode(step, (ck, cv), logits, t0,
+                                         max_new_tokens,
+                                         eos_token_id=eos_token_id)
+        return ids, torch.zeros(b, dtype=torch.float32, device=dev)
+
+    def _weights_token(self):
+        """Changes when a parameter is replaced (its storage) or updated
+        in place (its version counter): a cached paged engine serves views
+        of the weights, but its prefix cache holds K/V computed from the
+        values it saw, so it is rebuilt on either."""
+        return tuple((p.data_ptr(), p._version) for p in self.parameters())
+
+    def _generate_paged(self, ids_np, max_new_tokens, decode_strategy,
+                        top_k, top_p, temperature, eos_token_id, seed,
+                        page_size, kv_dtype=None):
+        """``generate()`` over the paged serving engine: one slot a batch
+        row, slot capacity the dense path's S_max."""
+        from ..core import random as R
+        from ..serving import ServingConfig, ServingEngine
+        from ..utils.lru import LRUCache
+
+        b, t0 = ids_np.shape
+        smax = t0 + max_new_tokens
+        ps = page_size
+        if not ps:
+            ps = next(p for p in (16, 8, 4, 2, 1) if smax % p == 0)
+        if smax % ps:
+            raise ValueError(
+                f"page_size {ps} must divide prompt+max_new_tokens "
+                f"{smax} for the paged generate() path (slot capacity == "
+                "dense S_max)")
+        strategy = "sampling" if decode_strategy == "sampling" else "greedy"
+        ekey = (b, t0, max_new_tokens, ps, strategy, top_k, top_p,
+                temperature, eos_token_id, kv_dtype)
+        if "_paged_engines" not in self.__dict__:
+            self.__dict__["_paged_engines"] = LRUCache(
+                GPT.PAGED_ENGINE_CACHE_SIZE, "gpt_paged_engine")
+        engines = self.__dict__["_paged_engines"]
+        token = self._weights_token()
+        hit = engines.get(ekey)
+        if hit is not None and hit[0] == token:
+            eng = hit[1]
+        else:
+            eng = ServingEngine(self, ServingConfig(
+                num_slots=b, page_size=ps, pages_per_slot=smax // ps,
+                prefill_chunk=t0, decode=strategy,
+                temperature=temperature, top_k=top_k, top_p=top_p,
+                eos_token_id=eos_token_id, seed=seed, kv_dtype=kv_dtype))
+            engines[ekey] = (token, eng)
+        # row keys are host metadata, folded on the CPU; greedy rows draw
+        # nothing and take the engine's zero key
+        keys = (R.key_to_numpy(R.fold_in(R.PRNGKey(seed, device="cpu"),
+                                         torch.arange(b)))
+                if strategy == "sampling" else [None] * b)
+        rids = [eng.submit(ids_np[i], max_new_tokens, key=keys[i])
+                for i in range(b)]
+        results = eng.run()
+        out = np.full((b, max_new_tokens),
+                      eos_token_id if eos_token_id is not None else 0,
+                      np.int64)
+        for i, rid in enumerate(rids):
+            row = results[rid][:max_new_tokens]
+            out[i, :row.shape[0]] = row
+        eng.reset_results()
+        dev = self.device
+        return (torch.from_numpy(out).to(dev),
+                torch.zeros(b, dtype=torch.float32, device=dev))
 
 
 def _ln(x, w, b, eps):
@@ -313,6 +478,59 @@ def gpt_block_body(xc, p, eps, nh, hd, attend):
                   approximate="tanh")
     xc = xc + mid @ p["mlp.fc_out.weight"] + p["mlp.fc_out.bias"]
     return xc, extra
+
+
+def gpt_cached_apply(cfg: GPTConfig, stacked, other, ck, cv, tokens, pos0,
+                     logits_index=None):
+    """KV-cached forward over the dense cache, for decoding.
+
+    ``stacked`` is the list of per-layer param dicts and ``other`` the
+    remaining params (``_gpt_decode_state``); ck/cv are ``[N, L, S_max,
+    NH, D]`` caches, updated in place; ``tokens`` [N, T] are processed at
+    positions ``pos0 .. pos0 + T``. Returns (last-token logits [N, V], ck,
+    cv). ``logits_index``: take the logits at that query position instead
+    of the last.
+
+    Attention is plain ``torch.matmul``/softmax, as the reference computes
+    it outside any Pallas kernel: scores masked at -1e9 past each query's
+    position, softmax in f32, cast back. The write of this layer's K/V
+    starts at ``pos0`` clamped so that the T rows fit, as
+    ``dynamic_update_slice`` clamps it in the reference.
+    """
+    n, t = tokens.shape
+    nh = cfg.num_heads
+    hd = cfg.hidden_size // nh
+    eps = cfg.layer_norm_eps
+    dev = tokens.device
+    wte = other["embeddings.wte.weight"]
+    wpe = other["embeddings.wpe.weight"]
+    pos = pos0 + torch.arange(t, device=dev)
+    x = wte[tokens] + wpe[pos][None]
+    smax = ck.shape[2]
+    w0 = min(max(int(pos0), 0), smax - t)
+    # causal-with-cache mask: query i sees cache positions <= pos0 + i
+    mask = torch.arange(smax, device=dev)[None, None, None, :] <= \
+        pos[None, None, :, None]
+    scale = math.sqrt(hd)
+    for layer, p in enumerate(stacked):
+        k_c, v_c = ck[:, layer], cv[:, layer]            # [N, S, NH, D]
+
+        def attend(q, kk, vv):
+            k_c[:, w0:w0 + t] = kk
+            v_c[:, w0:w0 + t] = vv
+            att = torch.einsum("btnd,bsnd->bnts", q, k_c) / scale
+            att = torch.where(mask, att, -1e9)
+            w = torch.softmax(att.float(), dim=-1).to(x.dtype)
+            return torch.einsum("bnts,bsnd->btnd", w, v_c), None
+
+        x, _ = gpt_block_body(x, p, eps, nh, hd, attend)
+    x = _ln(x, other["ln_f.weight"], other["ln_f.bias"], eps)
+    last = x[:, -1] if logits_index is None else x[:, logits_index]
+    if "lm_head.weight" in other:
+        logits = last @ other["lm_head.weight"]
+    else:
+        logits = last @ wte.T
+    return logits, ck, cv
 
 
 def gpt_ragged_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
@@ -455,6 +673,27 @@ def state_to_numpy(model: nn.Module) -> Dict[str, np.ndarray]:
         t = t.detach().cpu()
         out[name] = (t.float() if t.is_floating_point() else t).numpy()
     return out
+
+
+class GPTForGeneration(nn.Module):
+    """``forward(tokens)`` runs ``gpt.generate`` and returns the ids. Its
+    export (the reference's ``jit.save`` artifact) waits for the jit and
+    export slice (ROADMAP queue 1 item 9)."""
+
+    def __init__(self, gpt: GPT, max_new_tokens: int = 16,
+                 decode_strategy: str = "greedy_search", **gen_kw):
+        super().__init__()
+        self.gpt = gpt
+        self.max_new_tokens = max_new_tokens
+        self.decode_strategy = decode_strategy
+        self.gen_kw = gen_kw
+
+    def forward(self, tokens):
+        ids, _ = self.gpt.generate(tokens,
+                                   max_new_tokens=self.max_new_tokens,
+                                   decode_strategy=self.decode_strategy,
+                                   **self.gen_kw)
+        return ids
 
 
 def gpt_tiny(device=None, **kw):

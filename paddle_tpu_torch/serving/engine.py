@@ -37,9 +37,19 @@ the tick, before anything reads them; a copy-on-write page keeps its
 donor's scales. Streams agree with the unquantized engine by a match
 rate, not bitwise; two int8 engines on the same schedule agree exactly.
 
+``decode="sampling"`` draws each token from the slot's own law:
+temperature, top-k and top-p per request (``submit`` overrides, else the
+config's), filtered by ``ops.decoding.apply_top_k_top_p_per_row``, then
+``core.random.categorical`` under the request's key folded by the
+absolute position of the token it emits. The keys, the emission
+positions and the per-slot params ride the tick's one host-to-device
+copy, and every row of a tick draws at once on the device. Folding by
+position makes a stream independent of scheduling, preemption and its
+neighbours, and the threefry generator makes it equal to the JAX
+engine's stream on the same logits. The greedy branch is unchanged.
+
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): ``decode="sampling"``, speculative
-decoding (``spec``), the legacy two-dispatch mode
+ROADMAP item): speculative decoding (``spec``), the legacy two-dispatch mode
 (``attention_kernel="legacy"``), disaggregated export/import and prefix
 chain migration. The event timeline and recompile telemetry come with
 the profiler slice.
@@ -67,15 +77,15 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..core import random as _random
 from ..models.gpt import gpt_ragged_apply
+from ..ops.decoding import apply_top_k_top_p_per_row
 from ..profiler.metrics import registry as _registry
 from .paged_cache import PagePool
 from .sched import SCHED_POLICIES, ChunkScheduler
 
 __all__ = ["ServingConfig", "ServingEngine", "Request"]
 
-_TODO_SAMPLING = ("decode='sampling' is not ported yet: ROADMAP queue 1 "
-                  "item 4 (dense decode and sampling)")
 _TODO_SPEC = ("speculative decoding is not ported yet: ROADMAP queue 1 "
               "item 5 (speculative decoding)")
 _TODO_SERVING = ("is not ported yet: ROADMAP queue 1 item 6 (serving "
@@ -100,9 +110,13 @@ class ServingConfig:
     scheduler: str = "fifo"          # 'fifo' | 'sjf' | 'aged-sjf'
     prefix_cache: bool = True        # share prompt-prefix pages
     max_inflight: int = 2            # unmaterialized ticks in flight
-    decode: str = "greedy"           # 'greedy' ('sampling': later slice)
+    decode: str = "greedy"           # 'greedy' | 'sampling'
     kv_dtype: Optional[str] = None   # None (model dtype)|'f32'|'bf16'|'int8'
+    temperature: float = 1.0         # sampling defaults; per-request
+    top_k: int = 0                   #   overrides ride submit()
+    top_p: float = 1.0
     eos_token_id: Optional[int] = None
+    seed: int = 0                    # sampling keys: fold_in(key(seed), rid)
     attention_kernel: Optional[str] = None   # only 'legacy' is recognized
     spec: Optional[object] = None            # speculative decoding config
 
@@ -112,6 +126,7 @@ class Request:
     rid: int
     prompt: np.ndarray               # current prompt (grows on preemption)
     max_new: int                     # tokens still wanted (shrinks on preempt)
+    key: np.ndarray                  # uint32[2] sampling key (position folds)
     out: List[int] = field(default_factory=list)
     done: bool = False
     submit_t: float = 0.0
@@ -120,6 +135,9 @@ class Request:
     first_token_t: Optional[float] = None
     orig_prompt_len: int = 0
     canceled: bool = False
+    temperature: Optional[float] = None   # per-request sampling overrides
+    top_k: Optional[int] = None           #   (None -> engine config default)
+    top_p: Optional[float] = None
 
 
 class _Inflight:
@@ -135,15 +153,23 @@ _Chunk = Tuple[int, int, int, int, int]   # (slot, rid, start, end, t0)
 
 
 def _to_device(device, *arrays):
-    """Ship several small host int arrays in ONE host-to-device copy and
-    return device views of each (int32, original shapes)."""
-    flat = np.concatenate([np.asarray(a, np.int32).reshape(-1)
-                           for a in arrays])
+    """Ship several small host arrays in ONE host-to-device copy and
+    return device views of each, in their shapes: int arrays as int32,
+    float32 arrays as float32 and uint32 arrays (sampling keys) as int64
+    holding the uint32 values. float32 and uint32 travel as their bits."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    flat = np.concatenate([
+        (a.view(np.int32) if a.dtype in (np.float32, np.uint32)
+         else a.astype(np.int32)).reshape(-1) for a in arrays])
     buf = torch.from_numpy(flat).to(device, non_blocking=True)
     out, i = [], 0
     for a in arrays:
-        a = np.asarray(a)
-        out.append(buf[i:i + a.size].view(a.shape))
+        v = buf[i:i + a.size].view(a.shape)
+        if a.dtype == np.float32:
+            v = v.view(torch.float32)
+        elif a.dtype == np.uint32:
+            v = v.long() & _random.MASK
+        out.append(v)
         i += a.size
     return out
 
@@ -161,9 +187,7 @@ class ServingEngine:
     def __init__(self, model, config: Optional[ServingConfig] = None):
         cfg = config or ServingConfig()
         mcfg = model.config
-        if cfg.decode == "sampling":
-            raise NotImplementedError(_TODO_SAMPLING)
-        if cfg.decode != "greedy":
+        if cfg.decode not in ("greedy", "sampling"):
             raise ValueError(f"unknown decode mode {cfg.decode!r}")
         if cfg.spec is not None:
             raise NotImplementedError(_TODO_SPEC)
@@ -233,13 +257,29 @@ class ServingEngine:
         # device state: each slot's last emitted token
         self._last_tok = torch.zeros(b_slots, dtype=torch.int64,
                                      device=self.device)
+        # per-slot sampling state, set at admission, shipped every tick
+        self._keys = np.zeros((b_slots, 2), np.uint32)
+        self._temps = np.full(b_slots, cfg.temperature, np.float32)
+        self._topks = np.full(b_slots, cfg.top_k, np.int32)
+        self._topps = np.full(b_slots, cfg.top_p, np.float32)
+        # request keys are host metadata: folded on the CPU at submit
+        self._base_key = _random.PRNGKey(cfg.seed, device="cpu")
 
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
     def submit(self, prompt_ids, max_new_tokens: int,
+               key: Optional[np.ndarray] = None,
+               temperature: Optional[float] = None,
+               top_k: Optional[int] = None,
+               top_p: Optional[float] = None,
                hold_after_prefill: bool = False) -> int:
-        """Queue one request; returns its id."""
+        """Queue one request; returns its id. ``temperature``/``top_k``/
+        ``top_p`` override the config's sampling params for this request
+        (ignored under greedy decode); ``key`` (uint32[2], a
+        ``jax.random``-style key) defaults to ``fold_in(PRNGKey(seed),
+        rid)`` under sampling; greedy decode draws nothing and keeps a
+        zero key."""
         if hold_after_prefill:
             raise NotImplementedError(
                 "hold_after_prefill (disaggregated prefill) " + _TODO_SERVING)
@@ -258,9 +298,15 @@ class ServingEngine:
             raise ValueError("request exceeds the whole page pool")
         rid = self._next_rid
         self._next_rid += 1
+        if key is None:
+            key = (_random.key_to_numpy(_random.fold_in(self._base_key, rid))
+                   if self.config.decode == "sampling"
+                   else np.zeros(2, np.uint32))
         now = time.perf_counter()
         req = Request(rid=rid, prompt=p, max_new=int(max_new_tokens),
-                      submit_t=now, queue_t=now, orig_prompt_len=t0)
+                      key=np.asarray(key, np.uint32), submit_t=now,
+                      queue_t=now, orig_prompt_len=t0,
+                      temperature=temperature, top_k=top_k, top_p=top_p)
         self._requests[rid] = req
         self._queue.append(req)
         _registry().counter("serving/prompt_tokens").add(t0)
@@ -449,6 +495,12 @@ class ServingEngine:
             self._slot_admit_t[slot] = time.perf_counter()
             self._slot_wait_due[slot] = True
             self._sched.note_admit(slot)
+            self._keys[slot] = req.key
+            c = self.config
+            self._temps[slot] = (c.temperature if req.temperature is None
+                                 else req.temperature)
+            self._topks[slot] = c.top_k if req.top_k is None else req.top_k
+            self._topps[slot] = c.top_p if req.top_p is None else req.top_p
 
     def _next_prefill_slot(self, pend: Dict[int, int]) -> Optional[int]:
         cands = []
@@ -649,9 +701,13 @@ class ServingEngine:
         row_pos0[:ns] = self._slot_len
         row_len = np.ones(ns + npf, np.int32)
         sample_ix = np.zeros(ns, np.int32)
+        # the absolute position of the token each row emits: the sampling
+        # law folds it into the slot's key
+        sample_pos = np.zeros(ns, np.int32)
         emit = np.zeros(ns, np.int32)
         for s in ticking:
             sample_ix[s] = s
+            sample_pos[s] = self._slot_len[s] + 1
             emit[s] = 1
         finishers = []
         for c, (s, rid, start, end, t0) in enumerate(chunks):
@@ -670,6 +726,7 @@ class ServingEngine:
             if end >= t0:
                 finishers.append((s, rid))
                 sample_ix[s] = base + (t0 - 1 - start)
+                sample_pos[s] = t0
                 emit[s] = 1
         # a tick without chunks runs the decode rows alone
         n_tok, n_row = (nt, ns + npf) if chunks else (ns, ns)
@@ -678,12 +735,14 @@ class ServingEngine:
         # tensors are used (the overflow path rewrites them at once)
         fresh = pool.take_fresh(self._fresh_cap) if pool.quantized \
             else np.zeros(0, np.int32)
+        law = (sample_pos, self._keys, self._temps, self._topks,
+               self._topps) if self.config.decode == "sampling" else ()
         with torch.inference_mode():
             (pf_d, pos_d, lim_d, tab_d, p0_d, len_d, six_d, emit_d,
-             fresh_d) = _to_device(self.device, pf_toks, tok_pos[:n_tok],
-                                   tok_limit[:n_tok], row_tab[:n_row],
-                                   row_pos0[:n_row], row_len[:n_row],
-                                   sample_ix, emit, fresh)
+             fresh_d, *law_d) = _to_device(
+                self.device, pf_toks, tok_pos[:n_tok], tok_limit[:n_tok],
+                row_tab[:n_row], row_pos0[:n_row], row_len[:n_row],
+                sample_ix, emit, fresh, *law)
             tokens = torch.cat([self._last_tok, pf_d.long()]) if chunks \
                 else self._last_tok
             scales = {}
@@ -698,7 +757,7 @@ class ServingEngine:
                 pool.k, pool.v, tokens, pos_d, lim_d, tab_d,
                 p0_d, len_d, six_d.long(), decode_rows=ns, chunk_width=w,
                 **scales)[0]
-            tok = self._sample_tok(logits)
+            tok = self._sample_tok(logits, *law_d)
             self._last_tok = torch.where(emit_d.bool(), tok, self._last_tok)
         meta = [(s, s, self._slot_rid[s]) for s in ticking]
         meta += [(s, s, rid) for s, rid in finishers]
@@ -728,8 +787,17 @@ class ServingEngine:
         return True
 
     @staticmethod
-    def _sample_tok(logits: torch.Tensor) -> torch.Tensor:
-        """Greedy token choice: argmax of the f32 log-softmax (the
-        reference's greedy branch)."""
-        lp = torch.log_softmax(logits.float(), dim=-1)
-        return torch.argmax(lp, dim=-1)
+    def _sample_tok(logits: torch.Tensor, positions=None, keys=None,
+                    temps=None, top_ks=None, top_ps=None) -> torch.Tensor:
+        """Token choice from last-token logits [N, V]. Greedy (no law
+        given): argmax of the f32 log-softmax (the reference's greedy
+        branch). Sampling: each row's temperature/top-k/top-p, then a
+        categorical draw under the row's key folded by the absolute
+        ``positions`` of the emitted tokens, all rows at once."""
+        if keys is None:
+            lp = torch.log_softmax(logits.float(), dim=-1)
+            return torch.argmax(lp, dim=-1)
+        lg = logits.float() / torch.clamp(temps, min=1e-6)[:, None]
+        lg = apply_top_k_top_p_per_row(lg, top_ks, top_ps)
+        lp = torch.log_softmax(lg, dim=-1)
+        return _random.categorical(_random.fold_in(keys, positions), lp)

@@ -97,6 +97,68 @@ def test_greedy_streams_equal_reference_engine(nets, case):
     assert eng.pool.allocator.num_allocated == 0
 
 
+SAMPLING = dict(decode="sampling", temperature=0.9, top_k=40, top_p=0.9,
+                seed=21)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_sampling_streams_equal_reference_engine(nets, case):
+    """decode='sampling': each request's key folded by the position of
+    the token it emits, on the threefry generator bit-equal to jax.random
+    — the streams equal the JAX engine's token for token, prefix hits,
+    COW and preemption (the oversubscribed case) included."""
+    jnet, net = nets
+    kw = dict(CASES[case], **SAMPLING)
+    prompts = _prompts()
+    jeng = JEngine(jnet, JConfig(attention_kernel="ragged-xla", **kw))
+    jr = [jeng.submit(p, 12) for p in prompts]
+    ref = jeng.run()
+    reg = registry()
+    pre0 = reg.counter("serving/preemptions").value
+    eng = ServingEngine(net, ServingConfig(**kw))
+    tr = [eng.submit(p, 12) for p in prompts]
+    got = eng.run()
+    for a, b in zip(jr, tr):
+        np.testing.assert_array_equal(got[b], ref[a])
+    if case == "oversubscribed":
+        assert reg.counter("serving/preemptions").value > pre0
+    assert eng.pool.check_consistency() == []
+
+
+def test_sampling_per_request_overrides_equal_reference(nets):
+    """Per-request temperature/top_k/top_p and explicit keys ride the
+    same tick; each request's stream equals the JAX engine's and does not
+    depend on its neighbours: served alone it is the same."""
+    jnet, net = nets
+    kw = dict(num_slots=3, page_size=8, pages_per_slot=8, prefill_chunk=8,
+              prefill_chunks_per_tick=2, **SAMPLING)
+    over = [dict(temperature=0.5), dict(top_k=3), dict(top_p=0.5, top_k=0),
+            dict(), dict(temperature=2.0, top_k=1),
+            dict(key=np.array([7, 9], np.uint32), top_p=0.8)]
+    prompts = _prompts()
+    jeng = JEngine(jnet, JConfig(attention_kernel="ragged-xla", **kw))
+    jr = [jeng.submit(p, 10, **o) for p, o in zip(prompts, over)]
+    ref = jeng.run()
+    eng = ServingEngine(net, ServingConfig(**kw))
+    tr = [eng.submit(p, 10, **o) for p, o in zip(prompts, over)]
+    got = eng.run()
+    for a, b in zip(jr, tr):
+        np.testing.assert_array_equal(got[b], ref[a])
+    # the top_k=1 request is greedy whatever its temperature
+    greedy = ServingEngine(net, ServingConfig(
+        **dict(kw, decode="greedy")))
+    g = greedy.submit(prompts[4], 10)
+    np.testing.assert_array_equal(greedy.run()[g], got[tr[4]])
+    # alone, with the key it was given (rid 2's default), the same stream
+    from paddle_tpu_torch.core import random as R
+
+    solo = ServingEngine(net, ServingConfig(**kw))
+    key = R.key_to_numpy(R.fold_in(
+        R.PRNGKey(SAMPLING["seed"], device="cpu"), tr[2]))
+    r = solo.submit(prompts[2], 10, key=key, **over[2])
+    np.testing.assert_array_equal(solo.run()[r], got[tr[2]])
+
+
 def test_serving_predictor_matches_reference(nets):
     jnet, net = nets
     toks = np.random.RandomState(5).randint(0, 128, (3, 12)).astype(np.int32)
@@ -148,9 +210,9 @@ def test_cancel_frees_the_slot(nets):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(decode="sampling"),
     dict(kv_dtype="int8", attention_kernel="legacy"),   # int8 itself is ported
-    dict(spec=object()), dict(attention_kernel="legacy")])
+    dict(spec=object()), dict(attention_kernel="legacy"),
+    dict(decode="sampling", spec=object())])    # sampling itself is ported
 def test_unported_knobs_raise_not_implemented(nets, knob):
     _, net = nets
     with pytest.raises(NotImplementedError, match="ROADMAP"):
