@@ -116,11 +116,34 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    does; the phase fails if one hits the prefix cache), the sampling
    step's share of kernel and wall time under torch.profiler, busy
    share, kernel launches per dense step and peak memory.
+9. spec phase — speculative decoding on the engine phase's model and
+   workload (16 requests, 32 greedy tokens each) at k 4 with three
+   drafts: the twin (the target itself), an independent model at
+   gpt3_125m's widths from another seed, and a 2-block draft made of the
+   target's embeddings, first two blocks and ln_f. Each draft's streams
+   agree with teacher-forced GPT.forward argmax at >= 0.9 and with the
+   plain engine's at >= SPEC_MATCH_FLOOR, the twin accepts >= 0.9 of its
+   drafts, the page audit is empty after every run, and the chunk-row
+   kernel launches at T = 1 + k exactly once a layer for every verify
+   tick with drafts (the wrapper's per-T tally), and at least that plus
+   once a layer for every tick with chunks in all. Warm tokens/s against the plain
+   engine in turns (plain, three drafts, plain), each tick kind's span on
+   the card (CUDA events) and host ms, the twin's tick kernel ms and busy
+   share under torch.profiler, the twin under decode="sampling" with
+   overlap off and on (equal streams, >= 0.99 equal to the plain sampling
+   engine's), the twin on int8 pages (two runs equal), peak memory. The
+   kernel phase holds the ragged kernel at the verify shape (R8 T5 and
+   T2, true_len 1..T, pos0 64-1056, f32, bf16 and int8 pools) to reading
+   no page past a row's last real query (a page of NaN in its place) and
+   times the T decode-row calls that do the same work beside it.
 
-Every launch counter is set to 0 just before each of phases 2-8 and read
+Every launch counter is set to 0 just before each of phases 2-9 and read
 just after it: those are the main paths' launches, and each path must
 launch each of its kernels (the generate path: the ragged decode and
-chunk rows, never the int8 path; the train path: the four wgmma flash
+chunk rows, never the int8 path; the spec path: both row kinds and the
+int8 path, counted over the spec engines' runs alone: the plain engines
+and forwards it compares with run uncounted; the train path: the four
+wgmma flash
 kernels and none of the f32 route's; the f32 grad paths: the SIMT
 forward and the mma.sync backward kernels and no wgmma one; the deploy
 path: the wgmma int8 product and the quantize pass, not the mma.sync
@@ -134,10 +157,12 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
                                                         # flash kernel
     python3 chip_smoke.py --phases kernels,kvint8,deploy   # the int8 slice
     python3 chip_smoke.py --phases generate        # decode and sampling
+    python3 chip_smoke.py --phases kernels,spec    # speculative decoding
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import os
@@ -206,6 +231,63 @@ DEPLOY_QAT_TOL = 0.03
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+#: every launch count of the kernel wrappers: {key: (module of
+#: paddle_tpu_torch.ops, attribute)}; each wrapper adds one where it
+#: launches its kernel
+LAUNCH_COUNTERS = {
+    "flash": ("flash_attention", "FLASH_FWD_LAUNCHES"),
+    "flash_tc": ("flash_attention", "FLASH_FWD_TC_LAUNCHES"),
+    "bwd_single": ("flash_attention", "FLASH_BWD_SINGLE_LAUNCHES"),
+    "bwd_single_tc": ("flash_attention", "FLASH_BWD_SINGLE_TC_LAUNCHES"),
+    "bwd_dq": ("flash_attention", "FLASH_BWD_DQ_LAUNCHES"),
+    "bwd_dq_tc": ("flash_attention", "FLASH_BWD_DQ_TC_LAUNCHES"),
+    "bwd_dkv": ("flash_attention", "FLASH_BWD_DKV_LAUNCHES"),
+    "bwd_dkv_tc": ("flash_attention", "FLASH_BWD_DKV_TC_LAUNCHES"),
+    "ragged": ("paged_attention", "RAGGED_LAUNCHES"),
+    "ragged_chunk": ("paged_attention", "RAGGED_CHUNK_LAUNCHES"),
+    "ragged_int8": ("paged_attention", "RAGGED_INT8_LAUNCHES"),
+    "int8_matmul": ("int8_matmul", "INT8_MATMUL_LAUNCHES"),
+    "int8_matmul_wgmma": ("int8_matmul", "INT8_MATMUL_WGMMA_LAUNCHES"),
+    "int8_quantize": ("int8_matmul", "INT8_QUANTIZE_LAUNCHES")}
+
+
+def read_counts():
+    """(every launch count, the chunk-row launches by query rows T)."""
+    import importlib
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    mod = importlib.import_module
+    return ({k: getattr(mod("paddle_tpu_torch.ops." + m), a)
+             for k, (m, a) in LAUNCH_COUNTERS.items()},
+            dict(pa.RAGGED_CHUNK_LAUNCHES_BY_T))
+
+
+def set_counts(counts=None, by_t=None) -> None:
+    """Set every launch count (to 0 when ``counts`` is None)."""
+    import importlib
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    for k, (m, a) in LAUNCH_COUNTERS.items():
+        setattr(importlib.import_module("paddle_tpu_torch.ops." + m), a,
+                0 if counts is None else counts[k])
+    pa.RAGGED_CHUNK_LAUNCHES_BY_T.clear()
+    pa.RAGGED_CHUNK_LAUNCHES_BY_T.update(by_t or {})
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches made inside are not the driven path's own (a plain
+    engine run only to compare with, a reference forward): every count
+    is put back to what it was on entry."""
+    saved = read_counts()
+    try:
+        yield
+    finally:
+        set_counts(*saved)
 
 
 def ptxas_functions(log: str) -> dict:
@@ -369,6 +451,66 @@ def generate_ragged_groups(rng, npages, nps, ps, prompt_len=512,
     return [chk, dec]
 
 
+def spec_ragged_groups(rng, npages, nps, ps, k=4, rows=8):
+    """The verify rows of the spec phase: R8 T5 (k 4) and R8 T2 (k 1) over
+    128-page tables, true_len mixed between 1 (a slot riding the group
+    without drafts) and T, pos0 spread over 64-1056. The 6th element asks
+    the kernel phase to hold the kernel to reading no page past a row's
+    last real query, and to time the T decode-row calls that would do the
+    same work."""
+    import numpy as np
+
+    out = []
+    for t in (k + 1, 2):
+        p0 = rng.randint(64, 1057, rows).astype(np.int32)
+        tl = rng.randint(1, t + 1, rows).astype(np.int32)
+        tl[:2] = 1, t                       # both extremes in the group
+        tab = np.zeros((rows, nps), np.int32)
+        for i in range(rows):
+            n = (int(p0[i]) + int(tl[i]) - 1) // ps + 1
+            tab[i, :n] = rng.choice(np.arange(1, npages), n, replace=False)
+        out.append((f"spec_R{rows}_T{t}", t, p0, tl, tab, True))
+    return out
+
+
+def poisoned(tab, p0, tl, ps, page):
+    """``tab`` with every entry past each row's last real query's page
+    pointing at ``page`` (a page of NaN appended to the pools)."""
+    tab = tab.copy()
+    for i in range(tab.shape[0]):
+        tab[i, (int(p0[i]) + int(tl[i]) - 1) // ps + 1:] = page
+    return tab
+
+
+def check_no_read_past(name, out, outp, tl):
+    """The kernel over poisoned tables must give the same real queries
+    bit for bit: a read of a NaN page, masked or not, would show."""
+    import torch
+
+    for i in range(out.shape[0]):
+        n = int(tl[i])
+        if not torch.equal(out[i, :n], outp[i, :n]):
+            raise AssertionError(f"ragged {name}: row {i} read a page past "
+                                 "its last real query")
+
+
+def decode_equiv(pa, q, k, v, tab_d, p0_d, **scales):
+    """The T decode-row calls (T == 1 each) that do a [R, T] group's work:
+    query j of every row at pos0 + j."""
+    import torch
+
+    t = q.shape[1]
+    qs = [q[:, j:j + 1].contiguous() for j in range(t)]
+    ps0 = [p0_d + j for j in range(t)]
+    ones = torch.ones_like(p0_d)
+
+    def run():
+        for j in range(t):
+            pa.ragged_paged_attention(qs[j], k, v, tab_d, ps0[j], ones,
+                                      **scales)
+    return run
+
+
 def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
                         chunk_only=False, slots=8, groups=ragged_groups):
     """The ragged kernel against _gather_attend over f32 and bf16 pools of
@@ -389,7 +531,7 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
     pools = {"float32": (k32, v32),
              "bfloat16": (k32.bfloat16(), v32.bfloat16())}
     results = []
-    for name, t, p0, tl, tab in groups(rng, npages, nps, ps):
+    for name, t, p0, tl, tab, *spec in groups(rng, npages, nps, ps):
         if chunk_only and t == 1:
             continue
         if ps != 16:
@@ -408,6 +550,16 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
                 out = pa.ragged_paged_attention(q, k, v, *meta)
                 ref = pa._gather_attend(q.float(), k.float(), v.float(),
                                         tab_d, qpos)
+                # the kernel only: the plain version reads every page
+                if spec and dev.type == "cuda":
+                    nan = torch.full((1,) + tuple(k.shape[1:]), float("nan"),
+                                     dtype=k.dtype, device=dev)
+                    tab_p = torch.from_numpy(
+                        poisoned(tab, p0, tl, ps, npages)).to(dev)
+                    check_no_read_past(
+                        name, out, pa.ragged_paged_attention(
+                            q, torch.cat([k, nan]), torch.cat([v, nan]),
+                            tab_p, p0_d, tl_d), tl)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             err = 0.0
@@ -440,6 +592,8 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
                     q, k, v, tab_d, qpos), iters, dev)
                 lib_ms = time_ms(lambda: TF.scaled_dot_product_attention(
                     qt, kc, vc, attn_mask=mask), iters, dev)
+                dec_ms = time_ms(decode_equiv(pa, q, k, v, tab_d, p0_d),
+                                 iters, dev) if spec else None
             # bytes this data needs: attended K/V positions, q, o, metadata
             attended = (p0.astype(np.int64) + tl).sum()
             esz_kv = k.element_size()
@@ -470,6 +624,9 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
                    "library": "F.scaled_dot_product_attention over the "
                               "gathered cache (gather not timed)",
                    "bound_ms": b_ms, "bound_by": b_by}
+            if spec:
+                row.update(no_read_past_last_query=dev.type == "cuda",
+                           decode_rows_equiv_ms=dec_ms)
             emit(row)
             results.append(row)
     return results
@@ -514,10 +671,10 @@ def quantized_pools(dev, k32, v32, tokens_per_call=2048):
 
 
 def kernel_phase_ragged_int8(dev, iters, seed=7, nh=16, hd=128, ps=16,
-                             nps=128):
+                             nps=128, groups=ragged_groups):
     """The ragged kernel's int8 path against _gather_attend with scales,
-    on the row groups of kernel_phase_ragged (null pages in every table,
-    a pad row with an all-null table)."""
+    on the row groups ``groups`` gives (by default kernel_phase_ragged's:
+    null pages in every table, a pad row with an all-null table)."""
     import numpy as np
     import torch
     from torch.nn import functional as TF
@@ -533,7 +690,7 @@ def kernel_phase_ragged_int8(dev, iters, seed=7, nh=16, hd=128, ps=16,
     deq_err = float((kq[1:].float() * ks[1:, None, :, None]
                      - k32[1:]).abs().max())
     results = []
-    for name, t, p0, tl, tab in ragged_groups(rng, npages, nps, ps):
+    for name, t, p0, tl, tab, *spec in groups(rng, npages, nps, ps):
         r = tab.shape[0]
         q32 = torch.randn(r, t, nh, hd, generator=g, device=dev)
         meta = [torch.from_numpy(x).to(dev) for x in (tab, p0, tl)]
@@ -547,6 +704,18 @@ def kernel_phase_ragged_int8(dev, iters, seed=7, nh=16, hd=128, ps=16,
                                                 k_scale=ks, v_scale=vs)
                 ref = pa._gather_attend(q.float(), kq, vq, tab_d, qpos,
                                         k_scale=ks, v_scale=vs)
+                if spec and dev.type == "cuda":
+                    # the poisoned page: zero bytes under NaN scales
+                    nan = torch.full((1, nh), float("nan"), device=dev)
+                    zero = torch.zeros((1,) + tuple(kq.shape[1:]),
+                                       dtype=kq.dtype, device=dev)
+                    tab_p = torch.from_numpy(
+                        poisoned(tab, p0, tl, ps, npages)).to(dev)
+                    check_no_read_past(
+                        name + "_int8", out, pa.ragged_paged_attention(
+                            q, torch.cat([kq, zero]), torch.cat([vq, zero]),
+                            tab_p, p0_d, tl_d, k_scale=torch.cat([ks, nan]),
+                            v_scale=torch.cat([vs, nan])), tl)
             if dev.type == "cuda":
                 torch.cuda.synchronize(dev)
             tol = BF16_TOL if qdt == "bfloat16" else F32_TOL
@@ -581,6 +750,9 @@ def kernel_phase_ragged_int8(dev, iters, seed=7, nh=16, hd=128, ps=16,
                     iters, dev)
                 lib_ms = time_ms(lambda: TF.scaled_dot_product_attention(
                     qt, kc, vc, attn_mask=mask), iters, dev)
+                dec_ms = time_ms(decode_equiv(pa, q, kq, vq, tab_d, p0_d,
+                                              k_scale=ks, v_scale=vs),
+                                 iters, dev) if spec else None
             # bytes this data needs: attended K/V positions at one byte,
             # the scale rows of the attended pages, q, o, metadata
             attended = (p0.astype(np.int64) + tl).sum()
@@ -612,6 +784,9 @@ def kernel_phase_ragged_int8(dev, iters, seed=7, nh=16, hd=128, ps=16,
                               "gathered, dequantized cache (gather and "
                               "dequantization not timed)",
                    "bound_ms": b_ms, "bound_by": b_by}
+            if spec:
+                row.update(no_read_past_last_query=dev.type == "cuda",
+                           decode_rows_equiv_ms=dec_ms)
             emit(row)
             results.append(row)
     return results
@@ -1344,18 +1519,8 @@ def engine_phase(model, dev, n_req=16, max_new=32, n_check=4, keep=None,
     if ragged < cfg.num_layers * ticks:
         raise AssertionError(f"ragged launches {ragged} < "
                              f"{cfg.num_layers} x {ticks} ticks")
-    # teacher-forced greedy check: GPT.forward over prompt + the engine's
-    # stream recomputes every step's argmax in one call
-    match = total = 0
-    for i in range(n_check):
-        p, o = prompts[i], out[rids[i]]
-        seq = np.concatenate([p, o[:-1]]).astype(np.int64)
-        with torch.inference_mode():
-            lg = model(torch.from_numpy(seq)[None].to(dev))[0]
-        pred = lg[len(p) - 1:].argmax(-1).cpu().numpy()
-        match += int((pred == o).sum())
-        total += len(o)
-    rate = match / total
+    rate = teacher_match(model, dev, prompts, [out[r] for r in rids],
+                         n_check)
     row = {"phase": "engine", "config": "gpt3_1_3b", "requests": n_req,
            "max_new_tokens": max_new, "ticks": ticks,
            "ragged_launches": ragged, "wall_s": wall,
@@ -1454,6 +1619,330 @@ def top_kernels(kernels, n):
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:n]
     return [{"name": e.key[:70], "ms": e.self_device_time_total / 1e3,
              "count": e.count} for e in top]
+
+
+# ---------------------------------------------------------------------------
+# phase 9: speculative decoding
+# ---------------------------------------------------------------------------
+SPEC_K = 4
+# spec greedy against the plain engine's streams: the verify rows run the
+# chunk-row kernel and the plain engine's decode rows the decode-row
+# kernel (other reduction orders, other GEMM shapes), so a near tie may
+# flip and change the rest of a stream: a match rate, as the engine
+# phase's teacher-forced rule
+SPEC_MATCH_FLOOR = 0.9
+SPEC_TWIN_ACCEPT_FLOOR = 0.9     # twin: accepted / offered drafts
+# sampled spec (twin) against the plain sampling engine: the same law
+# and keys; only a near tie of gumbel + logits between the draft's and
+# the target's logits can flip a draw
+SPEC_SAMPLING_MATCH_FLOOR = 0.99
+SPEC_LAW = dict(decode="sampling", temperature=0.8, top_k=50, top_p=0.95,
+                seed=11)
+
+
+def spec_drafts(model, dev):
+    """(name, draft) of the spec phase: the twin (the target itself), an
+    independent model at gpt3_125m's widths with the target's context from
+    another seed, and a 2-block draft made of the target's embeddings, its
+    first two blocks and ln_f."""
+    import dataclasses
+
+    from paddle_tpu_torch.core import rng as _rng
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+
+    cfg = model.config
+    _rng.seed(1)
+    indep = GPT(GPTConfig(vocab_size=cfg.vocab_size, hidden_size=768,
+                          num_layers=12, num_heads=12,
+                          max_seq_len=cfg.max_seq_len), device=dev)
+    two = GPT(dataclasses.replace(cfg, num_layers=2), device=dev)
+    own = model.state_dict()
+    two.load_state_dict({k: own[k] for k in two.state_dict()})
+    for m in (indep, two):
+        m.eval()
+    return [("twin", model), ("indep_125m", indep), ("two_block", two)]
+
+
+def spec_instrument(eng, dev):
+    """Wrap a spec engine's draft tick and verify tick: CUDA events around
+    each call (its span on the card, host gaps included), the host time of
+    the call, a record_function range for the profiler, and the verify
+    ticks that carried drafts and chunks."""
+    import torch
+    from torch.profiler import record_function
+
+    st = {"draft": [], "verify": [], "with_drafts": 0, "with_chunks": 0}
+
+    def wrap(fn, kind):
+        def call(*a, **kw):
+            if kind == "verify":        # (..., has_chunks, has_drafts)
+                st["with_chunks"] += bool(a[14])
+                st["with_drafts"] += bool(a[15])
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)] \
+                if dev.type == "cuda" else None
+            t0 = time.perf_counter()
+            if ev:
+                ev[0].record()
+            with record_function(f"spec_{kind}_tick"):
+                out = fn(*a, **kw)
+            if ev:
+                ev[1].record()
+            st[kind].append((ev, time.perf_counter() - t0))
+            return out
+        return call
+
+    eng._draft.tick = wrap(eng._draft.tick, "draft")
+    eng._spec_tick = wrap(eng._spec_tick, "verify")
+    return st
+
+
+def spec_tick_times(st):
+    """Mean span on the card (CUDA events) and host ms of each tick kind;
+    read after the run's final sync."""
+    out = {}
+    for kind in ("draft", "verify"):
+        calls = st[kind]
+        out[f"{kind}_ticks"] = len(calls)
+        if not calls:
+            continue
+        host = sum(h for _, h in calls) / len(calls) * 1e3
+        out[f"{kind}_tick_host_ms"] = host
+        out[f"{kind}_tick_wall_ms"] = (
+            sum(e[0].elapsed_time(e[1]) for e, _ in calls) / len(calls)
+            if calls[0][0] else host)
+    out["verify_ticks_with_drafts"] = st["with_drafts"]
+    out["verify_ticks_with_chunks"] = st["with_chunks"]
+    return out
+
+
+def spec_serve(model, dev, prompts, max_new, engine_kw):
+    """One run on a fresh engine: (streams, wall seconds, the spec
+    counters' deltas, the tick stats of a spec engine or None)."""
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    names = ("ticks", "spec_draft_ticks", "spec_feed_tokens",
+             "spec_drafted_tokens", "spec_accepted_tokens",
+             "spec_chained_ticks", "spec_chained_consumed",
+             "spec_draft_pages_reclaimed", "preemptions", "tokens_generated")
+    reg = registry()
+    c0 = {n: reg.counter("serving/" + n).value for n in names}
+    eng = ServingEngine(model, ServingConfig(**engine_kw))
+    st = spec_instrument(eng, dev) if eng.config.spec is not None else None
+
+    def serve():
+        rids = [eng.submit(p, max_new) for p in prompts]
+        out = eng.run()
+        return [out[r] for r in rids]
+
+    streams, wall = _timed_call(dev, serve)
+    for r in streams:
+        if r.shape != (max_new,):
+            raise AssertionError(f"spec: a stream of {r.shape} tokens")
+    bad = eng.pool.check_consistency()
+    if bad:
+        raise AssertionError(f"spec: page audit {bad[:4]}")
+    counts = {n: reg.counter("serving/" + n).value - c0[n] for n in names}
+    return streams, wall, counts, st
+
+
+def match_rate(a, b):
+    return sum(int((x == y).sum()) for x, y in zip(a, b)) / \
+        sum(len(x) for x in a)
+
+
+def teacher_match(model, dev, prompts, streams, n_check):
+    """Teacher-forced greedy check: GPT.forward over prompt + stream
+    recomputes every step's argmax in one call; the share that agrees."""
+    import numpy as np
+    import torch
+
+    match = total = 0
+    for i in range(n_check):
+        p, o = prompts[i], streams[i]
+        seq = np.concatenate([p, o[:-1]]).astype(np.int64)
+        with torch.inference_mode():
+            lg = model(torch.from_numpy(seq)[None].to(dev))[0]
+        pred = lg[len(p) - 1:].argmax(-1).cpu().numpy()
+        match += int((pred == o).sum())
+        total += len(o)
+    return match / total
+
+
+def spec_phase(model, dev, engine_kw, plain=None, card=None, n_req=16,
+               max_new=32, n_check=4, k=SPEC_K):
+    """Speculative serving at gpt3_1_3b on the engine phase's workload
+    (``plain``: the engine phase's streams, when it ran), three drafts at
+    k 4: streams, acceptance, the verify rows' chunk-row launches, warm
+    tokens/s against the plain engine in turns, the ticks' times; then
+    sampled spec (overlap off and on) and int8 pages with the twin."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+    from paddle_tpu_torch.serving import SpecConfig
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    L = cfg.num_layers
+    prompts = engine_prompts(cfg, n_req)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+    mem0 = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+    def serve(kw):
+        return spec_serve(model, dev, prompts, max_new, kw)
+
+    def serve_plain(kw):
+        # a plain engine to compare with: its launches are not the spec
+        # path's
+        with uncounted():
+            return serve(kw)
+
+    if plain is None:
+        plain = serve_plain(engine_kw)[0]
+    drafts = spec_drafts(model, dev)
+    row = {"phase": "spec", "config": "gpt3_1_3b", "card": card,
+           "requests": n_req, "max_new_tokens": max_new, "k": k,
+           "drafts": {}}
+
+    def kw_for(draft, **extra):
+        return dict(engine_kw, spec=SpecConfig(draft_model=draft, k=k,
+                                               **extra))
+
+    for name, draft in drafts:
+        c0 = pa.RAGGED_CHUNK_LAUNCHES
+        v0 = pa.RAGGED_CHUNK_LAUNCHES_BY_T.get(1 + k, 0)
+        streams, wall, cnt, st = serve(kw_for(draft))
+        chunk_launches = pa.RAGGED_CHUNK_LAUNCHES - c0
+        verify_launches = pa.RAGGED_CHUNK_LAUNCHES_BY_T.get(1 + k, 0) - v0
+        times = spec_tick_times(st)
+        with uncounted():
+            teacher = teacher_match(model, dev, prompts, streams, n_check)
+        acc = cnt["spec_accepted_tokens"] / max(cnt["spec_drafted_tokens"],
+                                                1)
+        d = {"cold_wall_s": wall, "ticks": cnt["ticks"],
+             "draft_ticks": cnt["spec_draft_ticks"],
+             "feed_tokens": cnt["spec_feed_tokens"],
+             "drafted_tokens": cnt["spec_drafted_tokens"],
+             "accepted_tokens": cnt["spec_accepted_tokens"],
+             "accept_rate": acc,
+             "verify_ticks_with_drafts": times["verify_ticks_with_drafts"],
+             "mean_accepted_per_verify_tick": cnt["spec_accepted_tokens"]
+             / max(times["verify_ticks_with_drafts"], 1),
+             "tokens_per_tick": cnt["tokens_generated"] / cnt["ticks"],
+             "draft_pages_reclaimed": cnt["spec_draft_pages_reclaimed"],
+             "preemptions": cnt["preemptions"],
+             "chunk_row_launches": chunk_launches,
+             "verify_group_launches": verify_launches,
+             "teacher_forced_match": teacher,
+             "match_vs_plain": match_rate(streams, plain)}
+        row["drafts"][name] = d
+        # one chunk-row launch at T = 1 + k a layer for the verify group of
+        # every tick with drafts, and one a layer for the chunk group of
+        # every tick with chunks
+        want_v = L * times["verify_ticks_with_drafts"]
+        want = want_v + L * times["verify_ticks_with_chunks"]
+        fails = []
+        if verify_launches != want_v or want_v == 0:
+            fails.append(f"verify-group launches {verify_launches}, "
+                         f"want {want_v} > 0")
+        if chunk_launches < want:
+            fails.append(f"chunk-row launches {chunk_launches} < {want}")
+        if d["teacher_forced_match"] < 0.9:
+            fails.append(f"teacher-forced match {d['teacher_forced_match']}")
+        if d["match_vs_plain"] < SPEC_MATCH_FLOOR:
+            fails.append(f"match vs plain {d['match_vs_plain']}")
+        if name == "twin" and acc < SPEC_TWIN_ACCEPT_FLOOR:
+            fails.append(f"twin accept rate {acc}")
+        if fails:
+            emit(row)
+            raise AssertionError(f"spec {name}: {fails}")
+
+    # warm tokens/s in turns on fresh engines: plain, each draft, plain
+    walls = {"plain": []}
+    for name, draft in [("plain", None)] + drafts + [("plain", None)]:
+        if draft is None:
+            _, wall, _, st = serve_plain(engine_kw)
+        else:
+            _, wall, _, st = serve(kw_for(draft))
+        walls.setdefault(name, []).append(wall)
+        if draft is not None:
+            row["drafts"][name].update(
+                warm_wall_s=wall, warm_tokens_per_s=n_req * max_new / wall,
+                **{"warm_" + n: v for n, v in spec_tick_times(st).items()})
+    row["plain_warm_walls_s"] = walls["plain"]
+    row["plain_warm_tokens_per_s"] = n_req * max_new / (
+        sum(walls["plain"]) / 2)
+    # the twin under torch.profiler: kernel ms of each tick kind, busy
+    # share against the warm run's wall
+    acts = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+    with profile(activities=acts) as prof:
+        serve(kw_for(model))
+    avg = prof.key_averages()
+    kernels = [e for e in avg if e.device_type == DeviceType.CUDA
+               and not e.key.startswith("spec_")]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    tw = row["drafts"]["twin"]
+    for kind in ("draft", "verify"):
+        host = [e for e in avg if e.key == f"spec_{kind}_tick"
+                and e.device_type == DeviceType.CPU]
+        n = sum(e.count for e in host)
+        tw[f"{kind}_tick_kernel_ms"] = (
+            sum(e.device_time_total for e in host) / 1e3 / max(n, 1))
+    tw["warm_device_kernel_ms"] = busy_ms
+    tw["warm_device_busy_share"] = busy_ms / 1e3 / tw["warm_wall_s"]
+    tw["warm_top_kernels"] = top_kernels(kernels, 6)
+
+    # sampled spec with the twin: overlap off and on, against the plain
+    # sampling engine on the same keys
+    samp = dict(engine_kw, **SPEC_LAW)
+    ref = serve_plain(samp)[0]
+    runs = {}
+    for overlap in (False, True):
+        streams, wall, cnt, _ = serve(
+            dict(samp, spec=SpecConfig(draft_model=model, k=k,
+                                       overlap=overlap)))
+        runs[overlap] = streams
+        row["sampling_overlap" if overlap else "sampling_sync"] = {
+            "wall_s": wall, "tokens_per_s": n_req * max_new / wall,
+            "accept_rate": cnt["spec_accepted_tokens"]
+            / max(cnt["spec_drafted_tokens"], 1),
+            "chained_ticks": cnt["spec_chained_ticks"],
+            "chained_consumed": cnt["spec_chained_consumed"],
+            "match_vs_plain_sampling": match_rate(streams, ref)}
+    row["sampling_overlap_runs_equal"] = all(
+        (a == b).all() for a, b in zip(runs[False], runs[True]))
+    worst = min(row[n]["match_vs_plain_sampling"]
+                for n in ("sampling_sync", "sampling_overlap"))
+    # the twin on int8 pages: two runs, equal streams
+    q8 = [serve(dict(kw_for(model), kv_dtype="int8")) for _ in range(2)]
+    row["int8"] = {
+        "walls_s": [q[1] for q in q8],
+        "accept_rate": q8[0][2]["spec_accepted_tokens"]
+        / max(q8[0][2]["spec_drafted_tokens"], 1),
+        "two_runs_equal": all((a == b).all()
+                              for a, b in zip(q8[0][0], q8[1][0])),
+        "match_vs_f32_plain": match_rate(q8[0][0], plain)}
+    del q8
+    row["peak_memory_gib_above_model"] = (
+        (torch.cuda.max_memory_allocated(dev) - mem0) / 2 ** 30
+        if dev.type == "cuda" else None)
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    fails = []
+    if not row["sampling_overlap_runs_equal"]:
+        fails.append("sampled spec: overlap on and off differ")
+    if worst < SPEC_SAMPLING_MATCH_FLOOR:
+        fails.append(f"sampled spec against plain sampling: {worst}")
+    if not row["int8"]["two_runs_equal"]:
+        fails.append("int8 spec: two runs differ")
+    if fails:
+        raise AssertionError(f"spec: {fails}")
+    return row
 
 
 # ---------------------------------------------------------------------------
@@ -2328,7 +2817,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
-    ap.add_argument("--phases", default="kernels,model,engine,kvint8,"
+    ap.add_argument("--phases", default="kernels,model,engine,spec,kvint8,"
                                         "generate,deploy,grad,train",
                     help="comma-separated subset (debugging)")
     args = ap.parse_args(argv)
@@ -2406,6 +2895,10 @@ def main(argv=None) -> int:
         # 512-token chunk row a prefill tick, 4 decode rows
         rag += kernel_phase_ragged(dev, args.iters, nh=nh, hd=hd, nps=34,
                                    slots=4, groups=generate_ragged_groups)
+        # the spec phase's verify rows (T = 1 + k), reading no page past a
+        # row's last real query
+        rag += kernel_phase_ragged(dev, args.iters, nh=nh, hd=hd,
+                                   groups=spec_ragged_groups)
         fl = kernel_phase_flash(dev, args.iters, [
             ((2, 1024, nh, hd), True, "float32"),      # the model's shape
             ((2, 1024, nh, hd), False, "float32"),
@@ -2484,6 +2977,9 @@ def main(argv=None) -> int:
         kern["ragged_chunk"] = next(
             r for r in rag if r["case"] == "chunk_R2_T256"
             and r["q_dtype"] == r["kv_dtype"] == "float32")
+        kern["ragged_verify"] = next(
+            r for r in rag if r["case"] == "spec_R8_T5"
+            and r["q_dtype"] == r["kv_dtype"] == "float32")
         kern["flash"] = fl[0]
         kern["flash_tc"] = next(r for r in fl if r["route"] == "wgmma"
                                 and r["case"] == f"B2_S2048_H{nh}_D{hd}_causal")
@@ -2506,6 +3002,8 @@ def main(argv=None) -> int:
             kern[key] = next(r for r in bw if r["kernel"] == kname
                              and r["dtype"] == dt and r["case"] == shape)
         rq = kernel_phase_ragged_int8(dev, args.iters, nh=nh, hd=hd)
+        rq += kernel_phase_ragged_int8(dev, args.iters, nh=nh, hd=hd,
+                                       groups=spec_ragged_groups)
         kern["ragged_int8"] = next(
             r for r in rq if r["case"] == "decode_R8_T1"
             and r["q_dtype"] == "float32")
@@ -2545,30 +3043,15 @@ def main(argv=None) -> int:
 
     # the main paths' launches: every count set to 0 just before a path
     # and read just after it; each path must launch each of its kernels
-    counters = {"flash": (fa, "FLASH_FWD_LAUNCHES"),
-                "flash_tc": (fa, "FLASH_FWD_TC_LAUNCHES"),
-                "bwd_single": (fa, "FLASH_BWD_SINGLE_LAUNCHES"),
-                "bwd_single_tc": (fa, "FLASH_BWD_SINGLE_TC_LAUNCHES"),
-                "bwd_dq": (fa, "FLASH_BWD_DQ_LAUNCHES"),
-                "bwd_dq_tc": (fa, "FLASH_BWD_DQ_TC_LAUNCHES"),
-                "bwd_dkv": (fa, "FLASH_BWD_DKV_LAUNCHES"),
-                "bwd_dkv_tc": (fa, "FLASH_BWD_DKV_TC_LAUNCHES"),
-                "ragged": (pa, "RAGGED_LAUNCHES"),
-                "ragged_chunk": (pa, "RAGGED_CHUNK_LAUNCHES"),
-                "ragged_int8": (pa, "RAGGED_INT8_LAUNCHES"),
-                "int8_matmul": (im, "INT8_MATMUL_LAUNCHES"),
-                "int8_matmul_wgmma": (im, "INT8_MATMUL_WGMMA_LAUNCHES"),
-                "int8_quantize": (im, "INT8_QUANTIZE_LAUNCHES")}
-    launches = {k: 0 for k in counters}
-    by_path = {}
+    launches = {k: 0 for k in LAUNCH_COUNTERS}
+    by_path, by_t_path = {}, {}
 
     def drive(path, needs, fn, *a, forbid=(), **kw):
         """Run one main path; it must launch every kernel of `needs` and
-        none of `forbid`."""
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
-        fn(*a, **kw)
-        got = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        none of `forbid`. Returns the path's result."""
+        set_counts()
+        out = fn(*a, **kw)
+        got, by_t_path[path] = read_counts()
         by_path[path] = got
         for k, n in got.items():
             launches[k] += n
@@ -2578,9 +3061,10 @@ def main(argv=None) -> int:
         stray = [k for k in forbid if got[k] != 0]
         if stray:
             raise AssertionError(f"the {path} path launched {stray}")
+        return out
 
     model = None
-    if phases & {"model", "engine", "kvint8", "generate"}:
+    if phases & {"model", "engine", "spec", "kvint8", "generate"}:
         _rng.seed(0)
         model = GPT(cfg, device=dev)
         model.eval()
@@ -2594,6 +3078,9 @@ def main(argv=None) -> int:
     if "engine" in phases:
         drive("engine", ("ragged", "ragged_chunk"), engine_phase, model, dev,
               keep=f32_run, **engine_kw)
+    if "spec" in phases:
+        drive("spec", ("ragged", "ragged_chunk", "ragged_int8"), spec_phase,
+              model, dev, engine_kw, plain=f32_run.get("streams"), card=smi)
     if "kvint8" in phases:
         kvint8_reference(model, dev, f32_run, engine_kw)
         drive("kvint8", ("ragged", "ragged_chunk", "ragged_int8"),
@@ -2618,7 +3105,8 @@ def main(argv=None) -> int:
               grad_phase, dev, dtype="bfloat16", forbid=f32_kernels)
     if "train" in phases:
         drive("train", tc_kernels, train_phase, dev, forbid=f32_kernels)
-    emit({"launches_by_path": by_path})
+    emit({"launches_by_path": by_path,
+          "chunk_row_launches_by_t": by_t_path})
 
     if kern:
         line = []
@@ -2651,6 +3139,11 @@ def main(argv=None) -> int:
                 ("ragged_chunk", "ragged_paged_attention_chunk",
                  "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                  "paddle_tpu/ops/paged_attention.py:294"),
+                # the same kernel at the verify rows' shape: its launches
+                # at T = 1 + k
+                ("ragged_verify", "ragged_paged_attention_chunk_verify",
+                 "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+                 "paddle_tpu/ops/paged_attention.py:294"),
                 ("ragged_int8", "ragged_paged_attention_int8",
                  "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                  "paddle_tpu/ops/paged_attention.py:294"),
@@ -2666,10 +3159,14 @@ def main(argv=None) -> int:
             r = kern[key]
             extra = ({"bound_f32_fma_ms": r["bound_f32_fma_ms"]}
                      if "bound_f32_fma_ms" in r else {})
+            if key == "ragged_verify":
+                by_p = {p: n.get(1 + SPEC_K, 0)
+                        for p, n in by_t_path.items()}
+            else:
+                by_p = {p: n[key] for p, n in by_path.items()}
             line.append({"name": name, "route": "cuda", "source": src,
-                         "replaces": replaces, "launches": launches[key],
-                         "launches_by_path": {p: n[key] for p, n in
-                                              by_path.items()},
+                         "replaces": replaces, "launches": sum(by_p.values()),
+                         "launches_by_path": by_p,
                          "shape": r["case"],
                          "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
                          "host_ms": r["host_ms"],

@@ -102,7 +102,11 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` over a batch: ``keys [..., 2]`` and ``data``
     (an int or an int tensor broadcastable to ``keys.shape[:-1]``) give
     ``[*broadcast, 2]``."""
-    if not isinstance(data, torch.Tensor):
+    if isinstance(data, (int, np.integer)):
+        # filled on the device: a tensor copied from the host would wait
+        # for the stream
+        data = keys.new_full((), int(data))
+    elif not isinstance(data, torch.Tensor):
         data = torch.as_tensor(data, dtype=torch.int64, device=keys.device)
     data = data.to(keys.device).long() & MASK
     y0, y1 = threefry2x32(keys[..., 0], keys[..., 1],

@@ -536,7 +536,8 @@ def gpt_cached_apply(cfg: GPTConfig, stacked, other, ck, cv, tokens, pos0,
 def gpt_ragged_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
                      tokens, tok_pos, tok_limit, row_tab, row_pos0,
                      row_len, sample_ix, decode_rows: int,
-                     chunk_width: int, kscale=None, vscale=None):
+                     chunk_width: int, spec_k: int = 0, kscale=None,
+                     vscale=None):
     """Mixed prefill/decode forward over the PAGED cache: every token in
     flight rides one call. ``tokens`` [NT] is the flat token buffer of
     one serving tick — ``decode_rows`` resident decode tokens followed by
@@ -557,7 +558,19 @@ def gpt_ragged_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
     ``[L, P, ps, NH, D]`` and are updated in place. Attention goes
     through ``ops.paged_attention.ragged_paged_attention`` once per row
     group and layer: decode rows as ``[decode_rows, 1]``, chunk rows as
-    ``[num_chunks, chunk_width]``. Returns (logits [S, V], kpool, vpool).
+    ``[num_chunks, chunk_width]``. Positions past the position table read
+    its last row, as the reference's gather clamps them. Returns (logits
+    [S, V], kpool, vpool).
+
+    ``spec_k > 0`` (speculative decoding, ``serving/spec.py``) widens
+    each of the ``decode_rows`` slot rows into a verify row of ``1 +
+    spec_k`` tokens: the flat buffer becomes ``decode_rows`` last tokens,
+    then ``decode_rows * spec_k`` draft tokens (slot-major), then the
+    chunks. The slot rows attend as one ``[decode_rows, 1 + spec_k]``
+    group and their outputs go back into flat order, so logits can be
+    sampled at every verify position. A slot that is not speculating
+    rides the group with ``row_len == 1``; its draft positions are pad
+    queries (``tok_limit == 0`` sends their KV writes to the null page).
 
     ``kscale``/``vscale`` [L, P, NH] f32: per-page per-head scales of an
     int8 pool, updated in place like the pools. When given, every token's
@@ -571,7 +584,8 @@ def gpt_ragged_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
 
     nt = tokens.shape[0]
     nd = decode_rows
-    nch = (nt - nd) // chunk_width if chunk_width else 0
+    base = nd * (1 + spec_k)
+    nch = (nt - base) // chunk_width if chunk_width else 0
     nh = cfg.num_heads
     hd = cfg.hidden_size // nh
     eps = cfg.layer_norm_eps
@@ -580,13 +594,18 @@ def gpt_ragged_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
     dev = tokens.device
     wte = other["embeddings.wte.weight"]
     wpe = other["embeddings.wpe.weight"]
-    x = (wte[tokens] + wpe[tok_pos])[:, None]           # [NT, 1, h]
+    tok_pos = tok_pos.long()
+    x = (wte[tokens] + wpe[torch.clamp(tok_pos, max=wpe.shape[0] - 1)]
+         )[:, None]                                     # [NT, 1, h]
+    # token -> ragged row; draft tokens share their slot's row
     parts = [torch.arange(nd, device=dev)]
+    if spec_k:
+        parts.append(torch.repeat_interleave(
+            torch.arange(nd, device=dev), spec_k))
     if nch:
         parts.append(torch.repeat_interleave(
             nd + torch.arange(nch, device=dev), chunk_width))
     tok_row = torch.cat(parts)
-    tok_pos = tok_pos.long()
     page = torch.where(
         tok_pos < tok_limit,
         row_tab[tok_row, torch.clamp(tok_pos // ps, max=nps - 1)],
@@ -602,14 +621,24 @@ def gpt_ragged_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
         def attend(q, kk, vv):
             paged_kv_scatter(kpl, ksl, page, off, kk[:, 0])
             paged_kv_scatter(vpl, vsl, page, off, vv[:, 0])
-            q = q.contiguous()
             outs = []
-            if nd:
+            if nd and spec_k:
+                # verify rows [nd, 1 + spec_k]: each slot's last token and
+                # its drafts as one row; outputs back into flat order
+                qv = torch.cat([q[:nd], q[nd:base, 0].reshape(
+                    nd, spec_k, nh, hd)], dim=1).contiguous()
+                ov = ragged_paged_attention(
+                    qv, kpl, vpl, row_tab[:nd], row_pos0[:nd],
+                    row_len[:nd], k_scale=ksl, v_scale=vsl)
+                outs.append(ov[:, :1])
+                outs.append(ov[:, 1:].reshape(nd * spec_k, 1, nh, hd))
+            elif nd:
                 outs.append(ragged_paged_attention(
-                    q[:nd], kpl, vpl, row_tab[:nd], row_pos0[:nd],
-                    row_len[:nd], k_scale=ksl, v_scale=vsl))
+                    q[:nd].contiguous(), kpl, vpl, row_tab[:nd],
+                    row_pos0[:nd], row_len[:nd], k_scale=ksl, v_scale=vsl))
             if nch:
-                qp = q[nd:, 0].reshape(nch, chunk_width, nh, hd)
+                qp = q[base:, 0].reshape(nch, chunk_width, nh,
+                                         hd).contiguous()
                 op = ragged_paged_attention(
                     qp, kpl, vpl, row_tab[nd:], row_pos0[nd:],
                     row_len[nd:], k_scale=ksl, v_scale=vsl)

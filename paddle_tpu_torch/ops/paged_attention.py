@@ -40,7 +40,8 @@ from . import _cuda
 
 __all__ = ["ragged_paged_attention", "paged_decode_attention",
            "paged_prefill_attention", "paged_kv_scatter", "RAGGED_LAUNCHES",
-           "RAGGED_INT8_LAUNCHES", "RAGGED_CHUNK_LAUNCHES"]
+           "RAGGED_INT8_LAUNCHES", "RAGGED_CHUNK_LAUNCHES",
+           "RAGGED_CHUNK_LAUNCHES_BY_T"]
 
 #: launches of the CUDA kernel (incremented once per launch, nowhere else)
 RAGGED_LAUNCHES = 0
@@ -49,6 +50,9 @@ RAGGED_INT8_LAUNCHES = 0
 #: those of them with T > 1 (chunk rows: the register-tiled kernel of the
 #: same source; T == 1 launches the decode-row kernel)
 RAGGED_CHUNK_LAUNCHES = 0
+#: the same launches by query rows T ({T: launches}): a verify group of
+#: speculative decoding is T = 1 + k, a prefill chunk group T = its width
+RAGGED_CHUNK_LAUNCHES_BY_T: dict = {}
 
 _NEG_INF = -1e9     # same masking constant as the reference
 #: most key splits of a chunk-row query tile (the kernel's scratch room)
@@ -217,6 +221,8 @@ def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len,
         RAGGED_INT8_LAUNCHES += 1
     if t > 1:
         RAGGED_CHUNK_LAUNCHES += 1
+        by_t = RAGGED_CHUNK_LAUNCHES_BY_T
+        by_t[t] = by_t.get(t, 0) + 1
     return out
 
 

@@ -48,11 +48,24 @@ position makes a stream independent of scheduling, preemption and its
 neighbours, and the threefry generator makes it equal to the JAX
 engine's stream on the same logits. The greedy branch is unchanged.
 
+``spec=SpecConfig(draft_model=..., k=...)`` (``serving/spec.py``) turns
+each scheduler step into a draft tick and a verify tick: the draft model
+runs up to ``k`` tokens ahead of every decoding slot, the verify tick
+scores each slot's ``1 + k`` tokens as one row of the ragged kernel, and
+acceptance (greedy: the longest prefix equal to the target's argmax;
+sampling: the rejection rule) emits up to ``k + 1`` tokens a slot. The
+emitted stream is the plain engine's, greedy or sampled. Draft pages come
+from the target pool's allocator; under pressure the engine reclaims them
+before it preempts. Each step makes one host-to-device copy of its
+metadata and reads the verify result back at its end (no deferred window
+in spec mode); with ``overlap=True`` (sampling) the next draft tick is
+enqueued on the verify tick's device outputs before that read.
+
 Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): speculative decoding (``spec``), the legacy two-dispatch mode
-(``attention_kernel="legacy"``), disaggregated export/import and prefix
-chain migration. The event timeline and recompile telemetry come with
-the profiler slice.
+ROADMAP item): the legacy two-dispatch mode (``attention_kernel="legacy"``),
+disaggregated export/import and prefix chain migration. The event
+timeline and recompile telemetry (the reference's ``compiled_sites`` and
+its ``draft``/``verify``/``accept`` events) come with the profiler slice.
 
 Profiler signals (``profiler.metrics.registry()``):
 ``serving/queue_depth``, ``serving/active_slots``, ``serving/page_util``,
@@ -65,7 +78,12 @@ Profiler signals (``profiler.metrics.registry()``):
 ``serving/prefix_hit_tokens``, ``serving/prompt_tokens``,
 ``serving/mixed_rows`` (+ ``_decode``/``_prefill``),
 ``serving/decode_batch``, ``serving/budget_cuts``, and
-``cache_share/*``.
+``cache_share/*``; in spec mode ``serving/spec_draft_ticks``,
+``spec_feed_tokens``, ``spec_chained_ticks``, ``spec_chained_consumed``,
+``spec_drafted_tokens``, ``spec_accepted_tokens``, ``spec_accept_len``,
+``spec_rows``, ``spec_k_effective``, ``spec_accept_rate``,
+``spec_draft_pages_reclaimed`` and ``draft_pool_pages``/``_share``/
+``_share_peak``.
 """
 from __future__ import annotations
 
@@ -79,15 +97,14 @@ import torch
 
 from ..core import random as _random
 from ..models.gpt import gpt_ragged_apply
-from ..ops.decoding import apply_top_k_top_p_per_row
 from ..profiler.metrics import registry as _registry
 from .paged_cache import PagePool
-from .sched import SCHED_POLICIES, ChunkScheduler
+from .sched import SCHED_POLICIES, ChunkScheduler, SpecKController
+from .spec import (DraftRunner, SpecConfig, _greedy, _sample_rows,
+                   make_spec_tick)
 
 __all__ = ["ServingConfig", "ServingEngine", "Request"]
 
-_TODO_SPEC = ("speculative decoding is not ported yet: ROADMAP queue 1 "
-              "item 5 (speculative decoding)")
 _TODO_SERVING = ("is not ported yet: ROADMAP queue 1 item 6 (serving "
                  "remainder: legacy mode, disaggregation, chain migration)")
 
@@ -118,7 +135,7 @@ class ServingConfig:
     eos_token_id: Optional[int] = None
     seed: int = 0                    # sampling keys: fold_in(key(seed), rid)
     attention_kernel: Optional[str] = None   # only 'legacy' is recognized
-    spec: Optional[object] = None            # speculative decoding config
+    spec: Optional[SpecConfig] = None        # speculative decoding
 
 
 @dataclass
@@ -152,16 +169,22 @@ class _Inflight:
 _Chunk = Tuple[int, int, int, int, int]   # (slot, rid, start, end, t0)
 
 
-def _to_device(device, *arrays):
+def _to_device(device, *arrays, pin: bool = False):
     """Ship several small host arrays in ONE host-to-device copy and
-    return device views of each, in their shapes: int arrays as int32,
-    float32 arrays as float32 and uint32 arrays (sampling keys) as int64
-    holding the uint32 values. float32 and uint32 travel as their bits."""
+    return device views of each, in their shapes: int and bool arrays as
+    int32, float32 arrays as float32 and uint32 arrays (sampling keys) as
+    int64 holding the uint32 values. float32 and uint32 travel as their
+    bits. ``pin`` (spec mode) starts the copy to a card from pinned
+    memory: a copy from pageable memory first waits for every kernel
+    queued before it, which would serialize the chained draft tick."""
     arrays = [np.ascontiguousarray(a) for a in arrays]
     flat = np.concatenate([
         (a.view(np.int32) if a.dtype in (np.float32, np.uint32)
          else a.astype(np.int32)).reshape(-1) for a in arrays])
-    buf = torch.from_numpy(flat).to(device, non_blocking=True)
+    buf = torch.from_numpy(flat)
+    if pin and torch.device(device).type == "cuda":
+        buf = buf.pin_memory()
+    buf = buf.to(device, non_blocking=True)
     out, i = [], 0
     for a in arrays:
         v = buf[i:i + a.size].view(a.shape)
@@ -172,6 +195,32 @@ def _to_device(device, *arrays):
         out.append(v)
         i += a.size
     return out
+
+
+def _to_host(*tensors):
+    """Start copying small int64 device tensors to the host and return a
+    function that waits for that copy alone and gives them as numpy
+    arrays: on a card the copy lands in pinned memory behind an event, so
+    work queued after this call (the chained draft tick) runs on while
+    the host reads."""
+    if tensors[0].device.type != "cuda":
+        out = [t.numpy() for t in tensors]
+        return lambda: out
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record()
+
+    def wait():
+        done.synchronize()
+        arr, out, i = host.numpy(), [], 0
+        for t in tensors:
+            out.append(arr[i:i + t.numel()].reshape(tuple(t.shape)))
+            i += t.numel()
+        return out
+
+    return wait
 
 
 class ServingEngine:
@@ -189,8 +238,20 @@ class ServingEngine:
         mcfg = model.config
         if cfg.decode not in ("greedy", "sampling"):
             raise ValueError(f"unknown decode mode {cfg.decode!r}")
-        if cfg.spec is not None:
-            raise NotImplementedError(_TODO_SPEC)
+        self._spec = cfg.spec
+        if self._spec is not None:
+            if cfg.attention_kernel == "legacy":
+                raise ValueError(
+                    "speculative decoding needs the unified mixed-row "
+                    "tick; attention_kernel='legacy' has no verify row "
+                    "path")
+            if self._spec.overlap and cfg.decode != "sampling":
+                raise ValueError(
+                    "spec.overlap chains the next draft tick on the "
+                    "sampled verify tick's device outputs; greedy spec "
+                    "has no chained draft build — use decode='sampling'")
+            if self._spec.k < 1:
+                raise ValueError("spec.k must be >= 1")
         if cfg.attention_kernel == "legacy":
             raise NotImplementedError(
                 "attention_kernel='legacy' " + _TODO_SERVING)
@@ -230,11 +291,19 @@ class ServingEngine:
         if self.prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
         b_slots = cfg.num_slots
+        spec_extra = 0
+        if self._spec is not None:
+            self._init_spec(model)
+            # speculation growth per slot, and draft pages freed by the
+            # rewinds (they are listed when their last reference drops)
+            spec_extra = self._spec_k // ps + 3
         # int8 pools: the fixed size of the per-tick scale-reset vector
         # (paged_cache.take_fresh), past the most one scheduler step can
-        # list: decode growth (<= 1 page per slot), the selected chunks'
-        # pages, and pages freed by finishes and preemptions in between
-        self._fresh_cap = (b_slots + cfg.prefill_chunks_per_tick
+        # list: decode growth (<= 1 page per slot), speculation growth,
+        # the selected chunks' pages, and pages freed by finishes and
+        # preemptions in between
+        self._fresh_cap = (b_slots * (1 + spec_extra)
+                           + cfg.prefill_chunks_per_tick
                            * (self.prefill_chunk // ps + 2) + 8)
         self._sched = ChunkScheduler(
             cfg.scheduler, b_slots, self.pool.slot_capacity,
@@ -264,6 +333,47 @@ class ServingEngine:
         self._topps = np.full(b_slots, cfg.top_p, np.float32)
         # request keys are host metadata: folded on the CPU at submit
         self._base_key = _random.PRNGKey(cfg.seed, device="cpu")
+
+    def _init_spec(self, model) -> None:
+        """Speculative state: the draft runner on the target pool's
+        allocator, the verify tick, the adaptive-depth controller."""
+        cfg, mcfg, spec = self.config, self.model_config, self._spec
+        dcfg = spec.draft_model.config
+        if dcfg.vocab_size != mcfg.vocab_size:
+            raise ValueError(
+                f"draft vocab_size {dcfg.vocab_size} != target "
+                f"{mcfg.vocab_size}: acceptance compares token ids")
+        if dcfg.max_seq_len < mcfg.max_seq_len:
+            raise ValueError(
+                f"draft max_seq_len {dcfg.max_seq_len} must cover "
+                f"the target's {mcfg.max_seq_len}")
+        if spec.draft_model.device != self.device:
+            raise ValueError(
+                f"draft model on {spec.draft_model.device}, target on "
+                f"{self.device}: the engine runs both on one device")
+        ns = cfg.num_slots
+        self._spec_k = int(spec.k)
+        # adaptive per-slot depth in [0, k] (None: always k)
+        self._spec_ctl = (SpecKController(ns, self._spec_k, spec.ewma_alpha,
+                                          spec.reprobe_every)
+                          if spec.adaptive else None)
+        # tick_depth() results of this step: the probe state advances once
+        # per slot per step, read at the feed loop and the depth clamp
+        self._spec_tick_depth: Dict[int, int] = {}
+        self._spec_sampling = cfg.decode == "sampling"
+        self._spec_overlap = bool(spec.overlap)
+        # the chained draft tick in flight (overlap): device drafts and
+        # probs, the host validity mask, or None
+        self._spec_pend: Optional[dict] = None
+        self._draft = DraftRunner(spec.draft_model, ns,
+                                  self.pool.slot_capacity, self._spec_k,
+                                  self.prefill_chunk, self.pool,
+                                  sampling=self._spec_sampling)
+        self._zero_drafts = torch.zeros(ns * self._spec_k, dtype=torch.long,
+                                        device=self.device)
+        self._spec_tick = make_spec_tick(mcfg, ns, self._spec_k,
+                                         self.prefill_chunk,
+                                         sampling=self._spec_sampling)
 
     # ------------------------------------------------------------------
     # public API
@@ -322,7 +432,10 @@ class ServingEngine:
         self._admit()
         chunks = self._collect_chunks()
         self._grow_pages()
-        dispatched = self._dispatch_unified(chunks)
+        if self._spec is not None:
+            dispatched = self._dispatch_spec(chunks)
+        else:
+            dispatched = self._dispatch_unified(chunks)
         reg = _registry()
         reg.gauge("serving/queue_depth").set(float(len(self._queue)))
         reg.gauge("serving/active_slots").set(
@@ -382,6 +495,7 @@ class ServingEngine:
             self._drain(0)
             if rid in self._slot_rid:
                 slot = self._slot_rid.index(rid)
+                self._spec_reset(slot)
                 self._sched.note_release(slot)
                 self.pool.release_slot(slot)
                 self._slot_rid[slot] = None
@@ -453,10 +567,25 @@ class ServingEngine:
                 tokens[:n_full * self.pool.page_size],
                 [int(p) for p in self.pool.tables[slot, :n_full]])
 
+    def _spec_reset(self, slot: int) -> None:
+        """Invalidate the slot's draft state (admission, finish,
+        preemption, cancel): the next tenant's draft cache re-feeds from
+        0."""
+        if self._spec is None:
+            return
+        self._draft.release_pages(slot)
+        if self._spec_pend is not None:
+            # a chained draft tick built on this tenant's frontier means
+            # nothing for the next one
+            self._spec_pend["valid"][slot] = False
+        if self._spec_ctl is not None:
+            self._spec_ctl.reset(slot)
+
     def _finish(self, slot: int, rid: int) -> None:
         req = self._requests[rid]
         req.done = True
         if self._slot_rid[slot] == rid:
+            self._spec_reset(slot)
             self._sched.note_release(slot)
             # cache the finished sequence's full pages before release
             seq = np.concatenate(
@@ -490,6 +619,7 @@ class ServingEngine:
             self._slot_prompt[slot] = req.prompt.shape[0]
             self._slot_dispatched[slot] = 0
             self._slot_looked_up[slot] = False
+            self._spec_reset(slot)
             self._admit_seq += 1
             self._slot_admit_seq[slot] = self._admit_seq
             self._slot_admit_t[slot] = time.perf_counter()
@@ -607,10 +737,19 @@ class ServingEngine:
         youngest. False when ``s`` itself was freed along the way."""
         if need <= 0 or self.pool.grow_slot(s, need):
             return True
+        # draft pages are worth less than target pages: reclaim them
+        # (decayed slots first, then every slot) before draining finishes
+        # or preempting a tenant
+        if self._reclaim_draft(all_slots=False) and \
+                self.pool.grow_slot(s, need):
+            return True
         self._drain(0)
         if self._slot_rid[s] is None:
             return False
         if self.pool.grow_slot(s, need):
+            return True
+        if self._reclaim_draft(all_slots=True) and \
+                self.pool.grow_slot(s, need):
             return True
         if not any(x != s and self._slot_rid[x] is not None
                    for x in range(self.config.num_slots)):
@@ -620,6 +759,30 @@ class ServingEngine:
                 "preempt")
         self._preempt_for(s, need)
         return self._slot_rid[s] is not None
+
+    def _reclaim_draft(self, all_slots: bool) -> int:
+        """Return draft pages to the pool under target-page pressure:
+        ``all_slots=False`` releases only slots whose adaptive depth has
+        decayed to 0 (they are not speculating), ``all_slots=True`` every
+        draft cache (those slots ride as plain decode rows and re-feed
+        when pressure eases). Never touches target pages. Returns pages
+        freed."""
+        if self._spec is None:
+            return 0
+        freed = 0
+        for s in range(self.config.num_slots):
+            if self._draft.aux.slot_pages(s) == 0:
+                continue
+            decayed = (self._spec_ctl is not None
+                       and self._spec_ctl.depth(s) == 0)
+            if all_slots or decayed:
+                freed += self._draft.release_pages(s)
+                if self._spec_pend is not None:
+                    self._spec_pend["valid"][s] = False
+        if freed:
+            _registry().counter(
+                "serving/spec_draft_pages_reclaimed").add(freed)
+        return freed
 
     def _ticking_slots(self) -> List[int]:
         """Slots that advance this tick: resident, prefill complete, not
@@ -662,6 +825,7 @@ class ServingEngine:
         req.queue_t = time.perf_counter()
         self._insert_prefix(victim, req.prompt, int(self._slot_len[victim]))
         self._queue.appendleft(req)
+        self._spec_reset(victim)
         self._sched.note_release(victim)
         self.pool.release_slot(victim)
         self._slot_rid[victim] = None
@@ -674,32 +838,97 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # unified dispatch: ONE forward per scheduler step
     # ------------------------------------------------------------------
-    def _dispatch_unified(self, chunks: List[_Chunk]) -> bool:
-        """Assemble and run the mixed-row tick: one decode row per slot
-        (inactive slots write to the null page through their zeroed table
-        rows) plus one ``prefill_chunk``-token row block per selected
-        chunk. A chunk whose slot lost its request since selection is
-        dropped."""
-        chunks = [c for c in chunks if self._slot_rid[c[0]] == c[1]]
-        ticking = self._ticking_slots()
-        if not ticking and not chunks:
-            return False
+    def _tick_layout(self, chunks: List[_Chunk], base: int):
+        """The host metadata of a tick's rows, shared by the unified and
+        the verify tick: one row per slot at flat positions ``0..ns-1``
+        (its frontier; inactive slots write to the null page through
+        their zeroed table rows), a section ``ns..base-1`` the caller
+        fills (the verify tick's drafts; empty in the unified tick), then
+        one ``prefill_chunk``-token row block per chunk at ``base + c *
+        w``. A chunked slot's own row sits at the post-chunk frontier (it
+        garbage-writes there, overwritten by the next real token).
+
+        Returns ``(pf_toks, tok_pos, tok_limit, row_tab, row_pos0,
+        row_len, finishers)``; ``finishers`` lists ``(slot, rid, flat
+        index of the prompt's last token, prompt length)`` for each chunk
+        that completes its prompt."""
         ns = self.config.num_slots
         w = self.prefill_chunk
         npf = self.config.prefill_chunks_per_tick
-        nps = self.pool.pages_per_slot
         cap = self.pool.slot_capacity
-        nt = ns + npf * w
+        nt = base + npf * w
         pf_toks = np.zeros(npf * w, np.int32)
         tok_pos = np.zeros(nt, np.int32)
         tok_limit = np.zeros(nt, np.int32)   # pad rows: limit 0 -> null page
         tok_pos[:ns] = self._slot_len
         tok_limit[:ns] = cap
-        row_tab = np.zeros((ns + npf, nps), np.int32)
+        row_tab = np.zeros((ns + npf, self.pool.pages_per_slot), np.int32)
         row_tab[:ns] = self.pool.tables
         row_pos0 = np.zeros(ns + npf, np.int32)
         row_pos0[:ns] = self._slot_len
         row_len = np.ones(ns + npf, np.int32)
+        finishers = []
+        for c, (s, rid, start, end, t0) in enumerate(chunks):
+            coff = base + c * w
+            req = self._requests[rid]
+            pf_toks[c * w:c * w + (end - start)] = req.prompt[start:end]
+            tok_pos[coff:coff + w] = start + np.arange(w)
+            tok_limit[coff:coff + w] = t0
+            row_tab[ns + c] = self.pool.tables[s]
+            row_pos0[ns + c] = start
+            row_len[ns + c] = end - start
+            tok_pos[s] = end
+            row_pos0[s] = end
+            if end >= t0:
+                finishers.append((s, rid, coff + (t0 - 1 - start), t0))
+        return (pf_toks, tok_pos, tok_limit, row_tab, row_pos0, row_len,
+                finishers)
+
+    def _take_fresh(self) -> np.ndarray:
+        """int8 pools: drain the pending scale resets for this tick's
+        head, BEFORE the scale tensors are used (the overflow path
+        rewrites them at once); empty for float pools."""
+        if self.pool.quantized:
+            return self.pool.take_fresh(self._fresh_cap)
+        return np.zeros(0, np.int32)
+
+    def _commit_chunks(self, chunks: List[_Chunk]) -> None:
+        """The dispatched chunks' frontiers commit; a completed prompt
+        counts its prefill, and the pages each chunk completed are
+        published in the prefix index."""
+        reg = _registry()
+        for s, rid, start, end, t0 in chunks:
+            self._slot_len[s] = end
+            if end >= t0:
+                self._slot_dispatched[s] = 1
+                reg.counter("serving/prefills").add(1)
+            self._insert_prefix(s, self._requests[rid].prompt, end)
+
+    def _tick_gauges(self, ticking: List[int],
+                     chunks: List[_Chunk]) -> None:
+        reg = _registry()
+        reg.counter("serving/ticks").add(1)
+        if chunks:
+            reg.counter("serving/prefill_chunks").add(len(chunks))
+        reg.gauge("serving/decode_batch").set(float(len(ticking)))
+        reg.gauge("serving/mixed_rows").set(float(len(ticking)
+                                                  + len(chunks)))
+        reg.gauge("serving/mixed_rows_decode").set(float(len(ticking)))
+        reg.gauge("serving/mixed_rows_prefill").set(float(len(chunks)))
+
+    def _dispatch_unified(self, chunks: List[_Chunk]) -> bool:
+        """Assemble and run the mixed-row tick: one decode row per slot
+        plus one ``prefill_chunk``-token row block per selected chunk
+        (``_tick_layout``). A chunk whose slot lost its request since
+        selection is dropped."""
+        chunks = [c for c in chunks if self._slot_rid[c[0]] == c[1]]
+        ticking = self._ticking_slots()
+        if not ticking and not chunks:
+            return False
+        ns = self.config.num_slots
+        npf = self.config.prefill_chunks_per_tick
+        (pf_toks, tok_pos, tok_limit, row_tab, row_pos0, row_len,
+         finishers) = self._tick_layout(chunks, ns)
         sample_ix = np.zeros(ns, np.int32)
         # the absolute position of the token each row emits: the sampling
         # law folds it into the slot's key
@@ -709,32 +938,14 @@ class ServingEngine:
             sample_ix[s] = s
             sample_pos[s] = self._slot_len[s] + 1
             emit[s] = 1
-        finishers = []
-        for c, (s, rid, start, end, t0) in enumerate(chunks):
-            base = ns + c * w
-            req = self._requests[rid]
-            pf_toks[c * w:c * w + (end - start)] = req.prompt[start:end]
-            tok_pos[base:base + w] = start + np.arange(w)
-            tok_limit[base:base + w] = t0
-            row_tab[ns + c] = self.pool.tables[s]
-            row_pos0[ns + c] = start
-            row_len[ns + c] = end - start
-            # the slot's decode row sits at the post-chunk frontier (it
-            # garbage-writes there, overwritten by the next real token)
-            tok_pos[s] = end
-            row_pos0[s] = end
-            if end >= t0:
-                finishers.append((s, rid))
-                sample_ix[s] = base + (t0 - 1 - start)
-                sample_pos[s] = t0
-                emit[s] = 1
+        for s, _, ix, t0 in finishers:
+            sample_ix[s] = ix
+            sample_pos[s] = t0
+            emit[s] = 1
         # a tick without chunks runs the decode rows alone
-        n_tok, n_row = (nt, ns + npf) if chunks else (ns, ns)
+        n_tok, n_row = (tok_pos.size, ns + npf) if chunks else (ns, ns)
         pool = self.pool
-        # int8 pools: drain the pending scale resets BEFORE the scale
-        # tensors are used (the overflow path rewrites them at once)
-        fresh = pool.take_fresh(self._fresh_cap) if pool.quantized \
-            else np.zeros(0, np.int32)
+        fresh = self._take_fresh()
         law = (sample_pos, self._keys, self._temps, self._topks,
                self._topps) if self.config.decode == "sampling" else ()
         with torch.inference_mode():
@@ -745,45 +956,330 @@ class ServingEngine:
                 sample_ix, emit, fresh, *law)
             tokens = torch.cat([self._last_tok, pf_d.long()]) if chunks \
                 else self._last_tok
-            scales = {}
-            if pool.quantized:
-                # the tick's scale reset (fresh pads with the null page,
-                # whose scale is 0)
-                pool.k_scale.index_fill_(1, fresh_d.long(), 0.0)
-                pool.v_scale.index_fill_(1, fresh_d.long(), 0.0)
-                scales = dict(kscale=pool.k_scale, vscale=pool.v_scale)
             logits = gpt_ragged_apply(
                 self.model_config, self._stacked, self._other,
                 pool.k, pool.v, tokens, pos_d, lim_d, tab_d,
-                p0_d, len_d, six_d.long(), decode_rows=ns, chunk_width=w,
-                **scales)[0]
+                p0_d, len_d, six_d.long(), decode_rows=ns,
+                chunk_width=self.prefill_chunk,
+                **pool.tick_scales(fresh_d))[0]
             tok = self._sample_tok(logits, *law_d)
             self._last_tok = torch.where(emit_d.bool(), tok, self._last_tok)
         meta = [(s, s, self._slot_rid[s]) for s in ticking]
-        meta += [(s, s, rid) for s, rid in finishers]
+        meta += [(s, s, rid) for s, rid, _, _ in finishers]
         if meta:
             self._inflight.append(_Inflight(tok, meta))
         self.max_inflight_seen = max(self.max_inflight_seen,
                                      len(self._inflight))
-        reg = _registry()
         for s in ticking:
             self._slot_len[s] += 1
             self._slot_dispatched[s] += 1
-        for s, rid, start, end, t0 in chunks:
-            self._slot_len[s] = end
-            if end >= t0:
-                self._slot_dispatched[s] = 1
-                reg.counter("serving/prefills").add(1)
-            # publish the pages this chunk completed
-            self._insert_prefix(s, self._requests[rid].prompt, end)
-        reg.counter("serving/ticks").add(1)
-        if chunks:
-            reg.counter("serving/prefill_chunks").add(len(chunks))
-        reg.gauge("serving/decode_batch").set(float(len(ticking)))
-        reg.gauge("serving/mixed_rows").set(float(len(ticking)
-                                                  + len(chunks)))
-        reg.gauge("serving/mixed_rows_decode").set(float(len(ticking)))
-        reg.gauge("serving/mixed_rows_prefill").set(float(len(chunks)))
+        self._commit_chunks(chunks)
+        self._tick_gauges(ticking, chunks)
+        return True
+
+    # ------------------------------------------------------------------
+    # speculative decoding: a draft tick runs k tokens ahead per caught-up
+    # slot, then ONE verify/mixed tick scores every slot's (1+k)-token row
+    # through the same ragged call that carries the prefill chunks. The
+    # host reads each verify result (acceptance decides the next step's
+    # positions); the emitted stream is the target's own.
+    # ------------------------------------------------------------------
+    def _dispatch_spec(self, chunks: List[_Chunk]) -> bool:
+        """One spec scheduler step: (1) the draft tick's plan: catch-up
+        feed for slots behind the accepted frontier, ``k`` draft steps for
+        caught-up decoding slots; slots with a valid chained draft
+        (overlap) skip it, their drafts came from the previous step; (2)
+        each slot's depth ``k_s``, clamped by its remaining budget, target
+        page headroom and draft page headroom (growth is best effort,
+        never preempting a co-resident to speculate deeper); (3) the
+        verify/mixed tick's metadata; (4) under overlap, the next draft
+        tick's chained frontier. All of it goes to the device in one copy,
+        then the draft tick, the verify tick and the chained draft tick are
+        enqueued, and the host reads the verify result, which the chained
+        tick does not wait for; (5) absorb: append the accepted prefix and
+        the correction, rewind both frontiers past the rejected tail and
+        return their pages, check the chained tick against what
+        absorbed."""
+        chunks = [c for c in chunks if self._slot_rid[c[0]] == c[1]]
+        ticking = self._ticking_slots()
+        if not ticking and not chunks:
+            return False
+        ns = self.config.num_slots
+        k = self._spec_k
+        w = self.prefill_chunk
+        cap = self.pool.slot_capacity
+        dr = self._draft
+        reg = _registry()
+        ticking_set = set(ticking)
+        self._spec_tick_depth.clear()
+        sampling = self._spec_sampling
+        pend = self._spec_pend
+
+        # ---- (1) the draft tick: feed + generate ----
+        feed_toks = np.zeros((ns, w), np.int32)
+        feed_pos0 = np.zeros(ns, np.int32)
+        feed_len = np.zeros(ns, np.int32)
+        gen_tok = np.zeros(ns, np.int32)
+        gen_pos = np.full(ns, cap, np.int32)   # cap: null-routed
+        last_tok = np.zeros(ns, np.int32)
+        gen_slots: List[int] = []
+        chained: List[int] = []   # slots riding the pending chained tick
+        for s, rid in enumerate(self._slot_rid):
+            if rid is None:
+                continue
+            req = self._requests[rid]
+            if s in ticking_set:
+                last_tok[s] = req.out[-1]
+            pend_ok = pend is not None and bool(pend["valid"][s])
+            if self._spec_ctl is not None:
+                self._spec_tick_depth[s] = self._spec_ctl.tick_depth(s)
+                if self._spec_tick_depth[s] == 0:
+                    # decayed to depth 0: a plain decode row, out of the
+                    # draft tick (feeding a cache nobody verifies is pure
+                    # cost) until a reset or a re-probe
+                    if pend_ok:
+                        pend["valid"][s] = False
+                    continue
+            if pend_ok:
+                if s in ticking_set and req.max_new - len(req.out) >= 2:
+                    # the chained tick already seeded past this frontier
+                    # and drafted k tokens: no feed, no generate
+                    chained.append(s)
+                    continue
+                pend["valid"][s] = False
+            behind = int(self._slot_len[s]) - int(dr.len[s])
+            fed = 0
+            if behind > 0:
+                # catch the draft cache up toward the accepted frontier:
+                # prompt tokens (admission, prefix hits the draft never
+                # saw) and emitted tokens ride the same chunk-shaped feed
+                fed = min(behind, w)
+                lo = int(dr.len[s])
+                if not dr.grow_for(s, lo + fed):
+                    # best effort: feed only as far as held pages reach
+                    fed = max(0, min(fed, dr.held_tokens(s) - lo))
+                if fed:
+                    seq = np.concatenate(
+                        [req.prompt, np.asarray(req.out, np.int32)])
+                    feed_toks[s, :fed] = seq[lo:lo + fed]
+                    feed_pos0[s] = lo
+                    feed_len[s] = fed
+            if s in ticking_set and behind - fed == 0 and \
+                    req.max_new - len(req.out) >= 2 and \
+                    dr.grow_for(s, min(int(self._slot_len[s]) + k, cap)):
+                gen_tok[s] = req.out[-1]
+                gen_pos[s] = int(self._slot_len[s])
+                gen_slots.append(s)
+        any_feed = bool(feed_len.any())
+        # the draft tick's tables, before the chain's growth below
+        dtab = dr.aux.tables.copy()
+
+        # ---- (2) per-slot speculation depth (host-deterministic) ----
+        k_arr = np.zeros(ns, np.int32)
+        for s in gen_slots + chained:
+            req = self._requests[self._slot_rid[s]]
+            pos0 = int(self._slot_len[s])
+            ks = min(k, req.max_new - len(req.out) - 1, cap - 1 - pos0)
+            if self._spec_ctl is not None:
+                ks = min(ks, self._spec_tick_depth.get(
+                    s, self._spec_ctl.depth(s)))
+            if ks <= 0:
+                continue
+            need = self.pool.pages_for(pos0 + ks + 1) \
+                - self.pool.slot_pages(s)
+            if need > 0 and not self.pool.grow_slot(s, need):
+                # pool pressure: speculate only as deep as held pages
+                # reach (k_s may reach 0: a plain decode row)
+                ks = min(ks, self.pool.slot_pages(s) * self.pool.page_size
+                         - pos0 - 1)
+            if ks > 0:
+                k_arr[s] = ks
+        has_drafts = bool(k_arr.any())
+
+        # ---- (3) the verify/mixed tick ----
+        base = ns * (1 + k)
+        (pf_toks, tok_pos, tok_limit, row_tab, row_pos0, row_len,
+         finishers) = self._tick_layout(chunks, base)
+        # the draft section: slot s's k drafts at ns + s * k + j, verified
+        # at positions slot_len + 1 + j (live only below its depth)
+        dj = np.arange(k)[None, :]
+        tok_pos[ns:base] = (self._slot_len[:, None] + 1 + dj).reshape(-1)
+        tok_limit[ns:base] = np.where(dj < k_arr[:, None], cap, 0) \
+            .reshape(-1)
+        row_len[:ns] += k_arr
+        sample = np.zeros((ns, 1 + k), np.int32)
+        sample[:, 0] = np.arange(ns)
+        sample[:, 1:] = ns + np.arange(ns)[:, None] * k + dj
+        # each slot's primary token folds at slot_len + 1, a prefill
+        # finisher's at t0 (the sampling law's positions)
+        sample_pos = (self._slot_len + 1).astype(np.int32)
+        for s, _, ix, t0 in finishers:
+            sample[s, 0] = ix
+            sample_pos[s] = t0
+        finishers = [(s, rid) for s, rid, _, _ in finishers]
+        pool = self.pool
+        fresh = self._take_fresh()
+
+        # ---- (4) overlap: the next draft tick's chained frontier ----
+        cm2 = np.zeros(ns, bool)
+        ch_pos0 = np.zeros(ns, np.int32)
+        if sampling and self._spec_overlap and has_drafts:
+            for s in np.nonzero(k_arr)[0]:
+                s = int(s)
+                req = self._requests[self._slot_rid[s]]
+                pos0 = int(self._slot_len[s])
+                # the chained steps write draft positions up to pos0 + acc
+                # + k <= pos0 + ks + k: chain only where held draft pages
+                # cover that (a refusal means a catch-up tick next step)
+                if req.max_new - len(req.out) < 2 or not dr.grow_for(
+                        s, min(pos0 + int(k_arr[s]) + k + 1, cap)):
+                    continue
+                cm2[s] = True
+                ch_pos0[s] = pos0
+        cm = np.zeros(ns, bool)
+        cm[chained] = True
+        law = (self._keys, sample_pos, self._temps, self._topks,
+               self._topps) if sampling else ()
+
+        with torch.inference_mode():
+            (dtab_d, ftok_d, fpos_d, flen_d, gtok_d, gpos_d, last_d, pf_d,
+             pos_d, lim_d, tab_d, p0_d, len_d, six_d, kd_d, cm_d, dtab2_d,
+             chp_d, cm2_d, fresh_d, *law_d) = _to_device(
+                self.device, dtab, feed_toks, feed_pos0, feed_len, gen_tok,
+                gen_pos, last_tok, pf_toks, tok_pos, tok_limit, row_tab,
+                row_pos0, row_len, sample.reshape(-1), k_arr, cm,
+                dr.aux.tables, ch_pos0, cm2, fresh, *law, pin=True)
+            # (keys, temps, top_ks, top_ps): the draft steps' law
+            dlaw = (law_d[0], *law_d[2:]) if sampling else None
+            drafts = dprobs = None
+            if any_feed or gen_slots:
+                out = dr.tick(dr.stacked, dr.other, dr.kc, dr.vc, dtab_d,
+                              ftok_d, fpos_d, flen_d, gtok_d, gpos_d,
+                              any_feed, bool(gen_slots), law=dlaw)
+                drafts, dprobs = out if sampling else (out, None)
+                dr.len += feed_len
+                reg.counter("serving/spec_draft_ticks").add(1)
+                if any_feed:
+                    reg.counter("serving/spec_feed_tokens").add(
+                        int(feed_len.sum()))
+            if chained:
+                # splice the pending chained drafts (the previous step's
+                # device outputs) over this step's
+                cmb = cm_d.bool()
+                if drafts is None:
+                    drafts = torch.zeros_like(pend["drafts"])
+                    dprobs = torch.zeros_like(pend["probs"])
+                drafts = torch.where(cmb[:, None], pend["drafts"], drafts)
+                dprobs = torch.where(cmb[:, None, None], pend["probs"],
+                                     dprobs)
+                reg.counter("serving/spec_chained_consumed").add(
+                    len(chained))
+            draft_flat = self._zero_drafts if drafts is None \
+                else drafts.reshape(-1)
+            tok_m, acc = self._spec_tick(
+                self._stacked, self._other, pool.k, pool.v, last_d.long(),
+                draft_flat, pf_d.long(), pos_d, lim_d, tab_d, p0_d, len_d,
+                six_d.long(), kd_d, bool(chunks), has_drafts,
+                scales=pool.tick_scales(fresh_d),
+                law=tuple(law_d) if sampling else None, draft_probs=dprobs)
+            fetch = _to_host(tok_m, acc)
+            pend_new = None
+            if cm2.any():
+                # enqueued behind the verify tick, before the host reads
+                # it: the read and the absorb below overlap this tick
+                ch_drafts, ch_probs = dr.tick(
+                    dr.stacked, dr.other, dr.kc, dr.vc, dtab2_d, None, None,
+                    None, torch.zeros_like(chp_d),
+                    torch.full_like(chp_d, cap), False, True, law=dlaw,
+                    chain=(tok_m, acc, chp_d, cm2_d.bool()))
+                pend_new = {"drafts": ch_drafts, "probs": ch_probs,
+                            "valid": cm2}
+                reg.counter("serving/spec_draft_ticks").add(1)
+                reg.counter("serving/spec_chained_ticks").add(1)
+        # install before the absorb, so _finish/_spec_reset invalidate the
+        # right entries
+        self._spec_pend = pend_new
+
+        self._commit_chunks(chunks)
+
+        # ---- (5) absorb: acceptance, rewind, finishes ----
+        toks, accs = fetch()
+        reg.counter("serving/token_syncs").add(1)
+        now = time.perf_counter()
+        eos = self.config.eos_token_id
+        for s, rid in [(t, self._slot_rid[t]) for t in ticking] + finishers:
+            req = self._requests[rid]
+            ks = int(k_arr[s])
+            a = min(int(accs[s]), ks) if ks else 0
+            pos0 = int(self._slot_len[s])
+            emitted = 0
+            finished = False
+            for j in range(a + 1):
+                tok = int(toks[s, j])
+                req.out.append(tok)
+                emitted += 1
+                reg.counter("serving/tokens_generated").add(1)
+                if req.first_token_t is None:
+                    req.first_token_t = now
+                    reg.histogram("serving/ttft_ms").observe(
+                        (now - req.submit_t) * 1000.0)
+                if (eos is not None and tok == eos) or \
+                        len(req.out) >= req.max_new:
+                    finished = True
+                    break
+            if s in ticking_set:
+                # the accepted prefix's KV is in the cache (this verify
+                # row wrote it); the rejected tail is truncated off
+                self._slot_len[s] = pos0 + emitted
+                if ks:
+                    gained = emitted - 1
+                    reg.counter("serving/spec_drafted_tokens").add(ks)
+                    reg.counter("serving/spec_accepted_tokens").add(gained)
+                    reg.histogram("serving/spec_accept_len").observe(
+                        float(gained))
+                    if self._spec_ctl is not None:
+                        self._spec_ctl.observe(s, gained, ks)
+                if s in gen_slots or s in chained:
+                    # the chained tick's seed assumed the whole accepted
+                    # prefix and the correction were emitted and the slot
+                    # keeps ticking; anything else (EOS, the budget)
+                    # invalidates it and the slot catches up next step
+                    if (pend_new is not None and bool(pend_new["valid"][s])
+                            and not finished and emitted == a + 1
+                            and len(req.out) < req.max_new):
+                        # the chained tick wrote the seed at the new
+                        # frontier (and healed a fully accepted row)
+                        dr.len[s] = pos0 + emitted
+                    else:
+                        if pend_new is not None:
+                            pend_new["valid"][s] = False
+                        # the draft's own speculation wrote the accepted
+                        # tokens' KV; pages past its frontier go back
+                        dr.rewind(s, pos0 + min(emitted, k))
+                if not finished and ks:
+                    # rewind: pages past the new frontier (+1 position of
+                    # headroom for the next write) go back to the pool;
+                    # refcounts keep shared pages alive
+                    self.pool.shrink_slot(s, self.pool.pages_for(
+                        int(self._slot_len[s]) + 1))
+            self._slot_dispatched[s] = len(req.out)
+            if finished:
+                self._finish(s, rid)
+        self._tick_gauges(ticking, chunks)
+        reg.gauge("serving/spec_rows").set(float(int((k_arr > 0).sum())))
+        # mean offered depth across speculating slots this tick
+        reg.gauge("serving/spec_k_effective").set(
+            float(k_arr[k_arr > 0].mean()) if has_drafts else 0.0)
+        drafted = reg.counter("serving/spec_drafted_tokens").value
+        if drafted:
+            reg.gauge("serving/spec_accept_rate").set(
+                reg.counter("serving/spec_accepted_tokens").value / drafted)
+        # the draft cache's share of the shared pool
+        dp = dr.aux.total_pages()
+        reg.gauge("serving/draft_pool_pages").set(float(dp))
+        share = dp / max(pool.allocator.num_allocated, 1)
+        reg.gauge("serving/draft_pool_share").set(share)
+        reg.gauge("serving/draft_pool_share_peak").set_max(share)
         return True
 
     @staticmethod
@@ -793,11 +1289,9 @@ class ServingEngine:
         given): argmax of the f32 log-softmax (the reference's greedy
         branch). Sampling: each row's temperature/top-k/top-p, then a
         categorical draw under the row's key folded by the absolute
-        ``positions`` of the emitted tokens, all rows at once."""
+        ``positions`` of the emitted tokens, all rows at once. Both are
+        ``serving/spec.py``'s spellings, which the spec ticks share."""
         if keys is None:
-            lp = torch.log_softmax(logits.float(), dim=-1)
-            return torch.argmax(lp, dim=-1)
-        lg = logits.float() / torch.clamp(temps, min=1e-6)[:, None]
-        lg = apply_top_k_top_p_per_row(lg, top_ks, top_ps)
-        lp = torch.log_softmax(lg, dim=-1)
-        return _random.categorical(_random.fold_in(keys, positions), lp)
+            return _greedy(logits)
+        return _sample_rows(logits, keys, positions, temps, top_ks,
+                            top_ps)[0]

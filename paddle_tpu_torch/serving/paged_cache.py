@@ -24,8 +24,10 @@ tenant, so pages are listed for a scale reset when they are allocated and
 when their last reference drops, and the engine resets the listed rows at
 the head of the next tick.
 
-Not in this slice: the auxiliary page tables of speculative decoding and
-the chain hashes of the serving mesh.
+Speculative decoding's draft KV draws its pages from the same allocator
+through ``AuxPageTable`` (registered with the pool, so the consistency
+audit counts its holds), and a rejected speculative tail is rewound with
+``shrink_slot``. Not in this slice: the chain hashes of the serving mesh.
 """
 from __future__ import annotations
 
@@ -276,7 +278,78 @@ class PrefixCache:
         return len(order)
 
 
-class PagePool:
+class _SlotTables:
+    """Per-slot page tables over a shared allocator: ``tables`` [slots,
+    pages_per_slot] int32 (the held pages, then the null page) and
+    ``_held``, each slot's pages in position order."""
+
+    allocator: PageAllocator
+    prefix: Optional[PrefixCache]
+    pages_per_slot: int
+    tables: np.ndarray
+    _held: List[List[int]]
+
+    def slot_pages(self, slot: int) -> int:
+        return len(self._held[slot])
+
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        """Allocate ``n`` pages, evicting unreferenced prefix-cache pages
+        LRU-first when the free list alone can't cover it."""
+        got = self.allocator.alloc(n)
+        if got is None and self.prefix is not None:
+            self.prefix.evict_for(n - self.allocator.num_free)
+            got = self.allocator.alloc(n)
+        return got
+
+    def grow_slot(self, slot: int, n_pages: int) -> bool:
+        """Extend ``slot`` by ``n_pages`` fresh pages; False (untouched)
+        when the pool can't cover it."""
+        if n_pages <= 0:
+            return True
+        held = self._held[slot]
+        if len(held) + n_pages > self.pages_per_slot:
+            raise ValueError(
+                f"slot {slot} would exceed pages_per_slot="
+                f"{self.pages_per_slot}")
+        got = self._alloc(n_pages)
+        if got is None:
+            return False
+        self.tables[slot, len(held):len(held) + n_pages] = got
+        held.extend(got)
+        return True
+
+    def shrink_slot(self, slot: int, keep_pages: int) -> int:
+        """Release the slot's pages BEYOND the first ``keep_pages`` (the
+        speculative rewind: the rejected tail truncates the slot's frontier
+        and pages past the new length go back to the pool). Refcount-safe
+        like ``release_slot``: only this slot's reference is dropped, so a
+        page the prefix index or another slot still holds survives; the
+        zeroed table tail can never be gathered. No-op when the slot holds
+        ``<= keep_pages``. Returns how many references were dropped."""
+        if keep_pages < 0:
+            raise ValueError("keep_pages must be >= 0")
+        held = self._held[slot]
+        drop = held[keep_pages:]
+        if not drop:
+            return 0
+        self.allocator.free(drop)
+        del held[keep_pages:]
+        self.tables[slot, keep_pages:] = NULL_PAGE
+        return len(drop)
+
+    def release_slot(self, slot: int) -> int:
+        """Drop ``slot``'s reference on all of its pages and zero its table
+        row. Idempotent. Returns how many references were dropped."""
+        held = self._held[slot]
+        n = len(held)
+        if n:
+            self.allocator.free(held)
+        self._held[slot] = []
+        self.tables[slot, :] = NULL_PAGE
+        return n
+
+
+class PagePool(_SlotTables):
     """Device page pools for all layers + host page tables for all slots."""
 
     def __init__(self, num_layers: int, num_pages: int, page_size: int,
@@ -318,6 +391,14 @@ class PagePool:
         self.tables = np.zeros((num_slots, pages_per_slot), np.int32)
         # pages held per slot, in position order (prefix of the table row)
         self._held: List[List[int]] = [[] for _ in range(num_slots)]
+        # auxiliary page tables (the speculative draft KV) drawing from the
+        # same allocator: registered so check_consistency counts their holds
+        self._aux: List["AuxPageTable"] = []
+
+    def register_aux(self, aux: "AuxPageTable") -> None:
+        """Register an auxiliary table whose pages come from this pool's
+        allocator: its holds join the consistency audit."""
+        self._aux.append(aux)
 
     @property
     def slot_capacity(self) -> int:
@@ -334,16 +415,10 @@ class PagePool:
     def pages_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.page_size)
 
-    def slot_pages(self, slot: int) -> int:
-        return len(self._held[slot])
-
     def _alloc(self, n: int) -> Optional[List[int]]:
-        """Allocate ``n`` pages, evicting unreferenced prefix-cache pages
-        LRU-first when the free list alone can't cover it."""
-        got = self.allocator.alloc(n)
-        if got is None and self.prefix is not None:
-            self.prefix.evict_for(n - self.allocator.num_free)
-            got = self.allocator.alloc(n)
+        """``_SlotTables._alloc``, listing the pages of an int8 pool for a
+        scale reset."""
+        got = super()._alloc(n)
         if got is not None and self.quantized:
             self._fresh.extend(got)
         return got
@@ -363,6 +438,18 @@ class PagePool:
         out = np.zeros(cap, np.int32)
         out[:len(fresh)] = fresh
         return out
+
+    def tick_scales(self, fresh: torch.Tensor) -> dict:
+        """The head of a tick: on int8 pools, zero the scale rows of the
+        ``fresh`` pages (``take_fresh``'s vector on the device; its null
+        page padding has scale 0 anyway), so recycled pages start their
+        running-max scale at 0, and return the scale keywords of
+        ``gpt_ragged_apply``. ``{}`` for float pools."""
+        if not self.quantized:
+            return {}
+        self.k_scale.index_fill_(1, fresh.long(), 0.0)
+        self.v_scale.index_fill_(1, fresh.long(), 0.0)
+        return dict(kscale=self.k_scale, vscale=self.v_scale)
 
     def reset_scales(self, pages) -> None:
         """Zero the scale rows of ``pages`` in place, all layers."""
@@ -384,23 +471,6 @@ class PagePool:
             page = int(page)
             self._fresh[:] = [p for p in self._fresh if p != page]
 
-    def grow_slot(self, slot: int, n_pages: int) -> bool:
-        """Extend ``slot`` by ``n_pages`` fresh pages; False (untouched)
-        when the pool can't cover it."""
-        if n_pages <= 0:
-            return True
-        held = self._held[slot]
-        if len(held) + n_pages > self.pages_per_slot:
-            raise ValueError(
-                f"slot {slot} would exceed pages_per_slot="
-                f"{self.pages_per_slot}")
-        got = self._alloc(n_pages)
-        if got is None:
-            return False
-        self.tables[slot, len(held):len(held) + n_pages] = got
-        held.extend(got)
-        return True
-
     def share_into_slot(self, slot: int, pages) -> None:
         """Alias already-allocated ``pages`` (a cached prefix) into the
         next table positions of ``slot``, taking one refcount each."""
@@ -415,17 +485,6 @@ class PagePool:
         self.tables[slot, len(held):len(held) + len(pages)] = \
             np.asarray(pages, np.int32)
         held.extend(int(p) for p in pages)
-
-    def release_slot(self, slot: int) -> int:
-        """Drop ``slot``'s reference on all of its pages and zero its table
-        row. Idempotent. Returns how many references were dropped."""
-        held = self._held[slot]
-        n = len(held)
-        if n:
-            self.allocator.free(held)
-        self._held[slot] = []
-        self.tables[slot, :] = NULL_PAGE
-        return n
 
     def drop_prefix_cache(self) -> int:
         """Flush the prefix index. Returns entries dropped."""
@@ -445,26 +504,33 @@ class PagePool:
             self.claim_fresh(dst)
 
     def check_consistency(self) -> List[str]:
-        """Audit the host-side refcount invariants. Returns violation
+        """Audit the host-side refcount invariants over the slot tables, the
+        prefix index and every registered auxiliary table. Returns violation
         strings (empty = consistent)."""
         out = []
         holds: Dict[int, int] = {}
-        for slot, held in enumerate(self._held):
-            row = self.tables[slot]
-            for i, pg in enumerate(held):
-                holds[pg] = holds.get(pg, 0) + 1
-                if int(row[i]) != pg:
-                    out.append(f"slot {slot} table[{i}]={int(row[i])} "
-                               f"!= held page {pg}")
-            for i in range(len(held), self.pages_per_slot):
-                if int(row[i]) != NULL_PAGE:
-                    out.append(f"slot {slot} table[{i}]="
-                               f"{int(row[i])} past the held prefix")
-            if NULL_PAGE in held:
-                out.append(f"slot {slot} holds the null page")
+
+        def audit(what, held_rows, tables, width):
+            for slot, held in enumerate(held_rows):
+                row = tables[slot]
+                for i, pg in enumerate(held):
+                    holds[pg] = holds.get(pg, 0) + 1
+                    if int(row[i]) != pg:
+                        out.append(f"{what}slot {slot} table[{i}]="
+                                   f"{int(row[i])} != held page {pg}")
+                for i in range(len(held), width):
+                    if int(row[i]) != NULL_PAGE:
+                        out.append(f"{what}slot {slot} table[{i}]="
+                                   f"{int(row[i])} past the held prefix")
+                if NULL_PAGE in held:
+                    out.append(f"{what}slot {slot} holds the null page")
+
+        audit("", self._held, self.tables, self.pages_per_slot)
         if self.prefix is not None:
             for pg in self.prefix.pages():
                 holds[pg] = holds.get(pg, 0) + 1
+        for ax, aux in enumerate(self._aux):
+            audit(f"aux {ax} ", aux._held, aux.tables, aux.pages_per_slot)
         alloc = self.allocator
         for pg, want in holds.items():
             have = alloc.refcount(pg)
@@ -477,4 +543,50 @@ class PagePool:
                 out.append(f"page {pg} allocated but held by nobody")
         if len(alloc._free) + len(alloc._ref) != alloc.num_pages - 1:
             out.append("free + allocated != allocatable")
+        if set(alloc._free) != alloc._free_set:
+            out.append("free list and free set disagree")
         return out
+
+
+class AuxPageTable(_SlotTables):
+    """Per-slot page tables of an auxiliary KV cache (the speculative
+    DRAFT model's) drawing pages from the SAME allocator as the target
+    pool: one id space and one refcount economy, so draft and target bytes
+    compete and the engine can reclaim draft pages before it preempts.
+
+    Growth evicts unreferenced prefix-cache pages like the primary
+    tables'. Unlike them, allocations are not listed for an int8 scale
+    reset (the draft cache is its own tensor, so the target's scale
+    row of a draft-held page is never read; the allocator's hook lists the
+    page when its last reference drops, which is when the target pool could
+    next gather it), and there is no sharing, copy-on-write or prefix leg:
+    draft pages are private to their slot (refcount 1).
+
+    It holds the pool's allocator, prefix index and page size, not the
+    pool, so the pool's registration of it makes no reference cycle.
+    """
+
+    def __init__(self, pool: PagePool, num_slots: int,
+                 pages_per_slot: Optional[int] = None):
+        self.allocator = pool.allocator
+        self.prefix = pool.prefix
+        self.page_size = pool.page_size
+        self.num_slots = int(num_slots)
+        self.pages_per_slot = int(pages_per_slot
+                                  if pages_per_slot is not None
+                                  else pool.pages_per_slot)
+        self.tables = np.zeros((num_slots, self.pages_per_slot), np.int32)
+        self._held: List[List[int]] = [[] for _ in range(num_slots)]
+        pool.register_aux(self)
+
+    def total_pages(self) -> int:
+        """Pages held across all slots (the draft share of the pool)."""
+        return sum(len(h) for h in self._held)
+
+    def grow_to(self, slot: int, n_tokens: int) -> bool:
+        """Hold enough pages for ``n_tokens`` positions (no-op when the
+        slot already does). Best effort: False and untouched when the pool
+        can't cover it (the engine speculates less rather than
+        escalate)."""
+        need = -(-int(n_tokens) // self.page_size) - len(self._held[slot])
+        return self.grow_slot(slot, need)

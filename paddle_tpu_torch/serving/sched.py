@@ -11,11 +11,11 @@ of a tick and how many chunks the tick selects:
   which bounds every request's wait (``starvation_bound_ticks``).
 
 Non-fifo policies also shape the per-tick prefill budget within
-``[1, prefill_chunks_per_tick]`` from decode-stall telemetry. Host-side
-only: nothing here touches the device.
+``[1, prefill_chunks_per_tick]`` from decode-stall telemetry.
+``SpecKController`` turns each slot's speculative accept rate into its
+draft depth. Host-side only: nothing here touches the device.
 
-Not in this slice: the adaptive speculation depth controller and the
-mesh routing keys.
+Not in this slice: the mesh routing keys.
 """
 from __future__ import annotations
 
@@ -27,7 +27,7 @@ import numpy as np
 from ..profiler.metrics import percentile
 from ..profiler.metrics import registry as _registry
 
-__all__ = ["SCHED_POLICIES", "ChunkScheduler"]
+__all__ = ["SCHED_POLICIES", "ChunkScheduler", "SpecKController"]
 
 SCHED_POLICIES = ("fifo", "sjf", "aged-sjf")
 
@@ -160,3 +160,94 @@ class ChunkScheduler:
                 and self._ttft_p95 >= 1.5 * self._ttft_ref):
             budget = npf
         return budget
+
+
+class SpecKController:
+    """Adaptive per-slot speculation depth (``SpecConfig.adaptive``).
+
+    A per-slot accept-rate EWMA ``a_s`` (tokens accepted / tokens drafted
+    per verify tick, alpha ``ewma_alpha``) maps to the draft depth
+    ``floor(a_s * k + 0.5)`` clamped to ``[0, k]``. New tenants start at
+    ``a_s = 1`` (full depth): an un-speculated slot produces no evidence,
+    so the draft earns its demotion, not its promotion.
+
+    Re-probing: a slot at depth 0 rides as a plain decode row and stops
+    producing observations, so every ``reprobe_every``-th
+    :meth:`tick_depth` call at depth 0 drafts at depth 1. The probe flag
+    latches until the probe's observation lands (catch-up feeding can take
+    ticks). Each consecutive rejected probe doubles the slot's period, up
+    to ``8 * reprobe_every``; any observation with ``accepted > 0``
+    restores the base period. ``reprobe_every=0`` disables probing.
+    :meth:`depth` is pure; only ``tick_depth`` advances probe state, so the
+    engine calls it once per slot per tick. Admission, preemption and
+    finish :meth:`reset` the slot.
+    """
+
+    def __init__(self, num_slots: int, k: int,
+                 ewma_alpha: float = 0.5, reprobe_every: int = 0):
+        if not 0.0 < ewma_alpha <= 1.0:
+            raise ValueError("ewma_alpha must be in (0, 1]")
+        if reprobe_every < 0:
+            raise ValueError("reprobe_every must be >= 0")
+        self.k = int(k)
+        self.alpha = float(ewma_alpha)
+        self.reprobe_every = int(reprobe_every)
+        self._ewma = np.ones(int(num_slots), np.float64)
+        self._zero_ticks = np.zeros(int(num_slots), np.int64)
+        self._probing = np.zeros(int(num_slots), bool)
+        self._period = np.full(int(num_slots), int(reprobe_every),
+                               np.int64)
+
+    def reset(self, slot: int) -> None:
+        self._ewma[slot] = 1.0
+        self._zero_ticks[slot] = 0
+        self._probing[slot] = False
+        self._period[slot] = self.reprobe_every
+
+    def depth(self, slot: int) -> int:
+        """The slot's depth, without probe side effects."""
+        return int(min(self.k, int(self._ewma[slot] * self.k + 0.5)))
+
+    def tick_depth(self, slot: int) -> int:
+        """The slot's depth for this tick, advancing re-probe state: counts
+        consecutive depth-0 ticks and returns 1 (the probe) every
+        period-th one. Call once per slot per scheduler tick."""
+        d = self.depth(slot)
+        if d > 0 or self.reprobe_every == 0:
+            self._zero_ticks[slot] = 0
+            return d
+        if self._probing[slot]:
+            return 1                # probe still awaiting evidence
+        self._zero_ticks[slot] += 1
+        if self._zero_ticks[slot] >= self._period[slot]:
+            self._zero_ticks[slot] = 0
+            self._probing[slot] = True
+            return 1
+        return 0
+
+    def observe(self, slot: int, accepted: int, drafted: int) -> None:
+        if drafted <= 0:
+            return
+        if self._probing[slot]:
+            # multiplicative backoff on a rejected probe; base cadence
+            # restored the moment any draft token lands
+            if accepted > 0:
+                self._period[slot] = self.reprobe_every
+            else:
+                self._period[slot] = min(self._period[slot] * 2,
+                                         self.reprobe_every * 8)
+        elif accepted > 0:
+            self._period[slot] = self.reprobe_every
+        self._probing[slot] = False     # the probe's evidence landed
+        rate = min(max(accepted / drafted, 0.0), 1.0)
+        self._ewma[slot] += self.alpha * (rate - self._ewma[slot])
+
+    def probe_period(self, slot: int) -> int:
+        """Current re-probe period of ``slot``."""
+        return int(self._period[slot])
+
+    def ewma(self, slot: int) -> float:
+        return float(self._ewma[slot])
+
+    def probing(self, slot: int) -> bool:
+        return bool(self._probing[slot])

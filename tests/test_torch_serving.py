@@ -211,8 +211,7 @@ def test_cancel_frees_the_slot(nets):
 
 @pytest.mark.parametrize("knob", [
     dict(kv_dtype="int8", attention_kernel="legacy"),   # int8 itself is ported
-    dict(spec=object()), dict(attention_kernel="legacy"),
-    dict(decode="sampling", spec=object())])    # sampling itself is ported
+    dict(attention_kernel="legacy")])
 def test_unported_knobs_raise_not_implemented(nets, knob):
     _, net = nets
     with pytest.raises(NotImplementedError, match="ROADMAP"):
