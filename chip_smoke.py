@@ -33,7 +33,8 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    atol 1e-5, the route that ran checked on the counters, the quantize
    pass timed apart (quantize_ms); the quantize pass alone is held bit
    for bit to its plain version on x with exact .5 ties and values past
-   +-127. bf16 attention at
+   +-127, its library time one torch.quantize_per_tensor call on the
+   f32 x. bf16 attention at
    head dim 64 or 128 takes the tensor-core kernels (wgmma, TMA): the
    forward at the train step's B2 S2048, at S 1024, at a ragged S 1000
    and at D 64; the merged backward in every bf16 single-tile case and dQ
@@ -135,9 +136,28 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    kernel phase holds the ragged kernel at the verify shape (R8 T5 and
    T2, true_len 1..T, pos0 64-1056, f32, bf16 and int8 pools) to reading
    no page past a row's last real query (a page of NaN in its place) and
-   times the T decode-row calls that do the same work beside it.
+   times the T decode-row calls that do the same work beside it. The
+   twin's run also checks its event timeline: per request draft <
+   verify < accept, accepted <= drafted on every accept event, the
+   breakdown's spec_drafted >= spec_accepted.
+10. observe phase — the profiler on the engine phase's model and
+   workload: a fresh engine with a MetricsSink in a temporary directory
+   (per request submit <= admit <= first_token <= finish, a complete
+   latency breakdown whose four buckets sum to total_ms within 1.5 ms;
+   latency_stats' TTFT and TPOT p50/p95/p99, the bucket sums,
+   compiled_sites with each site's trace_counts), the same engine on a
+   129-page pool that preempts (each preempt followed by a requeue, then
+   an admit; some preempted time), the sink's files through
+   tools/check_sink_schema.py (exit 0; sizes, events_lost), then
+   profiler.enable(trace_dir=..., reset=False) around a 3-request engine
+   run and one HybridPipelineTrainer step of gpt3_1_3b (the train
+   recipe, [2, 2048]): the Chrome trace disable() writes holds the host
+   scopes hybrid/step and sync_wait, the fwd/blocks range, and
+   ragged_kernel and flash kernel events; the host spans' own Chrome
+   export loads. Last, warm tokens/s with the event log on and off in
+   turns (on, off, off, on; each on-turn's bucket sums beside its wall).
 
-Every launch counter is set to 0 just before each of phases 2-9 and read
+Every launch counter is set to 0 just before each of phases 2-10 and read
 just after it: those are the main paths' launches, and each path must
 launch each of its kernels (the generate path: the ragged decode and
 chunk rows, never the int8 path; the spec path: both row kinds and the
@@ -148,7 +168,8 @@ kernels and none of the f32 route's; the f32 grad paths: the SIMT
 forward and the mma.sync backward kernels and no wgmma one; the deploy
 path: the wgmma int8 product and the quantize pass, not the mma.sync
 int8 kernel, whose kernels-line entry is timed at fc1's shape and has no
-main-path launch). Prints
+main-path launch; the observe path: both ragged row kinds, the wgmma
+forward, dQ and dK/dV, none of the f32 route's). Prints
 JSON lines per case, then {"kernels": [...]}, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -158,6 +179,7 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
     python3 chip_smoke.py --phases kernels,kvint8,deploy   # the int8 slice
     python3 chip_smoke.py --phases generate        # decode and sampling
     python3 chip_smoke.py --phases kernels,spec    # speculative decoding
+    python3 chip_smoke.py --phases observe         # the profiler
 """
 from __future__ import annotations
 
@@ -974,6 +996,7 @@ def kernel_phase_int8_quantize(dev, iters, shapes, seed=6):
             kern_ms, host_ms = timed(lambda: im.quantize_x(x, qs), iters, dev)
             plain_ms = time_ms(lambda: im._plain_quantize_x(x, qs, 127.0),
                                iters, dev)
+        lib_ms, lib_off = quantize_library(x, qs, ref, iters, dev)
         nbytes = x.numel() * (x.element_size() + 1) + 4
         b_ms, b_by = bound(nbytes, 3.0 * x.numel(), "float32")
         row = {"phase": "kernel", "kernel": "int8_quantize",
@@ -982,11 +1005,37 @@ def kernel_phase_int8_quantize(dev, iters, shapes, seed=6):
                "tolerance_reason": "one f32 product, round half to even, "
                                    "clip: the plain version's operations",
                "kernel_ms": kern_ms, "host_ms": host_ms,
-               "plain_ms": plain_ms, "library_ms": None, "library": None,
+               "plain_ms": plain_ms, "library_ms": lib_ms,
+               "library": "torch.quantize_per_tensor(f32(x), 1 / qscale, 0, "
+                          "qint8), x upcast before the clock (it clips at "
+                          "-128, not -127)",
+               "library_values_off": lib_off,
                "bound_ms": b_ms, "bound_by": b_by}
         emit(row)
         results.append(row)
     return results
+
+
+def quantize_library(x, qs, ref, iters, dev):
+    """(ms, values that differ from ``ref``) of one PyTorch call that
+    quantizes per tensor: ``torch.quantize_per_tensor`` on f32(x) at scale
+    1 / qscale (exact for qscale 2); (None, None) where this PyTorch has
+    no such call on the device."""
+    import torch
+
+    x32 = x.float()
+    scale = 1.0 / float(qs)
+
+    def call():
+        return torch.quantize_per_tensor(x32, scale, 0, torch.qint8)
+
+    try:
+        off = int((call().int_repr() != ref).sum())
+        return timed(call, iters, dev)[0], off
+    except (RuntimeError, NotImplementedError) as e:
+        emit({"phase": "kernel", "kernel": "int8_quantize",
+              "library_unavailable": str(e)[:200]})
+        return None, None
 
 
 def kernel_phase_flash(dev, iters, shapes, seed=1):
@@ -1590,8 +1639,10 @@ def profile_kernels(dev, fn, label=None):
     inside the profiler: the ranges' count, the host time inside them
     (cpu_ms), the summed time of the kernels launched inside them
     (device_ms), and their span on the card's timeline (span_ms: first to
-    last kernel, gaps included). The kernel list leaves the ranges' own
-    device-side entries out."""
+    last kernel, gaps included). The kernel list leaves out the
+    device-side entries of every record_function range (the label, the
+    trainer's fwd/* annotations): a range shows on the card's timeline
+    under the name of its host entry, and it is not a kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1600,8 +1651,9 @@ def profile_kernels(dev, fn, label=None):
     with profile(activities=acts) as prof:
         out, wall = _timed_call(dev, fn)
     avg = prof.key_averages()
+    ranges = {e.key for e in avg if e.device_type == DeviceType.CPU}
     kernels = [e for e in avg if e.device_type == DeviceType.CUDA
-               and e.key != label]
+               and e.key not in ranges]
     if label is None:
         return out, kernels
     host = [e for e in avg if e.key == label
@@ -1717,7 +1769,9 @@ def spec_tick_times(st):
 
 def spec_serve(model, dev, prompts, max_new, engine_kw):
     """One run on a fresh engine: (streams, wall seconds, the spec
-    counters' deltas, the tick stats of a spec engine or None)."""
+    counters' deltas, the tick stats of a spec engine or None; a spec
+    engine's stats hold its events by rid under "events")."""
+    from paddle_tpu_torch.profiler import events as pev
     from paddle_tpu_torch.profiler import registry
     from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 
@@ -1729,6 +1783,7 @@ def spec_serve(model, dev, prompts, max_new, engine_kw):
     c0 = {n: reg.counter("serving/" + n).value for n in names}
     eng = ServingEngine(model, ServingConfig(**engine_kw))
     st = spec_instrument(eng, dev) if eng.config.spec is not None else None
+    seq0 = pev.log().next_seq
 
     def serve():
         rids = [eng.submit(p, max_new) for p in prompts]
@@ -1743,6 +1798,8 @@ def spec_serve(model, dev, prompts, max_new, engine_kw):
     if bad:
         raise AssertionError(f"spec: page audit {bad[:4]}")
     counts = {n: reg.counter("serving/" + n).value - c0[n] for n in names}
+    if st is not None:
+        st["events"] = engine_events(eng, seq0)
     return streams, wall, counts, st
 
 
@@ -1839,6 +1896,10 @@ def spec_phase(model, dev, engine_kw, plain=None, card=None, n_req=16,
              "verify_group_launches": verify_launches,
              "teacher_forced_match": teacher,
              "match_vs_plain": match_rate(streams, plain)}
+        if name == "twin":
+            # the twin run's event timeline: draft < verify < accept per
+            # request, accepted <= drafted
+            d["timeline"] = check_spec_timelines(st["events"], n_req)
         row["drafts"][name] = d
         # one chunk-row launch at T = 1 + k a layer for the verify group of
         # every tick with drafts, and one a layer for the chunk group of
@@ -2679,12 +2740,7 @@ def train_phase(dev, steps=8, short_steps=2, batch=4, seq=2048, n_micro=2,
     import numpy as np
     import torch
 
-    from paddle_tpu_torch import nn
-    from paddle_tpu_torch.core import rng as _rng
-    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
-    from paddle_tpu_torch.distributed.hybrid import HybridPipelineTrainer
-    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
-    from paddle_tpu_torch.optimizer import AdamW, lr
+    from paddle_tpu_torch.models.gpt import GPTConfig
 
     cfg = GPTConfig.gpt3_1_3b()
     if layers:
@@ -2692,18 +2748,7 @@ def train_phase(dev, steps=8, short_steps=2, batch=4, seq=2048, n_micro=2,
     if dev.type == "cuda":
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats(dev)
-    _rng.seed(seed)
-    model = GPT(cfg, device=dev)
-    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(2e-4, T_max=1000),
-                            warmup_steps=20, start_lr=1e-6, end_lr=2e-4)
-    opt = AdamW(sched, parameters=model.named_parameters(), weight_decay=0.1,
-                grad_clip=nn.ClipGradByGlobalNorm(1.0))
-    s = DistributedStrategy()
-    s.amp = True
-    s.recompute = True
-    tr = HybridPipelineTrainer(model, opt, s, n_micro=n_micro,
-                               param_dtype="bfloat16",
-                               moment_dtype="bfloat16")
+    tr, sched = make_trainer(dev, cfg, seed, n_micro)
     rng = np.random.RandomState(seed)
     tokens = torch.from_numpy(rng.randint(0, cfg.vocab_size,
                                           (batch, seq))).to(dev)
@@ -2744,6 +2789,33 @@ def train_phase(dev, steps=8, short_steps=2, batch=4, seq=2048, n_micro=2,
     row["short_losses"] = [run(short)[0] for _ in range(short_steps)]
     emit(row)
     return row
+
+
+def make_trainer(dev, cfg, seed, n_micro=2):
+    """(HybridPipelineTrainer, its lr schedule): a GPT of ``cfg`` from
+    ``seed`` under the single-chip recipe (amp, recompute, bf16 parameters
+    and moments, AdamW 0.1 under the warmup-cosine schedule, global-norm
+    clip 1.0)."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core import rng as _rng
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.hybrid import HybridPipelineTrainer
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.optimizer import AdamW, lr
+
+    _rng.seed(seed)
+    model = GPT(cfg, device=dev)
+    sched = lr.LinearWarmup(lr.CosineAnnealingDecay(2e-4, T_max=1000),
+                            warmup_steps=20, start_lr=1e-6, end_lr=2e-4)
+    opt = AdamW(sched, parameters=model.named_parameters(), weight_decay=0.1,
+                grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    s = DistributedStrategy()
+    s.amp = True
+    s.recompute = True
+    tr = HybridPipelineTrainer(model, opt, s, n_micro=n_micro,
+                               param_dtype="bfloat16",
+                               moment_dtype="bfloat16")
+    return tr, sched
 
 
 def clip_probe(dev, seed=9, numel=(2048 * 2048, 8192 * 2048, 2048, 50304)):
@@ -2813,12 +2885,305 @@ def profile_step(dev, step) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: observability (the event timeline, the sink, the device trace)
+# ---------------------------------------------------------------------------
+#: a request's four breakdown buckets sum to its total_ms within this
+#: (the reference's own tolerance: the buckets are rounded to 1 us each)
+BUCKET_SUM_TOL_MS = 1.5
+BUCKETS = ("queue_wait_ms", "prefill_ms", "decode_ms", "preempted_ms")
+
+
+def engine_events(eng, seq0):
+    """{rid: the events ``eng`` emitted since sequence number seq0}: an
+    engine's own, by its ``eng`` id (never by position in the log, which
+    other engines share)."""
+    from paddle_tpu_torch.profiler import events as pev
+
+    out = {}
+    for e in pev.log().events(since_seq=seq0):
+        if e.rid is not None and e.attrs.get("eng") == eng._eng_id:
+            out.setdefault(e.rid, []).append(e)
+    return out
+
+
+def check_timelines(evs, n_req, what):
+    """Per request: submit <= admit <= first_token <= finish, a complete
+    breakdown whose four buckets sum to total_ms within
+    BUCKET_SUM_TOL_MS. Returns the breakdowns in rid order."""
+    from paddle_tpu_torch.profiler.events import breakdown_from_events
+
+    if len(evs) != n_req:
+        raise AssertionError(f"{what}: events of {len(evs)} requests, "
+                             f"want {n_req}")
+    rows = []
+    for rid, es in sorted(evs.items()):
+        first = {}
+        for e in es:
+            first.setdefault(e.kind, e.t_ns)
+        order = [first.get(k) for k in ("submit", "admit", "first_token",
+                                         "finish")]
+        if None in order or order != sorted(order):
+            raise AssertionError(f"{what}: request {rid} out of order: "
+                                 f"{[e.kind for e in es]}")
+        b = breakdown_from_events(es)
+        gap = abs(sum(b[k] for k in BUCKETS) - b.get("total_ms", -1e9))
+        if not b["complete"] or gap > BUCKET_SUM_TOL_MS:
+            raise AssertionError(f"{what}: request {rid} breakdown {b}")
+        rows.append(b)
+    return rows
+
+
+def bucket_sums(rows):
+    return {k: sum(r[k] for r in rows) for k in BUCKETS}
+
+
+def check_spec_timelines(evs, n_req):
+    """The spec engine's events of one run: per request draft < verify <
+    accept (first occurrences), accepted <= drafted on every accept, and
+    the breakdown's spec_drafted >= spec_accepted; the plain timeline
+    checks too."""
+    rows = check_timelines(evs, n_req, "spec")
+    accepts = 0
+    for rid, es in evs.items():
+        kinds = [e.kind for e in es]
+        if not all(k in kinds for k in ("draft", "verify", "accept")) or \
+                not kinds.index("draft") < kinds.index("verify") \
+                < kinds.index("accept"):
+            raise AssertionError(f"spec: request {rid} events {kinds}")
+        for e in es:
+            if e.kind == "accept":
+                accepts += 1
+                if not 0 <= e.attrs["accepted"] <= e.attrs["drafted"]:
+                    raise AssertionError(f"spec: accept {e.to_dict()}")
+    for b in rows:
+        if not b.get("spec_drafted", 0) >= b.get("spec_accepted", 0) > 0:
+            raise AssertionError(f"spec: breakdown {b}")
+    return {"requests": len(rows), "accept_events": accepts,
+            "spec_drafted": sum(b["spec_drafted"] for b in rows),
+            "spec_accepted": sum(b["spec_accepted"] for b in rows),
+            "bucket_sums_ms": bucket_sums(rows)}
+
+
+def observed_run(model, dev, prompts, max_new, engine_kw):
+    """One run of a fresh engine: (its streams, wall seconds, its events
+    by rid, the engine)."""
+    from paddle_tpu_torch.profiler import events as pev
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    eng = ServingEngine(model, ServingConfig(**engine_kw))
+    seq0 = pev.log().next_seq
+
+    def serve():
+        rids = [eng.submit(p, max_new) for p in prompts]
+        out = eng.run()
+        return [out[r] for r in rids]
+
+    streams, wall = _timed_call(dev, serve)
+    for r in streams:
+        if r.shape != (max_new,):
+            raise AssertionError(f"observe: a stream of {r.shape} tokens")
+    return streams, wall, engine_events(eng, seq0), eng
+
+
+def observe_phase(model, dev, engine_kw, card=None, n_req=16, max_new=32,
+                  preempt_pages=129, trace_req=3, trace_new=8,
+                  train_cfg=None, train_batch=(2, 2048),
+                  turns=("on", "off", "off", "on")):
+    """The profiler on the engine phase's workload: the event timeline of
+    16 requests with a metrics sink (per-request order and breakdowns,
+    latency_stats, the dispatch sites), an oversubscribed pool of
+    ``preempt_pages`` pages that preempts, the sink's files through
+    tools/check_sink_schema.py, a torch.profiler trace of a short engine
+    run and one trainer step of ``train_cfg`` (gpt3_1_3b) written by
+    profiler.enable(trace_dir=...), and warm tokens/s with the event log
+    on and off in ``turns``."""
+    import json as _json
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.profiler import events as pev
+    from paddle_tpu_torch.profiler import recompile as prec
+    from paddle_tpu_torch.profiler import sink as psink
+    from paddle_tpu_torch.profiler import trace as ptrace
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    prompts = engine_prompts(cfg, n_req)
+    row = {"phase": "observe", "config": "gpt3_1_3b", "card": card,
+           "requests": n_req, "max_new_tokens": max_new}
+    tmp = tempfile.mkdtemp(prefix="observe-")
+    sink_dir = os.path.join(tmp, "sink")
+    try:
+        # (1) the plain engine's timeline, with a sink. latency_stats reads
+        # the whole ring, so the ring starts empty: the sink first drains
+        # the earlier phases' events, as profiler.reset() does, so none
+        # reads as lost
+        psink.enable_sink(sink_dir, interval_s=2.0)
+        psink.flush_active("reset")
+        pev.log().clear()
+        _, wall, evs, eng = observed_run(model, dev, prompts, max_new,
+                                         engine_kw)
+        rows = check_timelines(evs, n_req, "engine")
+        stats = eng.latency_stats()
+        counts = prec.trace_counts()
+        row["engine"] = {
+            "wall_s": wall, "tokens_per_s": n_req * max_new / wall,
+            "latency_stats": stats, "bucket_sums_ms": bucket_sums(rows),
+            "events": sum(len(es) for es in evs.values()),
+            "compiled_sites": {s: counts.get(s, 0)
+                               for s in eng.compiled_sites}}
+        if stats["requests"] != n_req:
+            raise AssertionError(f"latency_stats over {stats['requests']} "
+                                 f"requests, want {n_req}")
+        # (2) an oversubscribed pool: preemption, requeue, re-admission
+        pkw = dict(engine_kw, num_pages=preempt_pages)
+        _, wall, evs, eng = observed_run(model, dev, prompts, max_new, pkw)
+        rows = check_timelines(evs, n_req, "preempt")
+        kinds = {rid: [e.kind for e in es] for rid, es in evs.items()}
+        for rid, ks in kinds.items():
+            for i, k in enumerate(ks):
+                if k == "preempt" and not (
+                        ks[i + 1:i + 2] == ["requeue"]
+                        and "admit" in ks[i + 2:]):
+                    raise AssertionError(f"preempt: request {rid} {ks}")
+        preempts = sum(ks.count("preempt") for ks in kinds.values())
+        if not preempts or not any(b["preempted_ms"] > 0 for b in rows):
+            raise AssertionError(f"preempt: {preempts} preemptions, no "
+                                 "preempted time")
+        row["preempt"] = {
+            "num_pages": preempt_pages, "wall_s": wall,
+            "preemptions": preempts,
+            "preempted_requests": sum(b["preempts"] > 0 for b in rows),
+            "bucket_sums_ms": bucket_sums(rows)}
+        # (4) the sink's files: closed, then the repo's schema checker
+        psink.disable_sink()
+        chk = subprocess.run(
+            [sys.executable, os.path.join(HERE, "tools",
+                                          "check_sink_schema.py"),
+             sink_dir], capture_output=True, text=True, timeout=120)
+        lines = [_json.loads(x) for x in
+                 open(os.path.join(sink_dir, "metrics.jsonl"))]
+        row["sink"] = {
+            "schema_rc": chk.returncode,
+            "schema_out": chk.stdout.strip().splitlines()[-1:],
+            "bytes": {f: os.path.getsize(os.path.join(sink_dir, f))
+                      for f in sorted(os.listdir(sink_dir))
+                      if os.path.isfile(os.path.join(sink_dir, f))},
+            "flushes": len(lines),
+            "events_lost": sum(x["events_lost"] for x in lines)}
+        if chk.returncode != 0:
+            emit(row)
+            raise AssertionError(f"sink schema: {chk.stdout[-2000:]}")
+        # (5) a torch.profiler trace of a short engine run and one
+        # trainer step; enable(reset=False) keeps the registry, which the
+        # other phases read as deltas
+        if train_cfg is None:
+            from paddle_tpu_torch.models.gpt import GPTConfig
+
+            train_cfg = GPTConfig.gpt3_1_3b()
+        tr, _ = make_trainer(dev, train_cfg, seed=6)
+        rng = np.random.RandomState(6)
+        toks = torch.from_numpy(rng.randint(
+            0, train_cfg.vocab_size, train_batch)).to(dev)
+        float(tr.step(toks))                 # warm: allocations, autotune
+        trace_dir = os.path.join(tmp, "trace")
+        profiler.enable(trace_dir=trace_dir, reset=False)
+        try:
+            observed_run(model, dev, prompts[:trace_req], trace_new,
+                         engine_kw)
+            loss = float(tr.step(toks))
+        finally:
+            summ = profiler.disable()
+        del tr
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+        doc = _json.load(open(ptrace.trace_file()))
+        names = {e.get("name", "") for e in doc["traceEvents"]}
+        kernels = [e.get("name", "") for e in doc["traceEvents"]
+                   if e.get("cat") == "kernel"]
+        host = os.path.join(trace_dir, "host_spans.json")
+        profiler.export_chrome_trace(host)
+        host_names = {e["name"] for e in
+                      _json.load(open(host))["traceEvents"]}
+        row["trace"] = {
+            "file_bytes": os.path.getsize(ptrace.trace_file()),
+            "events": len(doc["traceEvents"]),
+            "kernel_events": len(kernels),
+            "ragged_kernel_events": sum("ragged_kernel" in k
+                                        for k in kernels),
+            "flash_kernel_events": sum("flash" in k for k in kernels),
+            "train_loss": loss,
+            "scopes": summ["scopes"],
+            "host_span_names": sorted(host_names)}
+        want = {"hybrid/step", "hybrid/step/sync_wait", "fwd/blocks"}
+        # the CPU (a rehearsal) launches no kernel
+        no_kernels = dev.type == "cuda" and not (
+            row["trace"]["ragged_kernel_events"]
+            and row["trace"]["flash_kernel_events"])
+        if not np.isfinite(loss) or not want <= names or no_kernels or \
+                not {"hybrid/step", "hybrid/step/sync_wait"} <= host_names:
+            emit(row)
+            raise AssertionError(f"trace: missing {sorted(want - names)} "
+                                 "or the ragged/flash kernel events")
+        # (6) warm tokens/s with the event log on and off, in turns. An
+        # on-turn's bucket sums show where its time went; every turn has
+        # the registry's TTFT and TPOT sums (kept with the log off too),
+        # its ticks, and the process's CPU seconds (all threads): a turn
+        # whose wall grows and CPU time does not waited on the card or for
+        # a core
+        reg = profiler.registry()
+
+        def hist_sums():
+            return [reg.histogram(n).snapshot().get("sum") or 0.0
+                    for n in ("serving/ttft_ms", "serving/tpot_ms")]
+
+        runs = []
+        try:
+            for t in turns:
+                pev.set_enabled(t == "on")
+                h0, k0 = hist_sums(), reg.counter("serving/ticks").value
+                c0 = time.process_time()
+                _, wall, evs, _ = observed_run(model, dev, prompts, max_new,
+                                               engine_kw)
+                h1 = hist_sums()
+                r = {"events": t, "wall_s": wall,
+                     "tokens_per_s": n_req * max_new / wall,
+                     "cpu_s": time.process_time() - c0,
+                     "ticks": int(reg.counter("serving/ticks").value - k0),
+                     "ttft_sum_ms": h1[0] - h0[0],
+                     "tpot_mean_ms": (h1[1] - h0[1]) / n_req}
+                if t == "on":
+                    r["bucket_sums_ms"] = bucket_sums(
+                        check_timelines(evs, n_req, "turn"))
+                elif evs:
+                    raise AssertionError("events emitted while disabled")
+                runs.append(r)
+        finally:
+            pev.set_enabled(True)
+        row["log_cost"] = {"turns": runs}
+        for t in ("on", "off"):
+            rates = [r["tokens_per_s"] for r in runs if r["events"] == t]
+            row["log_cost"][f"median_tokens_per_s_events_{t}"] = float(
+                np.median(rates))
+    finally:
+        psink.disable_sink()
+        shutil.rmtree(tmp, ignore_errors=True)
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    return row
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--phases", default="kernels,model,engine,spec,kvint8,"
-                                        "generate,deploy,grad,train",
+                                        "generate,observe,deploy,grad,train",
                     help="comma-separated subset (debugging)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3064,7 +3429,7 @@ def main(argv=None) -> int:
         return out
 
     model = None
-    if phases & {"model", "engine", "spec", "kvint8", "generate"}:
+    if phases & {"model", "engine", "spec", "kvint8", "generate", "observe"}:
         _rng.seed(0)
         model = GPT(cfg, device=dev)
         model.eval()
@@ -3088,13 +3453,18 @@ def main(argv=None) -> int:
     if "generate" in phases:
         drive("generate", ("ragged", "ragged_chunk"), generate_phase, model,
               dev, engine_kw, forbid=("ragged_int8",))
+    tc_kernels = ("flash_tc", "bwd_single_tc", "bwd_dq_tc", "bwd_dkv_tc")
+    # the f32 route: the SIMT forward and the mma.sync backward kernels
+    f32_kernels = ("flash", "bwd_single", "bwd_dq", "bwd_dkv")
+    if "observe" in phases:
+        # the engine's ticks and one bf16 train step at S 2048
+        drive("observe", ("ragged", "ragged_chunk", "flash_tc", "bwd_dq_tc",
+                          "bwd_dkv_tc"), observe_phase, model, dev,
+              engine_kw, card=smi, forbid=("ragged_int8",) + f32_kernels)
     del model, f32_run
     if "deploy" in phases:
         drive("deploy", ("int8_matmul_wgmma", "int8_quantize"),
               deploy_phase, dev, args.iters, forbid=("int8_matmul",))
-    tc_kernels = ("flash_tc", "bwd_single_tc", "bwd_dq_tc", "bwd_dkv_tc")
-    # the f32 route: the SIMT forward and the mma.sync backward kernels
-    f32_kernels = ("flash", "bwd_single", "bwd_dq", "bwd_dkv")
     if "grad" in phases:
         # f32: the mma.sync pair at S 2048, the merged kernel at S 1024
         drive("grad", ("flash", "bwd_dq", "bwd_dkv"), grad_phase, dev,

@@ -33,7 +33,9 @@ from torch.utils.checkpoint import checkpoint
 from ..core.dtype import convert_dtype
 from ..optimizer.clip import functional_clip
 from ..profiler import is_enabled as _prof_enabled
+from ..profiler import recompile as _precomp
 from ..profiler import registry as _preg
+from ..profiler import trace as _ptrace
 from .fleet.distributed_strategy import DistributedStrategy
 
 
@@ -104,9 +106,15 @@ class HybridPipelineTrainer:
         free_eager: accepted; there is nothing to free, because the
             trainer holds no copy of the model's parameters.
 
-        When ``profiler.enable()`` is on, every step syncs on the loss and
+        When ``profiler.enable()`` is on, every step syncs on the loss,
         moves ``train/steps``, ``train/tokens`` and the ``hybrid/step_ms``
-        histogram in ``profiler.registry()`` (the reference's names).
+        histogram in ``profiler.registry()`` and records the host spans
+        ``hybrid/h2d`` (the batch's copy to the device), ``hybrid/step``
+        and, inside it, ``sync_wait`` (the wait on the loss): the
+        reference's names. The forward always opens the ranges
+        ``fwd/stem``, ``fwd/blocks`` and ``fwd/head`` (``profiler.annotate``),
+        and every step marks its batch at the ``hybrid.step#N`` recompile
+        site (``self._prof_site``).
 
         Not ported (each raises ``NotImplementedError`` naming its ROADMAP
         item): a ``mesh``, pipeline/tensor/data/sequence parallel degrees,
@@ -168,6 +176,8 @@ class HybridPipelineTrainer:
                         if v.is_floating_point():
                             st[k] = v.to(self.moment_dtype)
         self._step = 0
+        # the batch signatures the step has run (profiler/recompile.py)
+        self._prof_site = _precomp.unique_site("hybrid.step")
 
     # ---------------------------------------------------------------------
     def _cast(self, t: torch.Tensor) -> torch.Tensor:
@@ -181,30 +191,54 @@ class HybridPipelineTrainer:
         model = self.model
         other = {n: self._cast(self._params[n]) for n in self._other_names}
         with _swapped_params(model, other):
-            x = model.pipeline_stem(*batch)
-            for blk, names in zip(self._blocks, self._block_names):
-                vals = [self._cast(p) for p in blk.parameters()]
+            with _ptrace.annotate("fwd/stem"):
+                x = model.pipeline_stem(*batch)
+            with _ptrace.annotate("fwd/blocks"):
+                for blk, names in zip(self._blocks, self._block_names):
+                    vals = [self._cast(p) for p in blk.parameters()]
 
-                def run(h, *ps, blk=blk, names=names):
-                    with _swapped_params(blk, dict(zip(names, ps))):
-                        return blk(h)
+                    def run(h, *ps, blk=blk, names=names):
+                        with _swapped_params(blk, dict(zip(names, ps))):
+                            return blk(h)
 
-                x = checkpoint(run, x, *vals, use_reentrant=False) \
-                    if self.remat else run(x, *vals)
-            loss = model.pipeline_head(x, *batch)
+                    x = checkpoint(run, x, *vals, use_reentrant=False) \
+                        if self.remat else run(x, *vals)
+            with _ptrace.annotate("fwd/head"):
+                loss = model.pipeline_head(x, *batch)
         return loss.float()
 
     def step(self, *batch) -> torch.Tensor:
         """One optimizer step on ``batch`` (e.g. ``tokens [B, S]``, int,
         on the model's device); returns the f32 loss."""
         dev = next(iter(self._params.values())).device
-        batch = tuple(torch.as_tensor(b, device=dev) for b in batch)
+        prof = _prof_enabled()
+        t0 = time.perf_counter_ns() if prof else 0
+        with _ptrace.scope("hybrid/h2d") if prof \
+                else contextlib.nullcontext():
+            batch = tuple(torch.as_tensor(b, device=dev) for b in batch)
         bsz = batch[0].shape[0]
         if bsz % self.n_micro:
             raise ValueError(f"batch {bsz} is not divisible by n_micro "
                              f"{self.n_micro}")
-        prof = _prof_enabled()
-        t0 = time.perf_counter_ns() if prof else 0
+        _precomp.mark_trace(self._prof_site, batch)
+        if not prof:
+            return self._step_body(batch, dev, bsz)
+        with _ptrace.scope("hybrid/step"):
+            loss = self._step_body(batch, dev, bsz)
+            with _ptrace.scope("sync_wait"):
+                float(loss)                  # truthful sync on the loss
+        reg = _preg()
+        reg.counter("train/steps").add(1)
+        reg.counter("train/tokens").add(
+            int(batch[0].numel()) if batch[0].dim() == 2 and
+            not batch[0].is_floating_point() else bsz)
+        reg.histogram("hybrid/step_ms").observe(
+            (time.perf_counter_ns() - t0) / 1e6)
+        return loss
+
+    def _step_body(self, batch, dev, bsz: int) -> torch.Tensor:
+        """Forward, backward, clip and update of one step; the f32 loss,
+        not waited for."""
         lr = self.optimizer.get_lr()
         self._step += 1
         params = [p for p in self._params.values() if p.requires_grad]
@@ -226,15 +260,6 @@ class HybridPipelineTrainer:
         for p in params:
             p.grad = None
         self.optimizer._global_step = self._step
-        if prof:
-            float(loss)                      # truthful sync on the loss
-            reg = _preg()
-            reg.counter("train/steps").add(1)
-            reg.counter("train/tokens").add(
-                int(batch[0].numel()) if batch[0].dim() == 2 and
-                not batch[0].is_floating_point() else bsz)
-            reg.histogram("hybrid/step_ms").observe(
-                (time.perf_counter_ns() - t0) / 1e6)
         return loss
 
     __call__ = step

@@ -4,8 +4,9 @@
 The serving engine writes ``serving/ticks``, ``serving/tokens_per_sec``,
 ``serving/ttft_ms`` and the rest here. Histograms are backed by the
 mergeable quantile sketch (``sketch.py``): exact count/sum/min/max and
-percentiles within a stated 1% relative error. Cross-rank aggregation
-comes with the distributed slice.
+percentiles within a stated 1% relative error; ``sketch_dicts()`` is the
+sink's telemetry-frame payload. Cross-rank aggregation (``aggregate``)
+comes with ROADMAP queue 1 item 7a.
 """
 from __future__ import annotations
 
@@ -98,6 +99,12 @@ class Histogram:
         with self._lock:
             return self._sk.percentile(q)
 
+    def sketch_dict(self) -> dict:
+        """The backing sketch's JSON form, read under one lock hold: the
+        telemetry frame's payload."""
+        with self._lock:
+            return self._sk.to_dict()
+
     def snapshot(self) -> dict:
         with self._lock:
             return self._sk.snapshot()
@@ -144,6 +151,15 @@ class MetricsRegistry:
         with self._lock:
             items = list(self._metrics.items())
         return {name: m.snapshot() for name, m in items}
+
+    def sketch_dicts(self) -> Dict[str, dict]:
+        """The sketch of every non-empty histogram (a telemetry frame's
+        ``sketches``; empty ones are left out)."""
+        with self._lock:
+            items = [(n, m) for n, m in self._metrics.items()
+                     if isinstance(m, Histogram)]
+        return {n: d for n, d in ((n, m.sketch_dict()) for n, m in
+                                  items) if d["n"]}
 
 
 _registry = MetricsRegistry()

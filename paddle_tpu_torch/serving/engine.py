@@ -61,11 +61,20 @@ metadata and reads the verify result back at its end (no deferred window
 in spec mode); with ``overlap=True`` (sampling) the next draft tick is
 enqueued on the verify tick's device outputs before that read.
 
+Every lifecycle edge of a request is an event in the profiler's event
+log (``profiler/events.py``), stamped with the engine's id (``eng``) and
+the request's ``trace`` id when it has one: ``submit``, ``admit``,
+``prefix_hit``, ``cow_copy``, ``chunk``, ``first_token`` (when the host
+holds the token: at the read of the tick that sampled it), ``preempt``,
+``requeue``, ``cancel`` and ``finish`` (with ``ttft_ms``/``tpot_ms``); a
+spec engine adds ``draft``, ``verify`` and ``accept``. ``latency_stats``
+reads the rolling TTFT/TPOT percentiles off them. Each dispatch marks its
+arguments at its recompile site (``compiled_sites``), so
+``profiler.trace_counts()`` counts the tick shapes each site has run.
+
 Not in this slice (each raises ``NotImplementedError`` naming its
 ROADMAP item): the legacy two-dispatch mode (``attention_kernel="legacy"``),
-disaggregated export/import and prefix chain migration. The event
-timeline and recompile telemetry (the reference's ``compiled_sites`` and
-its ``draft``/``verify``/``accept`` events) come with the profiler slice.
+disaggregated export/import and prefix chain migration.
 
 Profiler signals (``profiler.metrics.registry()``):
 ``serving/queue_depth``, ``serving/active_slots``, ``serving/page_util``,
@@ -97,13 +106,21 @@ import torch
 
 from ..core import random as _random
 from ..models.gpt import gpt_ragged_apply
+from ..profiler import events as _events
+from ..profiler import recompile as _recompile
 from ..profiler.metrics import registry as _registry
+from ..profiler.sink import _detect_rank
 from .paged_cache import PagePool
 from .sched import SCHED_POLICIES, ChunkScheduler, SpecKController
 from .spec import (DraftRunner, SpecConfig, _greedy, _sample_rows,
                    make_spec_tick)
 
 __all__ = ["ServingConfig", "ServingEngine", "Request"]
+
+#: engine ids stamped on every event (``eng``), so the timelines of
+#: engines sharing the process (and, with the rank folded in, the merged
+#: logs of several processes) do not alias
+_ENGINE_SEQ = iter(range(1 << 20))
 
 _TODO_SERVING = ("is not ported yet: ROADMAP queue 1 item 6 (serving "
                  "remainder: legacy mode, disaggregation, chain migration)")
@@ -155,6 +172,7 @@ class Request:
     temperature: Optional[float] = None   # per-request sampling overrides
     top_k: Optional[int] = None           #   (None -> engine config default)
     top_p: Optional[float] = None
+    trace_id: Optional[str] = None        # cross-host trace id (events)
 
 
 class _Inflight:
@@ -269,6 +287,8 @@ class ServingEngine:
         self.config = cfg
         self.model_config = mcfg
         self.device = model.device
+        self._eng_id = (_detect_rank() << 20) | next(_ENGINE_SEQ)
+        self._tick_site = _recompile.unique_site("serving.tick")
         self._stacked, self._other = model._decode_state()
         self._dtype = self._other["embeddings.wte.weight"].dtype
         kv_map = {None: self._dtype, "f32": torch.float32,
@@ -365,6 +385,9 @@ class ServingEngine:
         # the chained draft tick in flight (overlap): device drafts and
         # probs, the host validity mask, or None
         self._spec_pend: Optional[dict] = None
+        # per-admission-cycle latches of the draft and verify events
+        self._spec_started = [False] * ns
+        self._spec_verifying = [False] * ns
         self._draft = DraftRunner(spec.draft_model, ns,
                                   self.pool.slot_capacity, self._spec_k,
                                   self.prefill_chunk, self.pool,
@@ -373,7 +396,32 @@ class ServingEngine:
                                         device=self.device)
         self._spec_tick = make_spec_tick(mcfg, ns, self._spec_k,
                                          self.prefill_chunk,
-                                         sampling=self._spec_sampling)
+                                         sampling=self._spec_sampling,
+                                         site=self._tick_site)
+
+    @property
+    def compiled_sites(self) -> Tuple[str, ...]:
+        """Recompile-telemetry site names of the hot-path dispatches: the
+        tick, and in spec mode the draft tick beside it."""
+        if self._spec is not None:
+            return (self._tick_site, self._draft.site)
+        return (self._tick_site,)
+
+    def _emit(self, kind: str, rid: int, **attrs) -> None:
+        """One lifecycle event; attrs are plain ints, floats and strings
+        (never numpy scalars or tensors: the sink writes JSON)."""
+        req = self._requests.get(rid)
+        if req is not None and req.trace_id is not None:
+            attrs.setdefault("trace", req.trace_id)
+        _events.emit(kind, rid=rid, eng=self._eng_id, **attrs)
+
+    def latency_stats(self, window_s: Optional[float] = None) -> dict:
+        """Rolling-window TTFT/TPOT p50/p90/p95/p99 over requests finished
+        in the last ``window_s`` seconds (None: all still in the event
+        ring). Reads the process-global log: other live engines' requests
+        count too; ``profiler.latency_table()`` rows split them by
+        ``eng``."""
+        return _events.request_latency_stats(window_s=window_s)
 
     # ------------------------------------------------------------------
     # public API
@@ -383,13 +431,15 @@ class ServingEngine:
                temperature: Optional[float] = None,
                top_k: Optional[int] = None,
                top_p: Optional[float] = None,
-               hold_after_prefill: bool = False) -> int:
+               hold_after_prefill: bool = False,
+               trace_id: Optional[str] = None) -> int:
         """Queue one request; returns its id. ``temperature``/``top_k``/
         ``top_p`` override the config's sampling params for this request
         (ignored under greedy decode); ``key`` (uint32[2], a
         ``jax.random``-style key) defaults to ``fold_in(PRNGKey(seed),
         rid)`` under sampling; greedy decode draws nothing and keeps a
-        zero key."""
+        zero key. ``trace_id`` is stamped as ``trace`` on every event of
+        the request."""
         if hold_after_prefill:
             raise NotImplementedError(
                 "hold_after_prefill (disaggregated prefill) " + _TODO_SERVING)
@@ -416,10 +466,13 @@ class ServingEngine:
         req = Request(rid=rid, prompt=p, max_new=int(max_new_tokens),
                       key=np.asarray(key, np.uint32), submit_t=now,
                       queue_t=now, orig_prompt_len=t0,
-                      temperature=temperature, top_k=top_k, top_p=top_p)
+                      temperature=temperature, top_k=top_k, top_p=top_p,
+                      trace_id=trace_id)
         self._requests[rid] = req
         self._queue.append(req)
         _registry().counter("serving/prompt_tokens").add(t0)
+        self._emit("submit", rid, prompt_tokens=int(t0),
+                   max_new=int(max_new_tokens))
         return rid
 
     def step(self) -> bool:
@@ -483,9 +536,10 @@ class ServingEngine:
         self._requests = {rid: r for rid, r in self._requests.items()
                           if not r.done}
 
-    def cancel(self, rid: int) -> bool:
+    def cancel(self, rid: int, reason: str = "redispatch") -> bool:
         """Abandon a request wherever it stands, freeing its slot and
-        pages without a result. False for an unknown or finished one."""
+        pages without a result, and emit a ``cancel`` event with
+        ``reason``. False for an unknown or finished one."""
         req = self._requests.get(rid)
         if req is None or req.done:
             return False
@@ -506,6 +560,7 @@ class ServingEngine:
         req.canceled = True
         req.out = []
         _registry().counter("serving/requests_canceled").add(1)
+        self._emit("cancel", rid, reason=reason)
         return True
 
     def export_held(self, rid: int) -> dict:
@@ -549,11 +604,12 @@ class ServingEngine:
                     req.first_token_t = now
                     reg.histogram("serving/ttft_ms").observe(
                         (now - req.submit_t) * 1000.0)
+                    self._emit("first_token", rid, slot=int(slot))
                 eos = self.config.eos_token_id
                 if eos is not None and tok == eos:
-                    self._finish(slot, rid)
+                    self._finish(slot, rid, reason="eos")
                 elif len(req.out) >= req.max_new:
-                    self._finish(slot, rid)
+                    self._finish(slot, rid, reason="max_new")
 
     def _insert_prefix(self, slot: int, tokens: np.ndarray,
                        written: int) -> None:
@@ -580,8 +636,10 @@ class ServingEngine:
             self._spec_pend["valid"][slot] = False
         if self._spec_ctl is not None:
             self._spec_ctl.reset(slot)
+        self._spec_started[slot] = False
+        self._spec_verifying[slot] = False
 
-    def _finish(self, slot: int, rid: int) -> None:
+    def _finish(self, slot: int, rid: int, reason: str = "max_new") -> None:
         req = self._requests[rid]
         req.done = True
         if self._slot_rid[slot] == rid:
@@ -600,12 +658,18 @@ class ServingEngine:
             req.out = [int(t) for t in extra] + req.out
         reg = _registry()
         reg.counter("serving/requests_finished").add(1)
+        tokens = len(req.out)
+        ttft = tpot = None
         if req.first_token_t is not None:
             ttft = (req.first_token_t - req.submit_t) * 1000.0
             tpot = (time.perf_counter() - req.first_token_t) * 1000.0 \
-                / max(len(req.out) - 1, 1)
+                / max(tokens - 1, 1)
             self._sched.note_finish(ttft, tpot)
             reg.histogram("serving/tpot_ms").observe(tpot)
+        self._emit("finish", rid, tokens=tokens, reason=reason,
+                   preempts=int(req.preempts),
+                   ttft_ms=None if ttft is None else round(ttft, 3),
+                   tpot_ms=None if tpot is None else round(tpot, 3))
 
     def _admit(self) -> None:
         """Move queued requests into free slots (pages are acquired per
@@ -625,6 +689,7 @@ class ServingEngine:
             self._slot_admit_t[slot] = time.perf_counter()
             self._slot_wait_due[slot] = True
             self._sched.note_admit(slot)
+            self._emit("admit", req.rid, slot=int(slot))
             self._keys[slot] = req.key
             c = self.config
             self._temps[slot] = (c.temperature if req.temperature is None
@@ -668,11 +733,17 @@ class ServingEngine:
                         self.pool.copy_page(int(src), int(dst))
                     hit += lcp
                     reg.counter("cache_share/cow_copies").add(1)
+                    self._emit("cow_copy", req.rid, slot=int(slot),
+                               tokens=int(lcp))
             finally:
                 self.pool.allocator.free([src])
         self._slot_len[slot] = hit
         if hit:
             reg.counter("serving/prefix_hit_tokens").add(hit)
+            # remote_tokens: tokens on pages another rank prefilled (chain
+            # migration, ROADMAP queue 1 item 6b); none yet
+            self._emit("prefix_hit", req.rid, slot=int(slot),
+                       tokens=int(hit), remote_tokens=0)
 
     def _observe_wait(self, req: Request) -> None:
         wait_ms = (time.perf_counter() - req.queue_t) * 1000.0
@@ -815,6 +886,9 @@ class ServingEngine:
         victim = max(live, key=lambda s: self._slot_admit_seq[s])
         rid = self._slot_rid[victim]
         req = self._requests[rid]
+        # the window was drained before preemption: req.out is current
+        self._emit("preempt", rid, slot=int(victim),
+                   generated=len(req.out))
         if not self._slot_looked_up[victim]:
             self._observe_wait(req)
         req.prompt = np.concatenate(
@@ -831,6 +905,8 @@ class ServingEngine:
         self._slot_rid[victim] = None
         self._slot_len[victim] = 0
         _registry().counter("serving/preemptions").add(1)
+        self._emit("requeue", rid, prompt_tokens=int(req.prompt.shape[0]),
+                   max_new=int(req.max_new))
         if victim != needy_slot and self._slot_rid[needy_slot] is not None:
             if not self.pool.grow_slot(needy_slot, need):
                 self._preempt_for(needy_slot, need)
@@ -899,6 +975,8 @@ class ServingEngine:
         reg = _registry()
         for s, rid, start, end, t0 in chunks:
             self._slot_len[s] = end
+            self._emit("chunk", rid, slot=int(s), start=int(start),
+                       end=int(end), final=bool(end >= t0))
             if end >= t0:
                 self._slot_dispatched[s] = 1
                 reg.counter("serving/prefills").add(1)
@@ -956,6 +1034,9 @@ class ServingEngine:
                 sample_ix, emit, fresh, *law)
             tokens = torch.cat([self._last_tok, pf_d.long()]) if chunks \
                 else self._last_tok
+            # a decode-only tick runs at its own, shorter shape
+            _recompile.mark_trace(self._tick_site, pool.k, tab_d, pos_d,
+                                  tokens)
             logits = gpt_ragged_apply(
                 self.model_config, self._stacked, self._other,
                 pool.k, pool.v, tokens, pos_d, lim_d, tab_d,
@@ -1064,6 +1145,9 @@ class ServingEngine:
                     feed_toks[s, :fed] = seq[lo:lo + fed]
                     feed_pos0[s] = lo
                     feed_len[s] = fed
+                    if not self._spec_started[s]:
+                        self._spec_started[s] = True
+                        self._emit("draft", rid, slot=s, pos=lo)
             if s in ticking_set and behind - fed == 0 and \
                     req.max_new - len(req.out) >= 2 and \
                     dr.grow_for(s, min(int(self._slot_len[s]) + k, cap)):
@@ -1094,6 +1178,9 @@ class ServingEngine:
                          - pos0 - 1)
             if ks > 0:
                 k_arr[s] = ks
+                if not self._spec_verifying[s]:
+                    self._spec_verifying[s] = True
+                    self._emit("verify", req.rid, slot=s, k=int(ks))
         has_drafts = bool(k_arr.any())
 
         # ---- (3) the verify/mixed tick ----
@@ -1213,7 +1300,7 @@ class ServingEngine:
             a = min(int(accs[s]), ks) if ks else 0
             pos0 = int(self._slot_len[s])
             emitted = 0
-            finished = False
+            finished = None
             for j in range(a + 1):
                 tok = int(toks[s, j])
                 req.out.append(tok)
@@ -1223,9 +1310,12 @@ class ServingEngine:
                     req.first_token_t = now
                     reg.histogram("serving/ttft_ms").observe(
                         (now - req.submit_t) * 1000.0)
-                if (eos is not None and tok == eos) or \
-                        len(req.out) >= req.max_new:
-                    finished = True
+                    self._emit("first_token", rid, slot=s)
+                if eos is not None and tok == eos:
+                    finished = "eos"
+                    break
+                if len(req.out) >= req.max_new:
+                    finished = "max_new"
                     break
             if s in ticking_set:
                 # the accepted prefix's KV is in the cache (this verify
@@ -1239,13 +1329,15 @@ class ServingEngine:
                         float(gained))
                     if self._spec_ctl is not None:
                         self._spec_ctl.observe(s, gained, ks)
+                    self._emit("accept", rid, slot=s, accepted=gained,
+                               drafted=ks)
                 if s in gen_slots or s in chained:
                     # the chained tick's seed assumed the whole accepted
                     # prefix and the correction were emitted and the slot
                     # keeps ticking; anything else (EOS, the budget)
                     # invalidates it and the slot catches up next step
                     if (pend_new is not None and bool(pend_new["valid"][s])
-                            and not finished and emitted == a + 1
+                            and finished is None and emitted == a + 1
                             and len(req.out) < req.max_new):
                         # the chained tick wrote the seed at the new
                         # frontier (and healed a fully accepted row)
@@ -1256,15 +1348,15 @@ class ServingEngine:
                         # the draft's own speculation wrote the accepted
                         # tokens' KV; pages past its frontier go back
                         dr.rewind(s, pos0 + min(emitted, k))
-                if not finished and ks:
+                if finished is None and ks:
                     # rewind: pages past the new frontier (+1 position of
                     # headroom for the next write) go back to the pool;
                     # refcounts keep shared pages alive
                     self.pool.shrink_slot(s, self.pool.pages_for(
                         int(self._slot_len[s]) + 1))
             self._slot_dispatched[s] = len(req.out)
-            if finished:
-                self._finish(s, rid)
+            if finished is not None:
+                self._finish(s, rid, reason=finished)
         self._tick_gauges(ticking, chunks)
         reg.gauge("serving/spec_rows").set(float(int((k_arr > 0).sum())))
         # mean offered depth across speculating slots this tick

@@ -52,8 +52,13 @@ new length (``shrink_slot`` on the target tables and on the draft's
 wrote the accepted tokens' KV, and the correction token arrives as the
 next step's seed.
 
-Not in this slice: the event timeline and the recompile sites of the
-reference's draft site, which come with the profiler slice.
+Both ticks mark their arguments at a recompile site (``profiler/
+recompile.py``): the verify tick at the engine's ``serving.tick`` site,
+with the shapes of the branch it runs, and the draft tick at its own
+``serving.draft`` site, with the stages it runs (feed, generate, a
+chained frontier). ``trace_counts()`` of each is the number of distinct
+shapes it ran: where the reference compiles one program holding every
+branch, each branch here runs at its own shape.
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ from ..core import random as _random
 from ..models.gpt import _ln, gpt_block_body, gpt_ragged_apply
 from ..ops.decoding import (apply_top_k_top_p_per_row, spec_accept_length,
                             spec_rejection_sample)
+from ..profiler import recompile as _recompile
 from .paged_cache import AuxPageTable
 
 __all__ = ["SpecConfig", "DraftRunner", "make_draft_tick", "make_spec_tick"]
@@ -125,8 +131,10 @@ class DraftRunner:
         self.kc = torch.zeros(shape, dtype=wte.dtype, device=wte.device)
         self.vc = torch.zeros_like(self.kc)
         self.len = np.zeros(num_slots, np.int64)
+        self.site = _recompile.unique_site("serving.draft")
         self.tick = make_draft_tick(cfg, num_slots, capacity, k, feed_width,
-                                    pool.page_size, sampling=sampling)
+                                    pool.page_size, sampling=sampling,
+                                    site=self.site)
 
     def held_tokens(self, slot: int) -> int:
         """Draft positions covered by the slot's held pages."""
@@ -176,7 +184,8 @@ def _sample_rows(logits, keys, pos, temps, top_ks, top_ps):
 
 
 def make_draft_tick(cfg, num_slots: int, capacity: int, k: int,
-                    feed_width: int, page_size: int, sampling: bool = False):
+                    feed_width: int, page_size: int, sampling: bool = False,
+                    site: str = "serving.draft"):
     """Build the draft tick. Position ``p`` of slot ``s`` lives at
     ``(dtab[s, p // ps], p % ps)`` of the paged pools; pad and overflow
     writes go to the null page 0, and attention reads the table view
@@ -202,7 +211,8 @@ def make_draft_tick(cfg, num_slots: int, capacity: int, k: int,
     (tok_m [ns, 1+k], acc [ns], pos0 [ns], mask [ns] bool)``: chained rows
     seed with ``tok_m[s, acc]`` at ``pos0 + acc + 1``, gathered on the
     device. It returns (drafts ``[ns, k]``, the filtered draft
-    distributions ``[ns, k, V]``).
+    distributions ``[ns, k, V]``). Every call marks the stages it runs at
+    the recompile ``site``.
     """
     nh = cfg.num_heads
     hd = cfg.hidden_size // nh
@@ -216,6 +226,8 @@ def make_draft_tick(cfg, num_slots: int, capacity: int, k: int,
 
     def tick(stacked, other, kc, vc, dtab, feed_toks, feed_pos0, feed_len,
              gen_tok, gen_pos, has_feed, has_gen, law=None, chain=None):
+        _recompile.mark_trace(site, kc, feed_toks if has_feed else None,
+                              gen_tok if has_gen else None, chain)
         dev = kc.device
         wte = other["embeddings.wte.weight"]
         wpe = other["embeddings.wpe.weight"]
@@ -312,7 +324,7 @@ def make_draft_tick(cfg, num_slots: int, capacity: int, k: int,
 
 
 def make_spec_tick(mcfg, num_slots: int, k: int, chunk_width: int,
-                   sampling: bool = False):
+                   sampling: bool = False, site: str = "serving.tick"):
     """Build the verify/mixed tick: the unified mixed-row tick with a draft
     section, over the target pools (updated in place).
 
@@ -341,7 +353,8 @@ def make_spec_tick(mcfg, num_slots: int, k: int, chunk_width: int,
     sample_pos, temps, top_ks, top_ps)`` (``sample_pos``: the column-0
     emission positions) and the draft tick's ``draft_probs [ns, k, V]``;
     its spec branches run ``spec_rejection_sample`` and its plain branches
-    the per-row sampling law.
+    the per-row sampling law. Each call marks the pools, row tables,
+    positions and tokens of the branch it runs at the recompile ``site``.
     """
     ns = num_slots
     w = chunk_width
@@ -354,6 +367,7 @@ def make_spec_tick(mcfg, num_slots: int, k: int, chunk_width: int,
         sc = scales or {}
 
         def run(toks, pos, lim, tab, p0, ln, six, sk):
+            _recompile.mark_trace(site, kpool, tab, pos, toks)
             return gpt_ragged_apply(mcfg, stacked, other, kpool, vpool, toks,
                                     pos, lim, tab, p0, ln, six,
                                     decode_rows=ns, chunk_width=w,

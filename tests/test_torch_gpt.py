@@ -186,8 +186,9 @@ def test_moe_config_raises_not_implemented():
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of paddle_tpu_torch — the training slice's fused_ce,
-    optimizer, distributed.hybrid and distributed.fleet and the int8
-    slice's ops.int8_matmul and quantization among them — and
+    optimizer, distributed.hybrid and distributed.fleet, the int8
+    slice's ops.int8_matmul and quantization and the profiler's trace,
+    events, sink, recompile and disttrace among them — and
     chip_smoke.py load in a fresh interpreter without pulling in jax or
     paddle_tpu."""
     code = (
@@ -201,7 +202,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'paddle_tpu_torch.distributed.hybrid', "
         "'paddle_tpu_torch.distributed.fleet', "
         "'paddle_tpu_torch.ops.int8_matmul', "
-        "'paddle_tpu_torch.quantization'}\n"
+        "'paddle_tpu_torch.quantization', "
+        "'paddle_tpu_torch.profiler.trace', "
+        "'paddle_tpu_torch.profiler.events', "
+        "'paddle_tpu_torch.profiler.sink', "
+        "'paddle_tpu_torch.profiler.recompile', "
+        "'paddle_tpu_torch.profiler.disttrace'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "for m in mods: importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"
