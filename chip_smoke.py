@@ -156,8 +156,38 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    ragged_kernel and flash kernel events; the host spans' own Chrome
    export loads. Last, warm tokens/s with the event log on and off in
    turns (on, off, off, on; each on-turn's bucket sums beside its wall).
+11. handoff phase — two paths on the engine phase's model and workload.
+   The legacy path: ServingEngine(attention_kernel="legacy") serves the 16
+   requests (every request finishes; 4 streams against teacher-forced
+   argmax at >= 0.9, the unified engine's streams at >=
+   SPEC_MATCH_FLOOR); its two sites (serving.tick, serving.prefill) run
+   one shape each, and the counters show exactly num_layers decode-row
+   launches a tick and num_layers chunk-row launches at T = prefill_chunk
+   a prefill dispatch. Warm tokens/s in turns (unified, legacy, legacy,
+   unified), each with its wall, ticks, process CPU seconds and busy
+   share (kernel ms of a profiled second run over the plain run's wall).
+   The handoff path: a prefill engine holds 8 of the requests
+   (hold_after_prefill), exports and releases each, a decode engine
+   admits each payload and decodes: every request finishes, both page
+   audits are empty, the prefill engine's prefix index is not, each
+   admit's pages read back equal to its payload, the streams agree with
+   a single engine's at >= SPEC_MATCH_FLOOR and with teacher-forced
+   argmax at >= 0.9; bytes, ms and GB/s of each export and import from
+   the handoff_out/handoff_in events. The same on int8 pools for 4
+   requests, twice (equal streams; the imported scales equal the
+   payload's after the admit and after the decode engine's next tick;
+   >= KVINT8_MATCH_FLOOR against the single int8 engine). Then the
+   shared 512-token prefix's chain migrates: engine A serves the 8
+   shared-prefix requests and exports 32 pages, a fresh engine B imports
+   512 tokens and serves one of the prompts with a prefix hit of 512
+   remote tokens (event and counter), its stream agreeing with A's at
+   >= SPEC_MATCH_FLOOR. The kernel phase holds the ragged kernel at the
+   legacy engine's shapes: its prefill program's R1 T256 row at pos0 0
+   and 512, and its decode tick's R8 T1 rows (5 live, 2 idle on an
+   all-null table at pos0 0, whose outputs are ignored, and one at pos0
+   == the table's capacity over a full table).
 
-Every launch counter is set to 0 just before each of phases 2-10 and read
+Every launch counter is set to 0 just before each of phases 2-11 and read
 just after it: those are the main paths' launches, and each path must
 launch each of its kernels (the generate path: the ragged decode and
 chunk rows, never the int8 path; the spec path: both row kinds and the
@@ -169,7 +199,9 @@ forward and the mma.sync backward kernels and no wgmma one; the deploy
 path: the wgmma int8 product and the quantize pass, not the mma.sync
 int8 kernel, whose kernels-line entry is timed at fc1's shape and has no
 main-path launch; the observe path: both ragged row kinds, the wgmma
-forward, dQ and dK/dV, none of the f32 route's). Prints
+forward, dQ and dK/dV, none of the f32 route's; the legacy path: both
+ragged row kinds, not the int8 path; the handoff path: both row kinds
+and the int8 path). Prints
 JSON lines per case, then {"kernels": [...]}, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -180,6 +212,8 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
     python3 chip_smoke.py --phases generate        # decode and sampling
     python3 chip_smoke.py --phases kernels,spec    # speculative decoding
     python3 chip_smoke.py --phases observe         # the profiler
+    python3 chip_smoke.py --phases kernels,handoff # legacy mode, handoff,
+                                                   # chain migration
 """
 from __future__ import annotations
 
@@ -491,7 +525,41 @@ def spec_ragged_groups(rng, npages, nps, ps, k=4, rows=8):
         for i in range(rows):
             n = (int(p0[i]) + int(tl[i]) - 1) // ps + 1
             tab[i, :n] = rng.choice(np.arange(1, npages), n, replace=False)
-        out.append((f"spec_R{rows}_T{t}", t, p0, tl, tab, True))
+        out.append((f"spec_R{rows}_T{t}", t, p0, tl, tab,
+                    {"no_read_past": True}))
+    return out
+
+
+def legacy_ragged_groups(rng, npages, nps, ps, chunk=256, slots=8, live=5):
+    """The legacy engine's two row shapes at the engine's pool: its prefill
+    program's one row of ``chunk`` queries (row length ``chunk``, as the
+    program runs every chunk) from pos0 0 and 512, and its fixed-shape
+    decode tick: ``live`` rows at their frontiers, idle rows on an
+    all-null table at pos0 0 (their outputs are ignored, as the engine
+    ignores them), and a slot that finished at exactly its capacity
+    (pos0 == nps * ps over a full table: it attends every page)."""
+    import numpy as np
+
+    def table(n):
+        row = np.zeros(nps, np.int32)
+        row[:n] = rng.choice(np.arange(1, npages), n, replace=False)
+        return row
+
+    out = []
+    for p0 in (0, 512):
+        tab = table((p0 + chunk - 1) // ps + 1)[None]
+        name = f"legacy_chunk_R1_T{chunk}" + (f"_p{p0}" if p0 else "")
+        out.append((name, chunk, np.array([p0], np.int32),
+                    np.array([chunk], np.int32), tab))
+    idle = slots - live - 1
+    p0 = np.concatenate([rng.randint(200, 1900, live), np.zeros(idle),
+                         [nps * ps]]).astype(np.int32)
+    tab = np.zeros((slots, nps), np.int32)
+    for i in range(live):
+        tab[i] = table(int(p0[i]) // ps + 1)
+    tab[-1] = table(nps)
+    out.append((f"legacy_decode_R{slots}_T1", 1, p0, np.ones(slots, np.int32),
+                tab, {"ignore_rows": list(range(live, live + idle))}))
     return out
 
 
@@ -553,7 +621,10 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
     pools = {"float32": (k32, v32),
              "bfloat16": (k32.bfloat16(), v32.bfloat16())}
     results = []
-    for name, t, p0, tl, tab, *spec in groups(rng, npages, nps, ps):
+    for name, t, p0, tl, tab, *opts in groups(rng, npages, nps, ps):
+        opts = opts[0] if opts else {}
+        spec = opts.get("no_read_past", False)
+        ignore = set(opts.get("ignore_rows", ()))
         if chunk_only and t == 1:
             continue
         if ps != 16:
@@ -586,6 +657,8 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
                 torch.cuda.synchronize(dev)
             err = 0.0
             for i in range(r):
+                if i in ignore:
+                    continue
                 n = int(tl[i])
                 d = (out[i, :n].float() - ref[i, :n].float()).abs()
                 lim = (BF16_TOL if qdt == "bfloat16"
@@ -616,15 +689,17 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
                     qt, kc, vc, attn_mask=mask), iters, dev)
                 dec_ms = time_ms(decode_equiv(pa, q, k, v, tab_d, p0_d),
                                  iters, dev) if spec else None
-            # bytes this data needs: attended K/V positions, q, o, metadata
-            attended = (p0.astype(np.int64) + tl).sum()
+            # bytes this data needs: attended K/V positions (a row past
+            # its table reads the whole table), q, o, metadata
+            attended = np.minimum(p0.astype(np.int64) + tl, s_cap).sum()
             esz_kv = k.element_size()
             nbytes = (2 * attended * nh * hd * esz_kv
                       + 2 * r * t * nh * hd * q.element_size()
                       + tab.nbytes + p0.nbytes + tl.nbytes)
             # real queries only: query j of a row attends pos0 + j + 1 keys
-            keys = sum(int(tl[i]) * int(p0[i]) + int(tl[i]) * (int(tl[i]) + 1)
-                       // 2 for i in range(r))
+            # (at most the table's)
+            keys = sum(int(np.minimum(int(p0[i]) + np.arange(int(tl[i])) + 1,
+                                      s_cap).sum()) for i in range(r))
             flops = 4.0 * nh * hd * keys
             b_ms, b_by = bound(nbytes, flops,
                                "float32" if "float32" in (qdt, kvdt)
@@ -649,6 +724,8 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
             if spec:
                 row.update(no_read_past_last_query=dev.type == "cuda",
                            decode_rows_equiv_ms=dec_ms)
+            if ignore:
+                row["ignored_rows"] = sorted(ignore)
             emit(row)
             results.append(row)
     return results
@@ -3178,12 +3255,376 @@ def observe_phase(model, dev, engine_kw, card=None, n_req=16, max_new=32,
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the legacy two-dispatch engine, the KV handoff, chain migration
+# ---------------------------------------------------------------------------
+def _free_memory(dev) -> None:
+    """Give the card back the memory of engines the caller dropped (two
+    f32 pools of the engine's size are about 13 GB each)."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _serve_counted(model, dev, prompts, max_new, engine_kw):
+    """One run on a fresh engine: (streams, wall s, {ticks, prefill
+    dispatches, process CPU s}, the engine's sites and their shape
+    counts). The engine is dropped before returning."""
+    from paddle_tpu_torch.profiler import recompile, registry
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    reg = registry()
+    names = ("ticks", "prefill_chunks")
+    c0 = {n: reg.counter("serving/" + n).value for n in names}
+    eng = ServingEngine(model, ServingConfig(**engine_kw))
+    cpu0 = time.process_time()
+
+    def serve():
+        rids = [eng.submit(p, max_new) for p in prompts]
+        out = eng.run()
+        return [out[r] for r in rids]
+
+    streams, wall = _timed_call(dev, serve)
+    cnt = {n: int(reg.counter("serving/" + n).value - c0[n]) for n in names}
+    cnt["cpu_s"] = time.process_time() - cpu0
+    for r in streams:
+        if r.shape != (max_new,):
+            raise AssertionError(f"a stream of {r.shape} tokens")
+    bad = eng.pool.check_consistency()
+    if bad:
+        raise AssertionError(f"page audit: {bad[:4]}")
+    sites = list(eng.compiled_sites)
+    shapes = [recompile.trace_counts().get(s) for s in sites]
+    del eng
+    _free_memory(dev)
+    return streams, wall, cnt, (sites, shapes)
+
+
+def legacy_phase(model, dev, engine_kw, n_req=16, max_new=32, n_check=4,
+                 turns=("unified", "legacy", "legacy", "unified")):
+    """The legacy engine on the engine phase's workload. Its one counted
+    run must finish every request, launch exactly num_layers decode-row
+    kernels a tick and num_layers chunk-row kernels at T = prefill_chunk a
+    prefill dispatch (and no other chunk rows), and run its two sites at
+    one shape each. Uncounted: teacher-forced argmax over n_check streams
+    (>= 0.9), the unified engine's streams (>= SPEC_MATCH_FLOOR), and warm
+    tokens/s in turns, each turn's wall, ticks and process CPU seconds;
+    then one run of each engine under torch.profiler, whose kernel ms over
+    a turn's wall is that turn's busy share (a profiled run of this
+    workload takes tens of seconds to read back; the two kinds' kernel ms
+    moved by about 1% between runs on the card)."""
+    import numpy as np
+
+    from paddle_tpu_torch.ops import paged_attention as pa
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    L = cfg.num_layers
+    w = engine_kw["prefill_chunk"]
+    prompts = engine_prompts(cfg, n_req)
+    kws = {"unified": engine_kw,
+           "legacy": dict(engine_kw, attention_kernel="legacy")}
+    counts0, by0 = read_counts()
+    r0, c0 = counts0["ragged"], counts0["ragged_chunk"]
+    streams, wall, cnt, (sites, shapes) = _serve_counted(
+        model, dev, prompts, max_new, kws["legacy"])
+    counts, by_t = read_counts()
+    chunk_l = counts["ragged_chunk"] - c0
+    decode_l = counts["ragged"] - r0 - chunk_l
+    by_t = {t: n - by0.get(t, 0) for t, n in by_t.items()
+            if n != by0.get(t, 0)}
+    row = {"phase": "legacy", "config": "gpt3_1_3b", "requests": n_req,
+           "max_new_tokens": max_new, "wall_s": wall,
+           "tokens_per_s": n_req * max_new / wall, "ticks": cnt["ticks"],
+           "prefill_dispatches": cnt["prefill_chunks"],
+           "decode_row_launches": decode_l,
+           "chunk_row_launches_by_t": by_t,
+           "sites": [s.rsplit("#", 1)[0] for s in sites],
+           "site_shapes": shapes}
+    fails = []
+    if decode_l != L * cnt["ticks"] or cnt["ticks"] == 0:
+        fails.append(f"decode-row launches {decode_l} != {L} x "
+                     f"{cnt['ticks']} ticks")
+    if by_t != {w: L * cnt["prefill_chunks"]} or cnt["prefill_chunks"] == 0:
+        fails.append(f"chunk-row launches by T {by_t} != {{{w}: {L} x "
+                     f"{cnt['prefill_chunks']} prefill dispatches}}")
+    if len(sites) != 2 or shapes != [1, 1]:
+        fails.append(f"sites {sites} ran {shapes} shapes")
+    if fails:
+        emit(row)
+        raise AssertionError(f"legacy: {fails}")
+    with uncounted():
+        row["teacher_forced_match"] = teacher_match(model, dev, prompts,
+                                                    streams, n_check)
+        runs, unified = [], None
+        for kind in turns:
+            st, wl, c, _ = _serve_counted(model, dev, prompts, max_new,
+                                          kws[kind])
+            if kind == "unified" and unified is None:
+                unified = st
+            runs.append({"engine": kind, "wall_s": wl,
+                         "tokens_per_s": n_req * max_new / wl,
+                         "ticks": c["ticks"],
+                         "prefill_dispatches": c["prefill_chunks"],
+                         "cpu_s": c["cpu_s"]})
+        kern_ms = {}
+        for kind, kw in kws.items():
+            _, kernels = profile_kernels(dev, lambda kw=kw: (
+                _serve_counted(model, dev, prompts, max_new, kw)[0]))
+            kern_ms[kind] = (sum(e.self_device_time_total for e in kernels)
+                             / 1e3 if kernels else None)
+        for r in runs:
+            k = kern_ms[r["engine"]]
+            r["busy_share"] = None if k is None else k / 1e3 / r["wall_s"]
+    row["kernel_ms"] = kern_ms
+    row["match_vs_unified"] = match_rate(streams, unified)
+    row["turns"] = runs
+    for kind in kws:
+        row[f"median_tokens_per_s_{kind}"] = float(np.median(
+            [r["tokens_per_s"] for r in runs if r["engine"] == kind]))
+    row["legacy_over_unified"] = (row["median_tokens_per_s_legacy"]
+                                  / row["median_tokens_per_s_unified"])
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    if row["teacher_forced_match"] < 0.9:
+        raise AssertionError(f"legacy: teacher-forced match "
+                             f"{row['teacher_forced_match']} < 0.9")
+    if row["match_vs_unified"] < SPEC_MATCH_FLOOR:
+        raise AssertionError(f"legacy: match vs the unified engine "
+                             f"{row['match_vs_unified']} < "
+                             f"{SPEC_MATCH_FLOOR}")
+    return row
+
+
+def _same_pages(pool, pages, pl, names=("k", "v", "k_scale", "v_scale")):
+    """The pool's content (and scales) at ``pages`` equals the payload's,
+    bit for bit (bf16 pages compared as their 16-bit patterns)."""
+    import numpy as np
+    import torch
+
+    for name in names:
+        if name not in pl:
+            continue
+        got = getattr(pool, name).index_select(1, pages).cpu()
+        want = np.ascontiguousarray(pl[name])
+        if got.dtype == torch.bfloat16:
+            got, want = got.view(torch.int16), want.view(np.int16)
+        if not torch.equal(got, torch.from_numpy(want)):
+            return False
+    return True
+
+
+def handoff_run(model, dev, engine_kw, prompts, max_new):
+    """A prefill engine holds every prompt (``hold_after_prefill``),
+    exports each held-ready one and releases it; a decode engine admits
+    each payload as it comes (retrying on None) and decodes. Right after
+    each admit the imported pages (and an int8 pool's scales) read back
+    equal to the payload's; on int8 pools the full pages' scales still do
+    after the decode engine's next tick. Returns the streams in prompt
+    order and the numbers of the run."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.profiler import events as pev
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    seq0 = pev.log().next_seq
+    pe = ServingEngine(model, ServingConfig(**engine_kw))
+    de = ServingEngine(model, ServingConfig(**engine_kw))
+    ps = pe.pool.page_size
+    index = {pe.submit(p, max_new, hold_after_prefill=True): i
+             for i, p in enumerate(prompts)}
+    local, pending, after_tick = {}, [], []
+    checks = {"readback": 0, "scales_after_tick": 0}
+    t0 = time.perf_counter()
+    while True:
+        if not pe.idle():
+            pe.step()
+            pe.drain(0)
+        for rid in pe.held_ready():
+            pl = pe.export_held(rid)
+            pe.release_exported(rid)
+            pending.append((index[rid], pl))
+        waiting = []
+        for i, pl in pending:
+            lr = de.admit_prefilled(pl)
+            if lr is None:
+                waiting.append((i, pl))
+                continue
+            local[lr] = i
+            pages = torch.as_tensor(de.pool._held[de._slot_rid.index(lr)],
+                                    device=dev)
+            if not _same_pages(de.pool, pages, pl):
+                raise AssertionError(f"handoff: request {i}'s imported "
+                                     "pages differ from its payload")
+            checks["readback"] += 1
+            if de.pool.quantized:
+                n_full = int(pl["n_tokens"]) // ps
+                after_tick.append((pages[:n_full], {
+                    k: pl[k][:, :n_full] for k in ("k_scale", "v_scale")}))
+        pending = waiting
+        ticked = de.step()
+        for pages, sc in after_tick:
+            if not _same_pages(de.pool, pages, sc):
+                raise AssertionError("handoff: imported int8 scales were "
+                                     "reset by the decode engine's tick")
+            checks["scales_after_tick"] += 1
+        after_tick = []
+        if not ticked and de._inflight:
+            de.drain(0)
+        if pe.idle() and not pending and de.idle() and \
+                len(local) == len(prompts):
+            break
+    wall = time.perf_counter() - t0
+    streams = [None] * len(prompts)
+    for lr, i in local.items():
+        streams[i] = np.asarray(de._requests[lr].out, np.int32)
+        if streams[i].shape != (max_new,):
+            raise AssertionError(f"handoff: request {i} gave "
+                                 f"{streams[i].shape} tokens")
+    audits = (pe.pool.check_consistency(), de.pool.check_consistency())
+    if audits != ([], []):
+        raise AssertionError(f"handoff: page audits {audits}")
+    if pe.pool.prefix is None or len(pe.pool.prefix) == 0:
+        raise AssertionError("handoff: the prefill engine indexed nothing")
+    evs = pev.log().events(since_seq=seq0)
+    outs = [e.attrs for e in evs if e.kind == "handoff_out"
+            and e.attrs.get("eng") == pe._eng_id]
+    ins = [e.attrs for e in evs if e.kind == "handoff_in"
+           and e.attrs.get("eng") == de._eng_id]
+    del pe, de
+    _free_memory(dev)
+
+    def side(es):
+        b = sum(e["bytes"] for e in es)
+        ms = sum(e["ms"] for e in es)
+        return {"handoffs": len(es), "bytes": b,
+                "bytes_each": [e["bytes"] for e in es],
+                "ms_each": [e["ms"] for e in es],
+                "gb_per_s": b / ms / 1e6 if ms else None}
+
+    return streams, {"wall_s": wall, "export": side(outs),
+                     "import": side(ins), "checks": checks}
+
+
+def handoff_phase(model, dev, engine_kw, n_req=16, max_new=32, n_check=4,
+                  n_handoff=8, n_int8=4, prefix=512):
+    """The KV handoff at f32 (n_handoff requests of the engine phase's
+    workload) and int8 (n_int8, twice), then chain migration of the
+    workload's shared prefix between two engines. The comparisons (single
+    engines, teacher-forced forwards) run uncounted."""
+    from paddle_tpu_torch.profiler import events as pev
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    prompts = engine_prompts(cfg, n_req)
+    row = {"phase": "handoff", "config": "gpt3_1_3b"}
+    # (1) f32
+    sub = prompts[:n_handoff]
+    streams, f32 = handoff_run(model, dev, engine_kw, sub, max_new)
+    with uncounted():
+        single = _serve_counted(model, dev, sub, max_new, engine_kw)[0]
+        f32["teacher_forced_match"] = teacher_match(model, dev, sub,
+                                                    streams, n_check)
+    f32["match_vs_single"] = match_rate(streams, single)
+    row["f32"] = f32
+    # (2) int8, twice
+    kw8 = dict(engine_kw, kv_dtype="int8")
+    sub8 = prompts[:n_int8]
+    s8a, i8 = handoff_run(model, dev, kw8, sub8, max_new)
+    s8b, i8b = handoff_run(model, dev, kw8, sub8, max_new)
+    with uncounted():
+        single8 = _serve_counted(model, dev, sub8, max_new, kw8)[0]
+    i8["two_runs_equal"] = all((a == b).all() for a, b in zip(s8a, s8b))
+    i8["match_vs_single_int8"] = match_rate(s8a, single8)
+    i8["checks_second_run"] = i8b["checks"]
+    row["int8"] = i8
+    # (3) chain migration: A serves the shared-prefix requests and exports
+    # the prefix's chain; a fresh B imports it and serves one of them
+    shared = [p for i, p in enumerate(prompts) if i % 2 == 0]
+    pre = shared[0][:prefix]
+    a = ServingEngine(model, ServingConfig(**engine_kw))
+    rids = [a.submit(p, max_new) for p in shared]
+    out_a = a.run()[rids[0]]
+    t0 = time.perf_counter()
+    payload = a.export_prefix_chain(pre)
+    export_ms = (time.perf_counter() - t0) * 1e3
+    del a
+    _free_memory(dev)
+    ps = engine_kw["page_size"]
+    chain = {"pages": None if payload is None else int(payload["k"].shape[1]),
+             "export_ms": export_ms}
+    if payload is None or chain["pages"] != prefix // ps or \
+            payload["n_tokens"] != prefix:
+        raise AssertionError(f"chain: exported {chain['pages']} pages, "
+                             f"want {prefix // ps}")
+    nbytes = payload["k"].nbytes + payload["v"].nbytes
+    b = ServingEngine(model, ServingConfig(**engine_kw))
+    reg = registry()
+    rem0 = reg.counter("serving/prefix_hit_tokens_remote").value
+    t0 = time.perf_counter()
+    chain["imported_tokens"] = b.import_prefix_chain(payload)
+    chain["import_ms"] = (time.perf_counter() - t0) * 1e3
+    chain["bytes"] = nbytes
+    chain["export_gb_per_s"] = nbytes / chain["export_ms"] / 1e6
+    chain["import_gb_per_s"] = nbytes / chain["import_ms"] / 1e6
+    seq0 = pev.log().next_seq
+    rid = b.submit(shared[0], max_new)
+    out_b = b.run()[rid]
+    hits = [e.attrs for e in pev.log().events(since_seq=seq0)
+            if e.kind == "prefix_hit" and e.attrs.get("eng") == b._eng_id]
+    chain["remote_tokens"] = [h["remote_tokens"] for h in hits]
+    chain["remote_counter"] = int(
+        reg.counter("serving/prefix_hit_tokens_remote").value - rem0)
+    chain["match_vs_origin"] = match_rate([out_b], [out_a])
+    chain["audit"] = b.pool.check_consistency()
+    del b
+    _free_memory(dev)
+    row["chain"] = chain
+    row["seconds"] = time.perf_counter() - t_phase
+    emit(row)
+    fails = []
+    if f32["teacher_forced_match"] < 0.9:
+        fails.append(f"f32 teacher-forced {f32['teacher_forced_match']}")
+    if f32["match_vs_single"] < SPEC_MATCH_FLOOR:
+        fails.append(f"f32 match vs single {f32['match_vs_single']}")
+    if f32["checks"]["readback"] != n_handoff:
+        fails.append(f"f32 readbacks {f32['checks']}")
+    if not i8["two_runs_equal"]:
+        fails.append("int8: two runs differ")
+    if i8["match_vs_single_int8"] < KVINT8_MATCH_FLOOR:
+        fails.append(f"int8 match vs single {i8['match_vs_single_int8']}")
+    if i8["checks"]["readback"] != n_int8 or \
+            i8["checks"]["scales_after_tick"] != n_int8:
+        fails.append(f"int8 checks {i8['checks']}")
+    if chain["imported_tokens"] != prefix:
+        fails.append(f"chain imported {chain['imported_tokens']}")
+    if chain["remote_tokens"] != [prefix] or \
+            chain["remote_counter"] != prefix:
+        fails.append(f"chain remote hit {chain['remote_tokens']} / "
+                     f"{chain['remote_counter']}")
+    if chain["match_vs_origin"] < SPEC_MATCH_FLOOR:
+        fails.append(f"chain match vs origin {chain['match_vs_origin']}")
+    if chain["audit"]:
+        fails.append(f"chain audit {chain['audit'][:4]}")
+    if fails:
+        raise AssertionError(f"handoff: {fails}")
+    return row
+
+
+# ---------------------------------------------------------------------------
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--phases", default="kernels,model,engine,spec,kvint8,"
-                                        "generate,observe,deploy,grad,train",
+                                        "generate,observe,handoff,deploy,"
+                                        "grad,train",
                     help="comma-separated subset (debugging)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
@@ -3264,6 +3705,10 @@ def main(argv=None) -> int:
         # row's last real query
         rag += kernel_phase_ragged(dev, args.iters, nh=nh, hd=hd,
                                    groups=spec_ragged_groups)
+        # the legacy engine's prefill row (R1 T256) and its fixed-shape
+        # decode tick (R8 T1: idle rows, a slot at exactly its capacity)
+        rag += kernel_phase_ragged(dev, args.iters, nh=nh, hd=hd,
+                                   groups=legacy_ragged_groups)
         fl = kernel_phase_flash(dev, args.iters, [
             ((2, 1024, nh, hd), True, "float32"),      # the model's shape
             ((2, 1024, nh, hd), False, "float32"),
@@ -3344,6 +3789,12 @@ def main(argv=None) -> int:
             and r["q_dtype"] == r["kv_dtype"] == "float32")
         kern["ragged_verify"] = next(
             r for r in rag if r["case"] == "spec_R8_T5"
+            and r["q_dtype"] == r["kv_dtype"] == "float32")
+        kern["ragged_legacy_tick"] = next(
+            r for r in rag if r["case"] == "legacy_decode_R8_T1"
+            and r["q_dtype"] == r["kv_dtype"] == "float32")
+        kern["ragged_legacy_prefill"] = next(
+            r for r in rag if r["case"] == "legacy_chunk_R1_T256_p512"
             and r["q_dtype"] == r["kv_dtype"] == "float32")
         kern["flash"] = fl[0]
         kern["flash_tc"] = next(r for r in fl if r["route"] == "wgmma"
@@ -3429,7 +3880,8 @@ def main(argv=None) -> int:
         return out
 
     model = None
-    if phases & {"model", "engine", "spec", "kvint8", "generate", "observe"}:
+    if phases & {"model", "engine", "spec", "kvint8", "generate", "observe",
+                 "handoff"}:
         _rng.seed(0)
         model = GPT(cfg, device=dev)
         model.eval()
@@ -3461,6 +3913,12 @@ def main(argv=None) -> int:
         drive("observe", ("ragged", "ragged_chunk", "flash_tc", "bwd_dq_tc",
                           "bwd_dkv_tc"), observe_phase, model, dev,
               engine_kw, card=smi, forbid=("ragged_int8",) + f32_kernels)
+    if "handoff" in phases:
+        # the legacy engine's run, then the handoff and chain migration
+        drive("legacy", ("ragged", "ragged_chunk"), legacy_phase, model, dev,
+              engine_kw, forbid=("ragged_int8",))
+        drive("handoff", ("ragged", "ragged_chunk", "ragged_int8"),
+              handoff_phase, model, dev, engine_kw)
     del model, f32_run
     if "deploy" in phases:
         drive("deploy", ("int8_matmul_wgmma", "int8_quantize"),
@@ -3517,6 +3975,16 @@ def main(argv=None) -> int:
                 ("ragged_int8", "ragged_paged_attention_int8",
                  "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
                  "paddle_tpu/ops/paged_attention.py:294"),
+                # the same kernel at the legacy engine's shapes: its decode
+                # tick's rows and its prefill program's chunk row, launched
+                # on the legacy path
+                ("ragged_legacy_tick", "ragged_paged_attention_legacy_tick",
+                 "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+                 "paddle_tpu/ops/paged_attention.py:294"),
+                ("ragged_legacy_prefill",
+                 "ragged_paged_attention_chunk_legacy_prefill",
+                 "paddle_tpu_torch/csrc/ragged_paged_attention.cu",
+                 "paddle_tpu/ops/paged_attention.py:294"),
                 ("int8_matmul", "int8_matmul",
                  "paddle_tpu_torch/csrc/int8_matmul.cu",
                  "paddle_tpu/ops/int8_matmul.py:50"),
@@ -3532,6 +4000,12 @@ def main(argv=None) -> int:
             if key == "ragged_verify":
                 by_p = {p: n.get(1 + SPEC_K, 0)
                         for p, n in by_t_path.items()}
+            elif key == "ragged_legacy_tick":
+                by_p = {p: n["ragged"] - n["ragged_chunk"]
+                        for p, n in by_path.items() if p == "legacy"}
+            elif key == "ragged_legacy_prefill":
+                by_p = {p: n.get(engine_kw["prefill_chunk"], 0)
+                        for p, n in by_t_path.items() if p == "legacy"}
             else:
                 by_p = {p: n[key] for p, n in by_path.items()}
             line.append({"name": name, "route": "cuda", "source": src,

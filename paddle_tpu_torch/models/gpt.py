@@ -20,7 +20,8 @@ Paths:
 - ``gpt_ragged_apply`` — the serving engine's mixed prefill/decode
   forward over the paged KV cache, written over the per-layer decode
   state (``_gpt_decode_state``); a Python loop over layers replaces the
-  reference's ``lax.scan``.
+  reference's ``lax.scan``. ``gpt_paged_suffix_apply`` runs one slot's
+  prompt chunk as one ragged row of it (the legacy engine's prefill).
 - ``GPT.generate`` — greedy, sampling and beam search
   (``ops/decoding.py``) over the dense KV cache (``gpt_cached_apply``,
   plain attention as in the reference), or greedy and sampling over the
@@ -655,6 +656,35 @@ def gpt_ragged_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
     if quantized:
         return logits, kpool, vpool, kscale, vscale
     return logits, kpool, vpool
+
+
+def gpt_paged_suffix_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
+                           tokens, pos0, true_len, page_row,
+                           logits_index, kscale=None, vscale=None):
+    """Suffix-prefill forward over the PAGED cache: one prompt chunk
+    ``tokens`` [1, T] at positions ``pos0 .. pos0 + T - 1`` of the slot
+    whose page-table row is ``page_row`` [NPs] int32, as ONE ragged row of
+    ``gpt_ragged_apply`` (``decode_rows=0``, ``chunk_width=T``, row length
+    T; writes at positions ``>= true_len`` go to the null page). The
+    legacy engine's prefill program. ``pos0``, ``true_len`` and
+    ``logits_index`` are ints or one-element tensors on the tokens'
+    device. Returns (logits at chunk index ``logits_index`` [1, V], kpool,
+    vpool), plus the scales when given."""
+    t = tokens.shape[1]
+    dev = tokens.device
+
+    def one(x, dtype):
+        return torch.as_tensor(x, device=dev).to(dtype).reshape(1)
+
+    p0 = one(pos0, torch.int32)
+    tok_pos = p0 + torch.arange(t, dtype=torch.int32, device=dev)
+    tok_limit = one(true_len, torch.int32).expand(t)
+    return gpt_ragged_apply(cfg, stacked, other, kpool, vpool, tokens[0],
+                            tok_pos, tok_limit, page_row[None], p0,
+                            torch.full((1,), t, dtype=torch.int32,
+                                       device=dev),
+                            one(logits_index, torch.long), decode_rows=0,
+                            chunk_width=t, kscale=kscale, vscale=vscale)
 
 
 def _gpt_decode_state(model: GPT) -> Tuple[List[Dict[str, torch.Tensor]],

@@ -1,5 +1,5 @@
 """Continuous-batching serving engine over the paged KV cache (mirrors
-``paddle_tpu/serving/engine.py``, unified tick only).
+``paddle_tpu/serving/engine.py``).
 
 - **One mixed-row tick per scheduler step.** Every token in flight rides
   one ``gpt_ragged_apply`` forward as a ragged row: resident decodes as
@@ -67,14 +67,39 @@ the request's ``trace`` id when it has one: ``submit``, ``admit``,
 ``prefix_hit``, ``cow_copy``, ``chunk``, ``first_token`` (when the host
 holds the token: at the read of the tick that sampled it), ``preempt``,
 ``requeue``, ``cancel`` and ``finish`` (with ``ttft_ms``/``tpot_ms``); a
-spec engine adds ``draft``, ``verify`` and ``accept``. ``latency_stats``
+spec engine adds ``draft``, ``verify`` and ``accept``, and the handoff
+``handoff_out`` and ``handoff_in`` (bytes, pages, ms). ``latency_stats``
 reads the rolling TTFT/TPOT percentiles off them. Each dispatch marks its
 arguments at its recompile site (``compiled_sites``), so
 ``profiler.trace_counts()`` counts the tick shapes each site has run.
 
-Not in this slice (each raises ``NotImplementedError`` naming its
-ROADMAP item): the legacy two-dispatch mode (``attention_kernel="legacy"``),
-disaggregated export/import and prefix chain migration.
+``attention_kernel="legacy"`` keeps the reference's pre-unification
+engine as the baseline of the dispatch collapse: each step dispatches up
+to ``prefill_chunks_per_tick`` prefill programs (one slot's chunk as one
+``prefill_chunk``-query ragged row, ``gpt_paged_suffix_apply``) and then
+one fixed-shape decode tick of ``[num_slots, 1]`` rows (idle slots write
+to the null page through their zeroed table rows; a slot that finished
+at exactly its capacity rides with ``pos == slot_capacity``, its write
+sent to the null page and its position row clamped). Two dispatch sites,
+``serving.tick`` and ``serving.prefill``; fifo chunk selection and the
+model-dtype pool only. ``"ragged-xla"``, ``"ragged-pallas"`` and the
+default ``None`` all name the unified tick: the pools' device picks the
+kernel (CUDA) or its plain version (CPU), and no name selects the plain
+version on a card.
+
+The KV handoff of disaggregated serving: ``submit(...,
+hold_after_prefill=True)`` parks a request after its prompt is
+prefilled and its first token read (``held_ready``); ``export_held``
+reads its pages (and an int8 pool's scales) into a host payload in one
+gather and one device-to-host copy, ``release_exported`` publishes the
+prompt's pages in the local prefix index and frees the slot, and another
+engine's ``admit_prefilled`` writes the pages into fresh ones (one
+host-to-device copy and one ``index_copy_`` a pool, of the payload's
+pages only) and decodes on as if it had prefilled the prompt
+itself. bf16 pages travel as their ``uint16`` bits. Hot prefix chains
+migrate the same way: ``export_prefix_chain`` ships a prompt's cached
+chain, ``import_prefix_chain`` indexes it in this engine's trie, and a
+prefix hit on such pages counts as remote.
 
 Profiler signals (``profiler.metrics.registry()``):
 ``serving/queue_depth``, ``serving/active_slots``, ``serving/page_util``,
@@ -84,7 +109,8 @@ Profiler signals (``profiler.metrics.registry()``):
 ``serving/prefills``, ``serving/prefill_chunks``, ``serving/ticks``,
 ``serving/preemptions``, ``serving/requests_finished``,
 ``serving/token_syncs``, ``serving/prefix_lookups``,
-``serving/prefix_hit_tokens``, ``serving/prompt_tokens``,
+``serving/prefix_hit_tokens`` (+ ``_remote``), ``serving/prompt_tokens``,
+``serving/handoffs_out``/``_in``, ``serving/handoff_bytes_out``/``_in``,
 ``serving/mixed_rows`` (+ ``_decode``/``_prefill``),
 ``serving/decode_batch``, ``serving/budget_cuts``, and
 ``cache_share/*``; in spec mode ``serving/spec_draft_ticks``,
@@ -105,7 +131,7 @@ import numpy as np
 import torch
 
 from ..core import random as _random
-from ..models.gpt import gpt_ragged_apply
+from ..models.gpt import gpt_paged_suffix_apply, gpt_ragged_apply
 from ..profiler import events as _events
 from ..profiler import recompile as _recompile
 from ..profiler.metrics import registry as _registry
@@ -122,8 +148,15 @@ __all__ = ["ServingConfig", "ServingEngine", "Request"]
 #: logs of several processes) do not alias
 _ENGINE_SEQ = iter(range(1 << 20))
 
-_TODO_SERVING = ("is not ported yet: ROADMAP queue 1 item 6 (serving "
-                 "remainder: legacy mode, disaggregation, chain migration)")
+#: attention_kernel values: the two ragged names are the unified tick
+#: (the reference's XLA and Pallas spellings of it; here the pools' device
+#: picks the kernel or its plain version), "legacy" the two-dispatch
+#: engine kept as the baseline of the dispatch collapse
+ATTENTION_KERNELS = ("ragged-xla", "ragged-pallas", "legacy")
+
+#: the KV payloads' dtype names (the reference's numpy spellings)
+_KV_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+             torch.int8: "int8"}
 
 
 @dataclass
@@ -151,7 +184,7 @@ class ServingConfig:
     top_p: float = 1.0
     eos_token_id: Optional[int] = None
     seed: int = 0                    # sampling keys: fold_in(key(seed), rid)
-    attention_kernel: Optional[str] = None   # only 'legacy' is recognized
+    attention_kernel: Optional[str] = None   # None | ATTENTION_KERNELS
     spec: Optional[SpecConfig] = None        # speculative decoding
 
 
@@ -163,6 +196,7 @@ class Request:
     key: np.ndarray                  # uint32[2] sampling key (position folds)
     out: List[int] = field(default_factory=list)
     done: bool = False
+    hold: bool = False               # stop after the first token (export)
     submit_t: float = 0.0
     queue_t: float = 0.0             # (re)queue anchor: submit, or requeue
     preempts: int = 0
@@ -256,9 +290,20 @@ class ServingEngine:
         mcfg = model.config
         if cfg.decode not in ("greedy", "sampling"):
             raise ValueError(f"unknown decode mode {cfg.decode!r}")
+        if cfg.prefill_chunks_per_tick < 1:
+            raise ValueError("prefill_chunks_per_tick must be >= 1")
+        if cfg.scheduler not in SCHED_POLICIES:
+            raise ValueError(
+                f"unknown scheduler {cfg.scheduler!r}; expected one of "
+                f"{SCHED_POLICIES}")
+        kernel = cfg.attention_kernel
+        if kernel is not None and kernel not in ATTENTION_KERNELS:
+            raise ValueError(
+                f"unknown attention kernel {kernel!r}; expected one of "
+                f"{ATTENTION_KERNELS}")
         self._spec = cfg.spec
         if self._spec is not None:
-            if cfg.attention_kernel == "legacy":
+            if kernel == "legacy":
                 raise ValueError(
                     "speculative decoding needs the unified mixed-row "
                     "tick; attention_kernel='legacy' has no verify row "
@@ -270,20 +315,13 @@ class ServingEngine:
                     "has no chained draft build — use decode='sampling'")
             if self._spec.k < 1:
                 raise ValueError("spec.k must be >= 1")
-        if cfg.attention_kernel == "legacy":
-            raise NotImplementedError(
-                "attention_kernel='legacy' " + _TODO_SERVING)
-        if cfg.attention_kernel is not None:
+        self._legacy = kernel == "legacy"
+        if self._legacy and cfg.scheduler != "fifo":
             raise ValueError(
-                f"unknown attention_kernel {cfg.attention_kernel!r}: the "
-                "port has one tick; the pools' device chooses the kernel "
-                "(CUDA) or its plain version (CPU)")
-        if cfg.prefill_chunks_per_tick < 1:
-            raise ValueError("prefill_chunks_per_tick must be >= 1")
-        if cfg.scheduler not in SCHED_POLICIES:
-            raise ValueError(
-                f"unknown scheduler {cfg.scheduler!r}; expected one of "
-                f"{SCHED_POLICIES}")
+                "scheduler policies need the unified tick; "
+                "attention_kernel='legacy' is the pre-unification "
+                "bench baseline and keeps fifo chunk selection")
+        self.attention_kernel = kernel
         self.config = cfg
         self.model_config = mcfg
         self.device = model.device
@@ -298,6 +336,12 @@ class ServingEngine:
                 f"unknown kv_dtype {cfg.kv_dtype!r}; expected one of "
                 "None (model dtype), 'f32', 'bf16', 'int8'")
         kv_dtype = kv_map[cfg.kv_dtype]
+        if self._legacy and kv_dtype != self._dtype:
+            raise ValueError(
+                f"kv_dtype={cfg.kv_dtype!r} needs the unified tick; "
+                "attention_kernel='legacy' is the pre-unification "
+                "bench baseline and keeps the model-dtype pool")
+        self._kv_name = _KV_NAMES[kv_dtype]
         nh = mcfg.num_heads
         hd = mcfg.hidden_size // nh
         ps = cfg.page_size
@@ -342,6 +386,8 @@ class ServingEngine:
         self._requests: Dict[int, Request] = {}
         self._next_rid = 0
         self._inflight: deque = deque()
+        # held requests whose first token the host holds: exportable
+        self._held_ready: set = set()
         self.max_inflight_seen = 0
         # device state: each slot's last emitted token
         self._last_tok = torch.zeros(b_slots, dtype=torch.int64,
@@ -353,6 +399,11 @@ class ServingEngine:
         self._topps = np.full(b_slots, cfg.top_p, np.float32)
         # request keys are host metadata: folded on the CPU at submit
         self._base_key = _random.PRNGKey(cfg.seed, device="cpu")
+        if self._legacy:
+            # the pre-unification pair: a decode tick and a prefill program
+            self._prefill_site = _recompile.unique_site("serving.prefill")
+            self._tick = self._make_legacy_tick()
+            self._prefill = self._make_prefill_chunk()
 
     def _init_spec(self, model) -> None:
         """Speculative state: the draft runner on the target pool's
@@ -402,7 +453,10 @@ class ServingEngine:
     @property
     def compiled_sites(self) -> Tuple[str, ...]:
         """Recompile-telemetry site names of the hot-path dispatches: the
-        tick, and in spec mode the draft tick beside it."""
+        tick, in spec mode the draft tick beside it, in legacy mode the
+        prefill program beside it."""
+        if self._legacy:
+            return (self._tick_site, self._prefill_site)
         if self._spec is not None:
             return (self._tick_site, self._draft.site)
         return (self._tick_site,)
@@ -439,10 +493,12 @@ class ServingEngine:
         ``jax.random``-style key) defaults to ``fold_in(PRNGKey(seed),
         rid)`` under sampling; greedy decode draws nothing and keeps a
         zero key. ``trace_id`` is stamped as ``trace`` on every event of
-        the request."""
-        if hold_after_prefill:
-            raise NotImplementedError(
-                "hold_after_prefill (disaggregated prefill) " + _TODO_SERVING)
+        the request and rides its handoff.
+
+        ``hold_after_prefill``: prefill the prompt (chunked, prefix-cached,
+        preemptible as any other) and read the first token, then park the
+        slot instead of decoding (``held_ready``) until ``export_held``
+        and ``release_exported`` hand it to a decode engine."""
         p = np.asarray(prompt_ids, np.int32).reshape(-1)
         t0 = p.shape[0]
         cap = self.pool.slot_capacity
@@ -467,7 +523,7 @@ class ServingEngine:
                       key=np.asarray(key, np.uint32), submit_t=now,
                       queue_t=now, orig_prompt_len=t0,
                       temperature=temperature, top_k=top_k, top_p=top_p,
-                      trace_id=trace_id)
+                      hold=bool(hold_after_prefill), trace_id=trace_id)
         self._requests[rid] = req
         self._queue.append(req)
         _registry().counter("serving/prompt_tokens").add(t0)
@@ -478,17 +534,21 @@ class ServingEngine:
     def step(self) -> bool:
         """One scheduler iteration: bound the in-flight window, admit into
         free slots, select prompt chunks, grow pages (preempting on
-        exhaustion), dispatch ONE unified tick. Returns whether any device
-        work was dispatched."""
+        exhaustion), dispatch ONE unified tick (legacy mode: the prefill
+        programs of the chunks, then the decode tick). Returns whether
+        any device work was dispatched."""
         self._sched.on_tick()
         self._drain(self.config.max_inflight)
         self._admit()
-        chunks = self._collect_chunks()
-        self._grow_pages()
-        if self._spec is not None:
-            dispatched = self._dispatch_spec(chunks)
+        if self._legacy:
+            dispatched = self._prefill_chunks()
+            self._grow_pages()
+            dispatched = self._dispatch_legacy_tick() or dispatched
         else:
-            dispatched = self._dispatch_unified(chunks)
+            chunks = self._collect_chunks()
+            self._grow_pages()
+            dispatched = (self._dispatch_spec(chunks) if self._spec is not None
+                          else self._dispatch_unified(chunks))
         reg = _registry()
         reg.gauge("serving/queue_depth").set(float(len(self._queue)))
         reg.gauge("serving/active_slots").set(
@@ -537,9 +597,10 @@ class ServingEngine:
                           if not r.done}
 
     def cancel(self, rid: int, reason: str = "redispatch") -> bool:
-        """Abandon a request wherever it stands, freeing its slot and
-        pages without a result, and emit a ``cancel`` event with
-        ``reason``. False for an unknown or finished one."""
+        """Abandon a request wherever it stands (queued, resident or held
+        ready), freeing its slot and pages without a result, and emit a
+        ``cancel`` event with ``reason``. False for an unknown or finished
+        one."""
         req = self._requests.get(rid)
         if req is None or req.done:
             return False
@@ -556,6 +617,7 @@ class ServingEngine:
                 self._slot_len[slot] = 0
         if req.done:
             return False
+        self._held_ready.discard(rid)
         req.done = True
         req.canceled = True
         req.out = []
@@ -563,20 +625,332 @@ class ServingEngine:
         self._emit("cancel", rid, reason=reason)
         return True
 
+    # ------------------------------------------------------------------
+    # KV handoff: a prefill engine exports a held request's pages, a
+    # decode engine imports them. Pages move as raw pool content (int8
+    # pools with their scales), through one gather and one device-to-host
+    # copy out and one host-to-device copy and one index_copy_ a pool in.
+    # Neither is a dispatch site: compiled_sites is unchanged.
+    # ------------------------------------------------------------------
+    def held_ready(self) -> Tuple[int, ...]:
+        """rids submitted with ``hold_after_prefill`` whose prompt is
+        prefilled and whose first token the host holds: exportable."""
+        return tuple(sorted(self._held_ready))
+
     def export_held(self, rid: int) -> dict:
-        raise NotImplementedError("KV export " + _TODO_SERVING)
+        """The handoff payload of a held-ready request: its current
+        prompt, remaining budget, sampling state, first token, and the
+        content of the ``ceil(t0 / page_size)`` pages holding the prompt's
+        KV (``k``/``v`` [L, n, ps, NH, D]; bf16 as uint16 bits; int8 with
+        ``k_scale``/``v_scale`` [L, n, NH]). Read-only: the slot stays
+        resident until ``release_exported``, so a failed send can retry."""
+        if rid not in self._held_ready:
+            raise ValueError(f"request {rid} is not held-ready")
+        t_span = time.perf_counter()
+        req = self._requests[rid]
+        slot = self._slot_rid.index(rid)
+        pages = list(self.pool._held[slot])
+        t0 = int(self._slot_len[slot])
+        assert t0 == req.prompt.shape[0], "held slot frontier != prompt"
+        payload = {
+            "prompt": np.asarray(req.prompt, np.int32),
+            "orig_prompt_len": int(req.orig_prompt_len),
+            "max_new": int(req.max_new),
+            "first_token": int(req.out[0]),
+            "key": np.asarray(req.key, np.uint32),
+            "n_tokens": t0,
+            "preempts": int(req.preempts),
+            # the receiving pool must store the same representation
+            "kv_dtype": self._kv_name,
+        }
+        payload.update(self._read_pages(pages))
+        # sampling overrides travel only when set (absent: the decode
+        # engine's defaults, as a local submit with None overrides)
+        if req.temperature is not None:
+            payload["temperature"] = float(req.temperature)
+        if req.top_k is not None:
+            payload["top_k"] = int(req.top_k)
+        if req.top_p is not None:
+            payload["top_p"] = float(req.top_p)
+        if req.trace_id is not None:
+            payload["trace_id"] = req.trace_id
+        nbytes = self._page_bytes(payload)
+        reg = _registry()
+        reg.counter("serving/handoffs_out").add(1)
+        reg.counter("serving/handoff_bytes_out").add(nbytes)
+        self._emit("handoff_out", rid, slot=int(slot), tokens=t0,
+                   pages=len(pages), bytes=nbytes,
+                   ms=round((time.perf_counter() - t_span) * 1e3, 3))
+        return payload
 
     def release_exported(self, rid: int) -> None:
-        raise NotImplementedError("KV export " + _TODO_SERVING)
+        """Drop a held request after its payload shipped: publish its
+        prompt's full pages in the local prefix index, release the slot,
+        and mark the request done here (the decode engine finishes it)."""
+        if rid not in self._held_ready:
+            raise ValueError(f"request {rid} is not held-ready")
+        req = self._requests[rid]
+        slot = self._slot_rid.index(rid)
+        self._insert_prefix(slot, req.prompt, int(self._slot_len[slot]))
+        self._sched.note_release(slot)
+        self.pool.release_slot(slot)
+        self._slot_rid[slot] = None
+        self._slot_len[slot] = 0
+        self._held_ready.discard(rid)
+        req.done = True
 
     def admit_prefilled(self, payload: dict) -> Optional[int]:
-        raise NotImplementedError("KV import " + _TODO_SERVING)
+        """Admit an exported payload: bind a free slot, allocate the
+        prompt's pages, write the payload's content (and scales) into
+        them and seed the decode state where a local prefill would have
+        left it (frontier at the prompt's length, one token emitted,
+        ``last_tok`` the first token), so the next tick decodes it as an
+        ordinary row. Returns the local rid, or None when no slot or pages
+        are free now (the caller retries; an import never preempts)."""
+        t_span = time.perf_counter()
+        p = np.asarray(payload["prompt"], np.int32).reshape(-1)
+        t0 = p.shape[0]
+        max_new = int(payload["max_new"])
+        first_tok = int(payload["first_token"])
+        tid = payload.get("trace_id")
+        tid = str(tid) if tid is not None else None
+        src_dtype = payload.get("kv_dtype")
+        if src_dtype is not None and str(src_dtype) != self._kv_name:
+            raise ValueError(
+                f"handoff payload carries {str(src_dtype)!r} KV pages "
+                f"but this pool stores {self._kv_name} — prefill and "
+                "decode groups must serve the same kv_dtype (silently "
+                "casting would corrupt the cache)")
+        cap = self.pool.slot_capacity
+        if t0 + max_new - 1 > cap:
+            raise ValueError(
+                f"handoff needs {t0 + max_new - 1} cache positions; "
+                f"slot capacity is {cap}")
+        free = [s for s, r in enumerate(self._slot_rid) if r is None]
+        if not free:
+            return None
+        slot = free.pop()
+        n_pages = self.pool.pages_for(t0)
+        if n_pages != payload["k"].shape[1]:
+            raise ValueError(
+                f"payload carries {payload['k'].shape[1]} pages for a "
+                f"{t0}-token prompt; expected {n_pages}")
+        arrays = self._page_arrays(payload, n_pages)
+        if not self.pool.grow_slot(slot, n_pages):
+            return None
+        rid = self._next_rid
+        self._next_rid += 1
+        now = time.perf_counter()
+        req = Request(rid=rid, prompt=p, max_new=max_new,
+                      key=np.asarray(payload["key"], np.uint32),
+                      out=[first_tok], submit_t=now, queue_t=now,
+                      orig_prompt_len=int(payload["orig_prompt_len"]),
+                      preempts=int(payload.get("preempts", 0)),
+                      trace_id=tid)
+        req.first_token_t = now
+        self._requests[rid] = req
+        self._slot_rid[slot] = rid
+        self._slot_len[slot] = t0
+        self._slot_prompt[slot] = t0
+        self._slot_dispatched[slot] = 1
+        self._slot_looked_up[slot] = True     # no prefill owed here
+        self._admit_seq += 1
+        self._slot_admit_seq[slot] = self._admit_seq
+        self._slot_admit_t[slot] = now
+        self._slot_wait_due[slot] = False     # no chunk ever opens here
+        self._spec_reset(slot)
+        self._keys[slot] = req.key
+        c = self.config
+        self._temps[slot] = c.temperature if \
+            payload.get("temperature") is None else payload["temperature"]
+        self._topks[slot] = c.top_k if payload.get("top_k") is None \
+            else payload["top_k"]
+        self._topps[slot] = c.top_p if payload.get("top_p") is None \
+            else payload["top_p"]
+        self._write_pages(self.pool._held[slot], arrays)
+        self._set_last_tok(slot, torch.tensor([first_tok],
+                                              device=self.device))
+        nbytes = self._page_bytes(payload)
+        reg = _registry()
+        reg.counter("serving/handoffs_in").add(1)
+        reg.counter("serving/handoff_bytes_in").add(nbytes)
+        self._emit("handoff_in", rid, slot=int(slot), tokens=int(t0),
+                   pages=int(n_pages), bytes=nbytes,
+                   ms=round((time.perf_counter() - t_span) * 1e3, 3))
+        # the first token may already meet a stop condition
+        eos = self.config.eos_token_id
+        if eos is not None and first_tok == eos:
+            self._finish(slot, rid, reason="eos")
+        elif len(req.out) >= req.max_new:
+            self._finish(slot, rid, reason="max_new")
+        return rid
 
+    def _page_bytes(self, payload: dict) -> int:
+        return int(sum(payload[k].nbytes for k in
+                       ("k", "v") + (("k_scale", "v_scale")
+                                     if self.pool.quantized else ())))
+
+    def _set_last_tok(self, slot: int, tok: torch.Tensor) -> None:
+        """``last_tok[slot] = tok`` without touching the old tensor, which
+        an in-flight tick may still hand to the host."""
+        last = self._last_tok.clone()
+        last[slot:slot + 1] = tok
+        self._last_tok = last
+
+    def _pool_views(self):
+        """The pools as tensors of their storage bits (bf16 as int16, so
+        the host holds them in numpy)."""
+        k, v = self.pool.k, self.pool.v
+        if k.dtype == torch.bfloat16:
+            return k.view(torch.int16), v.view(torch.int16)
+        return k, v
+
+    def _read_pages(self, pages) -> dict:
+        """The content of ``pages``: one gather from each pool into one
+        device buffer and one device-to-host copy. ``{"k", "v"}`` [L, n,
+        ps, NH, D] (bf16 as uint16 bits), plus ``{"k_scale", "v_scale"}``
+        [L, n, NH] f32 of an int8 pool."""
+        pool = self.pool
+        kt, vt = self._pool_views()
+        idx = torch.as_tensor(np.asarray(pages, np.int64),
+                              device=self.device)
+        with torch.inference_mode():
+            buf = torch.empty((2, kt.shape[0], len(pages)) + kt.shape[2:],
+                              dtype=kt.dtype, device=self.device)
+            torch.index_select(kt, 1, idx, out=buf[0])
+            torch.index_select(vt, 1, idx, out=buf[1])
+            host = buf.cpu().numpy()
+            if kt.dtype == torch.int16:
+                host = host.view(np.uint16)
+            out = {"k": host[0], "v": host[1]}
+            if pool.quantized:
+                sc = torch.stack([pool.k_scale.index_select(1, idx),
+                                  pool.v_scale.index_select(1, idx)])
+                sc = sc.cpu().numpy()
+                out["k_scale"], out["v_scale"] = sc[0], sc[1]
+        return out
+
+    def _page_arrays(self, payload: dict, n: int) -> dict:
+        """A payload's page content (and an int8 pool's scales) as host
+        arrays in this pool's storage type, checked before anything is
+        bound: ``n`` pages of this pool's page shape, and bf16 pages as
+        their 2-byte bits (uint16, int16 or ml_dtypes bfloat16) — a
+        float16 or other 2-byte array would otherwise be reinterpreted as
+        garbage. Raises ValueError."""
+        pool = self.pool
+        kt, _ = self._pool_views()
+        np_dtype = {torch.float32: np.float32, torch.int16: np.int16,
+                    torch.int8: np.int8}[kt.dtype]
+        shape = (kt.shape[0], n) + tuple(kt.shape[2:])
+        out = {}
+        for key in ("k", "v"):
+            a = np.asarray(payload[key])
+            if kt.dtype == torch.int16:
+                if a.dtype not in (np.uint16, np.int16) and \
+                        a.dtype.name != "bfloat16":
+                    raise ValueError(
+                        "bf16 pages travel as uint16 bits (or ml_dtypes "
+                        f"bfloat16), got {a.dtype}")
+                a = a.view(np.int16)
+            if a.shape != shape:
+                raise ValueError(f"payload {key!r} pages have shape "
+                                 f"{a.shape}; this pool takes {shape}")
+            # writable too: torch.from_numpy warns on a read-only array
+            out[key] = np.require(a, np_dtype, "CW")
+        if pool.quantized:
+            for key in ("k_scale", "v_scale"):
+                if key not in payload:
+                    raise ValueError(f"int8 pages without their scales "
+                                     f"({key!r} missing)")
+                a = np.asarray(payload[key], np.float32)
+                if a.shape != shape[:2] + (pool.num_heads,):
+                    raise ValueError(f"payload {key!r} has shape "
+                                     f"{a.shape}")
+                out[key] = np.require(a, requirements="CW")
+        return out
+
+    def _write_pages(self, pages, arrays: dict) -> None:
+        """Write checked page content (``_page_arrays``) into ``pages``:
+        one host-to-device copy and one ``index_copy_`` a pool, of the
+        payload's pages only. ``pages``: a slot's held pages (a request
+        handoff) or freshly allocated index pages (a migrated chain)."""
+        pool = self.pool
+        kt, vt = self._pool_views()
+        dst = [(kt, "k"), (vt, "v")]
+        if pool.quantized:
+            dst += [(pool.k_scale, "k_scale"), (pool.v_scale, "v_scale")]
+        with torch.inference_mode():
+            d = torch.as_tensor(np.asarray(pages, np.int64),
+                                device=self.device)
+            for t, key in dst:
+                t.index_copy_(1, d, torch.from_numpy(arrays[key]).to(
+                    self.device))
+        if pool.quantized:
+            # the import just wrote these scale rows: the next tick's
+            # fresh-page reset must not zero them
+            for pg in pages:
+                pool.claim_fresh(int(pg))
+
+    # ------------------------------------------------------------------
+    # hot prefix-chain migration: the handoff's representation (raw page
+    # content, int8 with scales) for a cached chain, written by the same
+    # page writer
+    # ------------------------------------------------------------------
     def export_prefix_chain(self, tokens) -> Optional[dict]:
-        raise NotImplementedError("prefix chain migration " + _TODO_SERVING)
+        """Payload replicating this engine's cached prefix chain of
+        ``tokens`` (full indexed pages only, at most one slot's worth), or
+        None when nothing is cached (an evicted chain is a missed
+        migration, not an error)."""
+        pool = self.pool
+        if pool.prefix is None:
+            return None
+        toks = np.asarray(tokens, np.int32).reshape(-1)
+        pages, _ = pool.prefix.chain_pages(toks)
+        pages = pages[:pool.pages_per_slot]
+        if not pages:
+            return None
+        n_tok = len(pages) * pool.page_size
+        payload = {"tokens": toks[:n_tok], "n_tokens": n_tok,
+                   "kv_dtype": self._kv_name}
+        payload.update(self._read_pages(pages))
+        return payload
 
     def import_prefix_chain(self, payload: dict) -> int:
-        raise NotImplementedError("prefix chain migration " + _TODO_SERVING)
+        """Index a migrated chain in this engine's trie under the normal
+        refcount rules: allocate fresh pages (a plain allocation: a
+        speculative import never evicts local cache), write the content,
+        insert, then drop the import's temporary reference (a chunk the
+        trie already held keeps its first page; the import's copy goes
+        back to the pool). Returns the tokens newly indexed (0: no room,
+        or nothing new). Raises ValueError on a payload this pool must
+        not store."""
+        pool = self.pool
+        if pool.prefix is None:
+            return 0
+        toks = np.asarray(payload["tokens"], np.int32).reshape(-1)
+        src_dtype = payload.get("kv_dtype")
+        if src_dtype is not None and str(src_dtype) != self._kv_name:
+            raise ValueError(
+                f"migrated chain carries {str(src_dtype)!r} pages but "
+                f"this pool stores {self._kv_name}")
+        n_pages = int(payload["k"].shape[1])
+        ps = pool.page_size
+        if n_pages < 1 or n_pages > pool.pages_per_slot or \
+                n_pages * ps != toks.shape[0] or \
+                payload["k"].shape != payload["v"].shape:
+            raise ValueError("inconsistent migrated chain payload")
+        arrays = self._page_arrays(payload, n_pages)
+        pages = pool.allocator.alloc(n_pages)
+        if pages is None:
+            return 0
+        self._write_pages(pages, arrays)
+        new = pool.prefix.insert(toks, pages)
+        # newly indexed pages stay at refcount 1 (the index's); duplicates
+        # of cached chunks reach 0 and go back to the pool
+        pool.allocator.free(pages)
+        pool.migrated_pages.update(
+            p for p in pages if pool.allocator.refcount(p) > 0)
+        return new * ps
 
     def _tokens_done(self) -> int:
         return sum(len(r.out) for r in self._requests.values())
@@ -605,6 +979,12 @@ class ServingEngine:
                     reg.histogram("serving/ttft_ms").observe(
                         (now - req.submit_t) * 1000.0)
                     self._emit("first_token", rid, slot=int(slot))
+                if req.hold:
+                    # the first token is the last thing this engine
+                    # computes for it: park it for export (its stops are
+                    # the decode engine's business)
+                    self._held_ready.add(rid)
+                    continue
                 eos = self.config.eos_token_id
                 if eos is not None and tok == eos:
                     self._finish(slot, rid, reason="eos")
@@ -642,6 +1022,7 @@ class ServingEngine:
     def _finish(self, slot: int, rid: int, reason: str = "max_new") -> None:
         req = self._requests[rid]
         req.done = True
+        self._held_ready.discard(rid)
         if self._slot_rid[slot] == rid:
             self._spec_reset(slot)
             self._sched.note_release(slot)
@@ -718,9 +1099,15 @@ class ServingEngine:
         reg = _registry()
         reg.counter("serving/prefix_lookups").add(1)
         hit = 0
+        remote = 0
         if full_pages:
             self.pool.share_into_slot(slot, full_pages)
             hit = len(full_pages) * self.pool.page_size
+            if self.pool.migrated_pages:
+                # tokens served off pages that arrived by chain migration
+                remote = sum(1 for p in full_pages
+                             if p in self.pool.migrated_pages) \
+                    * self.pool.page_size
         if partial is not None:
             src, lcp = partial
             # pin the donor page: the grow below may evict cached pages
@@ -740,10 +1127,10 @@ class ServingEngine:
         self._slot_len[slot] = hit
         if hit:
             reg.counter("serving/prefix_hit_tokens").add(hit)
-            # remote_tokens: tokens on pages another rank prefilled (chain
-            # migration, ROADMAP queue 1 item 6b); none yet
+            if remote:
+                reg.counter("serving/prefix_hit_tokens_remote").add(remote)
             self._emit("prefix_hit", req.rid, slot=int(slot),
-                       tokens=int(hit), remote_tokens=0)
+                       tokens=int(hit), remote_tokens=int(remote))
 
     def _observe_wait(self, req: Request) -> None:
         wait_ms = (time.perf_counter() - req.queue_t) * 1000.0
@@ -857,12 +1244,14 @@ class ServingEngine:
 
     def _ticking_slots(self) -> List[int]:
         """Slots that advance this tick: resident, prefill complete, not
-        finished, emissions still owed."""
+        finished, not held, emissions still owed."""
         out = []
         for s, rid in enumerate(self._slot_rid):
             if rid is None:
                 continue
             req = self._requests[rid]
+            if req.hold:
+                continue    # a held slot stops at its first token
             if not req.done and \
                     1 <= self._slot_dispatched[s] < req.max_new:
                 out.append(s)
@@ -896,6 +1285,9 @@ class ServingEngine:
         req.max_new -= len(req.out)
         req.out = []
         req.preempts += 1
+        # a held-ready victim's first token moved into its prompt: the
+        # requeued cycle re-prefills and holds again
+        self._held_ready.discard(rid)
         req.queue_t = time.perf_counter()
         self._insert_prefix(victim, req.prompt, int(self._slot_len[victim]))
         self._queue.appendleft(req)
@@ -1373,6 +1765,138 @@ class ServingEngine:
         reg.gauge("serving/draft_pool_share").set(share)
         reg.gauge("serving/draft_pool_share_peak").set_max(share)
         return True
+
+    # ------------------------------------------------------------------
+    # legacy two-dispatch mode (attention_kernel="legacy"): the
+    # pre-unification engine, a prefill program per chunk and a decode
+    # tick per step, kept as the baseline of the dispatch collapse
+    # ------------------------------------------------------------------
+    def _prefill_chunks(self) -> bool:
+        """Advance prefilling slots by up to ``prefill_chunks_per_tick``
+        chunks, each dispatched at once, oldest admission first."""
+        any_dispatch = False
+        for _ in range(self.config.prefill_chunks_per_tick):
+            s = self._next_prefill_slot({})
+            if s is None:
+                break
+            chunk = self._open_chunk(s, {})
+            if chunk is None:
+                break
+            self._dispatch_prefill_chunk(*chunk)
+            any_dispatch = True
+        return any_dispatch
+
+    def _dispatch_prefill_chunk(self, s: int, rid: int, start: int,
+                                end: int, t0: int) -> None:
+        req = self._requests[rid]
+        toks = np.zeros((1, self.prefill_chunk), np.int32)
+        toks[0, :end - start] = req.prompt[start:end]
+        law = (req.key[None], self._temps[s:s + 1], self._topks[s:s + 1],
+               self._topps[s:s + 1]) \
+            if self.config.decode == "sampling" else ()
+        with torch.inference_mode():
+            toks_d, p0_d, tl_d, row_d, *law_d = _to_device(
+                self.device, toks, np.array([start], np.int32),
+                np.array([t0], np.int32), self.pool.tables[s], *law)
+            tok0 = self._prefill(self._stacked, self._other, self.pool.k,
+                                 self.pool.v, toks_d.long(), p0_d, tl_d,
+                                 row_d, *law_d)
+        _registry().counter("serving/prefill_chunks").add(1)
+        self._emit("chunk", rid, slot=int(s), start=int(start), end=int(end),
+                   final=bool(end >= t0))
+        if end >= t0:                # the final chunk: tok0 is real
+            self._set_last_tok(s, tok0)
+            self._inflight.append(_Inflight(tok0, [(0, s, rid)]))
+            self.max_inflight_seen = max(self.max_inflight_seen,
+                                         len(self._inflight))
+            self._slot_dispatched[s] = 1
+            self._slot_len[s] = t0
+            _registry().counter("serving/prefills").add(1)
+        else:
+            self._slot_len[s] = end
+        # publish the pages this chunk completed
+        self._insert_prefix(s, req.prompt, int(self._slot_len[s]))
+
+    def _dispatch_legacy_tick(self) -> bool:
+        """The fixed-shape decode tick: one row per slot at its frontier,
+        whether it ticks or not (idle slots write to the null page through
+        their zeroed table rows; a prefilling slot's row writes at its
+        frontier, which its next chunk overwrites)."""
+        ticking = self._ticking_slots()
+        if not ticking:
+            return False
+        law = (self._keys, self._temps, self._topks, self._topps) \
+            if self.config.decode == "sampling" else ()
+        with torch.inference_mode():
+            tab_d, pos_d, *law_d = _to_device(
+                self.device, self.pool.tables, self._slot_len, *law)
+            tok = self._tick(self._stacked, self._other, self.pool.k,
+                             self.pool.v, tab_d, pos_d, self._last_tok,
+                             *law_d)
+        self._last_tok = tok
+        self._inflight.append(_Inflight(
+            tok, [(s, s, self._slot_rid[s]) for s in ticking]))
+        self.max_inflight_seen = max(self.max_inflight_seen,
+                                     len(self._inflight))
+        for s in ticking:
+            self._slot_len[s] += 1
+            self._slot_dispatched[s] += 1
+        self._tick_gauges(ticking, [])
+        return True
+
+    def _make_legacy_tick(self):
+        """The legacy decode tick: ``[num_slots, 1]`` decode rows of
+        ``gpt_ragged_apply`` at each slot's frontier ``pos`` with write
+        limit ``slot_capacity`` (a slot that finished at exactly its
+        capacity rides with ``pos == cap``: its write goes to the null
+        page and its position row is clamped to the table's last, as the
+        reference's gather clamps it). Samples every row; the sampling
+        law folds each key by ``pos + 1``."""
+        mcfg = self.model_config
+        ns = self.config.num_slots
+        site = self._tick_site
+        dev = self.device
+        rows = torch.arange(ns, device=dev)
+        ones = torch.ones(ns, dtype=torch.int32, device=dev)
+        limit = torch.full((ns,), self.pool.slot_capacity,
+                           dtype=torch.int32, device=dev)
+
+        def tick(stacked, other, kpool, vpool, tab, pos, tok, *law):
+            _recompile.mark_trace(site, kpool, tab, pos, tok)
+            logits = gpt_ragged_apply(
+                mcfg, stacked, other, kpool, vpool, tok, pos, limit, tab,
+                pos, ones, rows, decode_rows=ns, chunk_width=0)[0]
+            if not law:
+                return self._sample_tok(logits)
+            keys, temps, top_ks, top_ps = law
+            return self._sample_tok(logits, pos + 1, keys, temps, top_ks,
+                                    top_ps)
+
+        return tick
+
+    def _make_prefill_chunk(self):
+        """The legacy prefill program: one chunk of one slot through
+        ``gpt_paged_suffix_apply`` at the fixed width ``prefill_chunk``;
+        the token it samples (its key folded by the prompt's length) is
+        real only on the prompt's last chunk."""
+        mcfg = self.model_config
+        site = self._prefill_site
+        w = self.prefill_chunk
+
+        def prefill(stacked, other, kpool, vpool, tokens, pos0, true_len,
+                    page_row, *law):
+            _recompile.mark_trace(site, tokens, kpool, pos0)
+            li = torch.clamp(true_len - 1 - pos0, 0, w - 1)
+            logits = gpt_paged_suffix_apply(
+                mcfg, stacked, other, kpool, vpool, tokens, pos0, true_len,
+                page_row, li)[0]
+            if not law:
+                return self._sample_tok(logits)
+            key, temp, top_k, top_p = law
+            return self._sample_tok(logits, true_len, key, temp, top_k,
+                                    top_p)
+
+        return prefill
 
     @staticmethod
     def _sample_tok(logits: torch.Tensor, positions=None, keys=None,

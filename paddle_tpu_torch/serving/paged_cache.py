@@ -27,10 +27,21 @@ the head of the next tick.
 Speculative decoding's draft KV draws its pages from the same allocator
 through ``AuxPageTable`` (registered with the pool, so the consistency
 audit counts its holds), and a rejected speculative tail is rewound with
-``shrink_slot``. Not in this slice: the chain hashes of the serving mesh.
+``shrink_slot``.
+
+The chain economy: every trie node carries its chain hash
+(``chain_hash``: blake2b over the parent's hash and the chunk's tokens,
+equal to the reference's string byte for byte) and depth, so
+``PrefixCache.digest`` names each cached prefix without its tokens and
+``chain_pages`` walks a prompt's cached chain for export (hot-chain
+migration). ``on_drop`` runs while the index still holds a dropped
+node's page, and ``rev`` bumps on every structural change. Pages that
+arrived by migration are listed in ``PagePool.migrated_pages`` until
+their last reference drops.
 """
 from __future__ import annotations
 
+import hashlib
 import heapq
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -40,6 +51,35 @@ import torch
 from ..profiler.metrics import registry as _registry
 
 NULL_PAGE = 0
+
+#: hex chars kept per chain hash (blake2b): 64 bits, short enough for a
+#: whole digest to ride a vote as JSON
+CHAIN_HASH_LEN = 16
+
+
+def chain_hash(parent_hash: str, chunk) -> str:
+    """Stable hash of one page-aligned chunk in its chain context:
+    ``blake2b(parent_hash ascii || chunk tokens as int64 bytes)``. Two
+    processes that cached the same prefix compute the same chain (never
+    Python's salted ``hash()``)."""
+    h = hashlib.blake2b(digest_size=16)
+    h.update(parent_hash.encode("ascii"))
+    h.update(np.asarray(list(chunk), np.int64).tobytes())
+    return h.hexdigest()[:CHAIN_HASH_LEN]
+
+
+def chain_hashes(tokens, page_size: int) -> List[str]:
+    """The chain hash of every FULL page of ``tokens``: the key a router
+    asks the index with. Equal to the hashes ``PrefixCache`` stores on
+    its nodes."""
+    toks = np.asarray(tokens).reshape(-1)
+    ps = int(page_size)
+    out: List[str] = []
+    parent = ""
+    for i in range(toks.shape[0] // ps):
+        parent = chain_hash(parent, toks[i * ps:(i + 1) * ps])
+        out.append(parent)
+    return out
 
 
 class PageAllocator:
@@ -126,7 +166,7 @@ class PageAllocator:
 
 class _TrieNode:
     __slots__ = ("chunk", "page", "children", "first_ix", "parent",
-                 "last_use")
+                 "last_use", "hash", "depth")
 
     def __init__(self, chunk: Tuple[int, ...], page: int,
                  parent: Optional["_TrieNode"]):
@@ -137,6 +177,12 @@ class _TrieNode:
         self.first_ix: Dict[int, List["_TrieNode"]] = {}
         self.parent = parent
         self.last_use = 0
+        # chain hash and depth (root: "", 0): the digest entry of the node
+        if parent is None:
+            self.hash, self.depth = "", 0
+        else:
+            self.hash = chain_hash(parent.hash, chunk)
+            self.depth = parent.depth + 1
 
 
 class PrefixCache:
@@ -149,6 +195,24 @@ class PrefixCache:
         self.allocator = allocator
         self._root = _TrieNode((), NULL_PAGE, None)
         self._clock = 0
+        #: structural revision: bumps when a node is added or dropped, so
+        #: a publisher can skip an unchanged digest
+        self.rev = 0
+        #: ``on_drop(chain_hash, n_tokens)`` runs when a node is dropped,
+        #: BEFORE its page goes back to the allocator (withdraw the
+        #: digest before the page can be reclaimed)
+        self.on_drop: Optional[Callable[[str, int], None]] = None
+
+    def __len__(self) -> int:
+        return len(self._nodes())
+
+    def _nodes(self) -> List[_TrieNode]:
+        out, stack = [], list(self._root.children.values())
+        while stack:
+            node = stack.pop()
+            out.append(node)
+            stack.extend(node.children.values())
+        return out
 
     def _touch(self, node: _TrieNode) -> None:
         self._clock += 1
@@ -215,6 +279,8 @@ class PrefixCache:
                 new += 1
             self._touch(node)
             parent = node
+        if new:
+            self.rev += 1
         return new
 
     def _evictable_leaves(self) -> List[_TrieNode]:
@@ -234,6 +300,11 @@ class PrefixCache:
         bucket.remove(node)
         if not bucket:
             del parent.first_ix[node.chunk[0]]
+        # withdraw before reclaim: the hook runs while the index still
+        # holds the page
+        if self.on_drop is not None:
+            self.on_drop(node.hash, node.depth * self.page_size)
+        self.rev += 1
         self.allocator.free([node.page])
 
     def evict_for(self, n: int) -> int:
@@ -256,23 +327,40 @@ class PrefixCache:
             _registry().counter("cache_share/prefix_evictions").add(freed)
         return freed
 
+    def digest(self) -> Dict[str, object]:
+        """JSON-able digest of every cached chain node: ``{"page_size":
+        ps, "chains": {chain hash: tokens (depth * ps)}}``."""
+        return {"page_size": self.page_size,
+                "chains": {n.hash: n.depth * self.page_size
+                           for n in self._nodes()}}
+
+    def chain_pages(self, tokens) -> Tuple[List[int], List[str]]:
+        """``(pages, hashes)`` of the cached chain along the FULL chunks of
+        ``tokens`` (no ``len - 1`` cap, no partial chunk: only whole
+        indexed pages can be exported). Touches the matched nodes."""
+        toks = np.asarray(tokens).reshape(-1)
+        ps = self.page_size
+        pages: List[int] = []
+        hashes: List[str] = []
+        node = self._root
+        for i in range(toks.shape[0] // ps):
+            nxt = node.children.get(
+                tuple(int(t) for t in toks[i * ps:(i + 1) * ps]))
+            if nxt is None:
+                break
+            node = nxt
+            self._touch(node)
+            pages.append(node.page)
+            hashes.append(node.hash)
+        return pages, hashes
+
     def pages(self) -> List[int]:
         """Every page id the index holds a refcount on (one per node)."""
-        out, stack = [], list(self._root.children.values())
-        while stack:
-            node = stack.pop()
-            out.append(node.page)
-            stack.extend(node.children.values())
-        return out
+        return [n.page for n in self._nodes()]
 
     def clear(self) -> int:
         """Drop every index entry. Returns the number dropped."""
-        order: List[_TrieNode] = []
-        stack = list(self._root.children.values())
-        while stack:
-            node = stack.pop()
-            order.append(node)
-            stack.extend(node.children.values())
+        order = self._nodes()
         for node in reversed(order):     # children before parents
             self._drop(node)
         return len(order)
@@ -349,6 +437,22 @@ class _SlotTables:
         return n
 
 
+def _zero_free_hook(fresh: Optional[List[int]], migrated: set):
+    """The allocator's hook for pages that just lost their last
+    reference: an int8 pool queues their scale reset (a page parked on
+    the free list carries none of its old tenant's scales), and migration
+    provenance ends (a recycled page id is not a migrated page). It holds
+    the pool's list and set, not the pool (no reference cycle keeps a
+    dropped pool's device memory alive), so both are only ever mutated in
+    place."""
+    def on_zero(pages: List[int]) -> None:
+        if fresh is not None:
+            fresh.extend(pages)
+        if migrated:
+            migrated.difference_update(pages)
+    return on_zero
+
+
 class PagePool(_SlotTables):
     """Device page pools for all layers + host page tables for all slots."""
 
@@ -374,15 +478,13 @@ class PagePool(_SlotTables):
                                        device=device)
             self.v_scale = torch.zeros(sshape, dtype=torch.float32,
                                        device=device)
-            # pages whose scale rows await a reset (see take_fresh). The
-            # allocator's hook queues the reset of pages that just lost
-            # their last reference, so a page parked on the free list
-            # carries none of its old tenant's scales. The hook holds this
-            # list, not the pool (no reference cycle keeps a dropped
-            # pool's device memory alive), so the list is only ever
-            # mutated in place.
-            self._fresh: List[int] = []
-            self.allocator.on_zero = self._fresh.extend
+        # pages whose scale rows await a reset (int8 pools; see
+        # take_fresh), and pages that arrived by chain migration (a hit on
+        # one counts as remote)
+        self._fresh: List[int] = []
+        self.migrated_pages: set = set()
+        self.allocator.on_zero = _zero_free_hook(
+            self._fresh if self.quantized else None, self.migrated_pages)
         self.prefix: Optional[PrefixCache] = (
             PrefixCache(page_size, self.allocator) if prefix_cache
             else None)

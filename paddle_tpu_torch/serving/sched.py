@@ -13,21 +13,22 @@ of a tick and how many chunks the tick selects:
 Non-fifo policies also shape the per-tick prefill budget within
 ``[1, prefill_chunks_per_tick]`` from decode-stall telemetry.
 ``SpecKController`` turns each slot's speculative accept rate into its
-draft depth. Host-side only: nothing here touches the device.
-
-Not in this slice: the mesh routing keys.
+draft depth. ``ttfc_key`` and ``prefix_affinity_key`` are the
+load-shaped routing scores of the serving mesh: pure functions of one
+round's votes. Host-side only: nothing here touches the device.
 """
 from __future__ import annotations
 
 from collections import deque
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..profiler.metrics import percentile
 from ..profiler.metrics import registry as _registry
 
-__all__ = ["SCHED_POLICIES", "ChunkScheduler", "SpecKController"]
+__all__ = ["SCHED_POLICIES", "ChunkScheduler", "SpecKController",
+           "ttfc_key", "prefix_affinity_key"]
 
 SCHED_POLICIES = ("fifo", "sjf", "aged-sjf")
 
@@ -97,6 +98,13 @@ class ChunkScheduler:
             self._ttft_window.append(float(ttft_ms))
         if tpot_ms is not None:
             self._tpot_window.append(float(tpot_ms))
+
+    def ttft_p95(self) -> float:
+        """Rolling TTFT p95 over the recent window (<= 64 finishes), fed
+        under every policy; 0.0 before the first finish."""
+        if not self._ttft_window:
+            return 0.0
+        return float(percentile(sorted(self._ttft_window), 95))
 
     # -- chunk selection ----------------------------------------------------
     def pick(self, cands: Sequence[Tuple[int, int, int]]) -> Optional[int]:
@@ -251,3 +259,53 @@ class SpecKController:
 
     def probing(self, slot: int) -> bool:
         return bool(self._probing[slot])
+
+
+# ---------------------------------------------------------------------------
+# load-shaped routing (the serving mesh's reducer)
+# ---------------------------------------------------------------------------
+def ttfc_key(votes: Dict[int, dict], rank: int,
+             extra_tokens: Dict[int, int],
+             extra_reqs: Dict[int, int]) -> Tuple[float, float, int]:
+    """Estimated time-to-first-chunk sort key of ``rank`` from one
+    round's votes (smaller routes here). Primary: the rank's queued
+    prefill tokens (``prefill_backlog``, else ``queued * chunk``) plus
+    what this round already assigned it, in chunk-train units, plus 8
+    units per arrival past its free slots and 4 per chunk of tokens past
+    its free page capacity. Secondary: its rolling p95 TTFT
+    (``ttft_p95_ms``, 0 when absent). Last: the rank id. A rank with no
+    vote prices as unroutable-busy."""
+    v = votes.get(rank)
+    if v is None:
+        return (float(1 << 20), float(1 << 20), rank)
+    chunk = max(1, int(v.get("chunk", 64)))
+    backlog = v.get("prefill_backlog")
+    if backlog is None:
+        backlog = int(v.get("queued", 0)) * chunk
+    tokens = int(backlog) + int(extra_tokens.get(rank, 0))
+    chunks_ahead = -(-tokens // chunk)
+    over = max(0, int(extra_reqs.get(rank, 0))
+               + int(v.get("queued", 0))
+               - int(v.get("free_slots", 0)))
+    free_tokens = int(v.get("free_pages", 0)) * \
+        int(v.get("page_size", 16))
+    deficit = max(0, tokens - free_tokens)
+    p95 = float(v.get("ttft_p95_ms") or 0.0)
+    return (float(chunks_ahead + 8 * over
+                  + 4 * (-(-deficit // chunk))), p95, rank)
+
+
+def prefix_affinity_key(votes: Dict[int, dict], rank: int,
+                        extra_tokens: Dict[int, int],
+                        extra_reqs: Dict[int, int],
+                        hit_tokens: int) -> Tuple[float, float, int]:
+    """``ttfc_key`` less the prefill the rank's published prefix saves:
+    ``hit_tokens // chunk`` chunk-train units, the load term's own
+    currency. A rank with no vote keeps the unroutable price whatever it
+    published."""
+    load, p95, r = ttfc_key(votes, rank, extra_tokens, extra_reqs)
+    v = votes.get(rank)
+    if v is None or hit_tokens <= 0:
+        return (load, p95, r)
+    chunk = max(1, int(v.get("chunk", 64)))
+    return (load - float(hit_tokens // chunk), p95, r)

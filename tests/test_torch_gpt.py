@@ -188,7 +188,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of paddle_tpu_torch — the training slice's fused_ce,
     optimizer, distributed.hybrid and distributed.fleet, the int8
     slice's ops.int8_matmul and quantization and the profiler's trace,
-    events, sink, recompile and disttrace among them — and
+    events, sink, recompile and disttrace and the serving engine, page
+    cache and scheduler (legacy mode, handoff, chains) among them — and
     chip_smoke.py load in a fresh interpreter without pulling in jax or
     paddle_tpu."""
     code = (
@@ -207,7 +208,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'paddle_tpu_torch.profiler.events', "
         "'paddle_tpu_torch.profiler.sink', "
         "'paddle_tpu_torch.profiler.recompile', "
-        "'paddle_tpu_torch.profiler.disttrace'}\n"
+        "'paddle_tpu_torch.profiler.disttrace', "
+        "'paddle_tpu_torch.serving.engine', "
+        "'paddle_tpu_torch.serving.paged_cache', "
+        "'paddle_tpu_torch.serving.sched'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "for m in mods: importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"

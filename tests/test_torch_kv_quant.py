@@ -325,10 +325,13 @@ def test_dropped_int8_pool_is_freed_without_a_gc_pass():
 
 
 def test_unquantized_pool_lists_nothing():
+    """A float pool lists no page for a scale reset, at allocation or at
+    free; its zero-free hook only ends migration provenance."""
     pool = PagePool(1, 6, 4, 2, 4, 2, 2, device="cpu")
     pool.allocator.free(pool._alloc(2))
-    assert pool.allocator.on_zero is None and not hasattr(pool, "_fresh")
+    assert pool._fresh == [] and not hasattr(pool, "k_scale")
     pool.claim_fresh(3)                                    # a no-op
+    assert pool._fresh == []
 
 
 def test_cow_copy_carries_scales_and_unlists_the_copy():
@@ -576,14 +579,36 @@ def test_unknown_kv_dtype_raises(nets):
 
 
 def test_int8_handoff_still_waits_for_the_serving_remainder(nets):
+    """The int8 handoff is ported (the name is kept from when it raised):
+    a held request's int8 pages round-trip with their scales, and the
+    decode engine's stream equals the single int8 engine's."""
     _, net = nets
-    eng = ServingEngine(net, ServingConfig(num_slots=1, page_size=8,
-                                           pages_per_slot=4,
-                                           kv_dtype="int8"))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        eng.export_held(0)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        eng.admit_prefilled({})
+    kw = dict(num_slots=1, page_size=8, pages_per_slot=4, kv_dtype="int8")
+    prompt = _prompts(1, [16])[0]
+    single = ServingEngine(net, ServingConfig(**kw))
+    sr = single.submit(prompt, 6)
+    want = single.run()[sr]
+    pe = ServingEngine(net, ServingConfig(**kw))
+    rid = pe.submit(prompt, 6, hold_after_prefill=True)
+    for _ in range(30):
+        pe.step()
+        pe.drain(0)
+        if rid in pe.held_ready():
+            break
+    pl = pe.export_held(rid)
+    assert pl["kv_dtype"] == "int8" and pl["k"].dtype == np.int8
+    assert pl["k_scale"].shape == (net.config.num_layers, 2,
+                                   net.config.num_heads)
+    pe.release_exported(rid)
+    de = ServingEngine(net, ServingConfig(**kw))
+    lr = de.admit_prefilled(pl)
+    pages = torch.as_tensor(de.pool._held[0])
+    np.testing.assert_array_equal(de.pool.k_scale[:, pages].numpy(),
+                                  pl["k_scale"])
+    np.testing.assert_array_equal(de.pool.v[:, pages].numpy(), pl["v"])
+    de.run()
+    np.testing.assert_array_equal(de._requests[lr].out, want)
+    assert de.pool.check_consistency() == []
 
 
 def test_new_modules_import_neither_jax_nor_the_jax_package():
@@ -595,7 +620,9 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
         "'paddle_tpu_torch.quantization', 'paddle_tpu_torch.nn', "
         "'paddle_tpu_torch.ops.paged_attention', "
         "'paddle_tpu_torch.serving.paged_cache', "
-        "'paddle_tpu_torch.serving.engine'):\n"
+        "'paddle_tpu_torch.serving.engine', "
+        "'paddle_tpu_torch.serving.sched', "
+        "'paddle_tpu_torch.models.gpt'):\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m == 'paddle_tpu' or "

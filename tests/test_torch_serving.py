@@ -210,33 +210,89 @@ def test_cancel_frees_the_slot(nets):
 
 
 @pytest.mark.parametrize("knob", [
-    dict(kv_dtype="int8", attention_kernel="legacy"),   # int8 itself is ported
+    dict(kv_dtype="int8", attention_kernel="legacy"),
     dict(attention_kernel="legacy")])
 def test_unported_knobs_raise_not_implemented(nets, knob):
+    """Both knobs are ported (the name is kept from when they raised):
+    legacy over int8 pages is the reference's ValueError (legacy keeps
+    the model-dtype pool), and the legacy engine serves."""
     _, net = nets
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(net, ServingConfig(**knob))
+    if "kv_dtype" in knob:
+        with pytest.raises(ValueError, match="unified tick"):
+            ServingEngine(net, ServingConfig(**knob))
+        return
+    eng = ServingEngine(net, ServingConfig(num_slots=2, page_size=8,
+                                           pages_per_slot=8, **knob))
+    rids = [eng.submit(p, 5) for p in _prompts()[:3]]
+    out = eng.run()
+    assert [out[r].shape for r in rids] == [(5,)] * 3
+    assert len(eng.compiled_sites) == 2
+    assert eng.pool.check_consistency() == []
+
+
+def _held_payload(eng, prompt, max_new=4):
+    rid = eng.submit(prompt, max_new, hold_after_prefill=True)
+    for _ in range(30):
+        eng.step()
+        eng.drain(0)
+        if rid in eng.held_ready():
+            return rid
+    raise AssertionError("the held request never became held-ready")
 
 
 @pytest.mark.parametrize("call", ["hold", "export_held", "release_exported",
                                   "admit_prefilled", "export_prefix_chain",
                                   "import_prefix_chain"])
 def test_unported_handoff_paths_raise_not_implemented(nets, call):
+    """Each handoff and chain call is ported (the name is kept from when
+    they raised) and does its work."""
     _, net = nets
-    eng = ServingEngine(net, ServingConfig(num_slots=1, page_size=8,
-                                           pages_per_slot=4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    kw = dict(num_slots=1, page_size=8, pages_per_slot=4)
+    eng = ServingEngine(net, ServingConfig(**kw))
+    prompt = _prompts()[2]                               # 17 tokens
+    if call in ("hold", "export_held", "release_exported",
+                "admit_prefilled"):
+        rid = _held_payload(eng, prompt)
+        assert eng.held_ready() == (rid,)
+        assert len(eng._requests[rid].out) == 1
         if call == "hold":
-            eng.submit(np.arange(4), 2, hold_after_prefill=True)
-        elif call in ("export_held", "release_exported"):
-            getattr(eng, call)(0)
-        else:
-            getattr(eng, call)({})
+            assert not eng.step()          # a held slot does not decode
+            return
+        pl = eng.export_held(rid)
+        assert pl["k"].shape == (net.config.num_layers, 3, 8, 4, 16)
+        assert pl["n_tokens"] == 17 and pl["kv_dtype"] == "float32"
+        if call == "export_held":
+            assert eng.held_ready() == (rid,)   # export is read-only
+            return
+        eng.release_exported(rid)
+        assert eng.held_ready() == () and eng.idle()
+        assert eng.pool.check_consistency() == []
+        if call == "release_exported":
+            assert len(eng.pool.prefix) == 2    # the prompt's full pages
+            return
+        de = ServingEngine(net, ServingConfig(**kw))
+        lr = de.admit_prefilled(pl)
+        de.run()
+        want = ServingEngine(net, ServingConfig(**kw))
+        wr = want.submit(prompt, 4)
+        np.testing.assert_array_equal(de._requests[lr].out,
+                                      want.run()[wr])
+        return
+    r = eng.submit(prompt, 4)
+    eng.run()
+    pl = eng.export_prefix_chain(prompt)
+    assert pl["n_tokens"] == 16 and pl["k"].shape[1] == 2
+    if call == "import_prefix_chain":
+        other = ServingEngine(net, ServingConfig(**kw))
+        assert other.import_prefix_chain(pl) == 16
+        r2 = other.submit(prompt, 4)
+        np.testing.assert_array_equal(other.run()[r2],
+                                      eng._requests[r].out)
 
 
 def test_bad_knobs_raise_value_error(nets):
     _, net = nets
-    for kw in (dict(attention_kernel="ragged-xla"), dict(decode="beam"),
+    for kw in (dict(attention_kernel="flash"), dict(decode="beam"),
                dict(kv_dtype="fp8"), dict(scheduler="lifo")):
         with pytest.raises(ValueError):
             ServingEngine(net, ServingConfig(**kw))
