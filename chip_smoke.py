@@ -15,7 +15,9 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    the host's loop: `timed`), the host loop's own time per call beside
    the kernel's (host_ms), and the least time the card could take (bytes
    over 3.35 TB/s or operations over the peak rate of the input type,
-   whichever is larger). The flash backward
+   whichever is larger; each kernel's bytes and operations come from the
+   *_cost function beside it in paddle_tpu_torch/ops/, which a counted
+   program uses too). The flash backward
    kernels run at S 1024 (the merged single-tile kernel) and S 2048 (the
    dQ + dK/dV pair), f32 and bf16, causal and not, cross attention with
    a ragged side; their library time is one call of PyTorch's fused SDPA
@@ -65,7 +67,17 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    forward's.
 3. engine phase — ServingEngine at gpt3_1_3b serving 16 requests (half
    share a 512-token prefix) 32 greedy tokens each; 4 streams checked
-   against teacher-forced GPT.forward argmax.
+   against teacher-forced GPT.forward argmax. Then a fresh engine serves
+   them again with 8 ticks inside ServingEngine.trace_window() (after one
+   tick outside it): the parsed summary passes the sink schema's
+   check_trace_summary, busy_frac is in [0, 1], the tick site has
+   executions == steps == 8, the ragged_kernel + ragged_chunk_kernel
+   slices number the RAGGED_LAUNCHES delta and the ragged_chunk_kernel
+   slices the RAGGED_CHUNK_LAUNCHES delta (at most one ragged_chunk_merge
+   a call), all of them on the tick site under attention, slices that
+   join no site <= 2% of device_busy_ms (the largest printed by name),
+   and the tick site's counted program (FLOPs, bytes, compile_ms) with
+   non-zero attention FLOPs (the ragged kernel's cost hook).
 4. grad phase — GPT.loss at gpt3_1_3b width, 2 layers, one sequence of
    2048: every parameter's gradient through the kernels against a run on
    the plain attention functions (bound in by this script); f32 (the SIMT
@@ -78,7 +90,16 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    8 steps on one fixed [4, 2048] batch (the loss must fall), one step
    under torch.profiler, 2 steps on a [4, 1024] batch. Step ms, tokens/s,
    MFU and peak memory. A clip probe holds the bf16 gradient clips to one
-   rounding of g.float() * scale, bit for bit.
+   rounding of g.float() * scale, bit for bit. Then
+   profile_step_phases(tokens, iters=1, trace_window=2) on the same
+   trainer: fwd/bwd/optim/step ms present and positive; in the parsed
+   window of 2 steps every flash kernel slice (the backward kernels the
+   autograd thread launches too) joins the hybrid.step site and each
+   FLASH_*_LAUNCHES delta equals its kernel's slices, slices joining no
+   site <= 2% of busy, the ledger's MFU (counted FLOPs over the window's
+   wall) in (0, 1] and the step site's counted FLOPs >= 0.9 x
+   GPTConfig.flops_per_token(S) x tokens; memory_ledger() and
+   memory/peak_bytes_in_use.
 6. kvint8 phase — the engine phase's workload with kv_dtype="int8": every
    ragged launch runs over int8 pools, two runs give equal streams, the
    pool (scales included) takes <= 0.27 of the f32 pool's bytes, the null
@@ -147,8 +168,10 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    latency_stats' TTFT and TPOT p50/p95/p99, the bucket sums,
    compiled_sites with each site's trace_counts), the same engine on a
    129-page pool that preempts (each preempt followed by a requeue, then
-   an admit; some preempted time), the sink's files through
-   tools/check_sink_schema.py (exit 0; sizes, events_lost), then
+   an admit; some preempted time), one ServingEngine.trace_window() of 4
+   ticks with the sink active (a dump_flight() taken after it carries the
+   window's summary), the sink's files through tools/check_sink_schema.py
+   --require-trace (exit 0; sizes, events_lost), then
    profiler.enable(trace_dir=..., reset=False) around a 3-request engine
    run and one HybridPipelineTrainer step of gpt3_1_3b (the train
    recipe, [2, 2048]): the Chrome trace disable() writes holds the host
@@ -212,6 +235,8 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
     python3 chip_smoke.py --phases generate        # decode and sampling
     python3 chip_smoke.py --phases kernels,spec    # speculative decoding
     python3 chip_smoke.py --phases observe         # the profiler
+    python3 chip_smoke.py --phases engine,train,observe   # device time,
+                                                   # program stats
     python3 chip_smoke.py --phases kernels,handoff # legacy mode, handoff,
                                                    # chain migration
 """
@@ -689,18 +714,7 @@ def kernel_phase_ragged(dev, iters, seed=0, nh=16, hd=128, ps=16, nps=128,
                     qt, kc, vc, attn_mask=mask), iters, dev)
                 dec_ms = time_ms(decode_equiv(pa, q, k, v, tab_d, p0_d),
                                  iters, dev) if spec else None
-            # bytes this data needs: attended K/V positions (a row past
-            # its table reads the whole table), q, o, metadata
-            attended = np.minimum(p0.astype(np.int64) + tl, s_cap).sum()
-            esz_kv = k.element_size()
-            nbytes = (2 * attended * nh * hd * esz_kv
-                      + 2 * r * t * nh * hd * q.element_size()
-                      + tab.nbytes + p0.nbytes + tl.nbytes)
-            # real queries only: query j of a row attends pos0 + j + 1 keys
-            # (at most the table's)
-            keys = sum(int(np.minimum(int(p0[i]) + np.arange(int(tl[i])) + 1,
-                                      s_cap).sum()) for i in range(r))
-            flops = 4.0 * nh * hd * keys
+            flops, nbytes = pa.ragged_cost(q, k, tab, p0, tl)
             b_ms, b_by = bound(nbytes, flops,
                                "float32" if "float32" in (qdt, kvdt)
                                else "bfloat16")
@@ -852,16 +866,8 @@ def kernel_phase_ragged_int8(dev, iters, seed=7, nh=16, hd=128, ps=16,
                 dec_ms = time_ms(decode_equiv(pa, q, kq, vq, tab_d, p0_d,
                                               k_scale=ks, v_scale=vs),
                                  iters, dev) if spec else None
-            # bytes this data needs: attended K/V positions at one byte,
-            # the scale rows of the attended pages, q, o, metadata
-            attended = (p0.astype(np.int64) + tl).sum()
-            pages = sum(int(p0[i] + tl[i] - 1) // ps + 1 for i in range(r))
-            nbytes = (2 * attended * nh * hd + 2 * pages * nh * 4
-                      + 2 * r * t * nh * hd * q.element_size()
-                      + tab.nbytes + p0.nbytes + tl.nbytes)
-            keys = sum(int(tl[i]) * int(p0[i]) + int(tl[i]) * (int(tl[i]) + 1)
-                       // 2 for i in range(r))
-            b_ms, b_by = bound(nbytes, 4.0 * nh * hd * keys, qdt)
+            flops, nbytes = pa.ragged_cost(q, kq, tab, p0, tl, k_scale=ks)
+            b_ms, b_by = bound(nbytes, flops, qdt)
             row = {"phase": "kernel",
                    "kernel": "ragged_paged_attention_int8",
                    "case": name, "rows": "decode" if t == 1 else "chunk",
@@ -999,10 +1005,8 @@ def kernel_phase_int8_matmul(dev, iters, cases, seed=8):
             plain_ms = time_ms(plain, max(1, iters // 4), dev)
             if route == "wgmma" and xdt != "int8":
                 quant_ms = time_ms(lambda: im.quantize_x(x, qs), iters, dev)
-        nbytes = (x.numel() * x.element_size() + wq.numel()
-                  + out.numel() * out.element_size()
-                  + 4 * n * (2 if has_bias else 1) + 4)
-        b_ms, b_by = bound(nbytes, 2.0 * m * k * n, "int8")
+        flops, nbytes = im.int8_matmul_cost(x, out, k, n, has_bias)
+        b_ms, b_by = bound(nbytes, flops, "int8")
         row = {"phase": "kernel",
                "kernel": "int8_matmul_wgmma" if route == "wgmma"
                else "int8_matmul",
@@ -1074,8 +1078,8 @@ def kernel_phase_int8_quantize(dev, iters, shapes, seed=6):
             plain_ms = time_ms(lambda: im._plain_quantize_x(x, qs, 127.0),
                                iters, dev)
         lib_ms, lib_off = quantize_library(x, qs, ref, iters, dev)
-        nbytes = x.numel() * (x.element_size() + 1) + 4
-        b_ms, b_by = bound(nbytes, 3.0 * x.numel(), "float32")
+        flops, nbytes = im.int8_quantize_cost(x)
+        b_ms, b_by = bound(nbytes, flops, "float32")
         row = {"phase": "kernel", "kernel": "int8_quantize",
                "case": f"M{m}_K{k}_x{xdt}", "max_abs_err": 0.0,
                "tolerance": "equal", "ties": n_ties, "clipped": n_clip,
@@ -1158,9 +1162,7 @@ def kernel_phase_flash(dev, iters, shapes, seed=1):
                                max(1, iters // 4), dev)
             lib_ms = time_ms(lambda: TF.scaled_dot_product_attention(
                 qt, kt, vt, is_causal=causal), iters, dev)
-        pairs = s * (s + 1) / 2 if causal else s * s
-        flops = 4.0 * b * h * d * pairs
-        nbytes = 4 * b * s * h * d * q.element_size() + 4 * b * h * s
+        flops, nbytes = fa.flash_fwd_cost(q, k, v, causal, exact=True)
         b_ms, b_by = bound(nbytes, flops, dt)
         row = {"phase": "kernel",
                "kernel": "flash_attention_fwd_tc" if tc
@@ -1307,18 +1309,19 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                       lambda: fa._bwd_single_tile(scale, causal, res, do,
                                                   delta, (out,) * 3),
                       lambda: fa._plain_bwd_single_tile(
-                          scale, causal, pres, pdo, delta, (f32,) * 3), 10.0)]
+                          scale, causal, pres, pdo, delta, (f32,) * 3),
+                      "single")]
         else:
             parts = [("flash_attention_bwd_dq" + sfx, ("dq",),
                       lambda: (fa._bwd_dq(scale, causal, res, do, delta,
                                           out),),
                       lambda: (fa._plain_bwd_dq(scale, causal, pres, pdo,
-                                                delta, f32),), 6.0),
+                                                delta, f32),), "dq"),
                      ("flash_attention_bwd_dkv" + sfx, ("dk", "dv"),
                       lambda: fa._bwd_dkv(scale, causal, res, do, delta,
                                           (out,) * 2),
                       lambda: fa._plain_bwd_dkv(scale, causal, pres, pdo,
-                                                delta, (f32,) * 2), 8.0)]
+                                                delta, (f32,) * 2), "dkv")]
         lib_call, lib_name = sdpa_backward_call(q, k, v, do, causal)
         lib_ms = time_ms(lib_call, iters, dev)
         # the yardstick of PRs 2-4: SDPA forward + backward, minus its
@@ -1337,14 +1340,12 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
         with torch.no_grad():
             lib_fwd = time_ms(sdpa, iters, dev)
         lib_diff_ms = time_ms(sdpa_grad, iters, dev) - lib_fwd
-        pairs = sq * (sq + 1) / 2 if causal else sq * sk
-        esz, osz = q.element_size(), torch.empty((), dtype=out).element_size()
         shape = f"B{b}_S{sq}" + (f"x{sk}" if sk != sq else "") + \
             f"_H{h}_D{d}"
         case = (shape + f"_{'causal' if causal else 'full'}"
                 + ("_outf32" if out_f32 else "")
                 + ("_delta" if given_delta else ""))
-        for name, grads, kern, plain, op_factor in parts:
+        for name, grads, kern, plain, kind in parts:
             got = kern()
             ref = plain()
             if dev.type == "cuda":
@@ -1373,10 +1374,7 @@ def kernel_phase_flash_bwd(dev, iters, cases, seed=4):
                         f"{errs[gname]} over rtol {rtol} atol {atol}")
             kern_ms, host_ms = timed(kern, iters, dev)
             plain_ms = time_ms(plain, max(1, iters // 4), dev)
-            nbytes = (2 * b * (sq + sk) * h * d * esz + 2 * b * h * sq * 4
-                      + sum((sq if gn == "dq" else sk) for gn in grads)
-                      * b * h * d * osz)
-            flops = op_factor * b * h * d * pairs
+            flops, nbytes = fa.flash_bwd_cost(kind, q, k, causal, out)
             extra = {}
             if dt == "float32":
                 # f32 products run on the tensor cores as 3xTF32 (here and
@@ -1663,8 +1661,166 @@ def engine_phase(model, dev, n_req=16, max_new=32, n_check=4, keep=None,
                     pool_bytes=eng.pool.nbytes)
     row.update(warm_engine_profile(model, dev, prompts, max_new,
                                    engine_kw)[0])
+    row["trace_window"] = engine_trace_window(model, dev, prompts, max_new,
+                                              engine_kw)[0]
     emit(row)
     return row
+
+
+#: the largest share of a window's device-busy time that slices joining no
+#: dispatch site may take (host copies outside a site: the drain's
+#: readback, a copy-on-write page copy)
+UNATTRIBUTED_MAX_SHARE = 0.02
+
+
+def trace_checker():
+    """(tools/check_sink_schema.py as a module, its schema)."""
+    import importlib.util
+
+    path = os.path.join(HERE, "tools", "check_sink_schema.py")
+    spec = importlib.util.spec_from_file_location("check_sink_schema", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    schema = json.load(open(os.path.join(HERE, "tools", "sink_schema.json")))
+    return mod, schema
+
+
+def check_window(s, site, timeline, dev, what):
+    """The checks every parsed window of this script passes: a non-empty
+    summary the sink schema accepts, busy_frac in [0, 1], ``site``'s row
+    with executions == steps, slices joining no site under
+    UNATTRIBUTED_MAX_SHARE of device_busy_ms (the largest of them by
+    name, and the summed slice time, returned). Returns the numbers to
+    print."""
+    mod, schema = trace_checker()
+    mod._ERRORS.clear()
+    mod.check_trace_summary(s, schema, what)
+    errs = list(mod._ERRORS)
+    if errs or s.get("empty", True) or not 0.0 <= s["busy_frac"] <= 1.0:
+        raise AssertionError(f"{what}: summary {errs or s}")
+    row = s["sites"].get(site)
+    if row is None or row["executions"] != s["steps"]:
+        raise AssertionError(f"{what}: site {site} row {row}, steps "
+                             f"{s['steps']}")
+    loose = {}
+    for name, module, _, dur in timeline.device_ops:
+        if module is None:
+            key = name[:80]
+            loose[key] = loose.get(key, 0.0) + dur / 1e3
+    loose_ms = sum(loose.values())
+    summed_ms = sum(d for _, _, _, d in timeline.device_ops) / 1e3
+    if s["device_busy_ms"] > summed_ms + 1e-3:      # rounded to 1e-4
+        raise AssertionError(f"{what}: busy {s['device_busy_ms']} ms > "
+                             f"summed slices {summed_ms} ms")
+    if dev.type == "cuda" and \
+            loose_ms > UNATTRIBUTED_MAX_SHARE * s["device_busy_ms"]:
+        raise AssertionError(f"{what}: {loose_ms} ms of slices join no "
+                             f"site: {sorted(loose.items())[:8]}")
+    return {"steps": s["steps"], "wall_ms": s["wall_ms"],
+            "device_busy_ms": s["device_busy_ms"],
+            "summed_slice_ms": summed_ms, "host_gap_ms": s["host_gap_ms"],
+            "busy_frac": s["busy_frac"],
+            "categories": s["categories"], "site": site,
+            "site_device_ms": row["device_ms"],
+            "site_categories": row["categories"],
+            "unattributed_ms": loose_ms,
+            "unattributed_share": loose_ms / max(s["device_busy_ms"], 1e-9),
+            "unattributed_largest": [
+                {"name": k, "ms": v} for k, v in
+                sorted(loose.items(), key=lambda kv: -kv[1])[:4]],
+            "ledger": s["ledger"]}
+
+
+def match_launches(what, slices, launches, lost):
+    """Each kernel's slices in a window ({kernel: n}) against its launch
+    counters' delta ({kernel: n}): equal, except that CUPTI can lose a
+    kernel's record (the trace then holds its launch without its slice;
+    ``lost`` such launches in the window), so a kernel may fall short by
+    launches the trace shows lost, never by more in all, and never holds
+    more slices than launches. Returns the shortfall."""
+    short = 0
+    for k, n in slices.items():
+        if n > launches[k]:
+            raise AssertionError(f"{what}: {k}: {n} slices, {launches[k]} "
+                                 "launches")
+        short += launches[k] - n
+    if short > lost:
+        raise AssertionError(f"{what}: slices {slices} against launches "
+                             f"{launches}: {short} short, the trace lost "
+                             f"{lost} launches' records")
+    return short
+
+
+def kernel_slices(timeline, name):
+    """The slices of the CUDA kernel ``name`` (a word of the demangled
+    name: ``ragged_kernel`` is not ``ragged_chunk_kernel``)."""
+    import re
+
+    pat = re.compile(rf"\b{name}\b")
+    return [(n, m) for n, m, _, _ in timeline.device_ops if pat.search(n)]
+
+
+def engine_trace_window(model, dev, prompts, max_new, engine_kw, ticks=8):
+    """A parsed device-trace window of ``ticks`` engine ticks
+    (``ServingEngine.trace_window``) on a fresh engine serving the
+    workload, after one tick outside the window (the tick site's counted
+    first dispatch). The ragged kernel's slices in the window number the
+    launch counters' deltas (ragged_kernel + ragged_chunk_kernel slices =
+    RAGGED_LAUNCHES, ragged_chunk_kernel = RAGGED_CHUNK_LAUNCHES, at most
+    one ragged_chunk_merge a call), every one of them joins the tick site
+    under attention, and the tick site's counted attention FLOPs (the
+    kernel's cost hook) are non-zero. Returns (the numbers, the
+    capture)."""
+    from paddle_tpu_torch.profiler import device_trace as dt
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
+    eng = ServingEngine(model, ServingConfig(**engine_kw))
+    for p in prompts:
+        eng.submit(p, max_new)
+    eng.step()
+    with window_counts() as seen:
+        with eng.trace_window() as cap:
+            for _ in range(ticks):
+                eng.step()
+            eng.drain(0)
+    ((_, counts),) = seen
+    calls, chunk_calls = counts["ragged"], counts["ragged_chunk"]
+    eng.run()
+    (site,) = eng.compiled_sites
+    out = check_window(cap.summary, site, cap.timeline, dev,
+                       "engine window")
+    if cap.summary["steps"] != ticks:
+        raise AssertionError(f"engine window: {cap.summary['steps']} ticks")
+    prog = eng.record_program_stats()[site]
+    attn_flops = prog["categories"].get("attention", {}).get("flops", 0.0)
+    out.update(program={k: prog[k] for k in ("flops", "bytes_accessed",
+                                             "compile_ms")},
+               program_attention_flops=attn_flops,
+               ragged_launches=calls, ragged_chunk_launches=chunk_calls)
+    if dev.type == "cuda":
+        dec = kernel_slices(cap.timeline, "ragged_kernel")
+        chk = kernel_slices(cap.timeline, "ragged_chunk_kernel")
+        mrg = kernel_slices(cap.timeline, "ragged_chunk_merge")
+        out.update(ragged_kernel_slices=len(dec),
+                   ragged_chunk_kernel_slices=len(chk),
+                   ragged_chunk_merge_slices=len(mrg),
+                   launches_lost_by_trace=len(cap.lost_launches))
+        out["slices_short"] = match_launches(
+            "engine window", {"ragged_kernel": len(dec),
+                              "ragged_chunk_kernel": len(chk)},
+            {"ragged_kernel": calls - chunk_calls,
+             "ragged_chunk_kernel": chunk_calls}, len(cap.lost_launches))
+        if len(mrg) > calls or not chunk_calls:
+            raise AssertionError(f"engine window: {len(mrg)} merge slices "
+                                 f"for {calls} calls, {chunk_calls} chunk "
+                                 "calls")
+        stray = [(n[:60], m) for n, m in dec + chk + mrg
+                 if m != site or dt.categorize_op(n) != "attention"]
+        if stray or attn_flops <= 0:
+            raise AssertionError(f"engine window: ragged slices off the "
+                                 f"tick site {stray[:4]} or attention "
+                                 f"FLOPs {attn_flops}")
+    return out, cap
 
 
 def warm_engine_profile(model, dev, prompts, max_new, engine_kw):
@@ -2864,8 +3020,122 @@ def train_phase(dev, steps=8, short_steps=2, batch=4, seq=2048, n_micro=2,
                                          (batch, seq // 2))).to(dev)
     row["short_batch"] = [batch, seq // 2]
     row["short_losses"] = [run(short)[0] for _ in range(short_steps)]
+    row["phases"] = train_phases(tr, tokens, cfg, dev, row["mfu"])
     emit(row)
     return row
+
+
+#: each flash CUDA kernel (a word of its name) and the launch counters
+#: (LAUNCH_COUNTERS) of the wrappers that launch it: the mma.sync merged
+#: kernel is flash_bwd_dkv_kernel's DQ instantiation
+FLASH_KERNEL_NAMES = {
+    "flash_fwd_kernel": ("flash",), "flash_fwd_tc_kernel": ("flash_tc",),
+    "flash_bwd_single_tc_kernel": ("bwd_single_tc",),
+    "flash_bwd_dq_kernel": ("bwd_dq",),
+    "flash_bwd_dq_tc_kernel": ("bwd_dq_tc",),
+    "flash_bwd_dkv_kernel": ("bwd_dkv", "bwd_single"),
+    "flash_bwd_dkv_tc_kernel": ("bwd_dkv_tc",)}
+
+
+@contextlib.contextmanager
+def window_counts():
+    """Every device_trace.capture that closes inside: (the capture, the
+    launch counts' deltas over its window) in order."""
+    from paddle_tpu_torch.profiler import device_trace as dt
+
+    seen = []
+    enter, parse = dt.capture.__enter__, dt.capture._parse
+
+    def enter_(self):
+        self._counts0 = read_counts()[0]
+        return enter(self)
+
+    def parse_(self):
+        now = read_counts()[0]
+        seen.append((self, {k: now[k] - self._counts0[k] for k in now}))
+        parse(self)
+        self.lost_launches = [] if self.timeline is None else \
+            lost_launches(self.trace_file, self.timeline.t_min_us)
+
+    dt.capture.__enter__, dt.capture._parse = enter_, parse_
+    try:
+        yield seen
+    finally:
+        dt.capture.__enter__, dt.capture._parse = enter, parse
+
+
+def lost_launches(path, t0):
+    """The launches (cuda_runtime / cuda_driver events with a correlation
+    id) of a trace whose device slice the trace does not hold: (ms after
+    the window's start, thread, API name) of each."""
+    from paddle_tpu_torch.profiler import device_trace as dt
+
+    evs = dt.load_trace_events(path)["traceEvents"]
+    done = {(e.get("args") or {}).get("correlation") for e in evs
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")}
+    return [((float(e["ts"]) - t0) / 1e3, e.get("tid"), e.get("name"))
+            for e in evs if e.get("cat") in ("cuda_runtime", "cuda_driver")
+            and "Launch" in e.get("name", "")
+            and (e.get("args") or {}).get("correlation") not in done]
+
+
+def train_phases(tr, tokens, cfg, dev, phase_mfu):
+    """profile_step_phases(tokens, iters=1, trace_window=2) on the train
+    phase's trainer: the phases, then a parsed window of 2 steps in which
+    every flash kernel slice (forward and the backward kernels the
+    autograd thread launches) joins the hybrid.step site and each flash
+    launch counter's delta equals its kernel's slices; the ledger's MFU
+    (the site's counted FLOPs x 2 over the window's wall) in (0, 1] and
+    those FLOPs >= 0.9 x GPTConfig.flops_per_token(S) x tokens;
+    memory_ledger() and the device-memory high-water mark."""
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.profiler import program_stats as ps
+
+    with window_counts() as seen:
+        out = tr.profile_step_phases(tokens, iters=1, trace_window=2)
+    ((cap, counts),) = seen
+    summary = out.pop("trace")
+    if summary is not cap.summary:
+        raise AssertionError("train window: another capture's summary")
+    for k in ("fwd_ms", "bwd_ms", "optim_ms", "step_ms"):
+        # a CPU rehearsal's phases are within its timing noise
+        if k not in out or (dev.type == "cuda" and not out[k] > 0):
+            raise AssertionError(f"train phases: {k} in {out}")
+    site = tr._prof_site
+    res = {"phases_ms": out, **check_window(summary, site, cap.timeline, dev,
+                                            "train window")}
+    flops = ps.get(site).flops
+    want = 0.9 * cfg.flops_per_token(tokens.shape[1]) * tokens.numel()
+    mfu = summary["ledger"]["mfu"]
+    res.update(step_site_flops=flops,
+               formula_flops_per_step=want / 0.9,
+               ledger_mfu=mfu, phase_mfu=phase_mfu,
+               memory_ledger=tr.memory_ledger(),
+               peak_bytes_in_use=profiler.record_memory_high_water(
+                   device=dev),
+               window_launches={k: n for k, n in counts.items() if n})
+    if flops < want or mfu is None or not 0.0 < mfu <= 1.0:
+        raise AssertionError(f"train window: counted FLOPs {flops} < "
+                             f"{want} or ledger MFU {mfu}")
+    if dev.type == "cuda":
+        by_kernel, launched = {}, {}
+        for word, keys in FLASH_KERNEL_NAMES.items():
+            sl = kernel_slices(cap.timeline, word)
+            by_kernel[word] = len(sl)
+            launched[word] = sum(counts[k] for k in keys)
+            if any(m != site for _, m in sl):
+                raise AssertionError(
+                    f"train window: {word} slices on the sites "
+                    f"{sorted({str(m) for _, m in sl})}, not {site}")
+        res.update(flash_slices=by_kernel,
+                   launches_lost_by_trace=len(cap.lost_launches),
+                   launches_lost_first=cap.lost_launches[:4])
+        res["slices_short"] = match_launches(
+            "train window", by_kernel, launched, len(cap.lost_launches))
+        if not by_kernel["flash_fwd_tc_kernel"] or \
+                not by_kernel["flash_bwd_dq_tc_kernel"]:
+            raise AssertionError(f"train window: flash slices {by_kernel}")
+    return res
 
 
 def make_trainer(dev, cfg, seed, n_micro=2):
@@ -3062,6 +3332,24 @@ def observed_run(model, dev, prompts, max_new, engine_kw):
     return streams, wall, engine_events(eng, seq0), eng
 
 
+def observe_trace_window(model, dev, prompts, max_new, engine_kw):
+    """``engine_trace_window`` of 4 ticks under the active sink; then
+    ``dump_flight``, whose document must carry the window's summary."""
+    from paddle_tpu_torch.profiler import events as pev
+
+    out, cap = engine_trace_window(model, dev, prompts, max_new, engine_kw,
+                                   ticks=4)
+    path = pev.dump_flight("observe-trace")
+    flight = json.load(open(path))
+    if flight["trace_summary"] != json.loads(json.dumps(cap.summary)):
+        raise AssertionError("observe: the flight dump does not carry the "
+                             "window's summary")
+    return {"steps": out["steps"], "busy_frac": out["busy_frac"],
+            "device_busy_ms": out["device_busy_ms"],
+            "unattributed_share": out["unattributed_share"],
+            "flight_dump": os.path.basename(path)}
+
+
 def observe_phase(model, dev, engine_kw, card=None, n_req=16, max_new=32,
                   preempt_pages=129, trace_req=3, trace_new=8,
                   train_cfg=None, train_batch=(2, 2048),
@@ -3136,12 +3424,19 @@ def observe_phase(model, dev, engine_kw, card=None, n_req=16, max_new=32,
             "preemptions": preempts,
             "preempted_requests": sum(b["preempts"] > 0 for b in rows),
             "bucket_sums_ms": bucket_sums(rows)}
-        # (4) the sink's files: closed, then the repo's schema checker
+        # (3) a parsed device-trace window with the sink active: the sink
+        # writes its trace_summary.json, and a flight dump taken after it
+        # carries the same summary
+        row["trace_window"] = observe_trace_window(
+            model, dev, prompts[:trace_req], trace_new, engine_kw)
+        # (4) the sink's files: closed, then the repo's schema checker,
+        # which must find the window's summary
         psink.disable_sink()
         chk = subprocess.run(
             [sys.executable, os.path.join(HERE, "tools",
                                           "check_sink_schema.py"),
-             sink_dir], capture_output=True, text=True, timeout=120)
+             sink_dir, "--require-trace"], capture_output=True, text=True,
+            timeout=120)
         lines = [_json.loads(x) for x in
                  open(os.path.join(sink_dir, "metrics.jsonl"))]
         row["sink"] = {

@@ -32,7 +32,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.dtype import convert_dtype
 from ..optimizer.clip import functional_clip
+from ..profiler import instrument as _pinstr
 from ..profiler import is_enabled as _prof_enabled
+from ..profiler import program_stats as _pstats
 from ..profiler import recompile as _precomp
 from ..profiler import registry as _preg
 from ..profiler import trace as _ptrace
@@ -107,14 +109,20 @@ class HybridPipelineTrainer:
             trainer holds no copy of the model's parameters.
 
         When ``profiler.enable()`` is on, every step syncs on the loss,
-        moves ``train/steps``, ``train/tokens`` and the ``hybrid/step_ms``
-        histogram in ``profiler.registry()`` and records the host spans
-        ``hybrid/h2d`` (the batch's copy to the device), ``hybrid/step``
-        and, inside it, ``sync_wait`` (the wait on the loss): the
-        reference's names. The forward always opens the ranges
-        ``fwd/stem``, ``fwd/blocks`` and ``fwd/head`` (``profiler.annotate``),
-        and every step marks its batch at the ``hybrid.step#N`` recompile
-        site (``self._prof_site``).
+        moves ``train/steps``, ``train/tokens`` (``tokens_in_batch``) and
+        the ``hybrid/step_ms`` histogram in ``profiler.registry()``,
+        records the device-memory high-water mark
+        (``memory/peak_bytes_in_use``) and the host spans ``hybrid/h2d``
+        (the batch's copy to the device), ``hybrid/step`` and, inside it,
+        ``sync_wait`` (the wait on the loss): the reference's names. The
+        forward always opens the ranges ``fwd/stem``, ``fwd/blocks`` and
+        ``fwd/head`` (``profiler.annotate``). Every step marks its batch at
+        the ``hybrid.step#N`` recompile site (``self._prof_site``) and runs
+        inside a ``record_function`` range of that name; the site's first
+        step is counted (``profiler/program_stats.py``).
+        ``profile_step_phases`` decomposes a step into phases (and, with
+        ``trace_window``, parses a device trace of more steps);
+        ``memory_ledger`` gives the resident bytes by state category.
 
         Not ported (each raises ``NotImplementedError`` naming its ROADMAP
         item): a ``mesh``, pipeline/tensor/data/sequence parallel degrees,
@@ -178,6 +186,8 @@ class HybridPipelineTrainer:
         self._step = 0
         # the batch signatures the step has run (profiler/recompile.py)
         self._prof_site = _precomp.unique_site("hybrid.step")
+        # the step site's counted first dispatch (program_stats.dispatch)
+        self._program_counts: Dict[str, dict] = {}
 
     # ---------------------------------------------------------------------
     def _cast(self, t: torch.Tensor) -> torch.Tensor:
@@ -222,18 +232,36 @@ class HybridPipelineTrainer:
                              f"{self.n_micro}")
         _precomp.mark_trace(self._prof_site, batch)
         if not prof:
-            return self._step_body(batch, dev, bsz)
+            return _pstats.dispatch(self._program_counts, self._prof_site,
+                                    self._step_body, batch, dev, bsz)
         with _ptrace.scope("hybrid/step"):
-            loss = self._step_body(batch, dev, bsz)
+            loss = _pstats.dispatch(self._program_counts, self._prof_site,
+                                    self._step_body, batch, dev, bsz)
             with _ptrace.scope("sync_wait"):
                 float(loss)                  # truthful sync on the loss
         reg = _preg()
         reg.counter("train/steps").add(1)
-        reg.counter("train/tokens").add(
-            int(batch[0].numel()) if batch[0].dim() == 2 and
-            not batch[0].is_floating_point() else bsz)
+        reg.counter("train/tokens").add(_pinstr.tokens_in_batch(batch))
         reg.histogram("hybrid/step_ms").observe(
             (time.perf_counter_ns() - t0) / 1e6)
+        _pinstr.record_memory_high_water(device=dev)
+        return loss
+
+    def _loss(self, batch, dev, bsz: int, backward: bool) -> torch.Tensor:
+        """The step's loss over every micro-batch (each weighed by its
+        share of the targets), with each micro-batch's backward when
+        ``backward``; the f32 loss, not waited for."""
+        micro = [torch.split(b, bsz // self.n_micro) for b in batch]
+        counter = getattr(self.model, "pipeline_label_count", None)
+        total = counter(*batch) if counter is not None else None
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        for i in range(self.n_micro):
+            mb = tuple(m[i] for m in micro)
+            w = counter(*mb) / total if total else 1.0 / self.n_micro
+            part = self._forward_loss(mb) * w
+            if backward:
+                part.backward()
+            loss = loss + part.detach()
         return loss
 
     def _step_body(self, batch, dev, bsz: int) -> torch.Tensor:
@@ -244,16 +272,7 @@ class HybridPipelineTrainer:
         params = [p for p in self._params.values() if p.requires_grad]
         for p in params:
             p.grad = None
-        micro = [torch.split(b, bsz // self.n_micro) for b in batch]
-        counter = getattr(self.model, "pipeline_label_count", None)
-        total = counter(*batch) if counter is not None else None
-        loss = torch.zeros((), dtype=torch.float32, device=dev)
-        for i in range(self.n_micro):
-            mb = tuple(m[i] for m in micro)
-            w = counter(*mb) / total if total else 1.0 / self.n_micro
-            part = self._forward_loss(mb) * w
-            part.backward()
-            loss = loss + part.detach()
+        loss = self._loss(batch, dev, bsz, backward=True)
         live = [p for p in params if p.grad is not None]
         functional_clip(self.optimizer._grad_clip, [p.grad for p in live])
         self.optimizer._apply_updates(live, lr, self._step)
@@ -263,6 +282,71 @@ class HybridPipelineTrainer:
         return loss
 
     __call__ = step
+
+    def profile_step_phases(self, *batch, iters: int = 2,
+                            trace_window: int = 0) -> dict:
+        """Per-phase (fwd/bwd/optim/comm) decomposition of the train step
+        into the ``phase/*_ms`` gauges (``profiler.summary()["phases_ms"]``),
+        as the reference's. Nested prefixes are timed
+        (``instrument.time_compiled``: one warm call, then ``iters``
+        calls ended by a host read of the result): fwd (the loss over
+        every micro-batch under ``no_grad``), fwd+bwd (the loss and its
+        gradients, no update; the gradients are cleared afterwards) and
+        the step itself (``1 + iters`` real optimizer steps: training
+        state advances). bwd = fwdbwd − fwd, optim = step − fwdbwd; comm
+        is 0 at degree 1, with the step site's counted bytes as
+        ``cost_bytes_accessed``. Also folds the ``hybrid.step#N`` site's
+        counted first dispatch into the program inventory.
+
+        ``trace_window=k`` wraps ``k`` more real steps, each read back, in
+        a parsed device-trace capture (``profiler.device_trace``) labelled
+        with the site and returns its summary under ``"trace"``."""
+        dev = next(iter(self._params.values())).device
+        b = tuple(torch.as_tensor(x, device=dev) for x in batch)
+        bsz = b[0].shape[0]
+        params = [p for p in self._params.values() if p.requires_grad]
+
+        def fwd():
+            with torch.no_grad():
+                return self._loss(b, dev, bsz, backward=False)
+
+        def fwdbwd():
+            for p in params:
+                p.grad = None
+            return self._loss(b, dev, bsz, backward=True)
+
+        t_fwd = _pinstr.time_compiled(fwd, iters)
+        t_fb = _pinstr.time_compiled(fwdbwd, iters)
+        for p in params:
+            p.grad = None
+        t_step = _pinstr.time_compiled(lambda: self.step(*batch), iters)
+        ps = _pstats.record_counted(self._prof_site,
+                                    self._program_counts[self._prof_site])
+        out = _pinstr.record_phases(
+            fwd_s=t_fwd, fwdbwd_s=t_fb, step_s=t_step, comm_bytes=0,
+            platform=dev.type, cost_bytes_accessed=ps.bytes_accessed)
+        if trace_window:
+            from ..profiler import device_trace as _dtrace
+
+            with _dtrace.capture(steps=int(trace_window),
+                                 label=self._prof_site) as cap:
+                for _ in range(int(trace_window)):
+                    _pinstr._first_leaf(self.step(*batch))
+            out["trace"] = cap.summary
+        return out
+
+    def memory_ledger(self) -> dict:
+        """Resident bytes by state category (``record_memory_ledger``:
+        gauges ``mem/{param,grad,opt_state}_bytes``), as the reference
+        counts them at degree 1: every parameter at its storage dtype,
+        ``grad`` as 4 bytes per parameter element (the gradients' f32
+        peak) and the optimizer's accumulators. No ``master`` category:
+        the reference has one only on its sharded (ZeRO) path."""
+        params = list(self._params.values())
+        return _pinstr.record_memory_ledger({
+            "param": params,
+            "grad": 4 * sum(p.numel() for p in params),
+            "opt_state": [self.optimizer._state_for(p) for p in params]})
 
     def sync_to_layer(self):
         """The model, whose parameters the trainer updates in place (the

@@ -41,6 +41,10 @@ plain PyTorch version sits beside it (``_plain_fwd``,
 tensors run it, and ``chip_smoke.py`` holds the kernel against it on the
 card. A CUDA tensor always launches a kernel; a failed build or launch
 raises.
+
+``flash_fwd_cost`` and ``flash_bwd_cost`` give each kernel's work
+(FLOPs, bytes): what each launch adds to a counted program
+(``profiler/program_stats.py``) and the bound ``chip_smoke.py`` reports.
 """
 from __future__ import annotations
 
@@ -48,9 +52,11 @@ import math
 
 import torch
 
+from ..profiler import program_stats as _pstats
 from . import _cuda
 
 __all__ = ["flash_attention", "mha_reference", "supported",
+           "flash_fwd_cost", "flash_bwd_cost",
            "FLASH_FWD_LAUNCHES", "FLASH_FWD_TC_LAUNCHES",
            "FLASH_BWD_SINGLE_LAUNCHES", "FLASH_BWD_SINGLE_TC_LAUNCHES",
            "FLASH_BWD_DQ_LAUNCHES", "FLASH_BWD_DQ_TC_LAUNCHES",
@@ -149,6 +155,49 @@ def mha_reference(q, k, v, causal=False, scale=None):
     return _plain_fwd(q, k, v, causal, scale)[0]
 
 
+def flash_fwd_cost(q, k, v, causal, exact: bool = False):
+    """(FLOPs, bytes) of one forward over ``q [B, Sq, H, D]`` and ``k``,
+    ``v [B, Sk, H, D]``. By default the reference kernel's own
+    ``pl.CostEstimate``: ``4·BH·Sq·Sk·D`` FLOPs, halved when causal, and
+    ``2·(|q| + |k| + |v|)·itemsize`` bytes, which is what a counted
+    program reports. ``exact=True`` counts this kernel's work, the bound
+    column's: the causal pairs ``Sq·(Sq+1)/2`` (else ``Sq·Sk``), q, k, v
+    and o at their width and the f32 LSE."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    if exact:
+        pairs = sq * (sq + 1) / 2 if causal else sq * sk
+        return (4.0 * b * h * d * pairs,
+                2 * b * (sq + sk) * h * d * q.element_size() + 4 * b * h * sq)
+    flops = 4 * (b * h) * sq * sk * d // (2 if causal else 1)
+    return float(flops), 2 * (q.numel() + k.numel() + v.numel()) * \
+        q.element_size()
+
+
+#: the backward kernels: (products of 2·D FLOPs per (query, key) pair,
+#: the gradients each writes)
+_BWD_WORK = {"single": (10.0, ("dq", "dk", "dv")), "dq": (6.0, ("dq",)),
+             "dkv": (8.0, ("dk", "dv"))}
+
+
+def flash_bwd_cost(kind, q, k, causal, out_dtype):
+    """(FLOPs, bytes) of one backward kernel: ``kind`` ``"single"`` (the
+    merged kernel), ``"dq"`` or ``"dkv"``. FLOPs: its products over the
+    (query, key) pairs (``Sq·(Sq+1)/2`` causal, else ``Sq·Sk``); bytes:
+    q, k, v and dO at their width, the f32 LSE and delta, and the
+    gradients it writes in ``out_dtype``."""
+    b, sq, h, d = q.shape
+    sk = k.shape[1]
+    op_factor, grads = _BWD_WORK[kind]
+    pairs = sq * (sq + 1) / 2 if causal else sq * sk
+    osz = torch.empty((), dtype=out_dtype).element_size()
+    nbytes = (2 * b * (sq + sk) * h * d * q.element_size()
+              + 2 * b * h * sq * 4
+              + sum((sq if g == "dq" else sk) for g in grads)
+              * b * h * d * osz)
+    return op_factor * b * h * d * pairs, nbytes
+
+
 def _check(q, k, v, causal):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention takes [batch, seq, heads, dim]")
@@ -234,6 +283,9 @@ def _flash_simt(q, k, v, causal, scale):
                  s, _cuda.DTYPE_CODE[q.dtype], _cuda.stream_handle(q.device))
     _cuda.raise_on_error("flash_attention_fwd", err)
     FLASH_FWD_LAUNCHES += 1
+    if _pstats.ACTIVE is not None:
+        _pstats.note_kernel("flash_attention_fwd", flash_fwd_cost, q, k, v,
+                            causal)
     return o, lse
 
 
@@ -255,6 +307,8 @@ def _flash_tc(q, k, v, causal, scale):
                  s, _cuda.stream_handle(q.device))
     _cuda.raise_on_error(name, err)
     FLASH_FWD_TC_LAUNCHES += 1
+    if _pstats.ACTIVE is not None:
+        _pstats.note_kernel(name, flash_fwd_cost, q, k, v, causal)
     return o, lse
 
 
@@ -424,6 +478,9 @@ def _bwd_single_tile_mma(scale, causal, res, do, delta, dtypes):
                  _cuda.DTYPE_CODE[dtypes[0]], _cuda.stream_handle(dev))
     _cuda.raise_on_error(name, err)
     FLASH_BWD_SINGLE_LAUNCHES += 1
+    if _pstats.ACTIVE is not None:
+        _pstats.note_kernel(name, flash_bwd_cost, "single", res[0], res[1],
+                            causal, dtypes[0])
     return grads
 
 
@@ -443,6 +500,9 @@ def _bwd_single_tile_tc(scale, causal, res, do, delta, dtypes):
                  _cuda.DTYPE_CODE[dtypes[0]], _cuda.stream_handle(dev))
     _cuda.raise_on_error(name, err)
     FLASH_BWD_SINGLE_TC_LAUNCHES += 1
+    if _pstats.ACTIVE is not None:
+        _pstats.note_kernel(name, flash_bwd_cost, "single", res[0], res[1],
+                            causal, dtypes[0])
     return grads
 
 
@@ -470,6 +530,9 @@ def _bwd_dq_mma(scale, causal, res, do, delta, dtype):
                  _cuda.DTYPE_CODE[dtype], _cuda.stream_handle(q.device))
     _cuda.raise_on_error(name, err)
     FLASH_BWD_DQ_LAUNCHES += 1
+    if _pstats.ACTIVE is not None:
+        _pstats.note_kernel(name, flash_bwd_cost, "dq", res[0], res[1],
+                            causal, dtype)
     return dq
 
 
@@ -488,6 +551,9 @@ def _bwd_dq_tc(scale, causal, res, do, delta, dtype):
                  _cuda.DTYPE_CODE[dtype], _cuda.stream_handle(q.device))
     _cuda.raise_on_error(name, err)
     FLASH_BWD_DQ_TC_LAUNCHES += 1
+    if _pstats.ACTIVE is not None:
+        _pstats.note_kernel(name, flash_bwd_cost, "dq", res[0], res[1],
+                            causal, dtype)
     return dq
 
 
@@ -517,6 +583,9 @@ def _bwd_dkv_mma(scale, causal, res, do, delta, dtypes):
                  _cuda.stream_handle(k.device))
     _cuda.raise_on_error(name, err)
     FLASH_BWD_DKV_LAUNCHES += 1
+    if _pstats.ACTIVE is not None:
+        _pstats.note_kernel(name, flash_bwd_cost, "dkv", res[0], res[1],
+                            causal, dtypes[0])
     return dk, dv
 
 
@@ -537,4 +606,7 @@ def _bwd_dkv_tc(scale, causal, res, do, delta, dtypes):
                  _cuda.stream_handle(k.device))
     _cuda.raise_on_error(name, err)
     FLASH_BWD_DKV_TC_LAUNCHES += 1
+    if _pstats.ACTIVE is not None:
+        _pstats.note_kernel(name, flash_bwd_cost, "dkv", res[0], res[1],
+                            causal, dtypes[0])
     return dk, dv

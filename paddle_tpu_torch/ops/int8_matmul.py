@@ -25,6 +25,10 @@ CUDA tensor, and no route falls back to another.
 ``scale``, ``bias`` and ``qscale`` are tensors on ``x``'s device (an
 activation scale is a buffer of its layer): nothing here reads a device
 value on the host.
+
+``int8_matmul_cost`` and ``int8_quantize_cost`` give each kernel's work
+(FLOPs, bytes): the bound ``chip_smoke.py`` reports, and what each launch
+adds to a counted program (``profiler/program_stats.py``).
 """
 from __future__ import annotations
 
@@ -32,9 +36,11 @@ from typing import Optional
 
 import torch
 
+from ..profiler import program_stats as _pstats
 from . import _cuda
 
 __all__ = ["int8_matmul", "int8_linear_fused", "quantize_x",
+           "int8_matmul_cost", "int8_quantize_cost",
            "INT8_MATMUL_LAUNCHES", "INT8_MATMUL_WGMMA_LAUNCHES",
            "INT8_QUANTIZE_LAUNCHES"]
 
@@ -108,6 +114,24 @@ def _mm_route(x, wq_kn=None) -> str:
     return "wgmma"
 
 
+def int8_matmul_cost(x, out, k: int, n: int, has_bias: bool):
+    """(FLOPs, bytes) of one fused product of ``x [M, K]`` (float or
+    int8) by an int8 ``[K, N]`` weight into ``out [M, N]``: 2·M·K·N
+    operations; x, the weight and the output once each, the f32 scale
+    (and bias) vectors and the one-element qscale."""
+    m = x.numel() // k
+    nbytes = (x.numel() * x.element_size() + k * n
+              + out.numel() * out.element_size()
+              + 4 * n * (2 if has_bias else 1) + 4)
+    return 2.0 * m * k * n, nbytes
+
+
+def int8_quantize_cost(x):
+    """(FLOPs, bytes) of the quantize pass over ``x``: a product, a
+    rounding and a clip an element; x read, int8 written, qscale."""
+    return 3.0 * x.numel(), x.numel() * (x.element_size() + 1) + 4
+
+
 def quantize_x(x, qscale, amax: float = 127.0):
     """``clip(round(f32(x) * qscale), +-amax)`` as int8 ``[M, K]``, round
     half to even: the wgmma route's quantize pass (each element once). On
@@ -128,6 +152,8 @@ def quantize_x(x, qscale, amax: float = 127.0):
                  _cuda.stream_handle(x.device))
     _cuda.raise_on_error(name, err)
     INT8_QUANTIZE_LAUNCHES += 1
+    if _pstats.ACTIVE is not None:
+        _pstats.note_kernel("int8_quantize", int8_quantize_cost, x)
     return xq
 
 
@@ -236,6 +262,9 @@ def _mm_wgmma(x, wq_kn, scale, bias, qscale, relu, quant_out, out_dtype,
                  int(bool(relu)), _cuda.stream_handle(dev))
     _cuda.raise_on_error(name, err)
     INT8_MATMUL_WGMMA_LAUNCHES += 1
+    if _pstats.ACTIVE is not None:
+        _pstats.note_kernel(name, int8_matmul_cost, xq, out, k, n,
+                            bias is not None)
     return out
 
 
@@ -260,6 +289,9 @@ def _mm_mma(x, wq, scale, bias, qscale, relu, quant_out, out_dtype, amax):
                  _cuda.stream_handle(dev))
     _cuda.raise_on_error(name, err)
     INT8_MATMUL_LAUNCHES += 1
+    if _pstats.ACTIVE is not None:
+        _pstats.note_kernel(name, int8_matmul_cost, x, out, k, n,
+                            bias is not None)
     return out
 
 

@@ -29,6 +29,10 @@ and the token is quantized at the final scale; the null page's scale stays
 and, on the card, inside the kernel (a page's scale for the block's head
 folded into the scores and the weights). Unquantized pools take none of
 these operations.
+
+``ragged_cost`` gives one call's work on its data (FLOPs, bytes): what
+each launch adds to a counted program (``profiler/program_stats.py``) and
+the bound ``chip_smoke.py`` reports.
 """
 from __future__ import annotations
 
@@ -36,9 +40,10 @@ import math
 
 import torch
 
+from ..profiler import program_stats as _pstats
 from . import _cuda
 
-__all__ = ["ragged_paged_attention", "paged_decode_attention",
+__all__ = ["ragged_paged_attention", "paged_decode_attention", "ragged_cost",
            "paged_prefill_attention", "paged_kv_scatter", "RAGGED_LAUNCHES",
            "RAGGED_INT8_LAUNCHES", "RAGGED_CHUNK_LAUNCHES",
            "RAGGED_CHUNK_LAUNCHES_BY_T"]
@@ -112,6 +117,43 @@ def _gather_attend(q, k_pool, v_pool, page_table, qpos,
     w = torch.softmax(att.float(), dim=-1).to(q.dtype).to(wide)
     out = torch.einsum("bnts,bsnd->btnd", w, v_c)
     return out.to(q.dtype)
+
+
+def _host_i64(x) -> torch.Tensor:
+    return torch.as_tensor(x).to("cpu", torch.int64)
+
+
+def _nbytes(x) -> int:
+    return x.nbytes if hasattr(x, "nbytes") and not torch.is_tensor(x) \
+        else x.numel() * x.element_size()
+
+
+def ragged_cost(q, k_pool, page_table, pos0, true_len, k_scale=None):
+    """(FLOPs, bytes) of one ragged call on this data (tensors on either
+    device, or numpy arrays; device values are read on the host). Bytes:
+    each row's attended K/V positions ``min(pos0 + true_len, S_cap)`` (a
+    row past its table reads the whole table) at the pool's width, the
+    f32 scale rows of its attended pages (int8 pools), q and o, and the
+    metadata. FLOPs: ``4·NH·D`` per (real query, attended key) pair, query
+    ``j`` of a row attending ``min(pos0 + j + 1, S_cap)`` keys."""
+    r, t, nh, hd = q.shape
+    ps = k_pool.shape[1]
+    nps = page_table.shape[1]
+    s_cap = nps * ps
+    p0, tl = _host_i64(pos0), _host_i64(true_len)
+    attended = int(torch.clamp(p0 + tl, max=s_cap).sum())
+    nbytes = (2 * attended * nh * hd * k_pool.element_size()
+              + 2 * r * t * nh * hd * q.element_size()
+              + _nbytes(page_table) + _nbytes(pos0) + _nbytes(true_len))
+    if k_scale is not None:
+        pages = int(torch.clamp((p0 + tl - 1) // ps + 1, max=nps).sum())
+        nbytes += 2 * pages * nh * k_scale.element_size()
+    # keys of row i: sum over j < tl of min(p0 + 1 + j, cap); the first m
+    # queries stop short of the cap
+    m = torch.clamp(s_cap - p0, min=0)
+    m = torch.minimum(m, tl)
+    keys = int((m * p0 + m * (m + 1) // 2 + (tl - m) * s_cap).sum())
+    return 4.0 * nh * hd * keys, nbytes
 
 
 def ragged_paged_attention(q, k_pool, v_pool, page_table, pos0, true_len,
@@ -223,6 +265,9 @@ def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len,
         RAGGED_CHUNK_LAUNCHES += 1
         by_t = RAGGED_CHUNK_LAUNCHES_BY_T
         by_t[t] = by_t.get(t, 0) + 1
+    if _pstats.ACTIVE is not None:
+        _pstats.note_kernel(name, ragged_cost, q, k_pool, page_table, pos0,
+                            true_len, k_scale)
     return out
 
 

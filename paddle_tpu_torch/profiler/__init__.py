@@ -17,6 +17,18 @@
 - **Dispatch-site telemetry** (``recompile.py``): the argument signatures
   each hot-path site has run (``ServingEngine.compiled_sites``,
   ``HybridPipelineTrainer``'s ``hybrid.step`` site).
+- **The program inventory** (``program_stats.py``): each site's first
+  dispatch counted (FLOPs, bytes accessed, per-category breakdown, the
+  wall time it took), folded into ``summary()["programs"]`` by
+  ``ServingEngine.record_program_stats()`` and
+  ``HybridPipelineTrainer.profile_step_phases``.
+- **Device time** (``device_trace.py``): ``trace_capture`` /
+  ``TraceWindow`` parse a ``torch.profiler`` window into device-busy time
+  and host gap, per-category and per-site device milliseconds and an MFU
+  ledger over the sites' counted FLOPs (``ServingEngine.trace_window()``,
+  ``profile_step_phases(trace_window=k)``).
+- **Instrumentation** (``instrument.py``): device-memory high-water marks,
+  the memory ledger, the phase decomposition, token counting.
 
 Quick use::
 
@@ -26,22 +38,27 @@ Quick use::
     print(profiler.summary())
     profiler.disable()                      # writes the Chrome trace
 
-Not yet here: device-time parsing and program stats (ROADMAP queue 1
-item 6c: ``summary()["programs"]`` stays empty), cross-rank aggregation
-(item 7a) and clock agreement, live telemetry and the watchdog hooks
-(item 8).
+Not yet here: the collective accounting (``collective_stats`` and its
+recorders), cross-rank aggregation and clock agreement (ROADMAP queue 1
+item 7a); live telemetry and the watchdog hooks (item 8).
 """
 from __future__ import annotations
 
 from . import disttrace, events, metrics, recompile, sink, sketch  # noqa
-from . import trace  # noqa: F401
+from . import device_trace, instrument, program_stats, trace  # noqa: F401
+from .device_trace import (TraceWindow, last_trace_summary,  # noqa: F401
+                           trace_capture)
 from .disttrace import clock_state, set_clock_state, trace_id  # noqa
 from .events import (EventLog, FlightRecorder, dump_flight,  # noqa: F401
                      emit, flight_recorder, latency_breakdown,
                      latency_table, request_latency_stats)
 from .events import log as event_log  # noqa: F401
+from .instrument import (device_memory_stats, estimate_comm_ms,  # noqa
+                         record_memory_high_water, record_memory_ledger,
+                         record_phases, tokens_in_batch)
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,  # noqa
                       registry)
+from .program_stats import program_inventory  # noqa: F401
 from .recompile import (mark_trace, retraces, suppressed,  # noqa: F401
                         trace_counts, unique_site, watch)
 from .sink import (MetricsSink, active_sink, disable_sink,  # noqa: F401
@@ -58,12 +75,16 @@ __all__ = [
     "registry", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "mark_trace", "watch", "retraces", "trace_counts", "suppressed",
     "unique_site",
+    "estimate_comm_ms", "record_phases", "device_memory_stats",
+    "record_memory_high_water", "record_memory_ledger", "tokens_in_batch",
     "summary",
     "emit", "event_log", "EventLog", "latency_breakdown", "latency_table",
     "request_latency_stats", "flight_recorder", "FlightRecorder",
     "dump_flight",
     "MetricsSink", "enable_sink", "disable_sink", "active_sink",
     "flush_active", "prometheus_text",
+    "program_inventory",
+    "trace_capture", "TraceWindow", "last_trace_summary",
     "trace_id", "clock_state", "set_clock_state",
     "QuantileSketch",
 ]
@@ -71,7 +92,8 @@ __all__ = [
 
 def enable(trace_dir=None, reset: bool = True) -> None:
     """Turn profiling on. ``reset`` (default) clears earlier host spans,
-    the metrics registry, the event log and the public retrace log, so
+    the metrics registry, the event log, the program inventory, the last
+    trace summary and the public retrace log, so
     the counters and rates cover this enabled window alone; the
     signatures each site ran and the event sequence numbers are kept (an
     active sink first drains the ring). ``trace_dir`` also starts a
@@ -82,6 +104,8 @@ def enable(trace_dir=None, reset: bool = True) -> None:
         metrics.registry().reset()
         recompile.clear_log()
         events.log().clear()
+        program_stats.reset()
+        device_trace.reset()
     trace.enable(trace_dir=trace_dir, reset=False)
 
 
@@ -94,14 +118,17 @@ def disable() -> dict:
 
 
 def reset() -> None:
-    """Clear spans, metrics, events and the signatures each site ran
-    (the enabled flag and the event sequence numbers are kept; an active
-    sink drains the ring first)."""
+    """Clear spans, metrics, events, the program inventory, the last
+    trace summary and the signatures each site ran (the enabled flag and
+    the event sequence numbers are kept; an active sink drains the ring
+    first)."""
     sink.flush_active("reset")
     trace.reset_events()
     metrics.registry().reset()
     recompile.reset()
     events.log().clear()
+    program_stats.reset()
+    device_trace.reset()
 
 
 def summary(aggregate: bool = False) -> dict:
@@ -109,10 +136,10 @@ def summary(aggregate: bool = False) -> dict:
     spans, the metrics snapshot, rates over the enabled window
     (``train/*`` counters per second), the ``phase/*`` gauges, the
     retrace log, ``events_lost`` (events aged out of the ring) and the
-    sink's health. ``programs`` is the reference's compiled-program
-    inventory: empty until ROADMAP queue 1 item 6c ports its
-    ``record_program_stats``. ``aggregate=True`` (the cross-rank
-    reduction) comes with item 7a."""
+    sink's health. ``programs`` is the program inventory
+    (``program_stats.inventory()``: the sites recorded since the last
+    reset). ``aggregate=True`` (the cross-rank reduction) comes with
+    ROADMAP queue 1 item 7a."""
     if aggregate:
         raise NotImplementedError(
             "summary(aggregate=True) is not ported yet: ROADMAP queue 1 "
@@ -134,6 +161,6 @@ def summary(aggregate: bool = False) -> dict:
             "rates": rates,
             "phases_ms": phases,
             "retraces": recompile.retraces(),
-            "programs": {},
+            "programs": program_stats.inventory(),
             "events_lost": events.log().dropped,
             "sink": sink.stats()}

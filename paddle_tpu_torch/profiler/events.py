@@ -445,9 +445,11 @@ class FlightRecorder:
                                for t, s in _trace.live_spans().items()},
                 "scope_summary": _trace.scope_summary(),
             }
-            # no parsed device-trace window in the port yet (ROADMAP
-            # queue 1 item 6c)
-            doc["trace_summary"] = None
+            # the newest parsed device-trace window (device_trace.py),
+            # None before any capture completed
+            from . import device_trace as _dtrace
+
+            doc["trace_summary"] = _dtrace.last_summary()
         except Exception as e:  # pragma: no cover - post-mortem shield
             doc = {"kind": "flight_recorder_dump", "reason": reason,
                    "error": f"{type(e).__name__}: {e}"}

@@ -71,7 +71,13 @@ spec engine adds ``draft``, ``verify`` and ``accept``, and the handoff
 ``handoff_out`` and ``handoff_in`` (bytes, pages, ms). ``latency_stats``
 reads the rolling TTFT/TPOT percentiles off them. Each dispatch marks its
 arguments at its recompile site (``compiled_sites``), so
-``profiler.trace_counts()`` counts the tick shapes each site has run.
+``profiler.trace_counts()`` counts the tick shapes each site has run. Each
+dispatch also runs inside a ``record_function`` range named after its
+site, and each site's first dispatch is counted
+(``profiler/program_stats.py``): ``record_program_stats()`` folds those
+counts into the profiler's program inventory, and ``trace_window()``
+parses a ``torch.profiler`` window of ticks into device time per site
+(``profiler/device_trace.py``).
 
 ``attention_kernel="legacy"`` keeps the reference's pre-unification
 engine as the baseline of the dispatch collapse: each step dispatches up
@@ -124,6 +130,7 @@ from __future__ import annotations
 
 import time
 from collections import deque
+from contextlib import contextmanager
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
@@ -133,6 +140,7 @@ import torch
 from ..core import random as _random
 from ..models.gpt import gpt_paged_suffix_apply, gpt_ragged_apply
 from ..profiler import events as _events
+from ..profiler import program_stats as _pstats
 from ..profiler import recompile as _recompile
 from ..profiler.metrics import registry as _registry
 from ..profiler.sink import _detect_rank
@@ -327,6 +335,8 @@ class ServingEngine:
         self.device = model.device
         self._eng_id = (_detect_rank() << 20) | next(_ENGINE_SEQ)
         self._tick_site = _recompile.unique_site("serving.tick")
+        # each site's counted first dispatch (program_stats.dispatch)
+        self._program_counts: Dict[str, dict] = {}
         self._stacked, self._other = model._decode_state()
         self._dtype = self._other["embeddings.wte.weight"].dtype
         kv_map = {None: self._dtype, "f32": torch.float32,
@@ -442,13 +452,15 @@ class ServingEngine:
         self._draft = DraftRunner(spec.draft_model, ns,
                                   self.pool.slot_capacity, self._spec_k,
                                   self.prefill_chunk, self.pool,
-                                  sampling=self._spec_sampling)
+                                  sampling=self._spec_sampling,
+                                  records=self._program_counts)
         self._zero_drafts = torch.zeros(ns * self._spec_k, dtype=torch.long,
                                         device=self.device)
         self._spec_tick = make_spec_tick(mcfg, ns, self._spec_k,
                                          self.prefill_chunk,
                                          sampling=self._spec_sampling,
-                                         site=self._tick_site)
+                                         site=self._tick_site,
+                                         records=self._program_counts)
 
     @property
     def compiled_sites(self) -> Tuple[str, ...]:
@@ -460,6 +472,45 @@ class ServingEngine:
         if self._spec is not None:
             return (self._tick_site, self._draft.site)
         return (self._tick_site,)
+
+    def record_program_stats(self) -> Dict[str, dict]:
+        """Fold the counted first dispatch of every hot-path site that has
+        dispatched (``compiled_sites``) into the profiler's program
+        inventory (``program_stats.record_counted``: FLOPs, bytes,
+        categories, the wall time of that dispatch) and register each
+        site's range as its trace module. Returns {site: stats-dict}."""
+        return {site: _pstats.record_counted(site, rec).to_dict()
+                for site, rec in sorted(self._program_counts.items())}
+
+    @contextmanager
+    def trace_window(self, log_dir: Optional[str] = None,
+                     peak_flops: Optional[float] = None):
+        """A parsed device-trace window over the ticks driven inside the
+        block::
+
+            with eng.trace_window() as cap:
+                for _ in range(8):
+                    eng.step()
+                eng.drain(0)          # read the ticks' tokens
+            cap.summary               # per-tick device timeline
+
+        Records the sites' programs first (``record_program_stats``: the
+        module -> site join and the FLOPs of the MFU ledger) and again
+        before the window closes, for a site first dispatched inside it;
+        then wraps the block in ``device_trace.capture`` with ``steps``
+        set to the measured tick count (the ``serving/ticks`` counter's
+        delta), so per-step rows read per tick."""
+        from ..profiler import device_trace as _dtrace
+
+        self.record_program_stats()
+        t0 = _registry().counter("serving/ticks").value
+        cap = _dtrace.capture(log_dir=log_dir, peak_flops=peak_flops,
+                              label=f"serving.eng{self._eng_id}")
+        with cap:
+            yield cap
+            cap.steps = int(
+                _registry().counter("serving/ticks").value - t0) or None
+            self.record_program_stats()
 
     def _emit(self, kind: str, rid: int, **attrs) -> None:
         """One lifecycle event; attrs are plain ints, floats and strings
@@ -1418,7 +1469,8 @@ class ServingEngine:
         fresh = self._take_fresh()
         law = (sample_pos, self._keys, self._temps, self._topks,
                self._topps) if self.config.decode == "sampling" else ()
-        with torch.inference_mode():
+
+        def tick():
             (pf_d, pos_d, lim_d, tab_d, p0_d, len_d, six_d, emit_d,
              fresh_d, *law_d) = _to_device(
                 self.device, pf_toks, tok_pos[:n_tok], tok_limit[:n_tok],
@@ -1437,6 +1489,11 @@ class ServingEngine:
                 **pool.tick_scales(fresh_d))[0]
             tok = self._sample_tok(logits, *law_d)
             self._last_tok = torch.where(emit_d.bool(), tok, self._last_tok)
+            return tok
+
+        with torch.inference_mode():
+            tok = _pstats.dispatch(self._program_counts, self._tick_site,
+                                   tick)
         meta = [(s, s, self._slot_rid[s]) for s in ticking]
         meta += [(s, s, rid) for s, rid, _, _ in finishers]
         if meta:
@@ -1872,7 +1929,7 @@ class ServingEngine:
             return self._sample_tok(logits, pos + 1, keys, temps, top_ks,
                                     top_ps)
 
-        return tick
+        return _pstats.site_fn(self._program_counts, site, tick)
 
     def _make_prefill_chunk(self):
         """The legacy prefill program: one chunk of one slot through
@@ -1896,7 +1953,7 @@ class ServingEngine:
             return self._sample_tok(logits, true_len, key, temp, top_k,
                                     top_p)
 
-        return prefill
+        return _pstats.site_fn(self._program_counts, site, prefill)
 
     @staticmethod
     def _sample_tok(logits: torch.Tensor, positions=None, keys=None,

@@ -52,8 +52,11 @@ new length (``shrink_slot`` on the target tables and on the draft's
 wrote the accepted tokens' KV, and the correction token arrives as the
 next step's seed.
 
-Both ticks mark their arguments at a recompile site (``profiler/
-recompile.py``): the verify tick at the engine's ``serving.tick`` site,
+Both ticks run inside their site's ``record_function`` range and count
+their first dispatch into the engine's program records
+(``profiler/program_stats.py``). Both mark their arguments at a recompile
+site (``profiler/recompile.py``): the verify tick at the engine's
+``serving.tick`` site,
 with the shapes of the branch it runs, and the draft tick at its own
 ``serving.draft`` site, with the stages it runs (feed, generate, a
 chained frontier). ``trace_counts()`` of each is the number of distinct
@@ -64,6 +67,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -72,6 +76,7 @@ from ..core import random as _random
 from ..models.gpt import _ln, gpt_block_body, gpt_ragged_apply
 from ..ops.decoding import (apply_top_k_top_p_per_row, spec_accept_length,
                             spec_rejection_sample)
+from ..profiler import program_stats as _pstats
 from ..profiler import recompile as _recompile
 from .paged_cache import AuxPageTable
 
@@ -114,7 +119,8 @@ class DraftRunner:
     bookkeeping."""
 
     def __init__(self, draft_model, num_slots: int, capacity: int,
-                 k: int, feed_width: int, pool, sampling: bool = False):
+                 k: int, feed_width: int, pool, sampling: bool = False,
+                 records: Optional[dict] = None):
         cfg = draft_model.config
         self.config = cfg
         self.k = int(k)
@@ -134,7 +140,7 @@ class DraftRunner:
         self.site = _recompile.unique_site("serving.draft")
         self.tick = make_draft_tick(cfg, num_slots, capacity, k, feed_width,
                                     pool.page_size, sampling=sampling,
-                                    site=self.site)
+                                    site=self.site, records=records)
 
     def held_tokens(self, slot: int) -> int:
         """Draft positions covered by the slot's held pages."""
@@ -185,7 +191,8 @@ def _sample_rows(logits, keys, pos, temps, top_ks, top_ps):
 
 def make_draft_tick(cfg, num_slots: int, capacity: int, k: int,
                     feed_width: int, page_size: int, sampling: bool = False,
-                    site: str = "serving.draft"):
+                    site: str = "serving.draft",
+                    records: Optional[dict] = None):
     """Build the draft tick. Position ``p`` of slot ``s`` lives at
     ``(dtab[s, p // ps], p % ps)`` of the paged pools; pad and overflow
     writes go to the null page 0, and attention reads the table view
@@ -211,8 +218,9 @@ def make_draft_tick(cfg, num_slots: int, capacity: int, k: int,
     (tok_m [ns, 1+k], acc [ns], pos0 [ns], mask [ns] bool)``: chained rows
     seed with ``tok_m[s, acc]`` at ``pos0 + acc + 1``, gathered on the
     device. It returns (drafts ``[ns, k]``, the filtered draft
-    distributions ``[ns, k, V]``). Every call marks the stages it runs at
-    the recompile ``site``.
+    distributions ``[ns, k, V]``). Every call runs inside the ``site``
+    range and marks the stages it runs at the recompile ``site``; the
+    first call is counted into ``records[site]`` (``program_stats``).
     """
     nh = cfg.num_heads
     hd = cfg.hidden_size // nh
@@ -224,7 +232,7 @@ def make_draft_tick(cfg, num_slots: int, capacity: int, k: int,
     f = feed_width
     scale = math.sqrt(hd)
 
-    def tick(stacked, other, kc, vc, dtab, feed_toks, feed_pos0, feed_len,
+    def body(stacked, other, kc, vc, dtab, feed_toks, feed_pos0, feed_len,
              gen_tok, gen_pos, has_feed, has_gen, law=None, chain=None):
         _recompile.mark_trace(site, kc, feed_toks if has_feed else None,
                               gen_tok if has_gen else None, chain)
@@ -320,11 +328,12 @@ def make_draft_tick(cfg, num_slots: int, capacity: int, k: int,
             return torch.stack(outs[1:], dim=1), torch.stack(probs[1:], dim=1)
         return torch.stack(outs, dim=1)
 
-    return tick
+    return _pstats.site_fn({} if records is None else records, site, body)
 
 
 def make_spec_tick(mcfg, num_slots: int, k: int, chunk_width: int,
-                   sampling: bool = False, site: str = "serving.tick"):
+                   sampling: bool = False, site: str = "serving.tick",
+                   records: Optional[dict] = None):
     """Build the verify/mixed tick: the unified mixed-row tick with a draft
     section, over the target pools (updated in place).
 
@@ -353,14 +362,16 @@ def make_spec_tick(mcfg, num_slots: int, k: int, chunk_width: int,
     sample_pos, temps, top_ks, top_ps)`` (``sample_pos``: the column-0
     emission positions) and the draft tick's ``draft_probs [ns, k, V]``;
     its spec branches run ``spec_rejection_sample`` and its plain branches
-    the per-row sampling law. Each call marks the pools, row tables,
-    positions and tokens of the branch it runs at the recompile ``site``.
+    the per-row sampling law. Each call runs inside the ``site`` range and
+    marks the pools, row tables, positions and tokens of the branch it
+    runs at the recompile ``site``; the first call is counted into
+    ``records[site]`` (``program_stats``).
     """
     ns = num_slots
     w = chunk_width
     base = ns * (1 + k)
 
-    def tick(stacked, other, kpool, vpool, last_tok, draft_toks, pf_toks,
+    def body(stacked, other, kpool, vpool, last_tok, draft_toks, pf_toks,
              tok_pos, tok_limit, row_tab, row_pos0, row_len, sample_ix,
              n_draft, has_chunks, has_drafts, scales=None, law=None,
              draft_probs=None):
@@ -416,4 +427,4 @@ def make_spec_tick(mcfg, num_slots: int, k: int, chunk_width: int,
         return tok_m, spec_accept_length(draft_toks.reshape(ns, k),
                                          tok_m[:, :k], n_draft)
 
-    return tick
+    return _pstats.site_fn({} if records is None else records, site, body)

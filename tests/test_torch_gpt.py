@@ -209,6 +209,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'paddle_tpu_torch.profiler.sink', "
         "'paddle_tpu_torch.profiler.recompile', "
         "'paddle_tpu_torch.profiler.disttrace', "
+        "'paddle_tpu_torch.profiler.device_trace', "
+        "'paddle_tpu_torch.profiler.program_stats', "
+        "'paddle_tpu_torch.profiler.instrument', "
         "'paddle_tpu_torch.serving.engine', "
         "'paddle_tpu_torch.serving.paged_cache', "
         "'paddle_tpu_torch.serving.sched'}\n"

@@ -622,6 +622,9 @@ def test_new_modules_import_neither_jax_nor_the_jax_package():
         "'paddle_tpu_torch.serving.paged_cache', "
         "'paddle_tpu_torch.serving.engine', "
         "'paddle_tpu_torch.serving.sched', "
+        "'paddle_tpu_torch.profiler.device_trace', "
+        "'paddle_tpu_torch.profiler.program_stats', "
+        "'paddle_tpu_torch.profiler.instrument', "
         "'paddle_tpu_torch.models.gpt'):\n"
         "    importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "

@@ -439,18 +439,34 @@ def test_summary_keys_equal_reference():
 
 
 def test_package_names_cover_the_reference_slice():
-    """Every name of the reference's __all__ that this slice ports."""
+    """Every name of the reference's __all__ that the port has so far."""
     later = {"collective_stats", "record_collective_stats",
-             "record_collectives_from", "estimate_comm_ms", "record_phases",
-             "device_memory_stats", "record_memory_high_water",
-             "record_memory_ledger", "tokens_in_batch", "record_lowered",
-             "record_compiled", "program_inventory", "trace_capture",
-             "TraceWindow", "last_trace_summary", "ClockSync",
+             "record_collectives_from", "ClockSync",
              "LiveAggregator", "AlertRule", "default_rules"}
-    want = set(jprof.__all__) - later
+    # PyTorch lowers and compiles no program: program_stats counts a
+    # site's first dispatch instead (record_counted)
+    no_counterpart = {"record_lowered", "record_compiled"}
+    want = set(jprof.__all__) - later - no_counterpart
     assert want <= set(tprof.__all__)
+    assert not (later | no_counterpart) & set(tprof.__all__)
     for name in tprof.__all__:
         assert hasattr(tprof, name), name
+
+
+def test_summary_programs_populated_after_record():
+    """Beside the empty case above: a recorded site's program lands in
+    summary()["programs"], and enable() clears it again."""
+    from paddle_tpu_torch.profiler import program_stats as tps
+
+    tprof.enable()
+    rec = {}
+    tps.dispatch(rec, "t.site#0", lambda: torch.ones(4, 4) @ torch.ones(4, 4))
+    tps.record_counted("t.site#0", rec["t.site#0"])
+    progs = tprof.summary()["programs"]
+    assert set(progs) == {"t.site#0"}
+    assert progs["t.site#0"]["flops"] == 2 * 4 ** 3
+    tprof.enable()
+    assert tprof.summary()["programs"] == {}
 
 
 def test_enable_reset_clears_registry_and_events():

@@ -290,6 +290,18 @@ def test_flight_recorder_deltas_equal_reference(tmp_path):
     assert port["clock"] == ref["clock"]
 
 
+def test_flight_dump_carries_the_last_trace_summary():
+    """Beside the None case above: after a recorded device-trace window
+    the dump carries that summary."""
+    from paddle_tpu_torch.profiler import device_trace as tdt
+
+    summary = tdt.summarize({"traceEvents": []}, label="t")
+    tdt.record_summary(summary)
+    assert tev.flight_recorder().dump(reason="t")["trace_summary"] is summary
+    tprof.reset()
+    assert tev.flight_recorder().dump(reason="t")["trace_summary"] is None
+
+
 def test_dump_flight_paths(tmp_path):
     assert tev.dump_flight("nowhere") is None      # no sink, no path
     tsink.enable_sink(str(tmp_path / "sink"), interval_s=60.0)
