@@ -210,8 +210,43 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    all-null table at pos0 0, whose outputs are ignored, and one at pos0
    == the table's capacity over a full table).
 
+12. dist phase — two ranks on this one card (FLAGS_selected_gpus=0) over
+   gloo, started by the port's launcher (python -m
+   paddle_tpu_torch.distributed.launch --nproc_per_node 2 --backend gloo
+   chip_smoke.py --dist-worker DIR) after every kernel is built; each
+   rank writes its results to DIR and a failed rank fails the phase with
+   its log's tail. Each rank: the collective API on CUDA tensors
+   (all_reduce SUM/MAX/MIN/PROD, broadcast, all_gather, scatter,
+   reduce_scatter, alltoall, barrier: exact) and the primitives over a
+   {"dp": 2} mesh, outputs and gradients against the same program in
+   plain tensor ops; DataParallel and fleet.distributed_optimizer(AdamW)
+   on GPT at gpt3_1_3b widths cut to DIST_LAYERS = 4 layers (two ranks
+   share the card), f32, TF32 off: a warm-up forward and backward, then 2
+   steps on the rank's own seeded [2, 1024] batch (rank 1 starts from
+   other weights; the wrap broadcasts rank 0's). The first step's
+   collectives are counted: one f32 bucket all-reduce (4 bytes a
+   parameter element) and one all-reduce a parameter from the optimizer;
+   the second runs in a parsed device_trace window, which must show
+   collective slices (gloo's copies through pinned host memory) under
+   "collective". Rank 0 then runs a single-process replica from the
+   broadcast initial state on both batches concatenated: the synced
+   gradients within DIST_GRAD_TOL of its own, and after AdamW's first step
+   the parameters within DIST_PARAM_ATOL wherever |g| is clear of zero.
+   The f32 bucket all-reduce alone is timed twice (ms, GB/s). Then the
+   tensor-parallel layers at tp = 2 at gpt3_1_3b widths against the dense
+   layers on rank 0, forward and gradients (the shards' gathered) within
+   TP_TOL: ColumnParallel(2048 -> 8192, gather_output=False), GELU,
+   RowParallel(8192 -> 2048, input_is_parallel=True) on [2, 1024, 2048];
+   VocabParallelEmbedding(50304, 2048); ParallelCrossEntropy over
+   [2, 1024, 50304] logits. Last, profiler.summary(aggregate=True)
+   across the ranks equals one registry that observed the union. Step ms,
+   bucket ms and GB/s, and each rank's launch counts are printed. NCCL
+   needs a card per rank and is not run here.
+
 Every launch counter is set to 0 just before each of phases 2-11 and read
-just after it: those are the main paths' launches, and each path must
+just after it (the dist phase's ranks do the same around their DP steps,
+and the phase sums their counts): those are the main paths' launches,
+and each path must
 launch each of its kernels (the generate path: the ragged decode and
 chunk rows, never the int8 path; the spec path: both row kinds and the
 int8 path, counted over the spec engines' runs alone: the plain engines
@@ -224,7 +259,8 @@ int8 kernel, whose kernels-line entry is timed at fc1's shape and has no
 main-path launch; the observe path: both ragged row kinds, the wgmma
 forward, dQ and dK/dV, none of the f32 route's; the legacy path: both
 ragged row kinds, not the int8 path; the handoff path: both row kinds
-and the int8 path). Prints
+and the int8 path; the dist path: the SIMT forward and the mma.sync
+merged backward, no wgmma one). Prints
 JSON lines per case, then {"kernels": [...]}, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -239,6 +275,8 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
                                                    # program stats
     python3 chip_smoke.py --phases kernels,handoff # legacy mode, handoff,
                                                    # chain migration
+    python3 chip_smoke.py --phases dist            # process groups and
+                                                   # collectives, 2 ranks
 """
 from __future__ import annotations
 
@@ -3913,14 +3951,486 @@ def handoff_phase(model, dev, engine_kw, n_req=16, max_new=32, n_check=4,
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# dist phase: two ranks on one card over gloo
+# ---------------------------------------------------------------------------
+#: the DP replica's gradients: max |g_dp - g_replica| / max |g_replica| per
+#: parameter (f32 with TF32 off; the two sum the batch's halves in another
+#: order, cuBLAS may pick another algorithm for M 2048 than for M 4096)
+DIST_GRAD_TOL = 1e-4
+#: after AdamW's first step, where |g| > DIST_GRAD_TOL * max |g| (its
+#: update is about lr * sign(g) elsewhere): |p_dp - p_replica|
+DIST_PARAM_ATOL = 1e-6
+#: tp = 2 against the dense layer: max |d| / max |ref| per tensor (f32; a
+#: row product's two halves are summed apart, then all-reduced)
+TP_TOL = 1e-5
+DIST_LAYERS = 4          # gpt3_1_3b's widths, 4 of its 24 layers
+DIST_BATCH = (2, 1024)   # per rank
+
+
+def _rel_err(got, want) -> float:
+    den = float(want.detach().abs().max()) or 1.0
+    return float((got.detach().float() - want.detach().float()).abs().max()
+                 ) / den
+
+
+def _plain_dp_primitives(xs, ws):
+    """The dist phase's primitive program for every rank at once, in
+    plain tensor ops on the CPU: (per-rank outputs, per-rank gradients of
+    the ranks' summed losses)."""
+    import torch
+
+    xs = [x.detach().cpu().double().requires_grad_() for x in xs]
+    n = len(xs)
+    total = sum(xs)
+    outs = []
+    for r in range(n):
+        o = {"psum": total, "pmean": total / n,
+             "gather": torch.cat(xs, 0),
+             "scatter": total.chunk(n, 0)[r],
+             "a2a": torch.cat([x.chunk(n, 0)[r] for x in xs], 1),
+             "ppermute": xs[(r + 1) % n], "ring": xs[(r - 1) % n]}
+        outs.append(o)
+    loss = sum((o[k] * ws[r][k].cpu().double()).sum()
+               for r, o in enumerate(outs) for k in o)
+    loss.backward()
+    return ([{k: v.detach().float() for k, v in o.items()} for o in outs],
+            [x.grad.float() for x in xs])
+
+
+def dist_collectives_check(dev, rank):
+    """The collective API on CUDA tensors (the checks of
+    tests/collective_worker.py and more), then the primitives over a
+    {"dp": 2} mesh, outputs and gradients against the plain program."""
+    import torch
+
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import primitives as P
+
+    xs = [torch.arange(12, dtype=torch.float32, device=dev).reshape(3, 4)
+          * (r + 1) + r for r in range(2)]
+    stack = torch.stack(xs)
+    for op, want in ((C.ReduceOp.SUM, stack.sum(0)),
+                     (C.ReduceOp.MAX, stack.amax(0)),
+                     (C.ReduceOp.MIN, stack.amin(0)),
+                     (C.ReduceOp.PROD, stack.prod(0))):
+        t = xs[rank].clone()
+        C.all_reduce(t, op)
+        assert torch.equal(t, want), ("all_reduce", op)
+    t = xs[rank].clone()
+    C.broadcast(t, src=0)
+    assert torch.equal(t, xs[0])
+    got = []
+    C.all_gather(got, xs[rank])
+    assert torch.equal(torch.stack(got), stack)
+    parts = [[x * (i + 1) for i in range(2)] for x in xs]
+    t = torch.zeros_like(xs[0])
+    C.scatter(t, parts[rank], src=0)
+    assert torch.equal(t, parts[0][rank])
+    t = torch.zeros_like(xs[0])
+    C.reduce_scatter(t, parts[rank])
+    assert torch.equal(t, parts[0][rank] + parts[1][rank])
+    got = []
+    C.alltoall(parts[rank], got)
+    assert torch.equal(torch.stack(got), torch.stack([parts[0][rank],
+                                                      parts[1][rank]]))
+    C.barrier()
+
+    mesh = M.init_mesh({"dp": 2})
+    g = torch.Generator().manual_seed(100)
+    xs = [torch.randn(4, 6, generator=g) for _ in range(2)]
+    ws = [{k: torch.randn(*s, generator=g) for k, s in (
+        ("psum", (4, 6)), ("pmean", (4, 6)), ("gather", (8, 6)),
+        ("scatter", (2, 6)), ("a2a", (2, 12)), ("ppermute", (4, 6)),
+        ("ring", (4, 6)))} for _ in range(2)]
+    want, want_grad = _plain_dp_primitives(xs, ws)
+    x = xs[rank].to(dev).requires_grad_()
+    outs = {"psum": P.psum(x, "dp"), "pmean": P.pmean(x, "dp"),
+            "gather": P.all_gather(x, "dp", axis=0, tiled=True),
+            "scatter": P.psum_scatter(x, "dp", scatter_dimension=0,
+                                      tiled=True),
+            "a2a": P.all_to_all(x, "dp", 0, 1, tiled=True),
+            "ppermute": P.ppermute(x, "dp", [(0, 1), (1, 0)]),
+            "ring": P.ring_permute(x, "dp", shift=1)}
+    sum((o * ws[rank][k].to(dev)).sum() for k, o in outs.items()).backward()
+    errs = {k: _rel_err(o.cpu(), want[rank][k]) for k, o in outs.items()}
+    errs["grad"] = _rel_err(x.grad.cpu(), want_grad[rank])
+    assert max(errs.values()) <= 1e-6, errs
+    assert int(P.axis_index("dp")) == rank == mesh.axis_index("dp")
+    M.set_mesh(None)
+    return errs
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _dist_step(model, dp, dopt, opt, tok):
+    """One DP step: (loss, host ms to the card's end, a copy of the
+    synced gradients)."""
+    dev = tok.device
+    _sync(dev)
+    t0 = time.perf_counter()
+    loss = model.loss(tok)
+    loss.backward()
+    dp.apply_collective_grads()
+    synced = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+    dopt.step()
+    opt.clear_grad()
+    _sync(dev)
+    return float(loss.detach()), (time.perf_counter() - t0) * 1e3, synced
+
+
+def dist_dp_check(dev, rank, res, cfg=None, batch=DIST_BATCH):
+    """DataParallel + fleet.distributed_optimizer(AdamW) at gpt3_1_3b
+    widths, DIST_LAYERS layers: 2 f32 steps a rank; rank 0 then runs a
+    single-process replica from the broadcast initial state on the two
+    batches concatenated."""
+    import dataclasses
+
+    import torch
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import device_trace, instrument
+
+    cfg = cfg or dataclasses.replace(GPTConfig.gpt3_1_3b(),
+                                     num_layers=DIST_LAYERS)
+    lr = 1e-4
+    toks = [torch.randint(0, cfg.vocab_size, batch,
+                          generator=torch.Generator().manual_seed(10 + r)
+                          ).to(dev) for r in range(2)]
+    paddle_tpu_torch.seed(rank)             # rank 1 starts elsewhere
+    model = GPT(cfg, device=dev)
+    dp = paddle_tpu_torch.DataParallel(model)
+    init = ({n: p.detach().clone() for n, p in model.named_parameters()}
+            if rank == 0 else None)
+    fleet.init(is_collective=True)
+    opt = AdamW(lr, parameters=model.named_parameters(), weight_decay=0.01)
+    dopt = fleet.distributed_optimizer(opt)
+    numel = sum(p.numel() for p in model.parameters())
+    n_params = len(list(model.parameters()))
+    # warm-up forward and backward (no update): cuBLAS, the kernels' loads
+    model.loss(toks[rank]).backward()
+    opt.clear_grad()
+    set_counts()
+    with instrument.count_collectives() as cc:
+        loss1, ms1, synced = _dist_step(model, dp, dopt, opt, toks[rank])
+    st = instrument.collective_stats(cc)
+    assert st["ops"] == {"all_reduce": 1 + n_params}, st["ops"]
+    assert st["bytes"] == {"all_reduce": 2 * 4 * numel}, st["bytes"]
+    after1 = ({n: p.detach().clone() for n, p in model.named_parameters()}
+              if rank == 0 else None)
+    if rank != 0:
+        synced = None
+    with device_trace.capture(steps=1, label="dist.step") as cap:
+        loss2, ms2, _ = _dist_step(model, dp, dopt, opt, toks[rank])
+    counts, _ = read_counts()
+    tr = cap.summary
+    assert tr.get("categories", {}).get("collective", {}).get("count", 0) \
+        > 0, tr
+    assert "all_reduce" in tr["collectives"], tr["collectives"]
+    # the bucket all-reduce alone, twice
+    bucket = torch.ones(numel, device=dev)
+    bucket_ms = []
+    for _ in range(2):
+        C.barrier()
+        _sync(dev)
+        t0 = time.perf_counter()
+        C.all_reduce(bucket)
+        _sync(dev)
+        bucket_ms.append((time.perf_counter() - t0) * 1e3)
+    del bucket
+    res.update(loss=[loss1, loss2], step_ms=[ms1, ms2], numel=numel,
+               n_params=n_params, collective_stats=st,
+               bucket_ms=bucket_ms, bucket_bytes=4 * numel,
+               bucket_GBps=[4 * numel / (m / 1e3) / 1e9 for m in bucket_ms],
+               launches=counts,
+               trace={"collective": tr["categories"]["collective"],
+                      "collectives": tr["collectives"],
+                      "busy_frac": tr.get("busy_frac"),
+                      "device_busy_ms": tr.get("device_busy_ms"),
+                      "wall_ms": tr.get("wall_ms")},
+               peak_bytes=torch.cuda.max_memory_allocated(dev)
+               if dev.type == "cuda" else None)
+    del model, dp, dopt, opt
+    if rank != 0:
+        return
+    # the single-process replica on both batches, from the initial state
+    with uncounted():
+        rep = GPT(cfg, device=dev)
+        with torch.no_grad():
+            for n, p in rep.named_parameters():
+                p.copy_(init[n])
+        del init
+        ropt = AdamW(lr, parameters=rep.named_parameters(), weight_decay=0.01)
+        rloss = rep.loss(torch.cat(toks))
+        rloss.backward()
+        gerr, perr, gmax = {}, 0.0, {}
+        for n, p in rep.named_parameters():
+            gerr[n] = _rel_err(synced[n], p.grad)
+            gmax[n] = float(p.grad.abs().max())
+        ropt.step()
+        for n, p in rep.named_parameters():
+            clear = p.grad.abs() > DIST_GRAD_TOL * gmax[n]
+            if clear.any():
+                perr = max(perr, float((after1[n] - p.detach())[clear]
+                                       .abs().max()))
+    res.update(replica_loss=float(rloss), grad_rel_err=max(gerr.values()),
+               worst_grad=max(gerr, key=gerr.get), param_abs_err=perr)
+    assert max(gerr.values()) <= DIST_GRAD_TOL, gerr
+    assert perr <= DIST_PARAM_ATOL, perr
+
+
+def dist_tp_check(dev, rank, res, cfg=None, batch=DIST_BATCH):
+    """The tensor-parallel layers at tp = 2 at gpt3_1_3b widths, each
+    held to the dense layer on rank 0 (forward and gradients; the shards'
+    gradients gathered)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import parallel_layers as PL
+    from paddle_tpu_torch.models.gpt import GPTConfig, load_reference_state
+    from paddle_tpu_torch.nn.layer.common import Embedding, Linear
+
+    cfg = cfg or GPTConfig.gpt3_1_3b()
+    h, f, v = cfg.hidden_size, cfg.ffn_hidden_size, cfg.vocab_size
+    b, s = batch
+    g = torch.Generator().manual_seed(21)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to(dev)
+
+    full = {"col.weight": rnd(h, f, scale=0.02), "col.bias": rnd(f, scale=0.02),
+            "row.weight": rnd(f, h, scale=0.02), "row.bias": rnd(h, scale=0.02),
+            "emb.weight": rnd(v, h, scale=0.02)}
+    x, w_h = rnd(b, s, h), rnd(b, s, h)
+    ids = torch.randint(0, v, (b, s), generator=g).to(dev)
+    logits = rnd(b, s, v, scale=3.0)
+    labels = torch.randint(0, v, (b, s), generator=g).to(dev)
+    labels[0, :7] = -100
+
+    def state(prefix, dense=False):
+        st = {k[len(prefix):]: a for k, a in full.items()
+              if k.startswith(prefix)}
+        return st if dense else PL.shard_reference_state(
+            layers[prefix], {k: a.cpu().numpy() for k, a in st.items()}, m)
+
+    def gathered(t, dim):
+        parts = []
+        C.all_gather(parts, t.contiguous())
+        return parts[0] if dim is None else torch.cat(parts, dim)
+
+    m = M.init_mesh({"tp": 2})
+    layers = {"col.": PL.ColumnParallelLinear(h, f, gather_output=False,
+                                              device=dev),
+              "row.": PL.RowParallelLinear(f, h, input_is_parallel=True,
+                                           device=dev),
+              "emb.": PL.VocabParallelEmbedding(v, h, device=dev)}
+    for p, layer in layers.items():
+        load_reference_state(layer, state(p))
+    ce = PL.ParallelCrossEntropy()
+    M.set_mesh(None)
+    errs = {}
+    _sync(dev)
+    t0 = time.perf_counter()
+    xin = x.clone().requires_grad_()
+    y = layers["row."](torch.nn.functional.gelu(layers["col."](xin),
+                                                approximate="tanh"))
+    (y * w_h).sum().backward()
+    out_e = layers["emb."](ids)
+    (out_e * w_h).sum().backward()
+    z = logits.chunk(2, -1)[rank].contiguous().requires_grad_()
+    loss = ce(z, labels)
+    loss.backward()
+    _sync(dev)
+    res["tp_ms"] = (time.perf_counter() - t0) * 1e3
+    grads = {"col.weight": gathered(layers["col."].weight.grad, 1),
+             "col.bias": gathered(layers["col."].bias.grad, 0),
+             "row.weight": gathered(layers["row."].weight.grad, 0),
+             "row.bias": layers["row."].bias.grad,
+             "emb.weight": gathered(layers["emb."].weight.grad, 0),
+             "ce.dz": gathered(z.grad, -1)}
+    if rank == 0:
+        dense = {"col.": Linear(h, f, device=dev), "row.": Linear(f, h,
+                                                                  device=dev),
+                 "emb.": Embedding(v, h, device=dev)}
+        for p, layer in dense.items():
+            load_reference_state(layer, {k: a.cpu().numpy() for k, a in
+                                         state(p, dense=True).items()})
+        xr = x.clone().requires_grad_()
+        yr = dense["row."](torch.nn.functional.gelu(dense["col."](xr),
+                                                    approximate="tanh"))
+        (yr * w_h).sum().backward()
+        er = dense["emb."](ids)
+        (er * w_h).sum().backward()
+        zr = logits.clone().requires_grad_()
+        lr_ = PL.ParallelCrossEntropy()(zr, labels)
+        lr_.backward()
+        errs = {"mlp.out": _rel_err(y, yr), "mlp.dx": _rel_err(xin.grad,
+                                                               xr.grad),
+                "emb.out": _rel_err(out_e, er),
+                "ce.loss": abs(float(loss) - float(lr_)) / abs(float(lr_)),
+                "ce.dz": _rel_err(grads["ce.dz"], zr.grad)}
+        for k in ("col.weight", "col.bias", "row.weight", "row.bias",
+                  "emb.weight"):
+            p, n = k.split(".")
+            errs[k] = _rel_err(grads[k], getattr(dense[p + "."], n).grad)
+        res["tp_errs"] = errs
+        assert max(errs.values()) <= TP_TOL, errs
+
+
+def dist_aggregate_check(rank, res):
+    """summary(aggregate=True) across the ranks against one registry
+    that observed the union."""
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.profiler.metrics import MetricsRegistry
+
+    samples = [torch.rand(300, generator=torch.Generator().manual_seed(r))
+               .mul(100 * (r + 1)).tolist() for r in range(2)]
+    profiler.enable()
+    reg = profiler.registry()
+    for val in samples[rank]:
+        reg.histogram("dist/ms").observe(val)
+    reg.counter("dist/steps").add(rank + 1)
+    reg.gauge(f"dist/only{rank}").set(rank + 0.5)
+    got = profiler.summary(aggregate=True)["metrics"]
+    union = MetricsRegistry()
+    for val in samples[0] + samples[1]:
+        union.histogram("dist/ms").observe(val)
+    union.counter("dist/steps").add(3)
+    union.gauge("dist/only0").set(0.5)
+    union.gauge("dist/only1").set(1.5)
+    want = union.snapshot()
+    assert set(got) == set(want), (sorted(got), sorted(want))
+    for name, w in want.items():
+        for k, val in w.items():
+            if isinstance(val, float):
+                assert abs(got[name][k] - val) <= 1e-9 * max(1.0, abs(val)), \
+                    (name, k, got[name][k], val)
+            else:
+                assert got[name][k] == val, (name, k)
+    res["aggregate_p50"] = got["dist/ms"]["p50"]
+
+
+def dist_worker(out_dir) -> int:
+    """One rank of the dist phase (started by the launcher)."""
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env()
+    rank, dev = env.rank, env.device
+    assert env.world_size == 2 and dev == torch.device("cuda", 0), \
+        (env.world_size, dev)
+    assert torch.distributed.get_backend() == "gloo"
+    res = {"rank": rank, "device": str(dev)}
+    t0 = time.perf_counter()
+    res["primitive_errs"] = dist_collectives_check(dev, rank)
+    res["collectives_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dist_dp_check(dev, rank, res)
+    res["dp_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dist_tp_check(dev, rank, res)
+    res["tp_s"] = time.perf_counter() - t0
+    dist_aggregate_check(rank, res)
+    res["foreign_modules"] = sorted(
+        m for m in sys.modules if m == "jax" or m.startswith("jax.")
+        or m == "paddle_tpu" or m.startswith("paddle_tpu."))
+    assert not res["foreign_modules"], res["foreign_modules"]
+    dist.barrier()
+    with open(os.path.join(out_dir, f"dist.{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def dist_phase(dev, timeout=600):
+    """Launch the dist phase's two ranks on this card (FLAGS_selected_gpus
+    0) over gloo through the port's launcher; read and check their
+    results. Returns (the ranks' summed launch counts, {})."""
+    import shutil
+    import signal
+    import tempfile
+
+    _free_memory(dev)
+    out = tempfile.mkdtemp(prefix="dist_phase_")
+    logs = os.path.join(out, "logs")
+    env = dict(os.environ, FLAGS_selected_gpus="0", OMP_NUM_THREADS="4",
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--backend", "gloo", "--log_dir", logs,
+         os.path.join(HERE, "chip_smoke.py"), "--dist-worker", out],
+        env=env, cwd=HERE, start_new_session=True)
+    try:
+        rc = proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+        rc = "timeout"
+    wall = time.perf_counter() - t0
+    try:
+        if rc != 0:
+            for r in (0, 1):
+                path = os.path.join(logs, f"workerlog.{r}")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        print(f"--- dist rank {r} log tail ---\n"
+                              + f.read()[-4000:], file=sys.stderr)
+            raise AssertionError(f"the dist phase's launcher exited {rc}")
+        res = []
+        for r in (0, 1):
+            with open(os.path.join(out, f"dist.{r}.json")) as f:
+                res.append(json.load(f))
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    counts = {k: sum(r["launches"][k] for r in res) for k in LAUNCH_COUNTERS}
+    for r in res:
+        emit({"dist": "rank", **r})
+    emit({"dist": "phase", "seconds": wall,
+          "step_ms": [r["step_ms"] for r in res],
+          "bucket_bytes": res[0]["bucket_bytes"],
+          "bucket_ms": [r["bucket_ms"] for r in res],
+          "bucket_GBps": [r["bucket_GBps"] for r in res],
+          "grad_rel_err": res[0]["grad_rel_err"],
+          "param_abs_err": res[0]["param_abs_err"],
+          "tp_errs": res[0]["tp_errs"], "launches": counts,
+          "launches_by_rank": [r["launches"] for r in res]})
+    for r in res:
+        for k in ("flash", "bwd_single"):
+            assert r["launches"][k] > 0, (r["rank"], k, r["launches"])
+    return counts, {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--phases", default="kernels,model,engine,spec,kvint8,"
                                         "generate,observe,handoff,deploy,"
-                                        "grad,train",
-                    help="comma-separated subset (debugging)")
+                                        "grad,train,dist",
+                    help="comma-separated subset of kernels, model, engine, "
+                         "spec, kvint8, generate, observe, handoff, deploy, "
+                         "grad, train, dist (debugging)")
+    ap.add_argument("--dist-worker", metavar="OUT_DIR", default=None,
+                    help="run one rank of the dist phase (the phase starts "
+                         "two through the port's launcher)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -3941,6 +4451,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: paddle_tpu_torch found at {pkg_dir}, not in "
               "this checkout", file=sys.stderr)
         return 2
+    if args.dist_worker:
+        return dist_worker(args.dist_worker)
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -4157,12 +4669,15 @@ def main(argv=None) -> int:
     launches = {k: 0 for k in LAUNCH_COUNTERS}
     by_path, by_t_path = {}, {}
 
-    def drive(path, needs, fn, *a, forbid=(), **kw):
+    def drive(path, needs, fn, *a, forbid=(), remote=False, **kw):
         """Run one main path; it must launch every kernel of `needs` and
-        none of `forbid`. Returns the path's result."""
+        none of `forbid`. Returns the path's result. `remote`: the path
+        runs in other processes, and `fn` returns their counts (each
+        process sets its counts to 0 just before its part of the path
+        and reads them just after)."""
         set_counts()
         out = fn(*a, **kw)
-        got, by_t_path[path] = read_counts()
+        got, by_t_path[path] = out if remote else read_counts()
         by_path[path] = got
         for k, n in got.items():
             launches[k] += n
@@ -4228,6 +4743,11 @@ def main(argv=None) -> int:
               grad_phase, dev, dtype="bfloat16", forbid=f32_kernels)
     if "train" in phases:
         drive("train", tc_kernels, train_phase, dev, forbid=f32_kernels)
+    if "dist" in phases:
+        # two ranks on this card over gloo: the DP step at gpt3_1_3b
+        # widths (f32, S 1024: the SIMT forward, the merged backward)
+        drive("dist", ("flash", "bwd_single"), dist_phase, dev,
+              forbid=tc_kernels, remote=True)
     emit({"launches_by_path": by_path,
           "chunk_row_launches_by_t": by_t_path})
 

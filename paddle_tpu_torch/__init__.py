@@ -16,9 +16,14 @@ attention forward) and the paged continuous-batching engine
 ``inference.serving.ServingPredictor`` front end — and one training step
 on one device: ``GPT.loss`` (fused lm-head loss, flash attention
 backward), ``optimizer.AdamW`` with the LR schedulers and gradient
-clips, and ``distributed.hybrid.HybridPipelineTrainer`` at degree 1.
+clips, and ``distributed.hybrid.HybridPipelineTrainer`` at degree 1;
+process groups and collectives on ``torch.distributed``
+(``distributed``: the env protocol and launcher, the mesh, the eager
+collectives and SPMD primitives, ``DataParallel``, ``fleet``, the
+tensor-parallel layers at tp > 1).
 """
 from .core.place import resolve_device
 from .core.rng import seed
+from .distributed.parallel import DataParallel
 
-__all__ = ["resolve_device", "seed"]
+__all__ = ["resolve_device", "seed", "DataParallel"]

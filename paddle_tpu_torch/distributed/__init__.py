@@ -1,3 +1,42 @@
-"""Distributed (mirrors ``paddle_tpu.distributed``). This slice has the
-tensor-parallel layers at degree 1, the strategy config (``fleet``) and
-the single-device ``hybrid.HybridPipelineTrainer``."""
+"""``paddle.distributed`` on ``torch.distributed`` (mirrors
+``paddle_tpu/distributed/__init__.py:8-19``; reference surface:
+python/paddle/distributed/ — collective.py, parallel.py, spawn.py,
+fleet/).
+
+Process groups and the env protocol (``env``), the mesh of named axes
+(``mesh``), the eager collectives (``collective``), the SPMD primitives
+over a mesh axis (``primitives``), ``DataParallel``, the tensor-parallel
+layers, ``fleet``, and the launcher (``python -m
+paddle_tpu_torch.distributed.launch``). The single-device trainer is
+``hybrid.HybridPipelineTrainer``; its parallel degrees come with ROADMAP
+queue 1 item 7b.
+"""
+from . import fleet, primitives
+from .collective import (ReduceOp, all_gather, all_reduce, alltoall,
+                         barrier, broadcast, get_group, recv, reduce,
+                         reduce_scatter, scatter, send, split)
+from .env import (ParallelEnv, get_rank, get_world_size, init_parallel_env,
+                  is_initialized)
+from .mesh import (P, axis_size, create_mesh, get_mesh, init_mesh, set_mesh,
+                   sharding)
+from .parallel import DataParallel
+from .parallel_layers import (ColumnParallelLinear, ParallelEmbedding,
+                              RowParallelLinear, VocabParallelEmbedding)
+
+__all__ = ["fleet", "primitives", "ReduceOp", "all_gather", "all_reduce",
+           "alltoall", "barrier", "broadcast", "get_group", "recv", "reduce",
+           "reduce_scatter", "scatter", "send", "split", "ParallelEnv",
+           "get_rank", "get_world_size", "init_parallel_env",
+           "is_initialized", "P", "axis_size", "create_mesh", "get_mesh",
+           "init_mesh", "set_mesh", "sharding", "DataParallel",
+           "ColumnParallelLinear", "ParallelEmbedding", "RowParallelLinear",
+           "VocabParallelEmbedding", "spawn"]
+
+
+def spawn(func, args=(), nprocs=-1, join=True, daemon=False, **options):
+    """reference: distributed/spawn.py. Not served in-process, as in the
+    reference: launch one process per rank with the launcher."""
+    raise NotImplementedError(
+        "spawn: launch one process per rank via `python -m "
+        "paddle_tpu_torch.distributed.launch` (env protocol "
+        "PADDLE_TRAINER_*).")

@@ -294,8 +294,8 @@ class HybridPipelineTrainer:
         gradients, no update; the gradients are cleared afterwards) and
         the step itself (``1 + iters`` real optimizer steps: training
         state advances). bwd = fwdbwd − fwd, optim = step − fwdbwd; comm
-        is 0 at degree 1, with the step site's counted bytes as
-        ``cost_bytes_accessed``. Also folds the ``hybrid.step#N`` site's
+        from the step site's counted collective bytes (0 at degree 1),
+        with its counted bytes as ``cost_bytes_accessed``. Also folds the ``hybrid.step#N`` site's
         counted first dispatch into the program inventory.
 
         ``trace_window=k`` wraps ``k`` more real steps, each read back, in
@@ -323,7 +323,8 @@ class HybridPipelineTrainer:
         ps = _pstats.record_counted(self._prof_site,
                                     self._program_counts[self._prof_site])
         out = _pinstr.record_phases(
-            fwd_s=t_fwd, fwdbwd_s=t_fb, step_s=t_step, comm_bytes=0,
+            fwd_s=t_fwd, fwdbwd_s=t_fb, step_s=t_step,
+            comm_bytes=sum(c["bytes"] for c in ps.collectives.values()),
             platform=dev.type, cost_bytes_accessed=ps.bytes_accessed)
         if trace_window:
             from ..profiler import device_trace as _dtrace

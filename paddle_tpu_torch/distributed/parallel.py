@@ -1,0 +1,63 @@
+"""Eager data parallelism (mirrors ``paddle_tpu/distributed/parallel.py:
+22-66``; reference: python/paddle/fluid/dygraph/parallel.py
+DataParallel:322, the imperative Reducer of reducer.cc).
+
+Each rank runs the whole model on its own batch. At construction every
+parameter takes rank 0's value. ``apply_collective_grads`` averages the
+gradients over the ranks with ONE collective: every gradient flattened
+into one f32 bucket, all-reduced, divided by the world size and cast
+back (the reference Reducer's concat-and-allreduce, reducer.cc:463-559).
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .collective import all_reduce, broadcast
+from .env import get_world_size
+
+__all__ = ["DataParallel"]
+
+
+class DataParallel(nn.Module):
+    def __init__(self, layers: nn.Module, strategy=None, comm_buffer_size=25,
+                 last_comm_buffer_size=1, find_unused_parameters=False):
+        super().__init__()
+        self._layers = layers
+        self.find_unused_parameters = find_unused_parameters
+        if get_world_size() > 1:
+            with torch.no_grad():
+                for p in layers.parameters():
+                    broadcast(p.data, src=0)
+
+    def forward(self, *inputs, **kwargs):
+        return self._layers(*inputs, **kwargs)
+
+    def scale_loss(self, loss):
+        return loss
+
+    @torch.no_grad()
+    def apply_collective_grads(self):
+        n = get_world_size()
+        if n <= 1:
+            return
+        with_grad = [p for p in self._layers.parameters()
+                     if p.grad is not None]
+        if not with_grad:
+            return
+        bucket = torch.cat([p.grad.reshape(-1).float() for p in with_grad])
+        all_reduce(bucket)
+        bucket /= n
+        offset = 0
+        for p in with_grad:
+            size = p.grad.numel()
+            p.grad.copy_(bucket[offset:offset + size].view_as(p.grad))
+            offset += size
+
+    def state_dict(self, *args, **kwargs):
+        return self._layers.state_dict(*args, **kwargs)
+
+    def set_state_dict(self, state_dict, *args, **kwargs):
+        return self._layers.load_state_dict(state_dict, *args, **kwargs)
+
+    load_state_dict = set_state_dict

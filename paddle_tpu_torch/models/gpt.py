@@ -45,7 +45,7 @@ from torch.nn import functional as TF
 from ..core.place import resolve_device
 from ..distributed.parallel_layers import (ColumnParallelLinear,
                                            RowParallelLinear,
-                                           VocabParallelEmbedding)
+                                           VocabParallelEmbedding, _tp)
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer.common import Embedding
@@ -215,11 +215,17 @@ class GPT(nn.Module):
     ``loss`` computes the shifted next-token cross entropy.
 
     ``device=None`` means ``"cuda"`` (and raises without a CUDA device);
-    pass ``device="cpu"`` to run the plain versions on the CPU.
+    pass ``device="cpu"`` to run the plain versions on the CPU. A current
+    mesh with a ``tp`` axis of size > 1 raises: splitting the heads is
+    ROADMAP queue 1 item 7b.
     """
 
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
+        if _tp()[0] > 1:
+            raise NotImplementedError(
+                "GPT at tp > 1 is not ported yet: ROADMAP queue 1 item 7b "
+                "(the attention heads are not split over the tp axis)")
         dev = resolve_device(device)
         self.config = config
         self.embeddings = GPTEmbeddings(config, device=dev)

@@ -38,9 +38,11 @@ Quick use::
     print(profiler.summary())
     profiler.disable()                      # writes the Chrome trace
 
-Not yet here: the collective accounting (``collective_stats`` and its
-recorders), cross-rank aggregation and clock agreement (ROADMAP queue 1
-item 7a); live telemetry and the watchdog hooks (item 8).
+Since the distributed slice (ROADMAP queue 1 item 7a): the collective
+accounting (``count_collectives``, ``collective_stats`` and its
+recorders, counted at the port's collective wrappers) and the cross-rank
+reduction (``summary(aggregate=True)``). Not yet here: clock agreement,
+live telemetry and the watchdog hooks (item 8).
 """
 from __future__ import annotations
 
@@ -53,7 +55,9 @@ from .events import (EventLog, FlightRecorder, dump_flight,  # noqa: F401
                      emit, flight_recorder, latency_breakdown,
                      latency_table, request_latency_stats)
 from .events import log as event_log  # noqa: F401
-from .instrument import (device_memory_stats, estimate_comm_ms,  # noqa
+from .instrument import (collective_stats, count_collectives,  # noqa
+                         device_memory_stats, estimate_comm_ms,
+                         record_collective_stats, record_collectives_from,
                          record_memory_high_water, record_memory_ledger,
                          record_phases, tokens_in_batch)
 from .metrics import (Counter, Gauge, Histogram, MetricsRegistry,  # noqa
@@ -75,7 +79,8 @@ __all__ = [
     "registry", "Counter", "Gauge", "Histogram", "MetricsRegistry",
     "mark_trace", "watch", "retraces", "trace_counts", "suppressed",
     "unique_site",
-    "estimate_comm_ms", "record_phases", "device_memory_stats",
+    "collective_stats", "record_collective_stats",
+    "record_collectives_from", "count_collectives", "estimate_comm_ms", "record_phases", "device_memory_stats",
     "record_memory_high_water", "record_memory_ledger", "tokens_in_batch",
     "summary",
     "emit", "event_log", "EventLog", "latency_breakdown", "latency_table",
@@ -138,13 +143,10 @@ def summary(aggregate: bool = False) -> dict:
     retrace log, ``events_lost`` (events aged out of the ring) and the
     sink's health. ``programs`` is the program inventory
     (``program_stats.inventory()``: the sites recorded since the last
-    reset). ``aggregate=True`` (the cross-rank reduction) comes with
-    ROADMAP queue 1 item 7a."""
-    if aggregate:
-        raise NotImplementedError(
-            "summary(aggregate=True) is not ported yet: ROADMAP queue 1 "
-            "item 7a (MetricsRegistry.aggregate)")
-    snap = metrics.registry().snapshot()
+    reset). ``aggregate=True`` reduces the metrics across ranks
+    (``MetricsRegistry.aggregate``); every rank must call it."""
+    reg = metrics.registry()
+    snap = reg.aggregate() if aggregate else reg.snapshot()
     window_s = trace.enabled_window_s()
     rates = {}
     phases = {}

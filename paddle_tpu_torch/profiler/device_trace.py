@@ -12,7 +12,7 @@ derives, per window:
 - a **per-category breakdown** (matmul / attention / scatter-gather /
   elementwise / collective) by slice count and milliseconds;
 - **per-collective durations by kind** and the measured **compute∩comm
-  overlap fraction** (0 at degree 1: the port has no collectives yet);
+  overlap fraction** (0 at degree 1, where no collective runs);
 - a **goodput/MFU ledger**: each site's counted FLOPs
   (``program_stats``) times its traced executions over the window's wall
   time, against the card's peak, and ``goodput_busy_frac``.
@@ -39,7 +39,13 @@ The autograd engine launches a card's backward kernels from its own
 device thread, outside the caller's range on the caller's thread; a
 launch that no range on its own thread encloses joins the innermost known
 range on any thread whose span holds it (the caller waits inside its
-range while backward runs). Record the sites' programs
+range while backward runs). A device slice launched inside a
+collective's host range on the same thread (a ``c10d::allreduce_`` op,
+gloo's ``gloo:all_reduce`` range on its worker thread) is that
+collective's: it is named ``"<range>: <slice>"`` and so counts under
+``collective``. Over gloo a card's collective is such copies (device to
+pinned host, host to device); NCCL's kernels carry their own names.
+Record the sites' programs
 (``record_program_stats()`` / ``profile_step_phases``) before the window
 closes, or their slices land in ``unattributed_modules``.
 
@@ -113,6 +119,21 @@ _COLLECTIVE_KINDS = (
     ("collective_permute", "ppermute"), ("ppermute", "ppermute"),
     ("collective-broadcast", "collective_broadcast"),
     ("collective_broadcast", "collective_broadcast"),
+    # torch.distributed on a card: the c10d ops (``c10d::allreduce_``,
+    # ``c10d::_allgather_base_``, ``c10d::alltoall_base_``), gloo's
+    # ranges (``gloo:all_reduce``, covered above), NCCL's kernels
+    # (``ncclDevKernel_AllReduce_Sum_f32_RING_LL``,
+    # ``ncclDevKernel_SendRecv``)
+    ("allreduce", "all_reduce"), ("reducescatter", "reduce_scatter"),
+    ("allgather", "all_gather"), ("alltoall", "all_to_all"),
+    ("sendrecv", "ppermute"), ("c10d::send", "ppermute"),
+    ("c10d::recv", "ppermute"), ("gloo:send", "ppermute"),
+    ("gloo:recv", "ppermute"),
+    ("c10d::broadcast", "collective_broadcast"),
+    ("gloo:broadcast", "collective_broadcast"),
+    ("kernel_broadcast", "collective_broadcast"),
+    ("c10d::scatter", "collective_broadcast"),
+    ("gloo:scatter", "collective_broadcast"),
 )
 
 # The reference's spellings, then the port's: cuBLAS's Hopper GEMMs
@@ -347,6 +368,10 @@ class _Ranges:
         m = self._innermost(self._by_tid.get(tid, ()), ts)
         return m if m is not None else self._innermost(self._all, ts)
 
+    def on_thread(self, tid, ts) -> Optional[str]:
+        """The innermost range holding ``ts`` on thread ``tid`` alone."""
+        return self._innermost(self._by_tid.get(tid, ()), ts)
+
 
 def parse_timeline(doc: dict, modules=None) -> Timeline:
     """Split a ``torch.profiler`` trace-event document into device slices
@@ -361,7 +386,7 @@ def parse_timeline(doc: dict, modules=None) -> Timeline:
     tl = Timeline()
     evs = doc.get("traceEvents", [])
     tl.events_total = len(evs)
-    kernels, cpu_ops, ranges = [], [], []
+    kernels, cpu_ops, ranges, comm = [], [], [], []
     launches: Dict[object, tuple] = {}
     for e in evs:
         if not isinstance(e, dict) or e.get("ph") != "X":
@@ -385,16 +410,24 @@ def parse_timeline(doc: dict, modules=None) -> Timeline:
                 launches[args["correlation"]] = (tid, ts)
         elif cat == "cpu_op":
             cpu_ops.append((name, tid, ts, dur))
+            if collective_kind(name) is not None:
+                comm.append((name, tid, ts, ts + dur))
         elif cat == "user_annotation":
+            if collective_kind(name) is not None:
+                comm.append((name, tid, ts, ts + dur))
             if name in modules:
                 ranges.append((name, tid, ts, ts + dur))
             if _is_host_annotation(name):
                 tl.host_spans.append((name, ts, dur))
     sites = _Ranges(ranges)
+    colls = _Ranges(comm)
     if kernels:
         for name, corr, ts, dur in kernels:
             at = launches.get(corr)
             module = None if at is None else sites.module(*at)
+            coll = None if at is None else colls.on_thread(*at)
+            if coll is not None and collective_kind(name) is None:
+                name = f"{coll}: {name}"
             tl.device_ops.append((name, module, ts, dur))
     else:
         for name, tid, ts, dur in _leaf_ops(cpu_ops):

@@ -6,29 +6,167 @@
   ``peak_bytes_in_use``, ``bytes_limit``); a CPU device reports nothing
   (None), as the reference's CPU backend does;
 - the memory ledger: resident bytes per state category
-  (``record_memory_ledger``), each tensor counted at its own bytes (the
-  port runs at degree 1: no tensor is sharded);
+  (``record_memory_ledger``), each tensor counted at its own bytes (a
+  tensor-parallel layer's shard at its shard's, as the reference counts
+  a sharded array);
 - the phase decomposition (``record_phases``) and the timing helper the
   trainers share (``time_compiled``);
-- batch token counting for throughput metrics (``tokens_in_batch``).
-
-The collective accounting of the reference (``collective_stats``,
-``record_collective_stats``, ``record_collectives_from``) comes with
-ROADMAP queue 1 item 7a, when the port has collectives to count.
+- batch token counting for throughput metrics (``tokens_in_batch``);
+- the collective accounting (``collective_stats``,
+  ``record_collective_stats``, ``record_collectives_from``). The
+  reference parses a lowered program's text for its collectives; PyTorch
+  lowers nothing, so the port counts at its own wrappers: every
+  collective of ``distributed`` (the eager API, the mesh primitives,
+  DataParallel, the tensor-parallel layers, the fleet optimizer) calls
+  ``note_collective(kind, dtype, bytes)`` after it runs, and each active
+  ``count_collectives()`` counter, and a counted dispatch site's
+  ``program_stats`` counter, keeps the note. With no counter active a
+  note is two attribute reads. Bytes are result-buffer bytes per run,
+  the reference's convention (not link-level wire bytes).
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 import time
 from typing import Optional
 
 import torch
 
+from . import program_stats as _pstats
 from .metrics import registry
 from .recompile import _leaves
 
 __all__ = ["device_memory_stats", "record_memory_high_water",
            "record_memory_ledger", "estimate_comm_ms", "time_compiled",
-           "record_phases", "tokens_in_batch"]
+           "record_phases", "tokens_in_batch", "CollectiveCounter",
+           "count_collectives", "note_collective", "collective_stats",
+           "record_collective_stats", "record_collectives_from"]
+
+
+# ---------------------------------------------------------------------------
+# collective accounting
+# ---------------------------------------------------------------------------
+#: torch dtype -> the reference's canonical (StableHLO) dtype spelling
+_DTYPE_CANON = {
+    torch.float64: "f64", torch.float32: "f32", torch.float16: "f16",
+    torch.bfloat16: "bf16", torch.int64: "i64", torch.int32: "i32",
+    torch.int16: "i16", torch.int8: "i8", torch.uint8: "ui8",
+    torch.bool: "i1"}
+
+
+class CollectiveCounter:
+    """The collectives noted while it is active: ``notes`` is a list of
+    ``(kind, canonical dtype, result bytes)``, one per collective run."""
+
+    def __init__(self):
+        self.notes = []
+        self._lock = threading.Lock()
+
+    def add(self, kind: str, dtype: str, nbytes: int) -> None:
+        with self._lock:
+            self.notes.append((kind, dtype, int(nbytes)))
+
+
+#: the active counters (a stack; a note goes to each)
+_COUNTERS = []
+
+
+@contextlib.contextmanager
+def count_collectives():
+    """A ``CollectiveCounter`` of every collective run inside."""
+    c = CollectiveCounter()
+    _COUNTERS.append(c)
+    try:
+        yield c
+    finally:
+        _COUNTERS.remove(c)
+
+
+def note_collective(kind: str, dtype, nbytes: int) -> None:
+    """Called by each collective wrapper after it runs: ``kind`` one of
+    ``all_reduce``, ``all_gather``, ``reduce_scatter``, ``all_to_all``,
+    ``collective_permute``, ``collective_broadcast``; ``nbytes`` the
+    result buffer's bytes."""
+    site = _pstats.ACTIVE
+    if not _COUNTERS and site is None:
+        return
+    canon = _DTYPE_CANON.get(dtype, str(dtype).replace("torch.", ""))
+    for c in list(_COUNTERS):
+        c.add(kind, canon, nbytes)
+    if site is not None:
+        site.collective(kind, nbytes)
+
+
+def collective_stats(counted) -> dict:
+    """Collectives and the bytes they moved, from a ``CollectiveCounter``
+    (or its ``notes``): the reference's dict, key for key —
+    ``{"ops": {op: count}, "bytes": {op: bytes}, "bytes_by_dtype":
+    {dtype: bytes}, "bytes_by_kind_dtype": {op: {dtype: bytes}},
+    "total_bytes"}``."""
+    notes = counted.notes if isinstance(counted, CollectiveCounter) \
+        else counted
+    ops: dict = {}
+    byts: dict = {}
+    by_dtype: dict = {}
+    by_kind_dtype: dict = {}
+    for op, dt, b in notes:
+        ops[op] = ops.get(op, 0) + 1
+        byts[op] = byts.get(op, 0) + b
+        by_dtype[dt] = by_dtype.get(dt, 0) + b
+        kd = by_kind_dtype.setdefault(op, {})
+        kd[dt] = kd.get(dt, 0) + b
+    return {"ops": ops, "bytes": byts, "bytes_by_dtype": by_dtype,
+            "bytes_by_kind_dtype": by_kind_dtype,
+            "total_bytes": sum(byts.values())}
+
+
+#: The ring's two halves, as gauge buckets over op kinds (the
+#: reference's): a manual ring's reduce-scatter half is
+#: ``collective_permute`` hops, so both share the bucket; ``all_reduce``
+#: is the fused both-halves op and is in neither.
+_KIND_BUCKETS = {
+    "reduce_scatter": ("reduce_scatter", "collective_permute"),
+    "all_gather": ("all_gather",),
+}
+#: gauge-suffix -> canonical dtypes folded into it
+_DTYPE_BUCKETS = {"int8": ("i8", "ui8"), "bf16": ("bf16",),
+                  "f32": ("f32",)}
+
+
+def record_collective_stats(counted, prefix: str = "comm") -> dict:
+    """``collective_stats`` folded into the registry: the reference's
+    gauges ``{prefix}/collective_bytes_per_step``,
+    ``collective_ops_per_step``, ``collective_bytes_int8`` / ``_f32`` and
+    the ring halves' ``collective_bytes_{reduce_scatter,all_gather}_
+    {int8,bf16,f32}``."""
+    st = collective_stats(counted)
+    reg = registry()
+    reg.gauge(f"{prefix}/collective_bytes_per_step").set(st["total_bytes"])
+    reg.gauge(f"{prefix}/collective_ops_per_step").set(
+        sum(st["ops"].values()))
+    bd = st["bytes_by_dtype"]
+    reg.gauge(f"{prefix}/collective_bytes_int8").set(
+        bd.get("i8", 0) + bd.get("ui8", 0))
+    reg.gauge(f"{prefix}/collective_bytes_f32").set(bd.get("f32", 0))
+    bkd = st["bytes_by_kind_dtype"]
+    for kind, opnames in _KIND_BUCKETS.items():
+        for sfx, canons in _DTYPE_BUCKETS.items():
+            total = sum(bkd.get(op, {}).get(c, 0)
+                        for op in opnames for c in canons)
+            reg.gauge(
+                f"{prefix}/collective_bytes_{kind}_{sfx}").set(total)
+    return st
+
+
+def record_collectives_from(fn, *args, prefix: str = "comm",
+                            **kwargs) -> dict:
+    """``record_collective_stats`` over one run of ``fn(*args,
+    **kwargs)`` (the reference's takes a lowered program; the port's
+    program is the run): returns the stats."""
+    with count_collectives() as c:
+        fn(*args, **kwargs)
+    return record_collective_stats(c, prefix)
 
 
 def device_memory_stats(device=None) -> Optional[dict]:

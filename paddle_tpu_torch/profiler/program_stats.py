@@ -64,8 +64,9 @@ __all__ = ["ProgramStats", "OpCounter", "count", "dispatch", "site_fn",
 
 class ProgramStats:
     """One dispatch site's counted program: totals, the trace join key
-    (``module``), the per-category breakdown and per-collective bytes
-    (none at degree 1)."""
+    (``module``), the per-category breakdown and per-collective-kind ops
+    and result bytes (``{kind: {ops, bytes}}``, the collectives the
+    site's first dispatch noted; none at degree 1)."""
 
     __slots__ = ("site", "compile_ms", "flops", "bytes_accessed",
                  "cost", "recorded_unix", "module", "categories",
@@ -151,6 +152,7 @@ class OpCounter(TorchDispatchMode):
         self.bytes = 0
         self.ops = 0
         self.categories: Dict[str, dict] = {}
+        self.collectives: Dict[str, dict] = {}
         self._paused = 0
         self._lock = threading.Lock()
 
@@ -197,6 +199,14 @@ class OpCounter(TorchDispatchMode):
         """A CUDA kernel's cost, under ``categorize_op(name)``."""
         self._add(name, float(flops), int(nbytes))
 
+    def collective(self, kind: str, nbytes: int) -> None:
+        """A collective the site ran (``instrument.note_collective``):
+        ``collectives[kind] = {ops, bytes}``, result-buffer bytes."""
+        with self._lock:
+            c = self.collectives.setdefault(kind, {"ops": 0, "bytes": 0})
+            c["ops"] += 1
+            c["bytes"] += int(nbytes)
+
     @contextlib.contextmanager
     def paused(self):
         """Ops inside run uncounted (a cost function's own reads)."""
@@ -208,8 +218,8 @@ class OpCounter(TorchDispatchMode):
 
     def result(self, compile_ms: float) -> dict:
         """The counted program: ``{compile_ms, flops, bytes_accessed, ops,
-        categories}``; a category carries ``flops`` only where it has
-        some."""
+        categories, collectives}``; a category carries ``flops`` only
+        where it has some."""
         cats = {}
         for cat, c in sorted(self.categories.items()):
             cats[cat] = {"ops": c["ops"], "bytes": c["bytes"]}
@@ -217,7 +227,9 @@ class OpCounter(TorchDispatchMode):
                 cats[cat]["flops"] = c["flops"]
         return {"compile_ms": compile_ms, "flops": self.flops,
                 "bytes_accessed": float(self.bytes), "ops": self.ops,
-                "categories": cats}
+                "categories": cats,
+                "collectives": {k: dict(v) for k, v in
+                                sorted(self.collectives.items())}}
 
 
 #: the counter of the dispatch being counted, read by the kernel wrappers
@@ -298,7 +310,7 @@ def record_counted(site: str, counted: dict) -> ProgramStats:
     stats = ProgramStats(
         site, counted["compile_ms"], flops, byts,
         {"flops": flops, "bytes accessed": byts}, module=site,
-        categories=cats,
+        categories=cats, collectives=counted.get("collectives"),
         flops_unattributed=flops - sum(c.get("flops", 0.0)
                                        for c in cats.values()))
     with _lock:

@@ -15,6 +15,13 @@
   span over the site's kernels, ``cpu_op`` events (ignored beside the
   card's slices), flow events, and two backward kernels launched from a
   second thread (the autograd engine's) that no range encloses.
+- ``torch_gloo_cuda.trace.json.gz``: a hand-written trace of gloo
+  collectives on CUDA tensors, shaped as ``torch.profiler`` wrote one on
+  an H100 (torch 2.11): the caller thread's ``c10d::allreduce_`` /
+  ``c10d::_allgather_base_`` ops launch a device-to-pinned copy, gloo's
+  worker thread launches the pinned-to-device copy inside its
+  ``gloo:all_reduce`` / ``gloo:all_gather`` range; beside them a compute
+  kernel, an NCCL kernel and a copy outside any collective.
 """
 import gzip
 import json
@@ -106,6 +113,53 @@ def cuda_trace() -> dict:
     return {"traceEvents": evs}
 
 
+def gloo_cuda_trace() -> dict:
+    host, gpu = 100, 0
+    main, gloo, stream, copies = 1, 3, 7, 20
+
+    def x(cat, name, pid, tid, ts, dur, **args):
+        return {"ph": "X", "cat": cat, "name": name, "pid": pid, "tid": tid,
+                "ts": ts, "dur": dur, "args": args}
+
+    def launch(tid, ts, corr, name="cudaMemcpyAsync"):
+        return x("cuda_runtime", name, host, tid, ts, 5.0, correlation=corr)
+
+    def dev(name, ts, dur, corr, cat="gpu_memcpy", tid=copies):
+        return x(cat, name, gpu, tid, ts, dur, correlation=corr, device=0,
+                 stream=tid)
+
+    evs = [
+        x("user_annotation", "dp.step#0", host, main, 0.0, 3000.0),
+        launch(main, 10.0, 1, name="cudaLaunchKernel"),
+        dev("void at::native::vectorized_elementwise_kernel<4>()", 20.0,
+            5.0, 1, cat="kernel", tid=stream),
+        # all_reduce: device -> pinned on the caller, back on gloo's thread
+        x("cpu_op", "c10d::allreduce_", host, main, 100.0, 400.0),
+        launch(main, 200.0, 2),
+        dev("Memcpy DtoH (Device -> Pinned)", 210.0, 80.0, 2),
+        x("user_annotation", "gloo:all_reduce", host, gloo, 300.0, 700.0),
+        launch(gloo, 900.0, 3),
+        dev("Memcpy HtoD (Pinned -> Device)", 910.0, 80.0, 3),
+        x("gpu_user_annotation", "gloo:all_reduce", gpu, copies, 910.0,
+          80.0),
+        # all_gather
+        x("cpu_op", "c10d::_allgather_base_", host, main, 1100.0, 300.0),
+        launch(main, 1150.0, 4),
+        dev("Memcpy DtoH (Device -> Pinned)", 1160.0, 80.0, 4),
+        x("user_annotation", "gloo:all_gather", host, gloo, 1300.0, 500.0),
+        launch(gloo, 1700.0, 5),
+        dev("Memcpy HtoD (Pinned -> Device)", 1710.0, 90.0, 5),
+        # NCCL names its kernels itself
+        launch(main, 2000.0, 6, name="cudaLaunchKernel"),
+        dev("ncclDevKernel_AllReduce_Sum_f32_RING_LL(ncclDevKernelArgsStorage"
+            "<4096ul>)", 2010.0, 120.0, 6, cat="kernel", tid=stream),
+        # a copy outside any collective
+        launch(main, 2500.0, 7),
+        dev("Memcpy HtoD (Pinned -> Device)", 2510.0, 30.0, 7),
+    ]
+    return {"traceEvents": evs}
+
+
 def write(name: str, doc: dict) -> None:
     with gzip.open(os.path.join(HERE, name), "wt", encoding="utf-8") as f:
         json.dump(doc, f)
@@ -114,3 +168,4 @@ def write(name: str, doc: dict) -> None:
 if __name__ == "__main__":
     write("torch_mini_cpu.trace.json.gz", cpu_trace())
     write("torch_mini_cuda.trace.json.gz", cuda_trace())
+    write("torch_gloo_cuda.trace.json.gz", gloo_cuda_trace())

@@ -1,0 +1,434 @@
+"""One rank of the port's multi-rank CPU test jobs (gloo on the CPU).
+
+    python tests/data/torch_dist_worker.py <job> <out_dir>
+
+``launch_job`` (imported by the tests) starts one such process per rank
+with the env protocol of ``paddle_tpu_torch.distributed.launch`` and a
+``file://`` store in ``out_dir`` (no TCP port to race for under xdist).
+Each rank reads ``<out_dir>/inputs.npz`` (written by the test from a
+seed), runs every check of its job, and writes ``<out_dir>/out.<rank>
+.npz`` (arrays) and ``<out_dir>/out.<rank>.json`` (values); the tests
+compare those with the JAX package's results. A rank never imports JAX
+or the JAX package: each records its ``sys.modules`` verdict.
+
+Jobs: ``collectives`` (2 ranks: the eager API, its accounting,
+``fleet.metrics``, ``MetricsRegistry.aggregate``), ``mesh`` (4 ranks, a
+{"dp": 2, "tp": 2} mesh: the primitives' outputs, gradients and
+accounting), ``dp`` (2 ranks: DataParallel and the fleet optimizer on
+gpt_tiny, gradient merge, LocalSGD) and ``tp`` (2 ranks: the
+tensor-parallel layers at tp = 2).
+"""
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))))
+
+
+# ---------------------------------------------------------------------------
+# the test side: start a job and read its results
+# ---------------------------------------------------------------------------
+def launch_job(job, nranks, out_dir, timeout=120):
+    """Run ``job`` on ``nranks`` ranks; returns [(arrays, values)] per
+    rank. Raises with every rank's log tail if a rank fails."""
+    out_dir = str(out_dir)
+    store = os.path.join(out_dir, "store")
+    eps = [f"127.0.0.1:{6170 + r}" for r in range(nranks)]
+    procs, logs = [], []
+    for r in range(nranks):
+        env = dict(os.environ)
+        env.update({
+            "PADDLE_TRAINER_ID": str(r), "PADDLE_TRAINERS_NUM": str(nranks),
+            "PADDLE_TRAINER_ENDPOINTS": ",".join(eps),
+            "PADDLE_CURRENT_ENDPOINT": eps[r],
+            "PADDLE_RANK_IN_NODE": str(r),
+            "PADDLE_COORDINATOR": "file://" + store,
+            "PADDLE_DISTRI_BACKEND": "cpu", "OMP_NUM_THREADS": "1",
+            "PYTHONPATH": REPO + os.pathsep + env.get("PYTHONPATH", "")})
+        log = open(os.path.join(out_dir, f"log.{r}"), "w")
+        logs.append(log)
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), job, out_dir],
+            env=env, stdout=log, stderr=subprocess.STDOUT, cwd=REPO))
+    deadline = time.time() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.time() > deadline or any(p.poll() not in (None, 0)
+                                             for p in procs):
+                break
+            time.sleep(0.05)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    if any(p.returncode != 0 for p in procs):
+        tails = ""
+        for r in range(nranks):
+            with open(os.path.join(out_dir, f"log.{r}")) as f:
+                tails += f"\n--- rank {r} (rc {procs[r].returncode}) ---\n" \
+                    + f.read()[-3000:]
+        raise RuntimeError(f"job {job} failed:{tails}")
+    out = []
+    for r in range(nranks):
+        arrays = dict(np.load(os.path.join(out_dir, f"out.{r}.npz")))
+        with open(os.path.join(out_dir, f"out.{r}.json")) as f:
+            out.append((arrays, json.load(f)))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the rank side
+# ---------------------------------------------------------------------------
+def _hygiene():
+    return sorted(m for m in sys.modules if m == "jax" or
+                  m.startswith("jax.") or m == "paddle_tpu" or
+                  m.startswith("paddle_tpu."))
+
+
+def job_collectives(inp, rank, arrays, values):
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed.fleet import metrics as fm
+    from paddle_tpu_torch.profiler import instrument
+
+    x = torch.from_numpy(inp[f"x{rank}"])
+    with instrument.count_collectives() as cc:
+        for name, op in (("sum", C.ReduceOp.SUM), ("max", C.ReduceOp.MAX),
+                         ("min", C.ReduceOp.MIN), ("prod", C.ReduceOp.PROD)):
+            t = x.clone()
+            assert C.all_reduce(t, op) is t
+            arrays[f"all_reduce_{name}"] = t.numpy()
+        ti = torch.from_numpy(inp[f"i{rank}"])
+        C.all_reduce(ti, C.ReduceOp.MAX)
+        arrays["all_reduce_int_max"] = ti.numpy()
+        tb = x.to(torch.bfloat16)
+        C.all_reduce(tb)
+        arrays["all_reduce_bf16"] = tb.float().numpy()
+        lst = []
+        C.all_gather(lst, x)
+        arrays["all_gather"] = torch.stack(lst).numpy()
+        t = x.clone()
+        C.broadcast(t, src=1)
+        arrays["broadcast"] = t.numpy()
+        t = x.clone()
+        C.reduce(t, dst=0)
+        arrays["reduce"] = t.numpy()
+        t = torch.zeros_like(x)
+        C.scatter(t, [torch.from_numpy(a) for a in inp[f"parts{rank}"]],
+                  src=0)
+        arrays["scatter"] = t.numpy()
+        t = torch.zeros_like(x)
+        C.reduce_scatter(t, [torch.from_numpy(a)
+                             for a in inp[f"parts{rank}"]])
+        arrays["reduce_scatter"] = t.numpy()
+        out = []
+        C.alltoall([torch.from_numpy(a) for a in inp[f"parts{rank}"]], out)
+        arrays["alltoall"] = torch.stack(out).numpy()
+        C.barrier()
+    values["stats"] = instrument.collective_stats(cc)
+    try:
+        C.send(x, 1 - rank)
+        values["send_raises"] = False
+    except NotImplementedError:
+        values["send_raises"] = True
+
+    # fleet.metrics on this rank's share of the inputs
+    values["fm_sum_scalar"] = fm.sum(float(inp["fm_scalar"][rank]))
+    arrays["fm_sum_array"] = fm.sum(inp["fm_array"][rank])
+    arrays["fm_max_array"] = fm.max(torch.from_numpy(inp["fm_array"][rank]))
+    arrays["fm_min_array"] = fm.min(inp["fm_array"][rank].tolist())
+    values["fm_max_scalar"] = fm.max(float(inp["fm_scalar"][rank]))
+    values["fm_min_scalar"] = fm.min(float(inp["fm_scalar"][rank]))
+    values["fm_acc"] = fm.acc(int(inp["fm_correct"][rank]),
+                              int(inp["fm_total"][rank]))
+    values["fm_auc"] = fm.auc(inp["fm_pos"][rank], inp["fm_neg"][rank])
+
+    # the registry's rank reduction: rank-dependent schemas and samples
+    profiler.enable()
+    reg = profiler.registry()
+    for v in inp[f"h{rank}"]:
+        reg.histogram("m/h").observe(float(v))
+    reg.counter("m/c").add(float(rank + 4))
+    reg.gauge("m/g").set(float(inp["gauge"][rank]))
+    if rank == 0:
+        reg.histogram("m/only0").observe(3.5)
+        reg.histogram("m/empty")
+    else:
+        reg.counter("m/only1").add(2.0)
+        reg.gauge("m/unset")
+    values["aggregate"] = reg.aggregate()
+    values["summary_aggregate"] = profiler.summary(aggregate=True)["metrics"]
+
+
+#: the mesh job's axes named against the mesh's order
+TPDP = ("tp", "dp")
+
+
+def _mesh_forward(P, x, rank):
+    """The primitives program of the mesh job: (named outputs, the
+    differentiable ones)."""
+    import torch
+
+    outs = {
+        "psum_tp": P.psum(x, "tp"),
+        "pmean_dp": P.pmean(x, "dp"),
+        "psum_all": P.psum(x, ("dp", "tp")),
+        "gather_dp_tiled": P.all_gather(x, "dp", axis=0, tiled=True),
+        "gather_tp_stacked": P.all_gather(x, "tp", axis=1),
+        "a2a_tp_tiled": P.all_to_all(x, "tp", 1, 0, tiled=True),
+        "a2a_tp": P.all_to_all(x, "tp", 0, 1),
+        "ppermute_dp": P.ppermute(x, "dp", [(0, 1), (1, 0)]),
+        "ppermute_partial": P.ppermute(x, "tp", [(0, 1)]),
+        "ring_tp": P.ring_permute(x, "tp", shift=1),
+        # a tuple named out of the mesh's order: axis index tp * 2 + dp
+        "gather_tpdp_tiled": P.all_gather(x, TPDP, axis=0, tiled=True),
+        "scatter_tpdp": P.psum_scatter(x, TPDP, scatter_dimension=1,
+                                       tiled=True),
+        "a2a_tpdp_tiled": P.all_to_all(x, TPDP, 1, 0, tiled=True),
+        "ppermute_tpdp": P.ppermute(x, TPDP, [(0, 1), (1, 2), (2, 3),
+                                              (3, 0)]),
+    }
+    outs["scatter_dp"] = P.psum_scatter(outs["gather_dp_tiled"], "dp",
+                                        scatter_dimension=0, tiled=True)
+    outs["scatter_tp_untiled"] = P.psum_scatter(outs["gather_tp_stacked"],
+                                                "tp", scatter_dimension=1,
+                                                tiled=False)
+    grads = dict(outs)
+    with torch.no_grad():
+        outs["pmax_tp"] = P.pmax(x, "tp")
+        outs["pmin_dp"] = P.pmin(x, "dp")
+    outs["index"] = (P.axis_index("dp") * 10 + P.axis_index("tp")).float()
+    outs["index_tpdp"] = P.axis_index(TPDP).float()
+    outs["psum_const"] = torch.tensor(float(P.psum(1, ("dp", "tp"))))
+    return outs, grads
+
+
+def job_mesh(inp, rank, arrays, values):
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed import primitives as P
+    from paddle_tpu_torch.profiler import instrument
+
+    m = mesh.init_mesh({"dp": 2, "tp": 2})
+    values["coords"] = [m.axis_index("dp"), m.axis_index("tp")]
+    x = torch.from_numpy(inp["x"][rank]).requires_grad_()
+    with instrument.count_collectives() as fwd:
+        outs, diff = _mesh_forward(P, x, rank)
+    values["stats"] = instrument.collective_stats(fwd)
+    loss = sum((o * torch.from_numpy(inp[f"w_{k}"][rank])).sum()
+               for k, o in sorted(diff.items()) if f"w_{k}" in inp)
+    loss.backward()
+    for k, o in outs.items():
+        arrays[k] = o.detach().numpy()
+    arrays["grad"] = x.grad.numpy()
+    y = torch.from_numpy(inp["x"][rank]).requires_grad_()
+    try:
+        P.pmax(y, "tp").sum().backward()
+        values["pmax_grad_raises"] = False
+    except NotImplementedError:
+        values["pmax_grad_raises"] = True
+    try:
+        P.psum(x, "ep")
+        values["unbound_raises"] = False
+    except NameError:
+        values["unbound_raises"] = True
+
+
+def _flat(params):
+    import torch
+
+    return torch.cat([p.detach().reshape(-1) for p in params])
+
+
+def _gpt(inp, cfg):
+    from paddle_tpu_torch.models import gpt as tgpt
+
+    net = tgpt.GPT(tgpt.GPTConfig(**cfg), device="cpu")
+    tgpt.load_reference_state(net, {k[6:]: v for k, v in inp.items()
+                                    if k.startswith("state.")})
+    return net
+
+
+def job_dp(inp, rank, arrays, values):
+    import torch
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.distributed import collective as C
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import instrument
+
+    cfg = json.loads(str(inp["cfg"]))
+    lr = float(inp["lr"])
+    fleet.init(is_collective=True)
+    values["worker"] = [fleet.worker_index(), fleet.worker_num(),
+                        fleet.is_first_worker(),
+                        fleet.worker_endpoints(to_string=True)]
+
+    # DataParallel: rank 1 starts from other weights; the wrap broadcasts
+    # rank 0's
+    net = _gpt(inp, cfg)
+    if rank == 1:
+        with torch.no_grad():
+            for p in net.parameters():
+                p.add_(0.5)
+    dp = paddle_tpu_torch.DataParallel(net)
+    names = [n for n, _ in net.named_parameters()]
+    values["names"] = names
+    opt = AdamW(lr, parameters=net.named_parameters(), weight_decay=0.01)
+    dopt = fleet.distributed_optimizer(opt)
+    tok = torch.from_numpy(inp["tok"][rank])
+    with instrument.count_collectives() as cc:
+        loss = dp._layers.loss(tok)
+        loss.backward()
+        dp.apply_collective_grads()
+        for n, p in net.named_parameters():
+            arrays[f"grad.{n}"] = p.grad.numpy().copy()
+        dopt.step()
+    values["stats"] = instrument.collective_stats(cc)
+    values["numel"] = sum(p.numel() for p in net.parameters())
+    values["n_params"] = len(names)
+    for n, p in net.named_parameters():
+        arrays[f"param.{n}"] = p.detach().numpy().copy()
+    values["loss"] = float(loss)
+
+    # gradient merge, k 2: two micro-steps, one update
+    net = _gpt(inp, cfg)
+    s = DistributedStrategy()
+    s.gradient_merge = True
+    s.gradient_merge_configs = {"k_steps": 2, "avg": True}
+    opt = AdamW(lr, parameters=net.named_parameters(), weight_decay=0.01)
+    dopt = fleet.distributed_optimizer(opt, s)
+    before = _flat(net.parameters()).clone()
+    for i in range(2):
+        net.loss(torch.from_numpy(inp["merge_tok"][rank, i])).backward()
+        dopt.step()
+        if i == 0:
+            values["merge_first_is_noop"] = bool(torch.equal(
+                before, _flat(net.parameters())))
+    for n, p in net.named_parameters():
+        arrays[f"merge_grad.{n}"] = p.grad.numpy().copy()
+    opt.clear_grad()
+
+    # LocalSGD with AdamW: different data on each rank, params averaged
+    # every 3 steps; then adaptive LocalSGD (constant lr: k = init_k)
+    for kind, k, steps in (("localsgd", 3, 6), ("adaptive_localsgd", 2, 4)):
+        net = _gpt(inp, cfg)
+        s = DistributedStrategy()
+        setattr(s, kind, True)
+        if kind == "localsgd":
+            s.localsgd_configs = {"k_steps": k, "begin_step": 1}
+        else:
+            s.adaptive_localsgd_configs = {"init_k_steps": k,
+                                           "begin_step": 1}
+        opt = AdamW(lr, parameters=net.named_parameters(), weight_decay=0.01)
+        dopt = fleet.distributed_optimizer(opt, s)
+        synced = []
+        for step in range(steps):
+            net.loss(torch.from_numpy(inp["local_tok"][rank, step])).backward()
+            dopt.step()
+            opt.clear_grad()
+            mine = _flat(net.parameters())
+            both = []
+            C.all_gather(both, mine)
+            synced.append(bool(torch.equal(both[0], both[1])))
+        values[kind] = synced
+
+
+def job_tp(inp, rank, arrays, values):
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh
+    from paddle_tpu_torch.distributed import parallel_layers as PL
+    from paddle_tpu_torch.models.gpt import load_reference_state
+    from paddle_tpu_torch.profiler import instrument
+
+    m = mesh.init_mesh({"tp": 2})
+    h, f, v = (int(a) for a in inp["dims"])
+
+    def load(layer, prefix):
+        full = {k[len(prefix):]: a for k, a in inp.items()
+                if k.startswith(prefix)}
+        load_reference_state(layer, PL.shard_reference_state(layer, full, m))
+        values[f"shapes.{prefix}"] = {n: list(p.shape) for n, p in
+                                      layer.named_parameters()}
+        return layer
+
+    def run(name, layers, x, w):
+        x = torch.from_numpy(x).requires_grad_(x.dtype.kind == "f")
+        y = x
+        for i, layer in enumerate(layers):
+            y = layer(y)
+            if name == "mlp" and i == 0:
+                y = torch.nn.functional.gelu(y)
+        arrays[f"{name}.out"] = y.detach().numpy()
+        (y * torch.from_numpy(w)).sum().backward()
+        if x.requires_grad:
+            arrays[f"{name}.dx"] = x.grad.numpy()
+        for i, layer in enumerate(layers):
+            for n, p in layer.named_parameters():
+                arrays[f"{name}.{i}.{n}"] = p.grad.numpy()
+
+    col = load(PL.ColumnParallelLinear(h, f, gather_output=False, device="cpu"),
+               "col.")
+    row = load(PL.RowParallelLinear(f, h, input_is_parallel=True,
+                                    device="cpu"), "row.")
+    with instrument.count_collectives() as cc:
+        run("mlp", [col, row], inp["x"], inp["w_mlp"])
+    values["mlp_stats"] = instrument.collective_stats(cc)
+    colg = load(PL.ColumnParallelLinear(h, f, gather_output=True,
+                                        device="cpu"), "col.")
+    run("col_gather", [colg], inp["x"], inp["w_col"])
+    rowf = load(PL.RowParallelLinear(f, h, input_is_parallel=False,
+                                     device="cpu"), "row.")
+    run("row_full", [rowf], inp["xf"], inp["w_mlp"])
+    emb = load(PL.VocabParallelEmbedding(v, h, device="cpu"), "emb.")
+    run("emb", [emb], inp["ids"], inp["w_mlp"])
+    ce = PL.ParallelCrossEntropy()
+    z = torch.from_numpy(inp["logits"]).chunk(2, -1)[m.axis_index("tp")]
+    z = z.contiguous().requires_grad_()
+    loss = ce(z, torch.from_numpy(inp["labels"]))
+    loss.backward()
+    values["ce"] = float(loss)
+    arrays["ce.dz"] = z.grad.numpy()
+    values["specs"] = {
+        "col": [list(col.param_shardings["weight"]),
+                list(col.param_shardings["bias"]),
+                list(col.output_sharding), list(colg.output_sharding)],
+        "row": [list(row.param_shardings["weight"]),
+                list(row.param_shardings["bias"]),
+                list(row.output_sharding)],
+        "emb": [list(emb.param_shardings["weight"])]}
+
+
+def main():
+    job, out_dir = sys.argv[1], sys.argv[2]
+    import paddle_tpu_torch.distributed as dist
+
+    env = dist.init_parallel_env()
+    rank = env.rank
+    inp = dict(np.load(os.path.join(out_dir, "inputs.npz")))
+    arrays, values = {}, {"world": env.world_size,
+                          "device": str(env.device)}
+    globals()["job_" + job](inp, rank, arrays, values)
+    values["foreign_modules"] = _hygiene()
+    np.savez(os.path.join(out_dir, f"out.{rank}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"out.{rank}.json"), "w") as f:
+        json.dump(values, f)
+    dist.barrier()
+
+
+if __name__ == "__main__":
+    main()

@@ -434,15 +434,13 @@ def test_summary_keys_equal_reference():
     assert got["rates"]["tokens_per_sec"] > 0
     d = tprof.disable()
     assert d["metrics"]["train/tokens"]["value"] == 1000.0
-    with pytest.raises(NotImplementedError, match="7a"):
-        tprof.summary(aggregate=True)
+    # a world of one process: the rank reduction is the snapshot itself
+    assert tprof.summary(aggregate=True)["metrics"] == d["metrics"]
 
 
 def test_package_names_cover_the_reference_slice():
     """Every name of the reference's __all__ that the port has so far."""
-    later = {"collective_stats", "record_collective_stats",
-             "record_collectives_from", "ClockSync",
-             "LiveAggregator", "AlertRule", "default_rules"}
+    later = {"ClockSync", "LiveAggregator", "AlertRule", "default_rules"}
     # PyTorch lowers and compiles no program: program_stats counts a
     # site's first dispatch instead (record_counted)
     no_counterpart = {"record_lowered", "record_compiled"}
