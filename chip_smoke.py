@@ -242,10 +242,48 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    across the ranks equals one registry that observed the union. Step ms,
    bucket ms and GB/s, and each rank's launch counts are printed. NCCL
    needs a card per rank and is not run here.
+13. hybrid phase — the strategy compiler's trainer (HybridPipelineTrainer)
+   on two ranks of this card over gloo, started by the launcher as the
+   dist phase's (chip_smoke.py --hybrid-worker DIR), on GPT at gpt3_1_3b
+   widths cut to DIST_LAYERS = 4 layers (two ranks' models, optimizer
+   states and a replica share the card behind gloo's host ring), 2 steps
+   each of three runs, all with amp, recompute and AdamW (lr 1e-4) with
+   the global-norm clip at HYBRID_CLIP on the first of its two steps:
+   (a) {"tp": 2} under the train phase's recipe
+   (bf16 parameter and moment storage; 8 heads a rank), global batch
+   [2, 2048]; (b) {"dp": 2} ZeRO 2 with f32 storage (the flat slab of
+   qcomm.dp_zero_step), global [4, 2048]; (c) {"dp": 2} ZeRO 3 (the
+   per-parameter route, parameters on their dp slices), global [4,
+   2048]. Each rank counts its first step's collectives and holds them
+   to the count derived from the code (_hybrid_expected: (a) 5 bf16
+   activation all-reduces a layer and 2 more, the loss's f32 ones;
+   (b) one reduce-scatter of the padded flat gradients, one all-gather,
+   two scalar all-reduces and no gradient all-reduce; (c) every
+   parameter gathered in the forward and each block's again in its
+   recompute, reduce-scattered once), gathers every parameter after the
+   first step (sync_to_layer, gather_reference_state) and runs the
+   second in a parsed device_trace window. Rank 0 then trains a degree-1
+   replica from the gathered initial state on the same global batches:
+   losses within HYBRID_LOSS_RTOL, the parameters after step 1 within
+   HYBRID_PARAM_ATOL (f32) or one bf16 ulp (bf16 storage) on at least
+   HYBRID_PARAM_SHARE of each tensor's elements where the replica's |g|
+   exceeds HYBRID_G_CLEAR of its tensor's largest and, clipped,
+   HYBRID_G_EPS, the first moments
+   after step 1 (0.1 x the clipped gradient) and after step 2 (which
+   both sides run without the clip, so that a gradient's size shows)
+   against the replica's, each tensor's best-fit scale within
+   HYBRID_M1_TENSOR_SCALE_TOL of 1 and its relative error within
+   HYBRID_M1_RTOL, all of them together at a common scale within
+   HYBRID_M1_SCALE_TOL of 1, the replica's gradient norm above the clip
+   (so that step 1's clip acts and a wrong global norm shows),
+   and on (b) and (c) memory_ledger's opt_state at most 1/2 + 5%
+   of the replica's. Step ms, collective bytes and their rate over the step,
+   busy share and collective ms of the traced step, and each rank's
+   ledger and launch counts are printed.
 
 Every launch counter is set to 0 just before each of phases 2-11 and read
-just after it (the dist phase's ranks do the same around their DP steps,
-and the phase sums their counts): those are the main paths' launches,
+just after it (the dist and hybrid phases' ranks do the same around
+their steps, and each phase sums its ranks' counts): those are the main paths' launches,
 and each path must
 launch each of its kernels (the generate path: the ragged decode and
 chunk rows, never the int8 path; the spec path: both row kinds and the
@@ -260,7 +298,8 @@ main-path launch; the observe path: both ragged row kinds, the wgmma
 forward, dQ and dK/dV, none of the f32 route's; the legacy path: both
 ragged row kinds, not the int8 path; the handoff path: both row kinds
 and the int8 path; the dist path: the SIMT forward and the mma.sync
-merged backward, no wgmma one). Prints
+merged backward, no wgmma one; the hybrid path, on each rank: the wgmma
+forward, dQ and dK/dV, none of the f32 route's). Prints
 JSON lines per case, then {"kernels": [...]}, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -277,6 +316,8 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
                                                    # chain migration
     python3 chip_smoke.py --phases dist            # process groups and
                                                    # collectives, 2 ranks
+    python3 chip_smoke.py --phases hybrid          # the trainer at dp, tp
+                                                   # and ZeRO, 2 ranks
 """
 from __future__ import annotations
 
@@ -4358,16 +4399,17 @@ def dist_worker(out_dir) -> int:
     return 0
 
 
-def dist_phase(dev, timeout=600):
-    """Launch the dist phase's two ranks on this card (FLAGS_selected_gpus
-    0) over gloo through the port's launcher; read and check their
-    results. Returns (the ranks' summed launch counts, {})."""
+def _run_ranks(dev, flag, prefix, timeout):
+    """Launch two ranks of this script (``flag OUT_DIR``) on this card
+    (FLAGS_selected_gpus 0) over gloo through the port's launcher; a
+    failed rank fails the phase with its log's tail. Returns (each rank's
+    ``{prefix}.{rank}.json``, wall seconds)."""
     import shutil
     import signal
     import tempfile
 
     _free_memory(dev)
-    out = tempfile.mkdtemp(prefix="dist_phase_")
+    out = tempfile.mkdtemp(prefix=f"{prefix}_phase_")
     logs = os.path.join(out, "logs")
     env = dict(os.environ, FLAGS_selected_gpus="0", OMP_NUM_THREADS="4",
                PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH",
@@ -4376,7 +4418,7 @@ def dist_phase(dev, timeout=600):
     proc = subprocess.Popen(
         [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
          "--nproc_per_node", "2", "--backend", "gloo", "--log_dir", logs,
-         os.path.join(HERE, "chip_smoke.py"), "--dist-worker", out],
+         os.path.join(HERE, "chip_smoke.py"), flag, out],
         env=env, cwd=HERE, start_new_session=True)
     try:
         rc = proc.wait(timeout=timeout)
@@ -4391,15 +4433,23 @@ def dist_phase(dev, timeout=600):
                 path = os.path.join(logs, f"workerlog.{r}")
                 if os.path.exists(path):
                     with open(path) as f:
-                        print(f"--- dist rank {r} log tail ---\n"
+                        print(f"--- {prefix} rank {r} log tail ---\n"
                               + f.read()[-4000:], file=sys.stderr)
-            raise AssertionError(f"the dist phase's launcher exited {rc}")
+            raise AssertionError(f"the {prefix} phase's launcher exited {rc}")
         res = []
         for r in (0, 1):
-            with open(os.path.join(out, f"dist.{r}.json")) as f:
+            with open(os.path.join(out, f"{prefix}.{r}.json")) as f:
                 res.append(json.load(f))
     finally:
         shutil.rmtree(out, ignore_errors=True)
+    return res, wall
+
+
+def dist_phase(dev, timeout=600):
+    """Launch the dist phase's two ranks on this card (FLAGS_selected_gpus
+    0) over gloo through the port's launcher; read and check their
+    results. Returns (the ranks' summed launch counts, {})."""
+    res, wall = _run_ranks(dev, "--dist-worker", "dist", timeout)
     counts = {k: sum(r["launches"][k] for r in res) for k in LAUNCH_COUNTERS}
     for r in res:
         emit({"dist": "rank", **r})
@@ -4418,19 +4468,375 @@ def dist_phase(dev, timeout=600):
     return counts, {}
 
 
+# ---------------------------------------------------------------------------
+# hybrid phase: the strategy compiler's trainer on two ranks of one card
+# ---------------------------------------------------------------------------
+#: losses against the degree-1 replica (amp: both compute in bf16, the
+#: sharded run sums its products in other orders: half of bf16's 2^-8)
+HYBRID_LOSS_RTOL = 2e-3
+#: after AdamW's first step (about lr * sign(g)), where |g| of the replica
+#: exceeds HYBRID_G_CLEAR * max |g| of its tensor and the clipped |g|
+#: exceeds HYBRID_G_EPS (100x AdamW's epsilon, 1e-8: nearer to it the
+#: step depends on |g|): f32 storage within
+#: HYBRID_PARAM_ATOL, bf16 storage within one bf16 ulp (2^-7 of the larger
+#: magnitude), on at least HYBRID_PARAM_SHARE of each tensor's. Not on
+#: every one: under amp the embedding's gradient is summed in bf16 by
+#: the card's atomics, in another order on each side, so a few elements
+#: whose gradient nearly cancels step the other way
+HYBRID_PARAM_ATOL = 1e-6
+HYBRID_BF16_ULP = 2.0 ** -7
+HYBRID_G_CLEAR = 1e-2
+HYBRID_G_EPS = 1e-6
+HYBRID_PARAM_SHARE = 0.99
+#: the first moments after step 1 (0.1 x the clipped gradient: they move
+#: with the clip's scale and each tensor's share of the gradient) and
+#: after step 2, which runs without the clip (so that they move with the
+#: gradient's size, the dp mean), each held to the replica's: each
+#: tensor's best-fit scale <got, want> / <want, want> within
+#: HYBRID_M1_TENSOR_SCALE_TOL of 1 (a gradient counted twice, or not
+#: divided by dp, is off by 2x) and its relative
+#: error ||got - want|| / ||want|| at most HYBRID_M1_RTOL (a tensor laid
+#: out wrongly is off by about 1.4; amp's bf16 sums in other orders give
+#: a few 2^-8, more where a small tensor's gradient nearly cancels), and
+#: the best-fit scale of all of them together within HYBRID_M1_SCALE_TOL
+#: of 1 (a wrong global norm scales every tensor alike)
+HYBRID_M1_TENSOR_SCALE_TOL = 5e-2
+HYBRID_M1_RTOL = 0.25
+HYBRID_M1_SCALE_TOL = 2e-3
+HYBRID_LR = 1e-4
+#: step 1's global-norm clip, below the replica's norm so that it acts
+#: (the replica check asserts it: a wrong global norm then shows as a
+#: common scale of the first moments)
+HYBRID_CLIP = 0.5
+#: (name, mesh, ZeRO stage, storage dtypes, global batch)
+HYBRID_RUNS = (
+    ("tp2_recipe", {"dp": 1, "tp": 2}, 0, "bfloat16", (2, 2048)),
+    ("dp2_zero2", {"dp": 2}, 2, None, (4, 2048)),
+    ("dp2_zero3", {"dp": 2}, 3, None, (4, 2048)))
+
+
+def _hybrid_trainer(model, mesh, zero, dtype):
+    """The train phase's recipe (amp, recompute, AdamW with the
+    global-norm clip; bf16 parameter and moment storage when ``dtype``)
+    at ZeRO ``zero`` over ``mesh`` (None: degree 1)."""
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.hybrid import HybridPipelineTrainer
+    from paddle_tpu_torch.optimizer import AdamW
+
+    opt = AdamW(HYBRID_LR, parameters=model.named_parameters(),
+                weight_decay=0.1,
+                grad_clip=tnn.ClipGradByGlobalNorm(HYBRID_CLIP))
+    s = DistributedStrategy()
+    s.amp = s.recompute = True
+    if zero:
+        s.sharding = True
+        s.sharding_configs = {"sharding_stage": zero}
+    kw = dict(param_dtype=dtype, moment_dtype=dtype) if dtype else {}
+    return HybridPipelineTrainer(model, opt, s, mesh, **kw)
+
+
+def _timed_step(tr, tok, dev):
+    _sync(dev)
+    t0 = time.perf_counter()
+    loss = float(tr.step(tok))
+    _sync(dev)
+    return loss, (time.perf_counter() - t0) * 1e3
+
+
+def _hybrid_expected(name, cfg, batch, stats, numel, n_params):
+    """The step's collectives, derived from the code: (a) tp 2: per
+    layer two bf16 activation all-reduces forward (the row layers), two
+    backward (the column layers' input gradients) and one recomputed
+    (the first row layer; the checkpoint stops recomputing once its saved
+    tensors are back), the embedding's and the head input's gradient's;
+    in f32 three a loss chunk, twice (the chunk is checkpointed), and the
+    clip's squared norms. (b) the flat slab: one reduce-scatter of the
+    padded flat f32 gradients (this rank keeps a chunk) and one
+    all-gather of the chunks, two scalar all-reduces (loss, norm), no
+    gradient all-reduce. (c) ZeRO 3: every parameter all-gathered in the
+    forward and each block's again in its recompute, reduce-scattered
+    once in the backward; the two scalar and norm all-reduces."""
+    from paddle_tpu_torch.distributed.qcomm import zero_chunk_len
+    from paddle_tpu_torch.ops.fused_ce import _chunk_size
+
+    L, h = cfg.num_layers, cfg.hidden_size
+    b, s = batch
+    ops, kd = stats["ops"], stats["bytes_by_kind_dtype"]
+    if name == "tp2_recipe":
+        act = b * s * h * 2
+        chunks = s // _chunk_size(s, 256)
+        want_ops = {"all_reduce": 5 * L + 2 + 6 * chunks + 1}
+        assert ops == want_ops, (ops, want_ops)
+        assert kd["all_reduce"]["bf16"] == (5 * L + 2) * act, kd
+        return {"activation_all_reduces": 5 * L + 2,
+                "activation_bytes": act}
+    if name == "dp2_zero2":
+        chunk = zero_chunk_len(numel, 2, 2048)
+        assert ops == {"reduce_scatter": 1, "all_gather": 1,
+                       "all_reduce": 2}, ops
+        assert kd["reduce_scatter"] == {"f32": 4 * chunk}, kd
+        assert kd["all_gather"] == {"f32": 2 * 4 * chunk}, kd
+        assert kd["all_reduce"] == {"f32": 8}, kd
+        return {"chunk": chunk}
+    per_block = (n_params - 4) // L       # the 4 others: wte, wpe, ln_f
+    assert ops["reduce_scatter"] == n_params, ops
+    assert ops["all_gather"] == n_params + L * per_block, ops
+    assert ops["all_reduce"] == 2 and \
+        kd["all_reduce"]["f32"] == 4 * (1 + n_params), kd
+    return {"block_params": per_block}
+
+
+def _moment1(tr, model) -> dict:
+    """Every parameter's first moment after ``sync_to_layer``, f32 on the
+    host."""
+    acc = tr.optimizer._accumulators
+    return {n: acc[id(p)]["moment1"].float().cpu().numpy()
+            for n, p in model.named_parameters()}
+
+
+def _moment_check(got: dict, want: dict, dev) -> dict:
+    """The gathered first moments against the replica's: each tensor's
+    best-fit scale and relative error, and the common scale of all."""
+    import torch
+
+    rel, scale = {}, {}
+    dot = norm2 = 0.0
+    for n, w in want.items():
+        gm = torch.from_numpy(got[n]).to(dev).double()
+        wm = torch.from_numpy(w).to(dev).double()
+        rel[n] = float((gm - wm).norm() / wm.norm().clamp(min=1e-30))
+        d_n, w_n = float((gm * wm).sum()), float((wm * wm).sum())
+        scale[n] = d_n / max(w_n, 1e-300)
+        dot += d_n
+        norm2 += w_n
+    worst = max(scale, key=lambda n: abs(scale[n] - 1))
+    return {"scale": dot / norm2, "worst_rel_err": max(rel.values()),
+            "worst_rel_param": max(rel, key=rel.get),
+            "worst_tensor_scale": scale[worst],
+            "worst_scale_param": worst}
+
+
+def _replica_check(cfg, dev, init, toks, dtype, after1, m1, zero_led, res):
+    """Rank 0: a degree-1 trainer from the gathered initial state on the
+    same global batches, step 1 under the clip and step 2 without it (as
+    the sharded run): losses, the parameters after step 1 (where |g| is
+    clear of zero, each tensor on its own), the first moments after each
+    step (``m1``: the sharded run's, gathered) and the optimizer state's
+    bytes."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPT, load_reference_state
+
+    from paddle_tpu_torch.distributed.mesh import create_mesh
+
+    rep = GPT(cfg, device=dev)
+    load_reference_state(rep, init)
+    tr = _hybrid_trainer(rep, create_mesh({"dp": 1}, [0]), 0, dtype)
+    tr._upd.zero_grad()
+    tr._loss((toks[0],), backward=True)
+    gnorm = float(torch.sqrt(sum(p.grad.float().square().sum()
+                                 for p in rep.parameters())))
+    clipped = min(1.0, HYBRID_CLIP / gnorm)
+    gclear = {n: (p.grad.abs() > HYBRID_G_CLEAR * p.grad.abs().max())
+              & (p.grad.abs() * clipped > HYBRID_G_EPS)
+              for n, p in rep.named_parameters()}
+    tr._upd.zero_grad()
+    losses = [float(tr.step(toks[0]))]
+    worst, checked, total, within = 0.0, 0, 0, 0
+    share = {}
+    for n, p in rep.named_parameters():
+        clear = gclear[n]
+        got = torch.from_numpy(after1[n]).to(dev)[clear]
+        want = p.detach().float()[clear]
+        d = (got - want).abs()
+        lim = HYBRID_BF16_ULP * torch.maximum(got.abs(), want.abs()) \
+            if dtype else HYBRID_PARAM_ATOL
+        ok = int((d <= lim).sum())
+        share[n] = ok / max(1, d.numel())
+        worst = max(worst, float(d.max()) if d.numel() else 0.0)
+        checked += d.numel()
+        within += ok
+        total += p.numel()
+    moments = [_moment_check(m1[0], _moment1(tr, rep), dev)]
+    tr.optimizer._grad_clip = None
+    losses.append(float(tr.step(toks[1])))
+    moments.append(_moment_check(m1[1], _moment1(tr, rep), dev))
+    led = tr.memory_ledger()
+    res.update(replica_losses=losses, param_abs_err=worst,
+               params_checked=checked / total,
+               params_within=within / max(1, checked),
+               worst_share=min(share.values()),
+               worst_share_param=min(share, key=share.get),
+               replica_grad_norm=gnorm, clip_norm=HYBRID_CLIP,
+               moment1=moments,
+               replica_opt_state=led["opt_state"],
+               opt_state_ratio=zero_led["opt_state"] / led["opt_state"])
+    del tr, rep
+
+
+def hybrid_run(dev, rank, name, axes, zero, dtype, batch, cfg=None):
+    """One run of the hybrid phase on this rank: 2 steps, the first one's
+    collectives counted and every parameter gathered after it, the second
+    in a parsed device_trace window; rank 0 then checks a degree-1
+    replica. Returns this rank's results. ``cfg``: another GPTConfig
+    (a CPU rehearsal at a small size)."""
+    import dataclasses
+
+    import torch
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.parallel_layers import \
+        gather_reference_state
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.profiler import device_trace, instrument
+
+    cfg = cfg or dataclasses.replace(GPTConfig.gpt3_1_3b(),
+                                     num_layers=DIST_LAYERS)
+    toks = [torch.randint(0, cfg.vocab_size, batch,
+                          generator=torch.Generator().manual_seed(40 + i)
+                          ).to(dev) for i in range(2)]
+    mesh = M.init_mesh(axes)
+    paddle_tpu_torch.seed(3)
+    model = GPT(cfg, device=dev)
+    init = gather_reference_state(model)      # tp shards put together
+    tr = _hybrid_trainer(model, mesh, zero, dtype)
+    numel = sum(a.size for a in init.values())
+    n_params = len(init)
+    res = {"run": name, "mesh": axes, "zero": zero, "dtype": dtype,
+           "batch": list(batch), "zero_manual": tr.zero_manual}
+    set_counts()
+    with instrument.count_collectives() as cc:
+        loss1, ms1 = _timed_step(tr, toks[0], dev)
+    stats = instrument.collective_stats(cc)
+    tr.sync_to_layer()
+    after1 = gather_reference_state(model)
+    m1 = [gather_reference_state(model, _moment1(tr, model))]
+    # step 2 without the clip: step 1's clip acts, so a gradient's size
+    # shows in the first moments only after an unclipped step
+    tr.optimizer._grad_clip = None
+    with device_trace.capture(steps=1, label=name) as cap:
+        loss2, ms2 = _timed_step(tr, toks[1], dev)
+    counts, _ = read_counts()
+    tr.sync_to_layer()
+    m1.append(gather_reference_state(model, _moment1(tr, model)))
+    tr_sum = cap.summary
+    led = tr.memory_ledger()
+    comm_ms = sum(c["ms"] for c in tr_sum.get("collectives", {}).values())
+    res.update(losses=[loss1, loss2], step_ms=[ms1, ms2],
+               collective_stats=stats, launches=counts, ledger=led,
+               expected=_hybrid_expected(name, cfg, batch, stats, numel,
+                                         n_params),
+               collective_GBps_of_step=[stats["total_bytes"] / ms * 1e-6
+                                        for ms in (ms1, ms2)],
+               trace={"busy_frac": tr_sum.get("busy_frac"),
+                      "device_busy_ms": tr_sum.get("device_busy_ms"),
+                      "wall_ms": tr_sum.get("wall_ms"),
+                      "collective_ms": comm_ms,
+                      "collectives": tr_sum.get("collectives")},
+               peak_bytes=torch.cuda.max_memory_allocated(dev)
+               if dev.type == "cuda" else None)
+    del tr, model
+    M.set_mesh(None)
+    _free_memory(dev)
+    if rank == 0:
+        with uncounted():
+            _replica_check(cfg, dev, init, toks, dtype, after1, m1, led,
+                           res)
+        emit({"hybrid": "replica", **{k: res[k] for k in (
+            "run", "losses", "replica_losses", "param_abs_err",
+            "params_checked", "params_within", "worst_share",
+            "worst_share_param", "replica_grad_norm", "clip_norm",
+            "moment1", "opt_state_ratio")}})
+        for i in range(2):
+            got, want = res["losses"][i], res["replica_losses"][i]
+            assert abs(got - want) <= HYBRID_LOSS_RTOL * abs(want), \
+                (name, i, got, want)
+        assert res["worst_share"] >= HYBRID_PARAM_SHARE, res
+        assert res["replica_grad_norm"] > HYBRID_CLIP, res
+        for mc in res["moment1"]:
+            assert mc["worst_rel_err"] <= HYBRID_M1_RTOL, res
+            assert abs(mc["worst_tensor_scale"] - 1) <= \
+                HYBRID_M1_TENSOR_SCALE_TOL, res
+            assert abs(mc["scale"] - 1) <= HYBRID_M1_SCALE_TOL, res
+        if zero:
+            assert res["opt_state_ratio"] <= 0.5 + 0.05, res
+    del init, after1, m1
+    _free_memory(dev)
+    return res
+
+
+def hybrid_worker(out_dir) -> int:
+    """One rank of the hybrid phase (started by the launcher)."""
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env()
+    rank, dev = env.rank, env.device
+    assert env.world_size == 2 and dev == torch.device("cuda", 0), \
+        (env.world_size, dev)
+    runs = []
+    for name, axes, zero, dtype, batch in HYBRID_RUNS:
+        t0 = time.perf_counter()
+        r = hybrid_run(dev, rank, name, axes, zero, dtype, batch)
+        r["seconds"] = time.perf_counter() - t0
+        runs.append(r)
+    res = {"rank": rank, "runs": runs, "foreign_modules": sorted(
+        m for m in sys.modules if m == "jax" or m.startswith("jax.")
+        or m == "paddle_tpu" or m.startswith("paddle_tpu."))}
+    assert not res["foreign_modules"], res["foreign_modules"]
+    dist.barrier()
+    with open(os.path.join(out_dir, f"hybrid.{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def hybrid_phase(dev, timeout=600):
+    """Launch the hybrid phase's two ranks on this card over gloo; read
+    and check their results. Returns (the ranks' summed launch counts,
+    {})."""
+    res, wall = _run_ranks(dev, "--hybrid-worker", "hybrid", timeout)
+    counts = {k: sum(run["launches"][k] for r in res for run in r["runs"])
+              for k in LAUNCH_COUNTERS}
+    tc = ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc")
+    f32_route = ("flash", "bwd_single", "bwd_dq", "bwd_dkv")
+    for r in res:
+        for run in r["runs"]:
+            emit({"hybrid": "run", "rank": r["rank"], **run})
+            for k in tc:
+                assert run["launches"][k] > 0, (r["rank"], run["run"], k)
+            for k in f32_route:
+                assert run["launches"][k] == 0, (r["rank"], run["run"], k)
+    emit({"hybrid": "phase", "seconds": wall, "launches": counts,
+          "step_ms": {run["run"]: [r["runs"][i]["step_ms"] for r in res]
+                      for i, run in enumerate(res[0]["runs"])},
+          "collective_bytes": {run["run"]: run["collective_stats"][
+              "total_bytes"] for run in res[0]["runs"]},
+          "busy_frac": {run["run"]: [r["runs"][i]["trace"]["busy_frac"]
+                                     for r in res]
+                        for i, run in enumerate(res[0]["runs"])}})
+    return counts, {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--phases", default="kernels,model,engine,spec,kvint8,"
                                         "generate,observe,handoff,deploy,"
-                                        "grad,train,dist",
+                                        "grad,train,dist,hybrid",
                     help="comma-separated subset of kernels, model, engine, "
                          "spec, kvint8, generate, observe, handoff, deploy, "
-                         "grad, train, dist (debugging)")
+                         "grad, train, dist, hybrid (debugging)")
     ap.add_argument("--dist-worker", metavar="OUT_DIR", default=None,
                     help="run one rank of the dist phase (the phase starts "
                          "two through the port's launcher)")
+    ap.add_argument("--hybrid-worker", metavar="OUT_DIR", default=None,
+                    help="run one rank of the hybrid phase")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -4453,6 +4859,8 @@ def main(argv=None) -> int:
         return 2
     if args.dist_worker:
         return dist_worker(args.dist_worker)
+    if args.hybrid_worker:
+        return hybrid_worker(args.hybrid_worker)
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -4748,6 +5156,11 @@ def main(argv=None) -> int:
         # widths (f32, S 1024: the SIMT forward, the merged backward)
         drive("dist", ("flash", "bwd_single"), dist_phase, dev,
               forbid=tc_kernels, remote=True)
+    if "hybrid" in phases:
+        # the trainer on a {dp, tp} mesh, two ranks on this card: amp at
+        # S 2048 (the wgmma forward, dQ and dK/dV at 8 or 16 local heads)
+        drive("hybrid", ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc"),
+              hybrid_phase, dev, forbid=f32_kernels, remote=True)
     emit({"launches_by_path": by_path,
           "chunk_row_launches_by_t": by_t_path})
 

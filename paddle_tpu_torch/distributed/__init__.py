@@ -7,9 +7,11 @@ Process groups and the env protocol (``env``), the mesh of named axes
 (``mesh``), the eager collectives (``collective``), the SPMD primitives
 over a mesh axis (``primitives``), ``DataParallel``, the tensor-parallel
 layers, ``fleet``, and the launcher (``python -m
-paddle_tpu_torch.distributed.launch``). The single-device trainer is
-``hybrid.HybridPipelineTrainer``; its parallel degrees come with ROADMAP
-queue 1 item 7b.
+paddle_tpu_torch.distributed.launch``). The trainers over a {dp, tp}
+mesh with ZeRO 1-3 are ``hybrid.HybridPipelineTrainer`` (the pipeline
+protocol; ``hybrid_gpt.GPTHybridTrainer``) and
+``strategy_compiler.compile_train_step`` (any layer); ``qcomm`` holds
+their data-parallel update.
 """
 from . import fleet, primitives
 from .collective import (ReduceOp, all_gather, all_reduce, alltoall,

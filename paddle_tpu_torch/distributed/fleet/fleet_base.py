@@ -9,6 +9,16 @@ all-reduce and its division, ``gradient_merge``, and ``localsgd`` /
 ``adaptive_localsgd``. The LARS/LAMB swap needs ``Momentum``, ``Lars``
 and ``Lamb`` (ROADMAP queue 1 item 9) and ``save_persistables`` needs
 ``distributed.checkpoint`` (item 7d): both raise, naming their item.
+
+The double gradient sync is kept on purpose: with a model wrapped by
+``DataParallel``, whose ``apply_collective_grads`` has already averaged
+every gradient, ``step`` all-reduces each one again and divides by the
+world size. Those are the reference's eager semantics
+(``paddle_tpu/distributed/fleet/fleet_base.py:199-206``), and the second
+all-reduce averages values that are already equal, so the result does
+not change. The data-parallel path that reduces every gradient once is
+the trainer, ``distributed.hybrid.HybridPipelineTrainer`` (or
+``strategy_compiler.compile_train_step``) on a ``dp`` mesh.
 """
 from __future__ import annotations
 

@@ -7,8 +7,14 @@ parameter takes rank 0's value. ``apply_collective_grads`` averages the
 gradients over the ranks with ONE collective: every gradient flattened
 into one f32 bucket, all-reduced, divided by the world size and cast
 back (the reference Reducer's concat-and-allreduce, reducer.cc:463-559).
+Paired with ``fleet.distributed_optimizer``, each gradient is all-reduced
+a second time at ``step``, the reference's eager semantics
+(``fleet/fleet_base.py``); the trainer ``distributed.hybrid`` on a
+``dp`` mesh reduces once.
 """
 from __future__ import annotations
+
+from typing import List
 
 import torch
 from torch import nn
@@ -17,6 +23,18 @@ from .collective import all_reduce, broadcast
 from .env import get_world_size
 
 __all__ = ["DataParallel"]
+
+
+def bucket_mean(grads: List[torch.Tensor], n: int,
+                group=None) -> List[torch.Tensor]:
+    """The mean over the ``n`` ranks of ``group`` (None: the world) of
+    every tensor of ``grads``, through one fused f32 bucket all-reduce:
+    f32 views of the bucket, shaped like ``grads``."""
+    flat = torch.cat([g.reshape(-1).float() for g in grads])
+    all_reduce(flat, group=group)
+    flat /= n
+    return [c.view(g.shape) for c, g in
+            zip(flat.split([g.numel() for g in grads]), grads)]
 
 
 class DataParallel(nn.Module):
@@ -45,14 +63,9 @@ class DataParallel(nn.Module):
                      if p.grad is not None]
         if not with_grad:
             return
-        bucket = torch.cat([p.grad.reshape(-1).float() for p in with_grad])
-        all_reduce(bucket)
-        bucket /= n
-        offset = 0
-        for p in with_grad:
-            size = p.grad.numel()
-            p.grad.copy_(bucket[offset:offset + size].view_as(p.grad))
-            offset += size
+        for p, g in zip(with_grad,
+                        bucket_mean([p.grad for p in with_grad], n)):
+            p.grad.copy_(g)
 
     def state_dict(self, *args, **kwargs):
         return self._layers.state_dict(*args, **kwargs)

@@ -25,7 +25,16 @@ after them is the same on every ``tp`` rank and counts once:
                  layer whose input is not yet parallel)
 
 ``shard_reference_state`` cuts a reference model's full parameters to
-one rank's shards along those same specs.
+one rank's shards along those same specs, and ``gather_reference_state``
+puts every rank's shards back together under the reference's names and
+layouts. A layer whose sharded dim is not one block of columns declares
+how to read it in ``shard_views``: ``{leaf: (view, axis)}`` reads the
+dim as the ``view`` shape (global sizes) and cuts it on ``axis`` of the
+view. GPT's fused qkv projection declares ``(3, heads, head_dim)`` cut
+on the heads, so that rank r holds q, k and v of heads
+``[r·H/tp, (r+1)·H/tp)``: under GSPMD the reference's arithmetic stays
+global and a contiguous cut of the columns is harmless there, but a rank
+that computes on its own shard needs all three of its heads' q, k, v.
 """
 from __future__ import annotations
 
@@ -43,7 +52,8 @@ from .primitives import _gather, _reduced
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "ParallelEmbedding",
-           "ParallelCrossEntropy", "shard_reference_state", "TP_AXIS"]
+           "ParallelCrossEntropy", "shard_reference_state",
+           "gather_reference_state", "TP_AXIS"]
 
 TP_AXIS = "tp"
 
@@ -129,6 +139,7 @@ class ColumnParallelLinear(Linear):
                                 "bias": P(TP_AXIS)}
         self.output_sharding = P() if gather_output else \
             P(None, None, TP_AXIS)
+        self.shard_views: Dict[str, tuple] = {}
 
     def forward(self, x):
         if self._mesh is None:
@@ -197,6 +208,27 @@ class VocabParallelEmbedding(Embedding):
 ParallelEmbedding = VocabParallelEmbedding
 
 
+def vocab_parallel_ce(z: torch.Tensor, labels: torch.Tensor,
+                      mesh) -> torch.Tensor:
+    """Per-position cross entropy ``logsumexp(z) - z[label]`` of logits
+    ``z`` (f32) whose last dim is this rank's vocab shard (rank i holds
+    ``[i*v, (i+1)*v)``): the row max all-reduced with MAX over ``tp``
+    outside autograd, the sum of exponentials and the target's logit
+    through ``_ReduceFromTP``. Labels outside every shard (ignored
+    positions) give ``logsumexp``; the caller masks them."""
+    group = mesh.group(TP_AXIS)
+    v = z.shape[-1]
+    local = labels - mesh.axis_index(TP_AXIS) * v
+    keep = (local >= 0) & (local < v)
+    m = _reduced(z.detach().amax(-1), ReduceOp.MAX, group)
+    zs = z - m.unsqueeze(-1)
+    sumexp = _ReduceFromTP.apply(zs.exp().sum(-1), group)
+    tgt = _ReduceFromTP.apply(
+        zs.gather(-1, torch.where(keep, local, 0).unsqueeze(-1))
+        .squeeze(-1) * keep.to(zs.dtype), group)
+    return torch.log(sumexp) - tgt
+
+
 class ParallelCrossEntropy(nn.Module):
     """Mean cross entropy over logits whose last dim is the vocab
     (labels ``ignore_index`` are left out; the reference's
@@ -221,19 +253,42 @@ class ParallelCrossEntropy(nn.Module):
                               .unsqueeze(-1)).squeeze(-1)
             loss = -tgt
         else:
-            group = self._mesh.group(TP_AXIS)
-            v = z.shape[-1]
-            local = labels - self._mesh.axis_index(TP_AXIS) * v
-            keep = (local >= 0) & (local < v)
-            m = _reduced(z.detach().amax(-1), ReduceOp.MAX, group)
-            zs = z - m.unsqueeze(-1)
-            sumexp = _ReduceFromTP.apply(zs.exp().sum(-1), group)
-            tgt = _ReduceFromTP.apply(
-                zs.gather(-1, torch.where(keep, local, 0).unsqueeze(-1))
-                .squeeze(-1) * keep.to(zs.dtype), group)
-            loss = torch.log(sumexp) - tgt
+            loss = vocab_parallel_ce(z, labels, self._mesh)
         loss = torch.where(mask, loss, torch.zeros_like(loss))
         return loss.sum() / mask.sum().clamp(min=1)
+
+
+def _sharded_dims(model, name, mesh):
+    """(owning layer's view of each sharded dim, [(dim, axes, size)]) of
+    parameter ``name``: the dims its layer's ``param_shardings`` name over
+    mesh axes of size > 1."""
+    owner, _, leaf = name.rpartition(".")
+    try:
+        mod = model.get_submodule(owner) if owner else model
+    except AttributeError:
+        mod = None
+    spec = getattr(mod, "param_shardings", {}).get(leaf)
+    view = getattr(mod, "shard_views", {}).get(leaf)
+    dims = []
+    if spec is not None and mesh is not None:
+        for dim, names in enumerate(spec):
+            axes = (names,) if isinstance(names, str) else names
+            if names is None or \
+                    any(a not in mesh.axis_names for a in axes):
+                continue
+            n = mesh.axis_size(names)
+            if n > 1:
+                dims.append((dim, names, n))
+    return view, dims
+
+
+def _as_view(shape, dim, view):
+    """``shape`` with ``dim`` read as ``view`` (``None``: as it is)."""
+    if view is None:
+        return tuple(shape), dim
+    vshape, axis = view
+    return tuple(shape[:dim]) + tuple(vshape) + tuple(shape[dim + 1:]), \
+        dim + axis
 
 
 def shard_reference_state(model: nn.Module,
@@ -242,31 +297,63 @@ def shard_reference_state(model: nn.Module,
     """This rank's shard of a reference model's full parameters
     ``{name: array}`` (the reference's ``state_dict()`` as numpy): each
     parameter cut along the dims its owning layer's ``param_shardings``
-    name, at this rank's index on those mesh axes; a parameter no spec
-    names (a DataParallel replica's, a LayerNorm's) is kept whole. Load
-    the result with ``models.gpt.load_reference_state``."""
+    name, at this rank's index on those mesh axes, through the layer's
+    ``shard_views`` where it declares one; a parameter no spec names (a
+    DataParallel replica's, a LayerNorm's) is kept whole. Load the
+    result with ``models.gpt.load_reference_state``."""
     mesh = mesh if mesh is not None else get_mesh()
     out = {}
     for name, arr in state.items():
-        owner, _, leaf = name.rpartition(".")
-        try:
-            mod = model.get_submodule(owner) if owner else model
-        except AttributeError:
-            mod = None
-        spec = getattr(mod, "param_shardings", {}).get(leaf)
         arr = np.asarray(arr)
-        if spec is not None and mesh is not None:
-            for dim, names in enumerate(spec):
-                axes = (names,) if isinstance(names, str) else names
-                if names is None or \
-                        any(a not in mesh.axis_names for a in axes):
-                    continue
-                n = mesh.axis_size(names)
-                if n == 1:
-                    continue
-                size = _shard(arr.shape[dim], n, f"{name} dim {dim}")
-                i = mesh.axis_index(names)
-                arr = np.take(arr, np.arange(i * size, (i + 1) * size),
-                              axis=dim)
+        view, dims = _sharded_dims(model, name, mesh)
+        for dim, names, n in dims:
+            shape = arr.shape
+            vshape, vdim = _as_view(shape, dim, view)
+            size = _shard(vshape[vdim], n, f"{name} dim {dim}")
+            i = mesh.axis_index(names)
+            arr = np.take(arr.reshape(vshape),
+                          np.arange(i * size, (i + 1) * size), axis=vdim)
+            arr = arr.reshape(shape[:dim] + (shape[dim] // n,)
+                              + shape[dim + 1:])
+        out[name] = arr
+    return out
+
+
+def gather_reference_state(model: nn.Module,
+                           state: Mapping[str, np.ndarray] = None,
+                           mesh=None) -> Dict[str, np.ndarray]:
+    """The inverse of ``shard_reference_state``: every rank's shards of
+    ``state`` (this rank's ``{name: array}``; default the model's own,
+    ``models.gpt.state_to_numpy``) all-gathered over the axes they are
+    cut on, back to the reference's full names and layouts (copies, never
+    views of the parameters). Collective: every rank of the mesh calls it
+    and gets the whole state."""
+    from ..models.gpt import state_to_numpy
+
+    mesh = mesh if mesh is not None else get_mesh()
+    if state is None:
+        state = state_to_numpy(model)
+    params = dict(model.named_parameters())
+    out = {}
+    for name, arr in state.items():
+        arr = np.array(arr)
+        view, dims = _sharded_dims(model, name, mesh)
+        if dims:
+            dev = params[name].device if name in params else "cpu"
+            t = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+            for dim, names, n in dims:
+                shape = tuple(t.shape)
+                if view is not None:
+                    vshape, axis = view
+                    vshape = vshape[:axis] + (vshape[axis] // n,) + \
+                        vshape[axis + 1:]
+                    local, vdim = _as_view(shape, dim, (vshape, axis))
+                else:
+                    local, vdim = shape, dim
+                t = _gather(t.reshape(local), mesh.group(names),
+                            mesh.group_order(names), vdim, True)
+                t = t.reshape(shape[:dim] + (shape[dim] * n,)
+                              + shape[dim + 1:])
+            arr = t.cpu().numpy()
         out[name] = arr
     return out

@@ -28,6 +28,25 @@ Paths:
   paged serving engine with ``paged=True``. ``GPTForGeneration`` wraps
   it as a module.
 
+Under a mesh whose ``tp`` axis is > 1 (``distributed.mesh.init_mesh``
+before the model is built) the heads split over ``tp``: each rank holds
+``num_heads / tp`` heads (the qkv projection's shard holds q, k and v of
+those heads: ``parallel_layers.shard_reference_state``), the out and fc
+projections are row-parallel over an already-parallel input, the
+embedding table and the tied head are vocab-sharded, ``forward``
+gathers the logits' vocab shards and ``pipeline_head`` runs the
+vocab-parallel fused loss. Dropout at tp > 1: the masks of the
+replicated regions (after the embeddings, after each MLP's row layer)
+are equal on every rank of a ``tp`` group (``_ReplicatedMasks``): inside
+a ``core.rng.key_scope`` (the trainer opens one a micro-batch and one a
+block) a mask is a pure function of the scope's key, its draw's place
+in the scope and the rank's ``dp`` coordinate, so a block that
+``torch.utils.checkpoint`` recomputes draws the same masks again;
+outside every scope they come from a generator seeded by the ``dp``
+coordinate only, which checkpoint does not restore. Attention-probability
+dropout on the local heads uses the device's default generator. Serving
+and ``generate`` under tp > 1 are ROADMAP queue 1 item 8.
+
 Not in this slice: MoE, sequence parallelism, and the export of
 ``GPTForGeneration`` (ROADMAP queue 1 item 9).
 """
@@ -43,9 +62,11 @@ from torch import nn
 from torch.nn import functional as TF
 
 from ..core.place import resolve_device
+from ..core import rng as _rng
 from ..distributed.parallel_layers import (ColumnParallelLinear,
                                            RowParallelLinear,
-                                           VocabParallelEmbedding, _tp)
+                                           VocabParallelEmbedding,
+                                           _CopyToTP, _GatherFromTP, _tp)
 from ..nn import functional as F
 from ..nn import initializer as I
 from ..nn.layer.common import Embedding
@@ -119,6 +140,34 @@ class GPTConfig:
             self.hidden_size * s
 
 
+class _ReplicatedMasks:
+    """The generator of the replicated regions' dropout masks at tp > 1
+    (the module docstring): reseeded from ``core.rng.scope_key()`` and
+    the ``dp`` coordinate at each draw inside a key scope, else drawn on
+    from its seed (the port's seed and the ``dp`` coordinate)."""
+
+    def __init__(self, dev, dp_index: int):
+        self.dp_index = dp_index
+        self.gen = torch.Generator(device=dev).manual_seed(
+            _rng.generator(dev).initial_seed() + 7919 * (1 + dp_index))
+
+    def generator(self) -> torch.Generator:
+        key = _rng.scope_key()
+        if key is not None:
+            self.gen.manual_seed(_rng.fold_in(key, self.dp_index))
+        return self.gen
+
+
+def _dropout(x, p: float, training: bool, masks=None):
+    """``TF.dropout``, or with ``masks`` (tp > 1: the replicated regions'
+    ``_ReplicatedMasks``) a mask drawn from its generator."""
+    if masks is None or not training or not p:
+        return TF.dropout(x, p, training=training)
+    keep = torch.rand(x.shape, generator=masks.generator(),
+                      device=x.device) >= p
+    return x * keep.to(x.dtype) / (1.0 - p)
+
+
 def _inits(c: GPTConfig):
     return (I.Normal(0.0, c.initializer_range),
             I.Normal(0.0, c.initializer_range / math.sqrt(2 * c.num_layers)))
@@ -129,29 +178,39 @@ class GPTAttention(nn.Module):
         super().__init__()
         c = config
         init, out_init = _inits(c)
-        self.num_heads = c.num_heads
+        tp = _tp()[0]
+        if c.num_heads % tp:
+            raise ValueError(f"num_heads {c.num_heads} does not split over "
+                             f"tp={tp}")
+        self.num_heads = c.num_heads // tp        # this rank's heads
         self.head_dim = c.hidden_size // c.num_heads
         self.qkv_proj = ColumnParallelLinear(
             c.hidden_size, 3 * c.hidden_size, weight_attr=init,
             gather_output=False, device=device)
+        # param_shardings stay the reference's P(None, "tp") / P("tp")
+        # (models/gpt.py:121-122); the shard is cut on the heads of the
+        # [3, H, D] columns
+        view = ((3, c.num_heads, self.head_dim), 1)
+        self.qkv_proj.shard_views = {"weight": view, "bias": view}
         self.out_proj = RowParallelLinear(
             c.hidden_size, c.hidden_size, weight_attr=out_init,
-            device=device)
+            input_is_parallel=True, device=device)
         self.dropout = c.dropout
 
     def forward(self, x):
-        b, s, h = x.shape
+        b, s, _ = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv.unbind(2)
         out = F.scaled_dot_product_attention(
             q, k, v, is_causal=True, dropout_p=self.dropout,
             training=self.training)
-        return self.out_proj(out.reshape(b, s, h))
+        return self.out_proj(out.reshape(b, s, self.num_heads *
+                                         self.head_dim))
 
 
 class GPTMLP(nn.Module):
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig, device=None, masks=None):
         super().__init__()
         c = config
         init, out_init = _inits(c)
@@ -160,19 +219,22 @@ class GPTMLP(nn.Module):
                                           gather_output=False,
                                           device=device)
         self.fc_out = RowParallelLinear(c.ffn_hidden_size, c.hidden_size,
-                                        weight_attr=out_init, device=device)
+                                        weight_attr=out_init,
+                                        input_is_parallel=True,
+                                        device=device)
         self.dropout = c.dropout
+        self._masks = masks
 
     def forward(self, x):
         x = TF.gelu(self.fc_in(x), approximate="tanh")
         x = self.fc_out(x)
-        return TF.dropout(x, self.dropout, training=self.training)
+        return _dropout(x, self.dropout, self.training, self._masks)
 
 
 class GPTBlock(nn.Module):
     """Pre-norm transformer block."""
 
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig, device=None, masks=None):
         super().__init__()
         if config.moe_num_experts > 0:
             raise NotImplementedError(
@@ -183,7 +245,7 @@ class GPTBlock(nn.Module):
         self.attn = GPTAttention(config, device=device)
         self.ln_2 = LayerNorm(config.hidden_size,
                               epsilon=config.layer_norm_eps, device=device)
-        self.mlp = GPTMLP(config, device=device)
+        self.mlp = GPTMLP(config, device=device, masks=masks)
 
     def forward(self, x):
         x = x + self.attn(self.ln_1(x))
@@ -192,7 +254,7 @@ class GPTBlock(nn.Module):
 
 
 class GPTEmbeddings(nn.Module):
-    def __init__(self, config: GPTConfig, device=None):
+    def __init__(self, config: GPTConfig, device=None, masks=None):
         super().__init__()
         c = config
         self.wte = VocabParallelEmbedding(
@@ -202,12 +264,13 @@ class GPTEmbeddings(nn.Module):
             c.max_seq_len, c.hidden_size,
             weight_attr=I.Normal(0.0, c.initializer_range), device=device)
         self.dropout = c.dropout
+        self._masks = masks
 
     def forward(self, tokens):
         s = tokens.shape[1]
         pos = torch.arange(s, device=tokens.device)
         x = self.wte(tokens) + self.wpe(pos)[None]
-        return TF.dropout(x, self.dropout, training=self.training)
+        return _dropout(x, self.dropout, self.training, self._masks)
 
 
 class GPT(nn.Module):
@@ -215,21 +278,26 @@ class GPT(nn.Module):
     ``loss`` computes the shifted next-token cross entropy.
 
     ``device=None`` means ``"cuda"`` (and raises without a CUDA device);
-    pass ``device="cpu"`` to run the plain versions on the CPU. A current
-    mesh with a ``tp`` axis of size > 1 raises: splitting the heads is
-    ROADMAP queue 1 item 7b.
+    pass ``device="cpu"`` to run the plain versions on the CPU. Built
+    under a mesh whose ``tp`` axis is > 1, the model is this rank's shard
+    (the module docstring).
     """
 
     def __init__(self, config: GPTConfig, device=None):
         super().__init__()
-        if _tp()[0] > 1:
-            raise NotImplementedError(
-                "GPT at tp > 1 is not ported yet: ROADMAP queue 1 item 7b "
-                "(the attention heads are not split over the tp axis)")
         dev = resolve_device(device)
         self.config = config
-        self.embeddings = GPTEmbeddings(config, device=dev)
-        self.blocks = nn.ModuleList([GPTBlock(config, device=dev)
+        tp, mesh = _tp()
+        masks = None
+        if tp > 1:
+            # the replicated regions' dropout masks: equal on every rank
+            # of a tp group
+            dp_index = mesh.axis_index("dp") if "dp" in mesh.axis_names \
+                else 0
+            masks = _ReplicatedMasks(dev, dp_index)
+        self.embeddings = GPTEmbeddings(config, device=dev, masks=masks)
+        self.blocks = nn.ModuleList([GPTBlock(config, device=dev,
+                                              masks=masks)
                                      for _ in range(config.num_layers)])
         self.ln_f = LayerNorm(config.hidden_size,
                               epsilon=config.layer_norm_eps, device=dev)
@@ -243,13 +311,23 @@ class GPT(nn.Module):
     def device(self) -> torch.device:
         return self.embeddings.wte.weight.device
 
+    @property
+    def _tp_mesh(self):
+        """The mesh the vocab is sharded over (None at tp 1)."""
+        return self.embeddings.wte._mesh
+
     def forward(self, tokens):
         x = self.embeddings(tokens)
         for blk in self.blocks:
             x = blk(x)
         x = self.ln_f(x)
         if self.config.tie_word_embeddings:
-            return x @ self.embeddings.wte.weight.T
+            mesh = self._tp_mesh
+            if mesh is None:
+                return x @ self.embeddings.wte.weight.T
+            x = _CopyToTP.apply(x, mesh.group("tp"))
+            return _GatherFromTP.apply(x @ self.embeddings.wte.weight.T,
+                                       mesh)
         return self.lm_head(x)
 
     # --- pipeline protocol (distributed/hybrid.py) -----------------------
@@ -271,10 +349,10 @@ class GPT(nn.Module):
         if self.config.tie_word_embeddings:
             return fused_linear_cross_entropy(
                 x, self.embeddings.wte.weight, lbl, chunk=256,
-                next_token=next_token)
+                next_token=next_token, mesh=self._tp_mesh)
         return fused_linear_cross_entropy(
             x, self.lm_head.weight, lbl, chunk=256, transpose_w=True,
-            next_token=next_token)
+            next_token=next_token, mesh=self.lm_head._mesh)
 
     def pipeline_label_count(self, tokens, labels=None):
         """Non-ignored targets of ``pipeline_head`` for this batch: the
@@ -696,7 +774,12 @@ def gpt_paged_suffix_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
 def _gpt_decode_state(model: GPT) -> Tuple[List[Dict[str, torch.Tensor]],
                                            Dict[str, torch.Tensor]]:
     """(per-layer ``{suffix: tensor}`` list, ``{name: tensor}`` of the
-    rest) — detached views of the model's parameters."""
+    rest) — detached views of the model's parameters. Under tp > 1 the
+    serving engine and ``generate`` raise (they read whole weights)."""
+    if model._tp_mesh is not None:
+        raise NotImplementedError(
+            "serving and generate() of a GPT built at tp > 1 are not "
+            "ported yet: ROADMAP queue 1 item 8 (multi-process serving)")
     stacked = [{n: t.detach() for n, t in blk.named_parameters()}
                for blk in model.blocks]
     other = {n: t.detach() for n, t in model.named_parameters()

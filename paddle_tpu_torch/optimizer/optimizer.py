@@ -108,15 +108,25 @@ class Optimizer:
         return 1.0
 
     @torch.no_grad()
+    def _update_param(self, p, g, s, lr: float, step: int, plr=1.0,
+                      wd=0.0) -> None:
+        """The update rule of one parameter (or a flat slice of several)
+        ``p`` and its state ``s``, in place, from its clipped gradient
+        ``g``: the L2 decay (``weight_decay`` as a number) on the f32
+        gradient, then ``_update`` at ``lr * plr`` with decoupled decay
+        ``wd`` (``plr`` and ``wd``: numbers, or vectors laid out like a
+        flat ``p``)."""
+        g = g.float()
+        if self._weight_decay:
+            g = g + self._weight_decay * p.float()
+        self._update(p, g, s, lr * plr, step, wd=wd)
+
     def _apply_updates(self, params, lr: float, step: int) -> None:
         """One update of every parameter in ``params`` from its ``.grad``
-        (already clipped): the shared rule of ``step`` and the trainer."""
+        (already clipped)."""
         for p in params:
-            g = p.grad.float()
-            if self._weight_decay:
-                g = g + self._weight_decay * p.float()
-            self._update(p, g, self._state_for(p), lr * self._lr_ratio(p),
-                         step, wd=self._decoupled_wd(p))
+            self._update_param(p, p.grad, self._state_for(p), lr, step,
+                               self._lr_ratio(p), self._decoupled_wd(p))
 
     # -- step --------------------------------------------------------------
     @torch.no_grad()

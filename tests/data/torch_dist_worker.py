@@ -15,8 +15,14 @@ Jobs: ``collectives`` (2 ranks: the eager API, its accounting,
 ``fleet.metrics``, ``MetricsRegistry.aggregate``), ``mesh`` (4 ranks, a
 {"dp": 2, "tp": 2} mesh: the primitives' outputs, gradients and
 accounting), ``dp`` (2 ranks: DataParallel and the fleet optimizer on
-gpt_tiny, gradient merge, LocalSGD) and ``tp`` (2 ranks: the
-tensor-parallel layers at tp = 2).
+gpt_tiny, gradient merge, LocalSGD), ``tp`` (2 ranks: the
+tensor-parallel layers at tp = 2), ``gpt_tp`` (GPT at tp = 2: the qkv
+shard's heads, logits, loss and gradients, the state's round trip),
+``hybrid`` (the trainer cases listed in ``inputs.npz``: mesh, ZeRO stage,
+amp, recompute, storage dtypes; 2 or 4 ranks), ``compile``
+(``compile_train_step`` with a ``loss_fn`` and gradient merge) and
+``dp_pair`` (the eager DataParallel + fleet optimizer pair against the
+trainer at dp = 2).
 """
 import json
 import os
@@ -411,6 +417,296 @@ def job_tp(inp, rank, arrays, values):
                 list(row.param_shardings["bias"]),
                 list(row.output_sharding)],
         "emb": [list(emb.param_shardings["weight"])]}
+
+
+# ---------------------------------------------------------------------------
+# the strategy compiler and the hybrid trainer
+# ---------------------------------------------------------------------------
+def _state(inp):
+    return {k[6:]: v for k, v in inp.items() if k.startswith("state.")}
+
+
+def _gpt_sharded(inp, cfg, axes):
+    """A port GPT built under a mesh of ``axes``, loaded with this rank's
+    shard of the reference state; (mesh, model)."""
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import parallel_layers as PL
+    from paddle_tpu_torch.models import gpt as tgpt
+
+    m = M.init_mesh(axes)
+    net = tgpt.GPT(tgpt.GPTConfig(**cfg), device="cpu")
+    tgpt.load_reference_state(net, PL.shard_reference_state(
+        net, _state(inp), m))
+    return m, net
+
+
+def job_gpt_tp(inp, rank, arrays, values):
+    import torch
+
+    from paddle_tpu_torch.distributed import parallel_layers as PL
+    from paddle_tpu_torch.models import gpt as tgpt
+    from paddle_tpu_torch.profiler import instrument
+
+    cfg = json.loads(str(inp["cfg"]))
+    m, net = _gpt_sharded(inp, cfg, {"tp": 2})
+    state = _state(inp)
+    local = tgpt.state_to_numpy(net)
+    values["qkv_shape"] = list(local["blocks.0.attn.qkv_proj.weight"].shape)
+    # the qkv shard holds heads [2r, 2r+2) of q, k and v
+    nh, h = cfg["num_heads"], cfg["hidden_size"]
+    hd = h // nh
+    full = state["blocks.0.attn.qkv_proj.weight"].reshape(h, 3, nh, hd)
+    want = full[:, :, 2 * rank:2 * rank + 2].reshape(h, -1)
+    values["qkv_heads_exact"] = bool(np.array_equal(
+        local["blocks.0.attn.qkv_proj.weight"], want))
+    fb = state["blocks.0.attn.qkv_proj.bias"].reshape(3, nh, hd)
+    values["qkv_bias_heads_exact"] = bool(np.array_equal(
+        local["blocks.0.attn.qkv_proj.bias"],
+        fb[:, 2 * rank:2 * rank + 2].reshape(-1)))
+    back = PL.gather_reference_state(net)
+    values["roundtrip_exact"] = sorted(
+        n for n, a in back.items() if not np.array_equal(a, state[n]))
+    values["roundtrip_names"] = sorted(back) == sorted(state)
+    tok = torch.from_numpy(inp["tok"]).long()
+    net.eval()
+    with torch.no_grad():
+        arrays["logits"] = net(tok).numpy()
+    net.train()
+    with instrument.count_collectives() as cc:
+        loss = net.loss(tok)
+        loss.backward()
+    values["loss_stats"] = instrument.collective_stats(cc)
+    values["loss"] = float(loss)
+    grads = PL.gather_reference_state(
+        net, {n: p.grad.numpy() for n, p in net.named_parameters()})
+    for n, g in grads.items():
+        arrays[f"grad.{n}"] = g
+    try:
+        net.generate(tok[:, :4], max_new_tokens=2)
+        values["generate_raises"] = ""
+    except NotImplementedError as e:
+        values["generate_raises"] = str(e)
+
+
+def job_tp_rng_clip(inp, rank, arrays, values):
+    """GPT at tp 2 under the trainer: (1) at dropout 0.1, one step's
+    gradients with and without recompute (the checkpointed blocks must
+    draw the same replicated-region masks again), the embeddings' output
+    under a key scope and the replicated parameters' gradients, both to
+    be compared across the tp ranks; (2) at dropout 0 with
+    ``embeddings.wte.weight`` frozen, the reduced gradients before the
+    global-norm clip and the first moments after one step, gathered."""
+    import torch
+
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.core import rng as trng
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import parallel_layers as PL
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.hybrid_gpt import GPTHybridTrainer
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = json.loads(str(inp["cfg"]))
+    tok = torch.from_numpy(inp["tok"]).long()
+
+    def trainer(net, recompute=False, clip=None):
+        opt = AdamW(float(inp["lr"]), parameters=net.named_parameters(),
+                    grad_clip=clip)
+        s = DistributedStrategy()
+        s.recompute = recompute
+        return GPTHybridTrainer(net, opt, s, M.get_mesh())
+
+    for name, recompute in (("plain", False), ("remat", True)):
+        m, net = _gpt_sharded(inp, dict(cfg, dropout=float(inp["p"])),
+                              {"tp": 2})
+        tr = trainer(net, recompute)
+        torch.manual_seed(11)             # the attention probabilities'
+        tr._step = 1
+        values[f"{name}.loss"] = float(tr._loss((tok,), backward=True))
+        for n, p in net.named_parameters():
+            arrays[f"{name}.grad.{n}"] = p.grad.numpy().copy()
+        M.set_mesh(None)
+    net.train()
+    with trng.key_scope(5):
+        arrays["stem"] = net.pipeline_stem(tok).detach().numpy()
+    with torch.no_grad():
+        arrays["stem_eval"] = net.eval().pipeline_stem(tok).numpy()
+
+    m, net = _gpt_sharded(inp, cfg, {"tp": 2})
+    net.embeddings.wte.weight.requires_grad_(False)
+    tr = trainer(net, clip=tnn.ClipGradByGlobalNorm(float(inp["clip"])))
+    tr._loss((tok,), backward=True)
+    grads = tr._upd._reduced_grads()
+    live = {n: g.numpy().copy() for n, g in zip(tr._names, grads)
+            if g is not None}
+    values["frozen_without_grad"] = sorted(set(tr._names) - set(live))
+    for n, g in PL.gather_reference_state(net, live).items():
+        arrays[f"clip.before.{n}"] = g
+    tr._upd.zero_grad()
+    tr.step(tok)              # AdamW's first moment is 0.1 x the clipped g
+    tr.sync_to_layer()
+    m1 = {n: tr.optimizer._accumulators[id(p)]["moment1"].numpy()
+          for n, p in net.named_parameters()}
+    for n, m in PL.gather_reference_state(net, m1).items():
+        arrays[f"clip.moment1.{n}"] = m
+    M.set_mesh(None)
+
+
+def _trainer_case(inp, case, rank, arrays, values):
+    """One trainer case: build, train ``steps`` steps on the global batch,
+    record losses, the first step's collectives, the ledger and the
+    gathered state."""
+    import torch
+
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import parallel_layers as PL
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.hybrid_gpt import GPTHybridTrainer
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import instrument, recompile
+
+    name = case["name"]
+    cfg = json.loads(str(inp["cfg"]))
+    m, net = _gpt_sharded(inp, cfg, case["mesh"])
+    clip = case.get("clip", float(inp["clip"]))
+    opt = AdamW(float(inp["lr"]), parameters=net.named_parameters(),
+                weight_decay=0.01, grad_clip=None if clip is None
+                else tnn.ClipGradByGlobalNorm(clip))
+    s = DistributedStrategy()
+    s.amp, s.recompute = case.get("amp", False), case.get("recompute",
+                                                          False)
+    if case.get("zero"):
+        s.sharding = True
+        s.sharding_configs = {"sharding_stage": case["zero"]}
+    kw = {k: case[k] for k in ("param_dtype", "moment_dtype",
+                               "remat_policy", "dp_param_comm", "n_micro")
+          if k in case}
+    tr = GPTHybridTrainer(net, opt, s, m, **kw)
+    values[f"{name}.zero_manual"] = tr.zero_manual
+    losses = []
+    for i, tok in enumerate(inp["steps_tok"]):
+        tok = torch.from_numpy(tok[:case.get("batch")]).long()
+        if i == 0:
+            with instrument.count_collectives() as cc:
+                losses.append(float(tr.step(tok)))
+            values[f"{name}.stats"] = instrument.collective_stats(cc)
+        else:
+            losses.append(float(tr.step(tok)))
+    values[f"{name}.losses"] = losses
+    values[f"{name}.ledger"] = tr.memory_ledger()
+    values[f"{name}.traces"] = recompile.trace_counts().get(tr._prof_site)
+    values[f"{name}.numel"] = sum(p.numel() for p in net.parameters()
+                                  if p.numel())
+    tr.sync_to_layer()
+    full = PL.gather_reference_state(net)
+    moments = {}
+    for n, p in net.named_parameters():
+        moments[n] = opt._accumulators[id(p)]["moment1"].float().numpy()
+    full_m = PL.gather_reference_state(net, moments)
+    if rank == 0:
+        for n, a in full.items():
+            arrays[f"{name}.param.{n}"] = a
+        for n, a in full_m.items():
+            arrays[f"{name}.moment1.{n}"] = a
+    M.set_mesh(None)
+
+
+def job_hybrid(inp, rank, arrays, values):
+    for case in json.loads(str(inp["cases"])):
+        _trainer_case(inp, case, rank, arrays, values)
+
+
+def job_compile(inp, rank, arrays, values):
+    import torch
+
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.strategy_compiler import \
+        compile_train_step
+    from paddle_tpu_torch.models import gpt as tgpt
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import instrument
+
+    cfg = json.loads(str(inp["cfg"]))
+    v = cfg["vocab_size"]
+
+    def ce(out, lbl):
+        return torch.nn.functional.cross_entropy(
+            out.reshape(-1, v).float(), lbl.reshape(-1).long())
+
+    for name, zero, loss_fn in (("loss_fn", 0, ce), ("model_loss", 2, None)):
+        m, net = _gpt_sharded(inp, cfg, {"dp": 2})
+        opt = AdamW(float(inp["lr"]), parameters=net.named_parameters(),
+                    weight_decay=0.01,
+                    grad_clip=tnn.ClipGradByGlobalNorm(float(inp["clip"])))
+        s = DistributedStrategy()
+        if zero:
+            s.sharding = True
+            s.sharding_configs = {"sharding_stage": zero}
+        tr = compile_train_step(net, opt, s, m, loss_fn=loss_fn,
+                                accumulate_steps=2)
+        values[f"{name}.zero_manual"] = tr.zero_manual
+        losses = []
+        for i, tok in enumerate(inp["steps_tok"]):
+            tok = torch.from_numpy(tok).long()
+            batch = (tok, torch.from_numpy(inp["steps_lbl"][i]).long()) \
+                if loss_fn is not None else (tok,)
+            with instrument.count_collectives() as cc:
+                losses.append(float(tr.step(*batch)))
+            if i == 0:
+                values[f"{name}.stats"] = instrument.collective_stats(cc)
+        values[f"{name}.losses"] = losses
+        tr.sync_to_layer()
+        for n, a in tgpt.state_to_numpy(net).items():
+            arrays[f"{name}.param.{n}"] = a
+        M.set_mesh(None)
+
+
+def job_dp_pair(inp, rank, arrays, values):
+    """The eager DataParallel + fleet.distributed_optimizer pair (each
+    gradient all-reduced twice) against the trainer at dp = 2 (once)."""
+    import torch
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.hybrid import HybridPipelineTrainer
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import instrument
+
+    cfg = json.loads(str(inp["cfg"]))
+    lr = float(inp["lr"])
+    tok = torch.from_numpy(inp["tok"]).long()
+    net = _gpt(inp, cfg)
+    dp = paddle_tpu_torch.DataParallel(net)
+    fleet.init(is_collective=True)
+    opt = AdamW(lr, parameters=net.named_parameters(), weight_decay=0.01)
+    dopt = fleet.distributed_optimizer(opt)
+    with instrument.count_collectives() as cc:
+        net.loss(tok.chunk(2)[rank]).backward()
+        dp.apply_collective_grads()
+        dopt.step()
+    values["eager_stats"] = instrument.collective_stats(cc)
+    for n, p in net.named_parameters():
+        arrays[f"eager.grad.{n}"] = p.grad.numpy().copy()
+        arrays[f"eager.param.{n}"] = p.detach().numpy().copy()
+
+    m, net = _gpt_sharded(inp, cfg, {"dp": 2})
+    opt = AdamW(lr, parameters=net.named_parameters(), weight_decay=0.01)
+    tr = HybridPipelineTrainer(net, opt, mesh=m)
+    with instrument.count_collectives() as cc:
+        tr._loss((tok,), backward=True)
+        grads = tr._upd._reduced_grads()
+    values["trainer_stats"] = instrument.collective_stats(cc)
+    for n, g in zip(tr._names, grads):
+        arrays[f"trainer.grad.{n}"] = g.numpy().copy()
+    tr._upd.zero_grad()
+    tr.step(tok)
+    for n, p in net.named_parameters():
+        arrays[f"trainer.param.{n}"] = p.detach().numpy().copy()
+    M.set_mesh(None)
 
 
 def main():

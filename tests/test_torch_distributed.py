@@ -266,13 +266,29 @@ def test_split_builds_the_parallel_layer(clean_env, op, axis, size, shape):
 
 
 def test_gpt_at_tp_above_one_names_item_7b(clean_env):
-    """A GPT built under a tp > 1 mesh would shard its projections but
-    not its heads: it raises instead, naming the ROADMAP item."""
+    """ROADMAP item 7b splits GPT's heads over tp: built under a tp 2
+    mesh, each rank holds half of the heads and of the vocab, its qkv
+    shard cut on the heads. Serving such a model (generate, the engine)
+    is item 8 and raises, naming it."""
+    from paddle_tpu_torch.serving import ServingConfig, ServingEngine
+
     clean_env.setattr(tmesh, "_current_mesh", types.SimpleNamespace(
-        axis_names=("dp", "tp"), shape={"dp": 1, "tp": 2}))
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        tgpt.GPT(tgpt.GPTConfig(vocab_size=64, hidden_size=32, num_layers=1,
-                                num_heads=2, max_seq_len=16), device="cpu")
+        axis_names=("dp", "tp"), shape={"dp": 1, "tp": 2},
+        axis_index=lambda name: 0))
+    net = tgpt.GPT(tgpt.GPTConfig(vocab_size=64, hidden_size=32,
+                                  num_layers=1, num_heads=2, max_seq_len=16),
+                   device="cpu")
+    attn = net.blocks[0].attn
+    assert attn.num_heads == 1
+    assert tuple(attn.qkv_proj.weight.shape) == (32, 48)
+    assert attn.qkv_proj.shard_views["weight"] == ((3, 2, 16), 1)
+    assert tuple(net.embeddings.wte.weight.shape) == (32, 32)
+    assert attn.out_proj.input_is_parallel
+    with pytest.raises(NotImplementedError, match="item 8"):
+        net.generate(torch.zeros(1, 4, dtype=torch.long), max_new_tokens=2)
+    with pytest.raises(NotImplementedError, match="item 8"):
+        ServingEngine(net, ServingConfig(num_slots=1, page_size=4,
+                                         pages_per_slot=4))
 
 
 # ---------------------------------------------------------------------------

@@ -34,14 +34,19 @@ CHECKER = os.path.join(REPO, "tools", "check_sink_schema.py")
 
 @pytest.fixture(autouse=True)
 def _clean():
-    """No active sink, an empty event ring and a registry holding one
-    counter in both packages (the schema wants a TYPE line in every
-    metrics.prom; sequence numbers keep advancing: the documented clear()
-    contract)."""
-    for s, p, ev in ((tsink, tprof, tev), (jsink, jprof, jev)):
+    """No active sink, an empty event ring, a registry holding one
+    counter and an unsynced clock in both packages (the schema wants a
+    TYPE line in every metrics.prom; sequence numbers keep advancing: the
+    documented clear() contract; a ClockSync run by another test file in
+    the same worker process leaves its clock state behind)."""
+    from paddle_tpu.profiler import disttrace as jdt
+    from paddle_tpu_torch.profiler import disttrace as tdt
+
+    for s, p, ev, dt in ((tsink, tprof, tev, tdt), (jsink, jprof, jev, jdt)):
         s.disable_sink()
         p.reset()
         ev.set_enabled(True)
+        dt.reset_clock_state()
         p.registry().counter("test/runs").add(1)
     yield
     for s, p in ((tsink, tprof), (jsink, jprof)):

@@ -194,7 +194,7 @@ def test_step_matmul_flops_ratio_to_forward(recompute):
         0, cfg.vocab_size, (b, s)))
     assert fa.supported((b // 2, s, cfg.num_heads, 32), None, 0.0)
     with torch.no_grad():
-        _, fwd = tps.count(tr._loss, (toks,), toks.device, b, False)
+        _, fwd = tps.count(tr._loss, (toks,), False)
     tr.step(toks)
     step = tr._program_counts[tr._prof_site]
     h, v, layers = cfg.hidden_size, cfg.vocab_size, cfg.num_layers

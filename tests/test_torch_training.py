@@ -26,6 +26,8 @@ of its kernels on CPU tensors.
   clips, and the recipe's schedule over 30 steps against the JAX
   package's.
 """
+import types
+
 import numpy as np
 import pytest
 import torch
@@ -300,12 +302,14 @@ def test_eager_loop_matches_trainer():
 def test_trainer_refuses_what_it_does_not_run():
     net = tgpt.GPT(tgpt.GPTConfig(**CFG), device="cpu")
     opt = AdamW(1e-3, parameters=net.named_parameters())
-    for kw, match in ((dict(remat_policy="dots"), "queue 1 item 7"),
-                      (dict(offload_params=True), "queue 1 item 7"),
-                      (dict(stream_layers=True), "queue 1 item 7"),
+    pp_mesh = types.SimpleNamespace(shape={"dp": 1, "pp": 2},
+                                    axis_names=("dp", "pp"))
+    for kw, match in ((dict(v_virtual=2), "queue 1 item 7c"),
+                      (dict(offload_params=True), "queue 1 item 7d"),
+                      (dict(stream_layers=True), "queue 1 item 7d"),
                       (dict(guard_bad_steps=True), "queue 1 item 8"),
-                      (dict(dp_grad_comm="int8"), "queue 1 item 7"),
-                      (dict(mesh=object()), "queue 1 item 7")):
+                      (dict(dp_grad_comm="int8"), "queue 1 item 7d"),
+                      (dict(mesh=pp_mesh), "queue 1 item 7c")):
         with pytest.raises(NotImplementedError, match=match):
             HybridPipelineTrainer(net, opt, **kw)
     s = DistributedStrategy()
