@@ -7,11 +7,13 @@ Process groups and the env protocol (``env``), the mesh of named axes
 (``mesh``), the eager collectives (``collective``), the SPMD primitives
 over a mesh axis (``primitives``), ``DataParallel``, the tensor-parallel
 layers, ``fleet``, and the launcher (``python -m
-paddle_tpu_torch.distributed.launch``). The trainers over a {dp, tp}
-mesh with ZeRO 1-3 are ``hybrid.HybridPipelineTrainer`` (the pipeline
-protocol; ``hybrid_gpt.GPTHybridTrainer``) and
-``strategy_compiler.compile_train_step`` (any layer); ``qcomm`` holds
-their data-parallel update.
+paddle_tpu_torch.distributed.launch``). The trainers over a {dp, pp,
+tp, sp, ep} mesh with ZeRO 1-3 are ``hybrid.HybridPipelineTrainer`` (the
+pipeline protocol; ``hybrid_gpt.GPTHybridTrainer``) and
+``strategy_compiler.compile_train_step`` (any layer; dp, tp and ep);
+``qcomm`` holds their data-parallel update, ``pipeline`` the schedules
+over ``pp``, ``moe`` the expert-parallel MoE layer and
+``ops.ring_attention`` the ring over ``sp``.
 """
 from . import fleet, primitives
 from .collective import (ReduceOp, all_gather, all_reduce, alltoall,

@@ -8,10 +8,19 @@ threads the same information through rewritten per-rank programs and
 ring ids (fleet meta-optimizers, meta_optimizers/common.py); here it is
 a scoped (mesh, axis) pair.
 
-The reference's ``pipeline_auto_axes_scope``, ``in_partial_manual_region``
-and ``nested_kernel_shard`` (``context.py:59-115``) serve a Mosaic
-partitioning rule that has no CUDA counterpart; they come with their
-only callers, the pipeline and ring attention (ROADMAP queue 1 item 7c).
+The pipeline's scopes (``pipeline_auto_axes_scope``,
+``current_pipeline_auto_axes``, ``in_partial_manual_region``,
+``nested_kernel_shard``; reference ``context.py:58-115``) keep the
+reference's observable contract: scopes nest and restore, and the
+getters return what the scope set. They serve a Mosaic partitioning
+rule (every mesh axis manual around a Pallas call) that has no CUDA
+counterpart: every rank of the port already runs its own shard, so
+there is never a partially manual region and a kernel needs no nesting.
+
+``moe_routing_scope`` is the port's own: the mesh axes over which an
+MoE layer routes its tokens (``distributed/moe.py``). Under GSPMD the
+reference's router sees the global micro-batch; a rank of the port sees
+its slice, so the trainers name the axes the batch was cut over.
 """
 from __future__ import annotations
 
@@ -21,7 +30,10 @@ from typing import Optional, Tuple
 from .mesh import Mesh
 
 __all__ = ["sequence_parallel_scope", "manual_sequence_parallel_scope",
-           "current_sequence_parallel"]
+           "current_sequence_parallel", "pipeline_auto_axes_scope",
+           "current_pipeline_auto_axes", "in_partial_manual_region",
+           "nested_kernel_shard", "moe_routing_scope",
+           "current_moe_routing"]
 
 _SP: Optional[Tuple[Mesh, str, bool]] = None
 
@@ -57,3 +69,66 @@ def manual_sequence_parallel_scope():
 
 def current_sequence_parallel() -> Optional[Tuple[Mesh, str, bool]]:
     return _SP
+
+
+_PIPE_AUTO: Optional[Tuple[Mesh, Tuple[str, ...]]] = None
+
+
+@contextlib.contextmanager
+def pipeline_auto_axes_scope(mesh: Mesh, axes):
+    """Inside the pipeline's stage body, the mesh axes other than ``pp``
+    (and a manual ``sp``). The reference's kernels read it to nest a
+    shard_map; the port records it with the same nesting contract."""
+    global _PIPE_AUTO
+    prev = _PIPE_AUTO
+    _PIPE_AUTO = (mesh, tuple(axes))
+    try:
+        yield
+    finally:
+        _PIPE_AUTO = prev
+
+
+def current_pipeline_auto_axes() -> Optional[Tuple[Mesh, Tuple[str, ...]]]:
+    return _PIPE_AUTO
+
+
+def in_partial_manual_region() -> bool:
+    """Always False in the port: each rank runs its own shard of every
+    axis, so no region is partially manual (the reference: True inside
+    the pipeline scope on a non-CPU target)."""
+    return False
+
+
+def nested_kernel_shard(fn, in_specs, out_specs):
+    """The reference wraps ``fn`` in a shard_map over the scope's auto
+    axes (None outside a scope). A rank of the port already holds its
+    shard of every axis and calls a kernel on it directly, so inside a
+    scope this returns ``fn`` unchanged, and None outside one, as the
+    reference does. ``in_specs``/``out_specs`` are accepted and unused."""
+    if _PIPE_AUTO is None:
+        return None
+    return fn
+
+
+_MOE_ROUTE: Optional[Tuple[Mesh, Tuple[str, ...]]] = None
+
+
+@contextlib.contextmanager
+def moe_routing_scope(mesh: Optional[Mesh], axes=("dp",)):
+    """Within this scope an MoE layer routes over every token of the
+    ranks along ``axes`` (those of size > 1; the first name major in
+    the global token order, as the batch is cut: dim 0 over ``dp``, dim
+    1 over ``sp``). None or no such axis: each rank routes its own."""
+    global _MOE_ROUTE
+    prev = _MOE_ROUTE
+    kept = tuple(a for a in axes if mesh is not None
+                 and mesh.shape.get(a, 1) > 1)
+    _MOE_ROUTE = (mesh, kept) if kept else None
+    try:
+        yield
+    finally:
+        _MOE_ROUTE = prev
+
+
+def current_moe_routing() -> Optional[Tuple[Mesh, Tuple[str, ...]]]:
+    return _MOE_ROUTE

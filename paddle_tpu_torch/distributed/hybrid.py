@@ -1,5 +1,5 @@
-"""Model-agnostic hybrid-parallel trainer on a ``{dp, tp}`` mesh with
-ZeRO 1-3 (mirrors ``paddle_tpu/distributed/hybrid.py``).
+"""Model-agnostic hybrid-parallel trainer on the full mesh ``{dp, pp,
+tp, sp, ep}`` with ZeRO 1-3 (mirrors ``paddle_tpu/distributed/hybrid.py``).
 
 The model declares the reference's three-method pipeline protocol
 (``models/gpt.py``):
@@ -8,36 +8,71 @@ The model declares the reference's three-method pipeline protocol
   pipeline_blocks()      -> list of identical blocks
   pipeline_head(x, *batch) -> scalar loss     (norm + head + loss)
 
-``step(*batch)`` takes the GLOBAL batch, as the reference's does, on
-every rank; each rank takes its dp slice of dim 0
-(``qcomm.dp_batch_specs``). The slice splits on dim 0 into ``n_micro``
-micro-batches (``pipeline.py``'s ``_to_microbatches``); each runs stem
--> blocks -> head and its backward, and the gradients accumulate. A
-micro-batch's mean loss is weighed by its share of the GLOBAL batch's
-non-ignored targets (``pipeline_label_count`` of the global batch, the
-all-reduce over dp of the ranks' counts; equal shares without it), times
-dp, so that the dp mean of the ranks' losses and gradients is the
-reference's one head over the full output.
+and, for pp > 1, ``pipeline_stem_spec(*batch) -> (shape, dtype)`` of the
+stem's output (what a stage after the first receives).
 
-Then the update of ``strategy_compiler._ShardedUpdate``: the gradients
-reduced over ``dp`` once (a flat f32 bucket all-reduce at ZeRO 0; the
-reduce-scatter of a ZeRO route), the optimizer's clip with norms summed
-over the shard axes, the reference's update rule at
-``optimizer.get_lr()``, the cast-back to the storage dtypes, and the
-parameters made whole again. The two ZeRO routes are selected as the
-reference selects them (``zero_manual``: stages 1-2 on a pure-dp mesh
-with f32 storage take the flat slab of ``qcomm.dp_zero_step``;
-everything else the per-parameter ``_add_axis`` route). The data-parallel
-path of this trainer reduces every gradient once; the eager pair
+``step(*batch)`` takes the GLOBAL batch, as the reference's does, on
+every rank. The batch splits on dim 0 into ``n_micro`` micro-batches
+(``pipeline.py``'s ``_to_microbatches``) and each rank takes its ``dp``
+slice of every micro-batch, so that a rank's micro-batch i is its part
+of the reference's micro-batch i (an MoE layer routes over exactly
+those tokens: ``context.moe_routing_scope``). Under ``sp`` the model
+cuts dim 1 itself (``context.sequence_parallel_scope``, opened here).
+A micro-batch's loss is weighed by its share of the GLOBAL batch's
+non-ignored targets (``pipeline_label_count``; equal shares without
+it), times dp, so that the dp mean of the ranks' losses and gradients
+is the reference's one head over the full output.
+
+pp = 1: each micro-batch runs stem -> blocks -> head and its backward,
+and the gradients accumulate. pp > 1: each ``pp`` rank holds only its
+own stage's blocks (the others' storage is released when the trainer
+is built) and the micro-batches run through ``pipeline.pipeline_apply``
+with the GPipe (``v_virtual`` 1) or the interleaved schedule: stage s,
+circuit c holds the layers ``c·(pp·lps_v) + s·lps_v + j`` (reference
+``hybrid.py:471-476``). Stage 0 runs the stem, the last stage the head;
+one backward runs the reverse ring. Under pp × sp the stage sees its
+sequence shard (the reference's manual sp) and an MoE layer routes per
+``sp`` shard, its aux averaged over ``sp`` (reference
+``pipeline.py:250-252``); at pp 1 it routes over ``dp`` and ``sp``.
+MoE blocks add ``moe_aux_weight`` times their load-balance loss.
+
+Gradients of parameters that several ranks hold:
+
+  dp   reduced ONCE a step: a flat f32 bucket all-reduce (÷ dp) at ZeRO
+       0, the reduce-scatter of a ZeRO route
+  pp   the non-block parameters (the stem's and the head's) are summed
+       over ``pp``: the tied ``wte`` gets stage 0's embedding gradient
+       plus the last stage's head gradient (under GSPMD the shard_map's
+       transpose does this)
+  sp   every gradient is summed over ``sp`` (each rank's loss is its
+       shard's share of the global mean), not averaged
+  tp   the tensor-parallel layers' conjugate collectives give the
+       replicated parameters equal gradients on every ``tp`` rank
+  ep   the MoE layer's conjugate pair gives the gate and the rest equal
+       gradients on every ``ep`` rank; each rank's experts are its own
+
+The global-norm clip counts a parameter replicated over pp, sp or ep
+once: block parameters' squared norms are summed over ``pp``, experts'
+over ``ep`` (and tp shards' over ``tp``, ZeRO slices' over ``dp``), which
+equals the reference's ``functional_clip`` on the global arrays.
+
+Then the update of ``strategy_compiler._ShardedUpdate``: the optimizer's
+clip, the reference's update rule at ``optimizer.get_lr()``, the
+cast-back to the storage dtypes, and the parameters made whole again.
+The two ZeRO routes are selected as the reference selects them
+(``zero_manual``: stages 1-2 on a pure-dp mesh with f32 storage take
+the flat slab of ``qcomm.dp_zero_step``; everything else the
+per-parameter ``_add_axis`` route, which composes with every axis). The
+data-parallel path reduces every gradient once; the eager pair
 ``DataParallel`` + ``fleet.distributed_optimizer`` keeps the reference's
 eager semantics and all-reduces twice (``fleet_base.py``).
 
-Replicated parameters get equal gradients on every ``tp`` rank through
-the tensor-parallel layers' conjugate collectives; the loss is the same
-on every ``tp`` rank. The trainer trains the model's own (local)
-parameters in place; at ZeRO 3 it holds each parameter's dp slice and
-all-gathers it before use. ``sync_to_layer()`` makes the model's
-parameters and the optimizer's state whole (collective).
+The trainer trains the model's own (local) parameters in place; at
+ZeRO 3 it holds each parameter's dp slice and all-gathers it before
+use. ``sync_to_layer()`` makes the model's stage parameters and the
+optimizer's state whole over ``dp`` (collective);
+``parallel_layers.gather_reference_state`` then assembles the global
+state across tp, ep and pp.
 """
 from __future__ import annotations
 
@@ -57,11 +92,13 @@ from ..profiler import program_stats as _pstats
 from ..profiler import recompile as _precomp
 from ..profiler import registry as _preg
 from ..profiler import trace as _ptrace
+from . import context as _dctx
 from . import qcomm as _qcomm
 from .fleet.distributed_strategy import DistributedStrategy
-from .strategy_compiler import (_amp_cast, _check_mesh, _dp_mean,
-                                _dp_slices, _profile_phases, _ShardedUpdate,
-                                _swapped, _validate_zero_clip, _zero_route,
+from .pipeline import _global_share, pipeline_apply
+from .strategy_compiler import (_amp_cast, _dp_mean, _profile_phases,
+                                _ShardedUpdate, _spec_axes, _swapped,
+                                _validate_zero_clip, _zero_route,
                                 build_mesh_from_strategy,
                                 resolve_param_specs)
 
@@ -74,8 +111,7 @@ def _check_protocol(model):
                 f"protocol ({m}); see distributed/hybrid.py docstring")
 
 
-_ITEMS = {"7c": "pipeline, MoE and ring attention",
-          "7d": "quantized collectives, checkpoints and offload",
+_ITEMS = {"7d": "quantized collectives, checkpoints and offload",
           "7e": "planning without allocation", "8": "resilience"}
 
 
@@ -99,22 +135,36 @@ def _dots_policy(ctx, op, *args, **kwargs):
 
 def _check_layers(model, mesh) -> None:
     """The model's parallel layers must have been built under a mesh of
-    the trainer's tp degree (they shard themselves when built)."""
-    tp = mesh.shape.get("tp", 1)
+    the trainer's tp and ep degrees (they shard themselves when built)."""
     for name, mod in model.named_modules():
-        if getattr(mod, "param_shardings", None) is None or \
-                not hasattr(mod, "_mesh"):
+        specs = getattr(mod, "param_shardings", None)
+        if specs is None or not hasattr(mod, "_mesh"):
             continue
-        built = 1 if mod._mesh is None else mod._mesh.shape["tp"]
-        if built != tp:
-            raise ValueError(
-                f"{name or type(model).__name__} was built at tp={built}, "
-                f"the trainer's mesh has tp={tp}: build the model after "
-                "distributed.mesh.init_mesh(...) of the same degrees")
+        axes = set()
+        for spec in specs.values():
+            axes |= _spec_axes(spec)
+        for axis in sorted(axes & {"tp", "ep"}):
+            built = 1 if mod._mesh is None else mod._mesh.shape.get(axis, 1)
+            if built != mesh.shape.get(axis, 1):
+                raise ValueError(
+                    f"{name or type(model).__name__} was built at "
+                    f"{axis}={built}, the trainer's mesh has {axis}="
+                    f"{mesh.shape.get(axis, 1)}: build the model after "
+                    "distributed.mesh.init_mesh(...) of the same degrees")
+
+
+def pipeline_layout(n_layers: int, pp: int, v: int):
+    """Stage s's circuits: ``[[layer of (c, j) for j] for c]`` per stage,
+    layer ``c·(pp·lps_v) + s·lps_v + j`` (the reference's circular
+    assignment, ``hybrid.py:471-476``)."""
+    lps_v = n_layers // (pp * v)
+    return [[[c * pp * lps_v + s * lps_v + j for j in range(lps_v)]
+             for c in range(v)] for s in range(pp)]
 
 
 class HybridPipelineTrainer:
-    """Trainer for any pipeline-protocol model on a {dp, tp} mesh."""
+    """Trainer for any pipeline-protocol model on a {dp, pp, tp, sp, ep}
+    mesh."""
 
     def __init__(self, model, optimizer,
                  strategy: Optional[DistributedStrategy] = None,
@@ -132,10 +182,11 @@ class HybridPipelineTrainer:
                  dp_param_comm: Optional[str] = None):
         """Knobs, as in the reference:
 
-        mesh: a ``{dp, tp}`` mesh (``mesh.create_mesh``; default
+        mesh: a mesh over some of ``dp, pp, tp, sp, ep``
+            (``mesh.create_mesh``; default
             ``build_mesh_from_strategy(strategy)``, whose ``dp`` takes the
-            ranks ``mp_degree`` leaves). The model must have been built
-            under a mesh of the same tp degree.
+            ranks the other degrees leave). The model must have been built
+            under a mesh of the same tp and ep degrees.
         strategy.sharding + sharding_configs.sharding_stage: ZeRO 1, 2 or
             3 over ``dp`` (module docstring for the two routes).
         strategy.amp: the forward runs on bf16 copies of every floating
@@ -149,9 +200,11 @@ class HybridPipelineTrainer:
             ``remat_policy="dots"`` saves the outputs of matrix products
             without batch dims (``aten.mm``/``aten.addmm``) and
             recomputes the rest (``create_selective_checkpoint_contexts``).
-        n_micro: micro-batches per step of each rank's slice (default:
-            the strategy's ``accumulate_steps`` / ``micro_batch``, at
-            least 1).
+        n_micro: micro-batches per step (default: the strategy's
+            ``accumulate_steps`` / ``micro_batch``, at least ``pp``).
+        v_virtual: virtual stages a ``pp`` rank (default
+            ``pipeline_configs.virtual_pipeline_degree``, else 1): the
+            interleaved schedule, which needs ``n_micro >= pp``.
         param_dtype / moment_dtype: storage dtypes of the parameters and
             the optimizer moments (e.g. ``"bfloat16"``). The update
             computes in f32 and casts back (ref :822-834). The model's
@@ -170,7 +223,8 @@ class HybridPipelineTrainer:
         ``hybrid/h2d`` (the batch's copy to the device), ``hybrid/step``
         and, inside it, ``sync_wait`` (the wait on the loss): the
         reference's names. The forward always opens the ranges
-        ``fwd/stem``, ``fwd/blocks`` and ``fwd/head``
+        ``fwd/stem``, ``fwd/blocks`` and ``fwd/head``, and under pp
+        ``pp/ppermute``, ``pp/stage`` and ``pp/head``
         (``profiler.annotate``). Every step marks its batch at the
         ``hybrid.step#N`` recompile site (``self._prof_site``) and runs
         inside a ``record_function`` range of that name; the site's first
@@ -181,20 +235,13 @@ class HybridPipelineTrainer:
         state category.
 
         Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-        item): pp, sp and ep degrees > 1 and ``v_virtual > 1`` (queue 1
-        item 7c); the offload and ``stream_layers`` knobs, int8
+        item): the offload and ``stream_layers`` knobs, int8
         collectives, ``device_state`` (7d); planning a LazyGuard model,
         ``aot_lower``/``aot_compile``/``memory_analysis`` (7e);
         ``guard_bad_steps`` (8)."""
         _check_protocol(model)
         s = strategy or DistributedStrategy()
-        for deg in ("pp_degree", "sp_degree", "ep_degree"):
-            if getattr(s.hybrid_configs, deg, 1) > 1:
-                raise _queue("7c", f"hybrid_configs.{deg} > 1")
         mesh = mesh if mesh is not None else build_mesh_from_strategy(s)
-        _check_mesh(mesh)
-        if (v_virtual or 1) != 1:
-            raise _queue("7c", "an interleaved pipeline (v_virtual > 1)")
         if remat_policy not in (None, "dots"):
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
         if offload_optimizer or offload_params or stream_layers:
@@ -203,12 +250,20 @@ class HybridPipelineTrainer:
         if guard_bad_steps:
             raise _queue("8", "guard_bad_steps")
         _check_layers(model, mesh)
+        cfg = getattr(model, "config", None)
+        self.moe = bool(getattr(cfg, "moe_num_experts", 0))
+        self.moe_aux_weight = float(getattr(cfg, "moe_aux_weight", 0.0))
         self.model = model
         self.optimizer = optimizer
         self.strategy = s
         self.mesh = mesh
+        self.pp = mesh.shape.get("pp", 1)
+        self.sp = mesh.shape.get("sp", 1)
         self.n_micro = n_micro or max(s.pipeline_configs.accumulate_steps,
-                                      s.pipeline_configs.micro_batch, 1)
+                                      s.pipeline_configs.micro_batch,
+                                      self.pp)
+        self.v = v_virtual or getattr(s.pipeline_configs,
+                                      "virtual_pipeline_degree", 1) or 1
         self.amp = bool(s.amp)
         self.remat = bool(s.recompute)
         self.remat_policy = remat_policy
@@ -231,22 +286,65 @@ class HybridPipelineTrainer:
         self.dp_param_comm = dp_param_comm
         _validate_zero_clip(optimizer, self.zero_manual)
 
+        blocks = list(model.pipeline_blocks())
+        L = len(blocks)
+        if L % (self.pp * self.v) != 0:
+            raise ValueError(
+                f"{L} blocks must be divisible by pp_degree×v_virtual="
+                f"{self.pp}×{self.v}")
+        self.lps = L // self.pp
+        self.n_layers = L
+        self.stage = mesh.axis_index("pp") if self.pp > 1 else 0
+        layout = pipeline_layout(L, self.pp, self.v)
+        #: this stage's circuits: the global layer indices of each
+        self.circuits = layout[self.stage]
+        local = sorted(l for c in self.circuits for l in c)
         named = list(model.named_parameters())
-        self._names = [n for n, _ in named]
-        self._index = {n: i for i, n in enumerate(self._names)}
         name_by_id = {id(p): n for n, p in named}
-        self._blocks = list(model.pipeline_blocks())
-        # per block, its parameters' (local name, model-level name)
+        self._blocks = blocks
+        # per layer, its parameters' (local name, model-level name)
         self._block_names = [[(n, name_by_id[id(p)])
                               for n, p in blk.named_parameters()]
-                             for blk in self._blocks]
+                             for blk in blocks]
         in_blocks = {full for names in self._block_names
                      for _, full in names}
+        held = {full for l in local for _, full in self._block_names[l]}
+        if self.pp > 1:
+            owner = {l: st for st, circ in enumerate(layout)
+                     for c in circ for l in c}
+            # the other stages' blocks: their storage is released; the
+            # layout and shapes stay on the model for the state cuts
+            # (parallel_layers.shard/gather_reference_state)
+            owners, shapes = {}, {}
+            for l, blk in enumerate(blocks):
+                for n, full in self._block_names[l]:
+                    p = blk.get_parameter(n)
+                    owners[full] = owner[l]
+                    shapes[full] = tuple(p.shape)
+                    if owner[l] != self.stage:
+                        p.data = torch.empty(0, dtype=p.dtype,
+                                             device=p.device)
+            model._pipeline_layout = {"stage": self.stage, "owner": owners,
+                                      "shapes": shapes}
+        named = [(n, p) for n, p in named if n not in in_blocks or n in held]
+        self._names = [n for n, _ in named]
+        self._index = {n: i for i, n in enumerate(self._names)}
         self._other_names = [n for n in self._names if n not in in_blocks]
+        specs = resolve_param_specs(model, mesh, 0)
+        other = set(self._other_names)
+        sums, masks = [], []
+        if self.sp > 1:
+            sums.append(("sp", [True] * len(named)))
+        if self.pp > 1:
+            sums.append(("pp", [n in other for n, _ in named]))
+            masks.append(("pp", [n not in other for n, _ in named]))
+        if mesh.shape.get("ep", 1) > 1:
+            masks.append(("ep", ["ep" in _spec_axes(specs[n])
+                                 for n, _ in named]))
         self._upd = _ShardedUpdate(
-            mesh, named, resolve_param_specs(model, mesh, 0), optimizer,
-            self.zero, self.zero_manual, self.dp_grad_block, dp_param_comm,
-            self.param_dtype, self.moment_dtype)
+            mesh, named, specs, optimizer, self.zero, self.zero_manual,
+            self.dp_grad_block, dp_param_comm, self.param_dtype,
+            self.moment_dtype, grad_sums=sums, norm_axes=masks)
         self._step = 0
         # the root of the steps' dropout keys (_loss)
         self._key = _rng.generator(self._device()).initial_seed()
@@ -261,38 +359,104 @@ class HybridPipelineTrainer:
         ZeRO 3) and bf16 under amp."""
         return _amp_cast(self._upd.value(self._index[name]), self.amp)
 
-    def _forward_loss(self, batch, key: int) -> torch.Tensor:
-        """stem -> blocks -> head of one micro-batch; f32 scalar. ``key``:
-        the micro-batch's ``core.rng`` key; each block draws its keyed
-        dropout masks in a scope of its own, opened inside the
-        checkpointed function so that its recompute draws them again."""
-        model = self.model
-        other = {n: self._value(n) for n in self._other_names}
-        context_fn = {}
+    def _context_fn(self) -> dict:
         if self.remat and self.remat_policy == "dots":
             from torch.utils.checkpoint import \
                 create_selective_checkpoint_contexts
 
-            context_fn = {"context_fn": functools.partial(
+            return {"context_fn": functools.partial(
                 create_selective_checkpoint_contexts, _dots_policy)}
+        return {}
+
+    def _block(self, layer: int, h, key: int):
+        """Block ``layer`` on ``h`` under its keyed dropout scope (opened
+        inside the checkpointed function so that its recompute draws the
+        masks again): ``h`` or, MoE, ``(h, aux)``."""
+        blk, names = self._blocks[layer], self._block_names[layer]
+
+        def run(h, bkey=_rng.fold_in(key, 1 + layer)):
+            vals = {n: self._value(full) for n, full in names}
+            with _swapped(blk, vals), _rng.key_scope(bkey):
+                out = blk(h)
+                return (out, blk.mlp.aux_loss) if self.moe else out
+
+        if self.remat:
+            return checkpoint(run, h, use_reentrant=False,
+                              **self._context_fn())
+        return run(h)
+
+    def _blocks_on(self, layers, h, key: int):
+        """``layers`` in order on ``h``: ``h``, or MoE ``(h, moe_aux_weight
+        · Σ aux)``."""
+        aux = None
+        for layer in layers:
+            out = self._block(layer, h, key)
+            if self.moe:
+                out, a = out
+                aux = a.float() if aux is None else aux + a.float()
+            h = out
+        return (h, aux * self.moe_aux_weight) if self.moe else h
+
+    def _forward_loss(self, batch, key: int, weight) -> torch.Tensor:
+        """pp = 1: stem -> blocks -> head of one micro-batch; the f32
+        loss weighed by ``weight``, plus the weighted MoE aux over
+        ``n_micro`` (its gradient 1/sp a rank: the routing group spans
+        ``sp``, so every sp rank holds the same aux)."""
+        model = self.model
+        other = {n: self._value(n) for n in self._other_names}
         with _swapped(model, other), _rng.key_scope(key):
             with _ptrace.annotate("fwd/stem"):
                 x = model.pipeline_stem(*batch)
             with _ptrace.annotate("fwd/blocks"):
-                for j, (blk, names) in enumerate(zip(self._blocks,
-                                                     self._block_names)):
-
-                    def run(h, blk=blk, names=names,
-                            bkey=_rng.fold_in(key, 1 + j)):
-                        vals = {n: self._value(full) for n, full in names}
-                        with _swapped(blk, vals), _rng.key_scope(bkey):
-                            return blk(h)
-
-                    x = checkpoint(run, x, use_reentrant=False,
-                                   **context_fn) if self.remat else run(x)
+                x = self._blocks_on(range(self.n_layers), x, key)
+            if self.moe:
+                x, aux = x
             with _ptrace.annotate("fwd/head"):
-                loss = model.pipeline_head(x, *batch)
-        return loss.float()
+                loss = model.pipeline_head(x, *batch).float() * weight
+        if self.moe:
+            aux = aux / self.n_micro
+            loss = loss + _global_share(aux / self.sp, aux)
+        return loss
+
+    def _pipeline_loss(self, batch, step_key: int, weight) -> torch.Tensor:
+        """pp > 1: the whole local batch through ``pipeline_apply``; stage
+        0 runs the stem, the last stage the head. The f32 loss (its value
+        summed over pp, its gradient this stage's share)."""
+        model = self.model
+        other = {n: self._value(n) for n in self._other_names}
+        calls = [0]
+
+        def stage_fn(layers, h):
+            # the k-th busy tick of this stage holds micro-batch k mod
+            # n_micro: its dropout key
+            mb = calls[0] % self.n_micro
+            calls[0] += 1
+            return self._blocks_on(layers, h, _rng.fold_in(step_key, mb))
+
+        def head_fn(full, *b):
+            with _ptrace.annotate("fwd/head"):
+                return model.pipeline_head(full, *b).float() * weight
+
+        with _swapped(model, other), _rng.key_scope(step_key):
+            with _ptrace.annotate("fwd/stem"):
+                if self.stage == 0:
+                    x = model.pipeline_stem(*batch)
+                else:                 # only the shape is read there
+                    shape, dtype = model.pipeline_stem_spec(*batch)
+                    x = torch.empty(shape, dtype=dtype,
+                                    device=batch[0].device)
+            with _ptrace.annotate("fwd/blocks"):
+                out = pipeline_apply(
+                    self.mesh, stage_fn,
+                    self.circuits if self.v > 1 else self.circuits[0],
+                    x, self.n_micro,
+                    sp_axis="sp" if self.sp > 1 else None, v_virtual=self.v,
+                    head_fn=head_fn, head_args=tuple(batch),
+                    stage_aux=self.moe)
+        if self.moe:
+            loss, aux = out
+            return loss + aux
+        return out
 
     def step(self, *batch) -> torch.Tensor:
         """One optimizer step on the GLOBAL ``batch`` (e.g. ``tokens [B,
@@ -324,35 +488,71 @@ class HybridPipelineTrainer:
     def _device(self) -> torch.device:
         return self._upd.leaves()[0].device
 
+    def _local(self, batch):
+        """This rank's dp slice of every micro-batch of the global
+        ``batch``, the micro-batches in order along dim 0, and the dp
+        factor of its weights (dp where the batch was cut, else 1: an
+        indivisible batch is whole on every rank)."""
+        dp = self.mesh.shape.get("dp", 1)
+        n = self.n_micro
+        lead = batch[0].shape[0]
+        if dp == 1 or lead % (dp * n):
+            return tuple(batch), 1
+        r = self.mesh.axis_index("dp")
+
+        def cut(b):
+            if not b.dim() or b.shape[0] != lead:
+                return b
+            m = b.reshape((n, dp, lead // (n * dp)) + tuple(b.shape[1:]))
+            return m[:, r].reshape((lead // dp,) + tuple(b.shape[1:]))
+
+        return tuple(cut(b) for b in batch), dp
+
+    def _scopes(self, dp_cut: bool):
+        """The sp scope (the model's ring attention and sequence shard)
+        and the MoE routing group: the ranks the micro-batch was cut over
+        (dp where ``dp_cut``, and sp unless the pipeline makes it
+        manual)."""
+        axes = (("dp",) if dp_cut else ()) + \
+            (("sp",) if self.pp == 1 else ())
+        stack = contextlib.ExitStack()
+        stack.enter_context(_dctx.sequence_parallel_scope(self.mesh))
+        stack.enter_context(_dctx.moe_routing_scope(self.mesh, axes))
+        return stack
+
     def _loss(self, batch, backward: bool) -> torch.Tensor:
         """The step's loss (the dp mean) over this rank's micro-batches
         (each weighed by its share of the global batch's targets, times
-        dp where the batch was sliced over dp), with each micro-batch's
-        backward when ``backward``; the f32 loss, not waited for. The
-        dropout masks are keyed by the port's seed, the step and the
-        micro-batch (``core.rng.fold_in``)."""
+        dp where the batch was cut over dp), with the backward when
+        ``backward``; the f32 loss, not waited for. The dropout masks are
+        keyed by the port's seed, the step and the micro-batch
+        (``core.rng.fold_in``)."""
         counter = getattr(self.model, "pipeline_label_count", None)
         total = counter(*batch) if counter is not None else None
-        local = _dp_slices(batch, self.mesh)
-        # the dp ranks' parts add up to the global batch when it was
-        # sliced; an indivisible batch is whole on every rank
-        share = self.mesh.shape.get("dp", 1) if local[0].shape[0] < \
-            batch[0].shape[0] else 1
+        local, share = self._local(batch)
         bsz = local[0].shape[0]
         if bsz % self.n_micro:
             raise ValueError(f"batch {bsz} is not divisible by n_micro "
                              f"{self.n_micro}")
-        micro = [torch.split(b, bsz // self.n_micro) for b in local]
-        loss = torch.zeros((), dtype=torch.float32, device=local[0].device)
         step_key = _rng.fold_in(self._key, self._step)
-        for i in range(self.n_micro):
-            mb = tuple(m[i] for m in micro)
-            w = counter(*mb) * share / total if total \
-                else 1.0 / self.n_micro
-            part = self._forward_loss(mb, _rng.fold_in(step_key, i)) * w
-            if backward:
-                part.backward()
-            loss = loss + part.detach()
+        with self._scopes(share > 1):
+            if self.pp > 1:
+                w = counter(*local) * share / total if total else 1.0
+                loss = self._pipeline_loss(local, step_key, w)
+                if backward:
+                    loss.backward()
+                return _dp_mean(loss.detach(), self.mesh)
+            micro = [torch.split(b, bsz // self.n_micro) for b in local]
+            loss = torch.zeros((), dtype=torch.float32,
+                               device=local[0].device)
+            for i in range(self.n_micro):
+                mb = tuple(m[i] for m in micro)
+                w = counter(*mb) * share / total if total \
+                    else 1.0 / self.n_micro
+                part = self._forward_loss(mb, _rng.fold_in(step_key, i), w)
+                if backward:
+                    part.backward()
+                loss = loss + part.detach()
         return _dp_mean(loss, self.mesh)
 
     def _step_body(self, batch) -> torch.Tensor:
@@ -381,10 +581,10 @@ class HybridPipelineTrainer:
         the step itself (``1 + iters`` real optimizer steps: training
         state advances). bwd = fwdbwd − fwd, optim = step − fwdbwd; comm
         from the step site's counted collective bytes (the dp reduction,
-        the ZeRO gathers, the tp activations' all-reduces), with its
-        counted bytes as ``cost_bytes_accessed``. Also folds the
-        ``hybrid.step#N`` site's counted first dispatch into the program
-        inventory.
+        the ZeRO gathers, the tp activations' all-reduces, the pipeline's
+        permutes), with its counted bytes as ``cost_bytes_accessed``.
+        Also folds the ``hybrid.step#N`` site's counted first dispatch
+        into the program inventory.
 
         ``trace_window=k`` wraps ``k`` more real steps, each read back, in
         a parsed device-trace capture (``profiler.device_trace``) labelled
@@ -395,17 +595,21 @@ class HybridPipelineTrainer:
         """This rank's resident bytes by state category
         (``record_memory_ledger``: gauges ``mem/{param,grad,opt_state,
         master}_bytes``), as the reference counts them: every stored
-        parameter at its storage dtype (its dp slice at ZeRO 3), ``grad``
-        as 4 bytes per local parameter element (the gradients' f32
-        peak), the optimizer's state where it lives (1/dp of it on a ZeRO
-        route) and, on the slab route with a bf16 ``dp_param_comm``, the
-        f32 ``master`` chunk."""
+        parameter of this rank (its stage's blocks under pp, its experts
+        under ep, its tp shard, its dp slice at ZeRO 3) at its storage
+        dtype, ``grad`` as 4 bytes per local parameter element (the
+        gradients' f32 peak), the optimizer's state where it lives (1/dp
+        of it on a ZeRO route) and, on the slab route with a bf16
+        ``dp_param_comm``, the f32 ``master`` chunk."""
         return self._upd.ledger()
 
     def sync_to_layer(self):
         """The model with whole parameters and the optimizer with whole
-        states (the reference's ``_unflatten_zero_opt`` on the slab
-        route): collective, every rank calls it."""
+        states over ``dp`` (the reference's ``_unflatten_zero_opt`` on
+        the slab route): collective, every rank calls it. The model keeps
+        this rank's stage, experts and tp shard;
+        ``parallel_layers.gather_reference_state`` puts the global state
+        together."""
         self._upd.sync()
         return self.model
 

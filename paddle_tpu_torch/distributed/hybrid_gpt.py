@@ -12,4 +12,6 @@ __all__ = ["GPTHybridTrainer"]
 
 
 class GPTHybridTrainer(HybridPipelineTrainer):
-    """``HybridPipelineTrainer`` under its round-1 name; ``step(tokens)``."""
+    """``HybridPipelineTrainer`` under its round-1 name; ``step(tokens)``.
+    Every knob passes through (``n_micro``, ``v_virtual``, the storage
+    dtypes, ...), and the mesh's pp, sp and ep degrees with it."""

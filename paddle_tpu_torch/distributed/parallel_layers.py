@@ -25,12 +25,17 @@ after them is the same on every ``tp`` rank and counts once:
                  layer whose input is not yet parallel)
 
 ``shard_reference_state`` cuts a reference model's full parameters to
-one rank's shards along those same specs, and ``gather_reference_state``
-puts every rank's shards back together under the reference's names and
-layouts. A layer whose sharded dim is not one block of columns declares
-how to read it in ``shard_views``: ``{leaf: (view, axis)}`` reads the
-dim as the ``view`` shape (global sizes) and cuts it on ``axis`` of the
-view. GPT's fused qkv projection declares ``(3, heads, head_dim)`` cut
+one rank's shards along those same specs (the tp cuts, and an MoE
+layer's ``[E, ...]`` cut on ``ep``), and ``gather_reference_state`` puts
+every rank's shards back together under the reference's names and
+layouts. Under a pipeline (``hybrid.HybridPipelineTrainer`` at pp > 1,
+which records ``model._pipeline_layout``) a rank holds only its stage's
+blocks, the interleaved layout included (layer ``c·(pp·lps_v) + s·lps_v
++ j`` on stage s): the shard keeps those, and the gather takes each
+block from its stage. A layer whose sharded dim is not one block of
+columns declares how to read it in ``shard_views``: ``{leaf: (view,
+axis)}`` reads the dim as the ``view`` shape (global sizes) and cuts it
+on ``axis`` of the view. GPT's fused qkv projection declares ``(3, heads, head_dim)`` cut
 on the heads, so that rank r holds q, k and v of heads
 ``[r·H/tp, (r+1)·H/tp)``: under GSPMD the reference's arithmetic stays
 global and a contiguous cut of the columns is harmless there, but a rank
@@ -302,8 +307,12 @@ def shard_reference_state(model: nn.Module,
     DataParallel replica's, a LayerNorm's) is kept whole. Load the
     result with ``models.gpt.load_reference_state``."""
     mesh = mesh if mesh is not None else get_mesh()
+    layout = getattr(model, "_pipeline_layout", None)
     out = {}
     for name, arr in state.items():
+        if layout is not None and \
+                layout["owner"].get(name, layout["stage"]) != layout["stage"]:
+            continue                  # another pipeline stage's block
         arr = np.asarray(arr)
         view, dims = _sharded_dims(model, name, mesh)
         for dim, names, n in dims:
@@ -334,9 +343,15 @@ def gather_reference_state(model: nn.Module,
     if state is None:
         state = state_to_numpy(model)
     params = dict(model.named_parameters())
+    layout = getattr(model, "_pipeline_layout", None)
+    owner = layout["owner"] if layout is not None else {}
+    names = [n for n in model.state_dict() if n in state or n in owner]
     out = {}
-    for name, arr in state.items():
-        arr = np.array(arr)
+    for name in names:
+        if name in owner:
+            arr = _from_stage(model, mesh, layout, name, state.get(name))
+        else:
+            arr = np.array(state[name])
         view, dims = _sharded_dims(model, name, mesh)
         if dims:
             dev = params[name].device if name in params else "cpu"
@@ -357,3 +372,22 @@ def gather_reference_state(model: nn.Module,
             arr = t.cpu().numpy()
         out[name] = arr
     return out
+
+
+def _from_stage(model, mesh, layout, name, arr):
+    """Block parameter ``name`` of a pipeline stage (this rank's shard of
+    it along the other axes), broadcast over ``pp`` from its stage: f32
+    for floating values."""
+    from .collective import broadcast
+
+    stage = layout["owner"][name]
+    dev = model.get_parameter(name).device
+    if stage == layout["stage"]:
+        arr = np.asarray(arr)
+        arr = arr.astype(np.float32) if arr.dtype.kind == "f" else arr
+        t = torch.from_numpy(np.ascontiguousarray(arr)).to(dev)
+    else:
+        t = torch.empty(layout["shapes"][name], dtype=torch.float32,
+                        device=dev)
+    broadcast(t, mesh.axis_ranks("pp")[stage], group=mesh.group("pp"))
+    return t.cpu().numpy()

@@ -27,9 +27,17 @@ process groups (``mesh.py``):
             slices too: each is all-gathered before use by an
             ``autograd.Function`` whose backward reduce-scatters, again
             when recompute re-runs a block
+  ep        the MoE layers' ``param_shardings`` (``moe.py``): each rank
+            computes its experts and the outputs are summed over ``ep``;
+            the layers route over the micro-batch's ``dp`` slices
+            (``context.moe_routing_scope``), as GSPMD's global router
+  pp, sp    as far as the reference's compiled step takes them: axes
+            nothing is cut over, so every rank along them computes the
+            same step (the pipeline and the ring are ``hybrid.py``'s)
   amp       the forward runs on bf16 copies of the floating parameters
   clip      by global norm: a sharded parameter's squared norm is summed
-            over its shard axes, a replicated one counts once
+            over its shard axes (tp, ep, a ZeRO slice's dp), a
+            replicated one counts once
 
 ``build_mesh_from_strategy``, the spec helpers and the update functions
 are pure functions held to the reference's outputs case by case.
@@ -56,6 +64,7 @@ from ..profiler import registry as _preg
 from ..profiler import trace as _ptrace
 from . import qcomm as _qcomm
 from .collective import ReduceOp
+from .context import moe_routing_scope
 from .fleet.distributed_strategy import DistributedStrategy
 from .mesh import Mesh, P, create_mesh
 from .parallel import bucket_mean
@@ -260,8 +269,16 @@ class _ShardedUpdate:
 
     def __init__(self, mesh, named, specs, optimizer, zero: int,
                  manual: bool, block: int = 2048, param_comm: str = "f32",
-                 param_dtype=None, moment_dtype=None):
+                 param_dtype=None, moment_dtype=None, grad_sums=(),
+                 norm_axes=()):
         self.mesh = mesh
+        # [(axis, per-parameter bool)]: gradients summed over the axis
+        # before the dp reduction (hybrid.py: every one over sp, the
+        # non-block ones over pp), and the parameters whose squared
+        # norms the clip sums over it (the blocks over pp, the experts
+        # over ep)
+        self.grad_sums = list(grad_sums)
+        self.norm_axes = list(norm_axes)
         self.opt = optimizer
         self.zero = zero
         self.manual = manual
@@ -392,6 +409,23 @@ class _ShardedUpdate:
     def _grad(self, t: torch.Tensor) -> torch.Tensor:
         return t.grad if t.grad is not None else torch.zeros_like(t)
 
+    def _axis_sums(self) -> None:
+        """Every ``grad_sums`` gradient summed over its axis, in place (a
+        missing one counts as 0): one flat f32 bucket all-reduce an
+        axis."""
+        leaves = self.leaves()
+        for axis, which in self.grad_sums:
+            idx = [i for i, w in enumerate(which) if w]
+            if not idx:
+                continue
+            flat = torch.cat([self._grad(leaves[i]).reshape(-1).float()
+                              for i in idx])
+            flat = _reduced(flat, ReduceOp.SUM, self.mesh.group(axis))
+            for i, c in zip(idx, flat.split([leaves[i].numel()
+                                             for i in idx])):
+                t = leaves[i]
+                t.grad = c.view(t.shape).to(t.dtype)
+
     def _reduced_grads(self) -> List[Optional[torch.Tensor]]:
         """Each parameter's gradient on the part this rank updates, the
         mean over ``dp``: one bucket all-reduce for every parameter that
@@ -420,6 +454,35 @@ class _ShardedUpdate:
                 grads[i] = g
         return grads
 
+    def _masks(self, live):
+        """(axis, per live gradient: is it a distinct part along the
+        axis) for every axis a squared norm is summed over."""
+        return (("tp", [self.tp_sharded[i] for i in live]),
+                ("dp", [self.sdim[i] is not None for i in live])) + \
+            tuple((axis, [which[i] for i in live])
+                  for axis, which in self.norm_axes)
+
+    def _sq_norms(self, grads, live) -> torch.Tensor:
+        """Each live gradient's squared norm, summed over the axes it is
+        cut on (``_masks``): the global array's."""
+        sq = torch.stack([grads[i].float().square().sum() for i in live])
+        for axis, which in self._masks(live):
+            if self.mesh.shape.get(axis, 1) > 1 and any(which):
+                mask = torch.tensor(which, device=sq.device)
+                summed = _reduced(torch.where(mask, sq, 0.0), ReduceOp.SUM,
+                                  self.mesh.group(axis))
+                sq = torch.where(mask, summed, sq)
+        return sq
+
+    def global_norm(self) -> float:
+        """The global norm of the gradients the backward left, as the
+        clip takes it (after the axis sums and the dp reduction):
+        collective, every rank calls it; the gradients are consumed."""
+        self._axis_sums()
+        grads = self._reduced_grads()
+        live = [i for i, g in enumerate(grads) if g is not None]
+        return float(torch.sqrt(self._sq_norms(grads, live).sum()))
+
     def _clip(self, clip, grads: List[Optional[torch.Tensor]]) -> None:
         """``clip`` on the reduced gradients (None: no gradient), in
         place. A squared norm is summed over ``tp`` for a tp-sharded
@@ -432,19 +495,11 @@ class _ShardedUpdate:
         if clip is None or not live:
             return
         gs = [grads[i] for i in live]
-        masks = (("tp", [self.tp_sharded[i] for i in live]),
-                 ("dp", [self.sdim[i] is not None for i in live]))
         if not isinstance(clip, (ClipGradByGlobalNorm, ClipGradByNorm)) or \
-                not any(any(m) for _, m in masks):
+                not any(any(m) for _, m in self._masks(live)):
             functional_clip(clip, gs)
             return
-        sq = torch.stack([g.float().square().sum() for g in gs])
-        for axis, which in masks:
-            if self.mesh.shape.get(axis, 1) > 1 and any(which):
-                mask = torch.tensor(which, device=sq.device)
-                summed = _reduced(torch.where(mask, sq, 0.0), ReduceOp.SUM,
-                                  self.mesh.group(axis))
-                sq = torch.where(mask, summed, sq)
+        sq = self._sq_norms(grads, live)
         norms = torch.sqrt(sq.sum()).expand(len(gs)) \
             if isinstance(clip, ClipGradByGlobalNorm) else torch.sqrt(sq)
         scales = torch.clamp(clip.clip_norm / torch.clamp(norms, min=1e-12),
@@ -467,6 +522,7 @@ class _ShardedUpdate:
                 clip_norm=float(clip.clip_norm) if clip is not None
                 else None)
             return
+        self._axis_sums()
         grads = self._reduced_grads()
         self._clip(opt._grad_clip, grads)
         for i, p in enumerate(self.params):
@@ -598,7 +654,6 @@ class HybridParallelTrainer:
         self.strategy = strategy or DistributedStrategy()
         self.mesh = mesh if mesh is not None else \
             build_mesh_from_strategy(self.strategy)
-        _check_mesh(self.mesh)
         self.loss_fn = loss_fn
         zero = self.strategy.sharding_configs.sharding_stage if \
             self.strategy.sharding else 0
@@ -618,10 +673,13 @@ class HybridParallelTrainer:
         named = [(n, p) for n, p in layer.named_parameters()]
         self.param_names = [n for n, _ in named]
         self.param_specs = resolve_param_specs(layer, self.mesh, zero)
+        specs = resolve_param_specs(layer, self.mesh, 0)
+        norm_axes = [("ep", ["ep" in _spec_axes(specs[n])
+                             for n, _ in named])] \
+            if self.mesh.shape.get("ep", 1) > 1 else []
         self._upd = _ShardedUpdate(
-            self.mesh, named, resolve_param_specs(layer, self.mesh, 0),
-            optimizer, zero, self.zero_manual, self.dp_grad_block,
-            dp_param_comm)
+            self.mesh, named, specs, optimizer, zero, self.zero_manual,
+            self.dp_grad_block, dp_param_comm, norm_axes=norm_axes)
         self.data_spec = data_spec
         self._step = 0
         self._prof_site = _precomp.unique_site("compile_train_step")
@@ -662,10 +720,14 @@ class HybridParallelTrainer:
         dev = batch[0].device
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         for i in range(k):
-            mb = self._local(tuple(m[i] for m in micros))
-            part = self._forward_loss(mb) / k
-            if backward:
-                part.backward()
+            whole = tuple(m[i] for m in micros)
+            mb = self._local(whole)
+            # an MoE layer routes over the micro-batch's dp slices
+            axes = ("dp",) if mb[0].shape[:1] != whole[0].shape[:1] else ()
+            with moe_routing_scope(self.mesh, axes):
+                part = self._forward_loss(mb) / k
+                if backward:
+                    part.backward()
             loss = loss + part.detach()
         return _dp_mean(loss, self.mesh)
 
@@ -800,13 +862,3 @@ def _profile_phases(tr, batch, iters: int, trace_window: int) -> dict:
                 _pinstr._first_leaf(tr.step(*batch))
         out["trace"] = cap.summary
     return out
-
-
-def _check_mesh(mesh) -> None:
-    """pp, sp and ep degrees > 1 are ROADMAP queue 1 item 7c."""
-    for axis in ("pp", "sp", "ep"):
-        if mesh.shape.get(axis, 1) > 1:
-            raise NotImplementedError(
-                f"a mesh with {axis} > 1 is not ported yet: ROADMAP queue 1 "
-                "item 7c (pipeline, MoE and ring attention)")
-

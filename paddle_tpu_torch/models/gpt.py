@@ -45,10 +45,30 @@ in the scope and the rank's ``dp`` coordinate, so a block that
 outside every scope they come from a generator seeded by the ``dp``
 coordinate only, which checkpoint does not restore. Attention-probability
 dropout on the local heads uses the device's default generator. Serving
-and ``generate`` under tp > 1 are ROADMAP queue 1 item 8.
+and ``generate`` under tp > 1 or a pipeline are ROADMAP queue 1 item 8.
 
-Not in this slice: MoE, sequence parallelism, and the export of
-``GPTForGeneration`` (ROADMAP queue 1 item 9).
+MoE (``moe_num_experts > 0``): each block's FFN is a
+``distributed.moe.MoEMLP`` (top-k routing with a capacity, the Switch
+load-balance loss at ``mlp.aux_loss``; built under a mesh whose ``ep``
+axis is > 1 a block holds ``E/ep`` experts), and ``GPT.loss`` adds
+``moe_aux_weight`` times each block's aux loss, as the reference's.
+MoE decode raises, as in the reference.
+
+Sequence parallelism: inside ``distributed.context.
+sequence_parallel_scope`` (the trainer opens it at ``sp`` > 1) every
+rank holds the sequence shard ``[i·S/sp, (i+1)·S/sp)`` of the batch's
+dim 1: ``pipeline_stem`` embeds the shard of the GLOBAL tokens it is
+given at positions from ``i·S/sp`` (for ``wpe``), attention runs the
+ring over ``sp`` (``ops/ring_attention.py``; attention-probability
+dropout raises there, as in the reference), and ``pipeline_head`` runs
+one chunk over the shard with the next-token labels of the global
+tokens (the last position of shard i is labelled by the first token of
+shard i + 1; the global last position has none). The head's value is
+the global mean (local sums over the global count, summed over
+``sp``); its gradient is the rank's own share.
+
+Not in this slice: the export of ``GPTForGeneration`` (ROADMAP queue 1
+item 9).
 """
 from __future__ import annotations
 
@@ -198,13 +218,30 @@ class GPTAttention(nn.Module):
         self.dropout = c.dropout
 
     def forward(self, x):
+        from ..distributed.context import current_sequence_parallel
+
         b, s, _ = x.shape
         qkv = self.qkv_proj(x).reshape(b, s, 3, self.num_heads,
                                        self.head_dim)
         q, k, v = qkv.unbind(2)
-        out = F.scaled_dot_product_attention(
-            q, k, v, is_causal=True, dropout_p=self.dropout,
-            training=self.training)
+        sp = current_sequence_parallel()
+        if sp is not None:
+            # the ring over 'sp' (ops/ring_attention.py); its chunks
+            # never hold the probabilities, so their dropout cannot run
+            from ..ops.ring_attention import sequence_parallel_attention
+
+            if self.dropout and self.training:
+                raise NotImplementedError(
+                    "attention-probability dropout is not supported under "
+                    "sequence parallelism (ring attention); set "
+                    "GPTConfig.dropout=0 or sp_degree=1")
+            mesh, axis, _manual = sp
+            out = sequence_parallel_attention(q, k, v, mesh, causal=True,
+                                              axis_name=axis)
+        else:
+            out = F.scaled_dot_product_attention(
+                q, k, v, is_causal=True, dropout_p=self.dropout,
+                training=self.training)
         return self.out_proj(out.reshape(b, s, self.num_heads *
                                          self.head_dim))
 
@@ -236,16 +273,22 @@ class GPTBlock(nn.Module):
 
     def __init__(self, config: GPTConfig, device=None, masks=None):
         super().__init__()
-        if config.moe_num_experts > 0:
-            raise NotImplementedError(
-                "MoE blocks are not ported yet: ROADMAP queue 1 item 7 "
-                "(distributed training)")
         self.ln_1 = LayerNorm(config.hidden_size,
                               epsilon=config.layer_norm_eps, device=device)
         self.attn = GPTAttention(config, device=device)
         self.ln_2 = LayerNorm(config.hidden_size,
                               epsilon=config.layer_norm_eps, device=device)
-        self.mlp = GPTMLP(config, device=device, masks=masks)
+        if config.moe_num_experts > 0:
+            from ..distributed.moe import MoEMLP
+
+            self.mlp = MoEMLP(config.hidden_size, config.ffn_hidden_size,
+                              config.moe_num_experts,
+                              top_k=config.moe_top_k,
+                              capacity_factor=config.moe_capacity_factor,
+                              initializer_range=config.initializer_range,
+                              device=device)
+        else:
+            self.mlp = GPTMLP(config, device=device, masks=masks)
 
     def forward(self, x):
         x = x + self.attn(self.ln_1(x))
@@ -266,9 +309,9 @@ class GPTEmbeddings(nn.Module):
         self.dropout = c.dropout
         self._masks = masks
 
-    def forward(self, tokens):
+    def forward(self, tokens, pos0: int = 0):
         s = tokens.shape[1]
-        pos = torch.arange(s, device=tokens.device)
+        pos = torch.arange(pos0, pos0 + s, device=tokens.device)
         x = self.wte(tokens) + self.wpe(pos)[None]
         return _dropout(x, self.dropout, self.training, self._masks)
 
@@ -331,8 +374,37 @@ class GPT(nn.Module):
         return self.lm_head(x)
 
     # --- pipeline protocol (distributed/hybrid.py) -----------------------
+    @staticmethod
+    def _sp_shard(s: int):
+        """(first position, length) of this rank's sequence shard of
+        ``s`` positions under a sequence-parallel scope, else None."""
+        from ..distributed.context import current_sequence_parallel
+
+        sp = current_sequence_parallel()
+        if sp is None:
+            return None
+        mesh, axis, _ = sp
+        n = mesh.shape[axis]
+        if s % n:
+            raise ValueError(f"sequence {s} does not split over {axis}={n}")
+        return mesh.axis_index(axis) * (s // n), s // n
+
     def pipeline_stem(self, tokens):
-        return self.embeddings(tokens)
+        """Embeddings of ``tokens`` (under sp: of this rank's shard of
+        the global tokens, at its global positions)."""
+        shard = self._sp_shard(tokens.shape[1])
+        if shard is None:
+            return self.embeddings(tokens)
+        p0, n = shard
+        return self.embeddings(tokens[:, p0:p0 + n], pos0=p0)
+
+    def pipeline_stem_spec(self, tokens):
+        """(shape, dtype) of ``pipeline_stem(tokens)``: what a pipeline
+        stage after the first receives."""
+        shard = self._sp_shard(tokens.shape[1])
+        s = tokens.shape[1] if shard is None else shard[1]
+        return ((tokens.shape[0], s, self.config.hidden_size),
+                self.embeddings.wte.weight.dtype)
 
     def pipeline_blocks(self):
         return self.blocks
@@ -340,19 +412,38 @@ class GPT(nn.Module):
     def pipeline_head(self, x, tokens, labels=None):
         """Final norm + fused lm-head/CE (``ops/fused_ce.py``): the [B,S,V]
         logits never exist. ``labels``: explicit targets instead of the
-        shifted-token LM objective."""
-        from ..ops.fused_ce import fused_linear_cross_entropy
+        shifted-token LM objective. Under sp ``x`` is this rank's shard
+        and ``tokens``/``labels`` are global (the module docstring)."""
+        from ..ops.fused_ce import (IGNORE, fused_linear_cross_entropy,
+                                    shifted_labels)
 
         x = self.ln_f(x)
         lbl, next_token = (tokens, True) if labels is None \
             else (labels, False)
+        shard = self._sp_shard(lbl.shape[1])
+        chunk = 256
+        if shard is not None:
+            full = shifted_labels(lbl) if next_token else lbl
+            p0, n = shard
+            lbl, next_token, chunk = full[:, p0:p0 + n], False, None
         if self.config.tie_word_embeddings:
-            return fused_linear_cross_entropy(
-                x, self.embeddings.wte.weight, lbl, chunk=256,
+            loss = fused_linear_cross_entropy(
+                x, self.embeddings.wte.weight, lbl, chunk=chunk,
                 next_token=next_token, mesh=self._tp_mesh)
-        return fused_linear_cross_entropy(
-            x, self.lm_head.weight, lbl, chunk=256, transpose_w=True,
-            next_token=next_token, mesh=self.lm_head._mesh)
+        else:
+            loss = fused_linear_cross_entropy(
+                x, self.lm_head.weight, lbl, chunk=chunk, transpose_w=True,
+                next_token=next_token, mesh=self.lm_head._mesh)
+        if shard is None:
+            return loss
+        # the shard's share of the global mean; the value summed over sp
+        from ..distributed.context import current_sequence_parallel
+        from ..distributed.pipeline import _global_share, _psum
+
+        mesh, axis, _ = current_sequence_parallel()
+        share = loss * ((lbl != IGNORE).sum() / (full != IGNORE).sum()
+                        .clamp(min=1)).float()
+        return _global_share(share, _psum(share.detach(), mesh, axis))
 
     def pipeline_label_count(self, tokens, labels=None):
         """Non-ignored targets of ``pipeline_head`` for this batch: the
@@ -366,11 +457,16 @@ class GPT(nn.Module):
 
     def loss(self, tokens, labels=None):
         """Next-token LM loss (labels default: tokens shifted left),
-        through the fused lm-head/CE as ``pipeline_head``."""
-        x = self.embeddings(tokens)
+        through the fused lm-head/CE as ``pipeline_head``, plus
+        ``moe_aux_weight`` times each MoE block's load-balance loss."""
+        x = self.pipeline_stem(tokens)
         for blk in self.blocks:
             x = blk(x)
-        return self.pipeline_head(x, tokens, labels=labels)
+        loss = self.pipeline_head(x, tokens, labels=labels)
+        if self.config.moe_num_experts > 0:
+            for blk in self.blocks:
+                loss = loss + self.config.moe_aux_weight * blk.mlp.aux_loss
+        return loss
 
     def _decode_state(self):
         """(per-layer params, other params) views of the live weights for
@@ -774,12 +870,19 @@ def gpt_paged_suffix_apply(cfg: GPTConfig, stacked, other, kpool, vpool,
 def _gpt_decode_state(model: GPT) -> Tuple[List[Dict[str, torch.Tensor]],
                                            Dict[str, torch.Tensor]]:
     """(per-layer ``{suffix: tensor}`` list, ``{name: tensor}`` of the
-    rest) — detached views of the model's parameters. Under tp > 1 the
-    serving engine and ``generate`` raise (they read whole weights)."""
-    if model._tp_mesh is not None:
+    rest) — detached views of the model's parameters. Under tp > 1 or a
+    pipeline the serving engine and ``generate`` raise (they read whole
+    weights), and a MoE GPT's decode raises, as the reference's."""
+    if model.config.moe_num_experts:
         raise NotImplementedError(
-            "serving and generate() of a GPT built at tp > 1 are not "
-            "ported yet: ROADMAP queue 1 item 8 (multi-process serving)")
+            "generate() supports dense GPT; MoE decode needs expert "
+            "routing in the cached path")
+    if model._tp_mesh is not None or \
+            getattr(model, "_pipeline_layout", None) is not None:
+        raise NotImplementedError(
+            "serving and generate() of a GPT built at tp > 1 or held in "
+            "pipeline stages are not ported yet: ROADMAP queue 1 item 8 "
+            "(multi-process serving)")
     stacked = [{n: t.detach() for n, t in blk.named_parameters()}
                for blk in model.blocks]
     other = {n: t.detach() for n, t in model.named_parameters()
@@ -791,8 +894,16 @@ def load_reference_state(model: nn.Module,
                          state: Mapping[str, np.ndarray]) -> None:
     """Copy the reference model's weights — ``{name: np.asarray(p._value)}``
     from the JAX package's ``state_dict()`` — into ``model``. Raises on
-    missing, extra or mis-shaped keys."""
+    missing, extra or mis-shaped keys. Under a pipeline the blocks of the
+    other stages (``model._pipeline_layout``) are not loaded and may be
+    missing."""
     own = model.state_dict()
+    layout = getattr(model, "_pipeline_layout", None)
+    if layout is not None:
+        own = {n: t for n, t in own.items() if layout["owner"].get(
+            n, layout["stage"]) == layout["stage"]}
+        state = {n: a for n, a in state.items()
+                 if n in own or n not in layout["owner"]}
     missing = sorted(set(own) - set(state))
     extra = sorted(set(state) - set(own))
     if missing or extra:

@@ -567,7 +567,7 @@ def _trainer_case(inp, case, rank, arrays, values):
     from paddle_tpu_torch.profiler import instrument, recompile
 
     name = case["name"]
-    cfg = json.loads(str(inp["cfg"]))
+    cfg = dict(json.loads(str(inp["cfg"])), **case.get("cfg", {}))
     m, net = _gpt_sharded(inp, cfg, case["mesh"])
     clip = case.get("clip", float(inp["clip"]))
     opt = AdamW(float(inp["lr"]), parameters=net.named_parameters(),
@@ -580,10 +580,27 @@ def _trainer_case(inp, case, rank, arrays, values):
         s.sharding = True
         s.sharding_configs = {"sharding_stage": case["zero"]}
     kw = {k: case[k] for k in ("param_dtype", "moment_dtype",
-                               "remat_policy", "dp_param_comm", "n_micro")
+                               "remat_policy", "dp_param_comm", "n_micro",
+                               "v_virtual")
           if k in case}
     tr = GPTHybridTrainer(net, opt, s, m, **kw)
     values[f"{name}.zero_manual"] = tr.zero_manual
+    values[f"{name}.circuits"] = tr.circuits
+    values[f"{name}.held"] = sorted(
+        n for n, p in net.named_parameters() if p.numel())
+    if case.get("grads"):
+        # step 0's gradients, summed over pp and sp (no update)
+        tok = torch.from_numpy(inp["steps_tok"][0][:case.get("batch")])
+        tr._upd.zero_grad()
+        tr._loss((tok.long(),), backward=True)
+        wte = tr._upd.leaves()[tr._index["embeddings.wte.weight"]]
+        if wte.grad is not None:       # this stage's part, before the sums
+            arrays[f"{name}.wte_part"] = wte.grad.float().numpy().copy()
+        # the clip's global norm (summed over pp, sp and ep)
+        values[f"{name}.grad_norm"] = tr._upd.global_norm()
+        for n, t in zip(tr._names, tr._upd.leaves()):
+            arrays[f"{name}.grad.{n}"] = t.grad.float().numpy().copy()
+        tr._upd.zero_grad()
     losses = []
     for i, tok in enumerate(inp["steps_tok"]):
         tok = torch.from_numpy(tok[:case.get("batch")]).long()
@@ -602,7 +619,8 @@ def _trainer_case(inp, case, rank, arrays, values):
     full = PL.gather_reference_state(net)
     moments = {}
     for n, p in net.named_parameters():
-        moments[n] = opt._accumulators[id(p)]["moment1"].float().numpy()
+        if id(p) in opt._accumulators:     # this rank's stage
+            moments[n] = opt._accumulators[id(p)]["moment1"].float().numpy()
     full_m = PL.gather_reference_state(net, moments)
     if rank == 0:
         for n, a in full.items():
@@ -664,6 +682,43 @@ def job_compile(inp, rank, arrays, values):
         M.set_mesh(None)
 
 
+def job_compile_moe(inp, rank, arrays, values):
+    """``compile_train_step`` with the model's ``.loss`` (the MoE aux
+    included) on a MoE GPT at ``{"dp": 2, "ep": 2}``: losses, the first
+    step's collectives and the gathered state."""
+    import torch
+
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import parallel_layers as PL
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.strategy_compiler import \
+        compile_train_step
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import instrument
+
+    cfg = json.loads(str(inp["cfg"]))
+    m, net = _gpt_sharded(inp, cfg, {"dp": 2, "ep": 2})
+    opt = AdamW(float(inp["lr"]), parameters=net.named_parameters(),
+                weight_decay=0.01,
+                grad_clip=tnn.ClipGradByGlobalNorm(float(inp["clip"])))
+    tr = compile_train_step(net, opt, DistributedStrategy(), m)
+    losses = []
+    for i, tok in enumerate(inp["steps_tok"]):
+        with instrument.count_collectives() as cc:
+            losses.append(float(tr.step(torch.from_numpy(tok).long())))
+        if i == 0:
+            values["stats"] = instrument.collective_stats(cc)
+    values["losses"] = losses
+    tr.sync_to_layer()
+    full = PL.gather_reference_state(net)
+    if rank == 0:
+        for n, a in full.items():
+            arrays[f"param.{n}"] = a
+    values["experts_held"] = list(net.blocks[0].mlp.w_in.shape)
+    M.set_mesh(None)
+
+
 def job_dp_pair(inp, rank, arrays, values):
     """The eager DataParallel + fleet.distributed_optimizer pair (each
     gradient all-reduced twice) against the trainer at dp = 2 (once)."""
@@ -707,6 +762,161 @@ def job_dp_pair(inp, rank, arrays, values):
     for n, p in net.named_parameters():
         arrays[f"trainer.param.{n}"] = p.detach().numpy().copy()
     M.set_mesh(None)
+
+
+# ---------------------------------------------------------------------------
+# pipeline, ring attention and MoE units
+# ---------------------------------------------------------------------------
+def job_pipe(inp, rank, arrays, values):
+    """``pipeline_apply`` on {"dp": 1, "pp": 2} (GPipe and interleaved) on
+    a stack of ``tanh(h @ W_l)`` layers with a per-call aux; the two
+    error messages; the interleaved trainer's state round trip at lr 0."""
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import parallel_layers as PL
+    from paddle_tpu_torch.distributed.hybrid import (HybridPipelineTrainer,
+                                                     pipeline_layout)
+    from paddle_tpu_torch.distributed.pipeline import pipeline_apply
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.profiler import instrument
+
+    m = M.init_mesh({"dp": 1, "pp": 2})
+    w, x, g = (torch.from_numpy(inp[k]) for k in ("w", "x", "g"))
+    L = w.shape[0]
+
+    def stage_fn(p, h):
+        aux = torch.zeros(())
+        for j in range(p.shape[0]):
+            h = torch.tanh(h @ p[j])
+            aux = aux + h.square().mean()
+        return h, aux
+
+    for v in (1, 2):
+        circ = pipeline_layout(L, 2, v)[rank]
+        params = w[torch.tensor(circ)].clone().requires_grad_()
+        with instrument.count_collectives() as cc:
+            out, aux = pipeline_apply(
+                m, stage_fn, params if v > 1 else params[0], x, 4,
+                v_virtual=v, stage_aux=True,
+                head_fn=lambda full: (full * g).sum())
+            (out + aux).backward()
+        values[f"v{v}.stats"] = instrument.collective_stats(cc)
+        values[f"v{v}.loss"] = float(out)
+        values[f"v{v}.aux"] = float(aux)
+        values[f"v{v}.circuits"] = circ
+        arrays[f"v{v}.grad"] = params.grad.numpy()
+        with torch.no_grad():
+            shared = pipeline_apply(m, lambda p, h: stage_fn(p, h)[0],
+                                    params if v > 1 else params[0], x, 4,
+                                    v_virtual=v)
+        arrays[f"v{v}.out"] = shared.numpy()
+    try:
+        pipeline_apply(m, stage_fn, w, x, 1, v_virtual=2)
+    except ValueError as e:
+        values["n_micro_error"] = str(e)
+    cfg = json.loads(str(inp["cfg"]))
+    _, net = _gpt_sharded(inp, cfg, {"dp": 1, "pp": 2})
+    try:
+        HybridPipelineTrainer(net, AdamW(0.0, parameters=net.parameters()),
+                              mesh=m, v_virtual=4)
+    except ValueError as e:
+        values["divisible_error"] = str(e)
+    tr = HybridPipelineTrainer(net, AdamW(0.0, parameters=net.parameters(),
+                                          weight_decay=0.0),
+                               mesh=m, n_micro=4, v_virtual=2)
+    tr.step(torch.from_numpy(inp["steps_tok"][0]).long())
+    tr.sync_to_layer()
+    for n, a in PL.gather_reference_state(net).items():
+        arrays[f"roundtrip.{n}"] = a
+    # the pp cut: a stage loads only its own blocks of a whole state
+    from paddle_tpu_torch.models import gpt as tgpt
+
+    shifted = {n: a + 1.0 for n, a in _state(inp).items()}
+    shard = PL.shard_reference_state(net, shifted)
+    values["shard_blocks"] = sorted({int(n.split(".")[1]) for n in shard
+                                     if n.startswith("blocks.")})
+    tgpt.load_reference_state(net, shard)
+    for n, a in PL.gather_reference_state(net).items():
+        arrays[f"reload.{n}"] = a
+    M.set_mesh(None)
+
+
+def job_ring(inp, rank, arrays, values):
+    """Ring attention over every rank as ``sp``: each case's global q, k,
+    v cut on dim 1; the local output and the gradients of sum(sin(o))."""
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.ops.ring_attention import (
+        ring_attention, sequence_parallel_attention)
+    from paddle_tpu_torch.profiler import instrument
+
+    n = int(inp["nranks"])
+    m = M.init_mesh({"sp": n})
+    for case in json.loads(str(inp["cases"])):
+        name = case["name"]
+        q, k, v = (torch.from_numpy(inp[f"{name}.{t}"]).chunk(n, 1)[rank]
+                   .contiguous().requires_grad_() for t in "qkv")
+        with instrument.count_collectives() as cc:
+            if case["causal"]:
+                o = ring_attention(q, k, v, "sp", causal=True)
+            else:
+                o = sequence_parallel_attention(q, k, v, m, causal=False)
+            values[f"{name}.fwd_stats"] = instrument.collective_stats(cc)
+        with instrument.count_collectives() as cc:
+            torch.sin(o.float()).sum().backward()
+        values[f"{name}.bwd_stats"] = instrument.collective_stats(cc)
+        arrays[f"{name}.o"] = o.detach().float().numpy()
+        for t, x in zip("qkv", (q, k, v)):
+            arrays[f"{name}.d{t}"] = x.grad.float().numpy()
+    M.set_mesh(None)
+
+
+def job_moe(inp, rank, arrays, values):
+    """``switch_moe`` routed over a group: each case's mesh, the axes the
+    tokens are cut over (the global [B, S, H] batch: dim 0 over dp, dim 1
+    over sp; every ep rank holds the same tokens and its experts), the
+    local outputs, the kept tokens, the aux and the gradients of
+    sum(y * y) + aux."""
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.context import (current_moe_routing,
+                                                      moe_routing_scope)
+    from paddle_tpu_torch.distributed.moe import switch_moe
+    from paddle_tpu_torch.profiler import instrument
+
+    for case in json.loads(str(inp["cases"])):
+        name = case["name"]
+        m = M.init_mesh(case["mesh"])
+        dp, sp = m.shape.get("dp", 1), m.shape.get("sp", 1)
+        ep = m.shape.get("ep", 1)
+        x = torch.from_numpy(inp[f"{name}.x"])               # [B, S, H]
+        x = x.chunk(dp, 0)[m.axis_index("dp") if dp > 1 else 0]
+        x = x.chunk(sp, 1)[m.axis_index("sp") if sp > 1 else 0]
+        b, s_l, h = x.shape
+        x = x.reshape(b * s_l, h).contiguous().requires_grad_()
+        gw, wi, bi, wo, bo = (torch.from_numpy(inp[f"{name}.{k}"])
+                              for k in ("gw", "wi", "bi", "wo", "bo"))
+        e_i = m.axis_index("ep") if ep > 1 else 0
+        wi, bi, wo, bo = (t.chunk(ep, 0)[e_i].contiguous()
+                          for t in (wi, bi, wo, bo))
+        ps = [t.clone().requires_grad_() for t in (gw, wi, bi, wo, bo)]
+        ep_arg = (m.group("ep"), ep, e_i) if ep > 1 else None
+        with moe_routing_scope(m, tuple(case["route"])), \
+                instrument.count_collectives() as cc:
+            y, aux = switch_moe(x, *ps, top_k=case["top_k"],
+                                capacity_factor=case["cf"], rows=b,
+                                route=current_moe_routing(), ep=ep_arg)
+            ((y * y).sum() + aux).backward()
+        values[f"{name}.stats"] = instrument.collective_stats(cc)
+        values[f"{name}.aux"] = float(aux)
+        arrays[f"{name}.y"] = y.detach().numpy()
+        arrays[f"{name}.dx"] = x.grad.numpy()
+        for k, t in zip(("gw", "wi", "bi", "wo", "bo"), ps):
+            arrays[f"{name}.d{k}"] = t.grad.numpy()
+        M.set_mesh(None)
 
 
 def main():

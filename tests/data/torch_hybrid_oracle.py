@@ -42,9 +42,9 @@ PARAM_ATOL = 1e-5
 G_CLEAR = 1e-4
 
 
-def ref_state(seed=3):
+def ref_state(seed=3, cfg=None):
     paddle.seed(seed)
-    net = jgpt.GPT(jgpt.GPTConfig(**CFG))
+    net = jgpt.GPT(jgpt.GPTConfig(**(cfg or CFG)))
     return net, {k: np.asarray(v._value) for k, v in
                  net.state_dict().items()}
 
@@ -54,10 +54,10 @@ def tokens(n=STEPS, seed=0):
     return r.randint(0, CFG["vocab_size"], (n, B, S)).astype(np.int32)
 
 
-def inputs(state, **extra):
+def inputs(state, cfg=None, **extra):
     """The ``inputs.npz`` dict of a worker job."""
     d = {f"state.{k}": v for k, v in state.items()}
-    d.update(cfg=json.dumps(CFG), lr=LR, clip=CLIP,
+    d.update(cfg=json.dumps(cfg or CFG), lr=LR, clip=CLIP,
              steps_tok=tokens())
     d.update(extra)
     return d
@@ -74,12 +74,12 @@ def jax_mesh(axes):
 
 
 def jax_train(axes, zero=0, amp=False, recompute=False, seed=3,
-              batch=None, clip=CLIP, **kw):
+              batch=None, clip=CLIP, cfg=None, **kw):
     """The JAX GPTHybridTrainer at ``axes`` and ZeRO ``zero`` over the
     token batches of ``tokens()`` (their first ``batch`` rows), with the
-    global-norm clip at ``clip`` (None: none): (initial params, losses,
-    final params, moment1)."""
-    net, state0 = ref_state(seed)
+    global-norm clip at ``clip`` (None: none), on gpt_tiny or ``cfg``:
+    (initial params, losses, final params, moment1)."""
+    net, state0 = ref_state(seed, cfg)
     opt = paddle.optimizer.AdamW(
         LR, parameters=net.parameters(), weight_decay=0.01,
         grad_clip=None if clip is None

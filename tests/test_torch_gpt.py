@@ -180,8 +180,12 @@ def test_entry_points_need_cuda_unless_cpu_is_asked_for():
 
 
 def test_moe_config_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tgpt.gpt_tiny(device="cpu", moe_num_experts=2)
+    """A MoE GPT builds and trains (its loss adds the aux); its decode
+    raises, as the reference's does (``models/gpt.py:785-788``)."""
+    net = tgpt.gpt_tiny(device="cpu", moe_num_experts=2)
+    assert type(net.blocks[0].mlp).__name__ == "MoEMLP"
+    with pytest.raises(NotImplementedError, match="MoE decode"):
+        net.generate(np.zeros((1, 4), np.int64), max_new_tokens=2)
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

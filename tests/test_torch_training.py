@@ -26,7 +26,6 @@ of its kernels on CPU tensors.
   clips, and the recipe's schedule over 30 steps against the JAX
   package's.
 """
-import types
 
 import numpy as np
 import pytest
@@ -302,20 +301,19 @@ def test_eager_loop_matches_trainer():
 def test_trainer_refuses_what_it_does_not_run():
     net = tgpt.GPT(tgpt.GPTConfig(**CFG), device="cpu")
     opt = AdamW(1e-3, parameters=net.named_parameters())
-    pp_mesh = types.SimpleNamespace(shape={"dp": 1, "pp": 2},
-                                    axis_names=("dp", "pp"))
-    for kw, match in ((dict(v_virtual=2), "queue 1 item 7c"),
-                      (dict(offload_params=True), "queue 1 item 7d"),
+    for kw, match in ((dict(offload_params=True), "queue 1 item 7d"),
                       (dict(stream_layers=True), "queue 1 item 7d"),
                       (dict(guard_bad_steps=True), "queue 1 item 8"),
-                      (dict(dp_grad_comm="int8"), "queue 1 item 7d"),
-                      (dict(mesh=pp_mesh), "queue 1 item 7c")):
+                      (dict(dp_grad_comm="int8"), "queue 1 item 7d")):
         with pytest.raises(NotImplementedError, match=match):
             HybridPipelineTrainer(net, opt, **kw)
-    s = DistributedStrategy()
-    s.hybrid_configs = {"pp_degree": 2}
-    with pytest.raises(NotImplementedError, match="pp_degree"):
-        HybridPipelineTrainer(net, opt, s)
+    # pp, sp, ep and v_virtual run (ROADMAP queue 1 item 7c); a virtual
+    # degree that does not divide the blocks is the reference's error
+    with pytest.raises(ValueError, match="divisible by pp_degree"):
+        HybridPipelineTrainer(net, opt, v_virtual=3)
+    for aot in ("aot_lower", "aot_compile", "memory_analysis"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 7e"):
+            getattr(HybridPipelineTrainer(net, opt), aot)()
     tr = HybridPipelineTrainer(net, opt, n_micro=3, free_eager=True)
     with pytest.raises(ValueError, match="n_micro"):
         tr.step(torch.from_numpy(_tokens()))
