@@ -64,8 +64,10 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    flash forward, the ragged chunk rows), in the decode rows or in the
    mma.sync backward kernels.
 The serving phases (2, 3 and 6–11) run one GPT at gpt3_1_3b's widths cut
-to SERVE_LAYERS = 12 of its 24 layers (random weights from a seed, f32),
-which keeps the whole script inside its time limit as phases are added.
+to SERVE_LAYERS = 8 of its 24 layers (random weights from a seed, f32),
+which keeps the whole script inside its time limit as phases are added
+(12 until the resume phase and run (g) took the default phases to 1098 s
+of the 1200 s limit).
 
 2. model phase — GPT.forward at gpt3_1_3b width (SERVE_LAYERS layers,
    random weights from a seed, f32) over 2 prompts of 1024 tokens (flash
@@ -317,6 +319,53 @@ which keeps the whole script inside its time limit as phases are added.
    and idle share of the traced step, (d)'s bubble beside its idle,
    and each run's launch counts are printed; every rank launches the
    wgmma kernels and none of the f32 route's.
+   The hybrid phase's run (g): {"dp": 2} ZeRO 2 with dp_grad_comm="int8"
+   and dp_param_comm="bf16" (the int8 ring's one hop, a bf16 return),
+   held to run (b) instead of a replica: both losses at
+   HYBRID_LOSS_RTOL, the f32 masters after step 1 against (b)'s
+   parameters by the share rule at HYBRID_PARAM_ATOL, the first
+   moments after step 2 at (b)'s scale, its counted
+   collectives to the code's (one int8 and one f32 scale permute, the
+   bf16 all-gather, two scalar all-reduces) and its dp gradient bytes at
+   most HYBRID_INT8_BYTES_RATIO of (b)'s; a third step's ring-reduced
+   gradient within half a quantization step of the hop's block amax of
+   the f32 reduce-scatter of the same local gradients. Each rank then
+   saves its ZeRO shard (device_state, a sync save) and rank 0 restores
+   the directory into a degree-1 trainer: its parameters bit-equal to
+   the gathered ones.
+15. resume phase — checkpoints, the elastic restart and host offload on
+   one rank, GPT at gpt3_1_3b widths cut to DIST_LAYERS = 4 layers under
+   the train recipe (amp, recompute, bf16 parameters and moments, AdamW
+   with the clip) at RESUME_BATCH [4, 2048]: (r1) a sync save of
+   device_state and its restore into a fresh trainer built from other
+   weights (every tensor bit-equal), one more step on both (losses within
+   RESUME_SPREAD_FLOOR), save and restore GB/s; (r3) the RESUME_OFFLOAD
+   variants (offload_optimizer; offload_params + offload_optimizer +
+   stream_layers at offload_depth 2; the same with conservative_fetch),
+   4 steps each from
+   one seed, held to the resident run (losses, the parameters after
+   step 1 by the share rule), each variant's warm step ms and
+   memory_ledger (an estimate); the fourth step's allocated bytes,
+   measured between steps and around the update: the card holds the
+   offloaded bytes less between steps than the resident run, the
+   update rises at most offload_depth + 1 groups' working sets above
+   the resident update's rise, and conservative_fetch's forward and
+   backward peak lies below the free schedule's by the prefetched
+   groups; (r2) child processes (chip_smoke.py
+   --resume-worker DIR, the kernels loaded from the build above), each
+   ElasticTrainer for RESUME_STEPS steps with save_interval 2,
+   prefetch_depth 2, async_dispatch and snapshot_async: an uninterrupted
+   life A beside a life B SIGKILLed once step 3 is logged and a step is
+   committed; B started again resumes from the newest committed step
+   beside a second uninterrupted life A': the restored state bit-equal
+   to the state B saved there (digests of every piece's bits), the
+   data cursor B saved there and A's at that step, that cursor's batch;
+   B's losses lie within the spread of A and A' (at least
+   RESUME_SPREAD_FLOOR of the loss). The
+   wait_snapshot stall and each save call's ms against a sync save's,
+   and the prefetch-depth gauge, are printed. The checkpoints live in a
+   temporary directory the phase deletes; every run launches the wgmma
+   forward, dQ and dK/dV and none of the f32 route's.
 
 Every launch counter is set to 0 just before each of phases 2-11 and read
 just after it (the dist, hybrid and parallel phases' ranks do the same
@@ -338,7 +387,9 @@ ragged row kinds, not the int8 path; the handoff path: both row kinds
 and the int8 path; the dist path: the SIMT forward and the mma.sync
 merged backward, no wgmma one; the hybrid path, on each rank: the wgmma
 forward, dQ and dK/dV, none of the f32 route's; the parallel path, on
-each rank: those and the merged backward, none of the f32 route's). Prints
+each rank: those and the merged backward, none of the f32 route's; the
+resume path, in this process and in each completed life: the wgmma
+forward, dQ and dK/dV, none of the f32 route's). Prints
 JSON lines per case, then {"kernels": [...]}, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -358,6 +409,8 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
     python3 chip_smoke.py --phases hybrid          # the trainer at dp, tp
                                                    # and ZeRO, 2 ranks
     python3 chip_smoke.py --phases parallel        # pp, sp and ep, 2 ranks
+    python3 chip_smoke.py --phases resume          # checkpoints, elastic
+                                                   # restart, host offload
 """
 from __future__ import annotations
 
@@ -389,9 +442,9 @@ BF16_TOL = 2e-2  # one bf16 ulp at |o| <~ 1, f32 accumulation on both sides
 # bf16 before P.V, as the reference does (a relative 2^-9 on each weight,
 # averaged over the keys: far inside one output ulp).
 MODEL_TOL = 1e-3  # 24 layers of f32 in different reduction orders
-#: the serving phases' model: gpt3_1_3b's widths, 12 of its 24 layers
+#: the serving phases' model: gpt3_1_3b's widths, 8 of its 24 layers
 #: (the tolerances below were set at 24 and hold at fewer)
-SERVE_LAYERS = 12
+SERVE_LAYERS = 8
 BWD_F32_TOL = 3e-5  # the reference's own gradient tolerance (f32)
 # The mma.sync backward kernels (f32, and bf16 at D 96) keep P and dS in
 # f32 (3xTF32 products: f32 accuracy), so bf16 inputs are held to the
@@ -4603,11 +4656,33 @@ HYBRID_LR = 1e-4
 #: (the replica check asserts it: a wrong global norm then shows as a
 #: common scale of the first moments)
 HYBRID_CLIP = 0.5
-#: (name, mesh, ZeRO stage, storage dtypes, global batch)
+#: (name, mesh, ZeRO stage, storage dtypes, global batch, trainer knobs)
 HYBRID_RUNS = (
-    ("tp2_recipe", {"dp": 1, "tp": 2}, 0, "bfloat16", (2, 2048)),
-    ("dp2_zero2", {"dp": 2}, 2, None, (4, 2048)),
-    ("dp2_zero3", {"dp": 2}, 3, None, (4, 2048)))
+    ("tp2_recipe", {"dp": 1, "tp": 2}, 0, "bfloat16", (2, 2048), {}),
+    ("dp2_zero2", {"dp": 2}, 2, None, (4, 2048), {}),
+    ("dp2_zero3", {"dp": 2}, 3, None, (4, 2048), {}),
+    ("dp2_int8", {"dp": 2}, 2, None, (4, 2048),
+     {"dp_grad_comm": "int8", "dp_param_comm": "bf16"}))
+#: run (g) against run (b) (the f32 ring at the same knobs, from the same
+#: state on the same batches): the losses of both steps at
+#: HYBRID_LOSS_RTOL, a sanity bound only (it is larger than a step's
+#: move); what decides is the f32 masters after step 1, held to (b)'s
+#: parameters within HYBRID_PARAM_ATOL where (b)'s clipped gradient is
+#: clear of zero (the replica rule's mask), on HYBRID_PARAM_SHARE of all
+#: such elements together (AdamW's first step is lr * sign(g): a ring
+#: that loses or mangles a rank's gradient flips the step of a large
+#: share of elements, while the int8 error, at most half a block step,
+#: flips only elements below it; a block of the flat slab can hold a
+#: small tensor's gradients beside a large one's, so a small tensor,
+#: a LayerNorm's, may flip on many of its few elements and the share
+#: is not taken a tensor), and the first moments after the unclipped
+#: step 2, whose
+#: best-fit scale against (b)'s lies within HYBRID_M1_TENSOR_SCALE_TOL
+#: of 1 (a gradient not divided by dp is off by 2x; int8 rounds a
+#: block's elements below half a step to 0, which pulls the scale a
+#: little below 1)
+#: run (g)'s dp gradient bytes over run (b)'s (the reference's bound)
+HYBRID_INT8_BYTES_RATIO = 0.55
 
 
 def _hybrid_trainer(model, mesh, zero, dtype, **kw):
@@ -4668,6 +4743,18 @@ def _hybrid_expected(name, cfg, batch, stats, numel, n_params):
         assert kd["all_reduce"]["bf16"] == (5 * L + 2) * act, kd
         return {"activation_all_reduces": 5 * L + 2,
                 "activation_bytes": act}
+    if name == "dp2_int8":
+        # the int8 ring's one hop (the chunk's int8 values and its f32
+        # block scales) and the bf16 return
+        chunk = zero_chunk_len(numel, 2, 2048)
+        assert ops == {"collective_permute": 2, "all_gather": 1,
+                       "all_reduce": 2}, ops
+        assert kd["collective_permute"] == {"i8": chunk,
+                                            "f32": 4 * chunk // 2048}, kd
+        assert kd["all_gather"] == {"bf16": 2 * 2 * chunk}, kd
+        assert kd["all_reduce"] == {"f32": 8}, kd
+        return {"chunk": chunk,
+                "grad_bytes": chunk + 4 * chunk // 2048}
     if name == "dp2_zero2":
         chunk = zero_chunk_len(numel, 2, 2048)
         assert ops == {"reduce_scatter": 1, "all_gather": 1,
@@ -4675,7 +4762,7 @@ def _hybrid_expected(name, cfg, batch, stats, numel, n_params):
         assert kd["reduce_scatter"] == {"f32": 4 * chunk}, kd
         assert kd["all_gather"] == {"f32": 2 * 4 * chunk}, kd
         assert kd["all_reduce"] == {"f32": 8}, kd
-        return {"chunk": chunk}
+        return {"chunk": chunk, "grad_bytes": 4 * chunk}
     per_block = (n_params - 4) // L       # the 4 others: wte, wpe, ln_f
     assert ops["reduce_scatter"] == n_params, ops
     assert ops["all_gather"] == n_params + L * per_block, ops
@@ -4816,12 +4903,16 @@ def _wte_repeat(cfg, dev, init, tok, dtype, after1, rep, gclear, res):
     del tr2, rep2
 
 
-def hybrid_run(dev, rank, name, axes, zero, dtype, batch, cfg=None):
+def hybrid_run(dev, rank, name, axes, zero, dtype, batch, cfg=None,
+               tr_kw=None, ckpt_dir=None, ref=None):
     """One run of the hybrid phase on this rank: 2 steps, the first one's
     collectives counted and every parameter gathered after it, the second
     in a parsed device_trace window; rank 0 then checks a degree-1
     replica. Returns this rank's results. ``cfg``: another GPTConfig
-    (a CPU rehearsal at a small size)."""
+    (a CPU rehearsal at a small size); ``tr_kw``: more trainer knobs.
+
+    Run (g) (``dp_grad_comm="int8"``) is held to ``ref``, run (b)'s
+    results, instead of the replica (``_int8_checks``)."""
     import dataclasses
 
     import torch
@@ -4842,7 +4933,7 @@ def hybrid_run(dev, rank, name, axes, zero, dtype, batch, cfg=None):
     paddle_tpu_torch.seed(3)
     model = GPT(cfg, device=dev)
     init = gather_reference_state(model)      # tp shards put together
-    tr = _hybrid_trainer(model, mesh, zero, dtype)
+    tr = _hybrid_trainer(model, mesh, zero, dtype, **(tr_kw or {}))
     numel = sum(a.size for a in init.values())
     n_params = len(init)
     res = {"run": name, "mesh": axes, "zero": zero, "dtype": dtype,
@@ -4853,6 +4944,8 @@ def hybrid_run(dev, rank, name, axes, zero, dtype, batch, cfg=None):
     stats = instrument.collective_stats(cc)
     tr.sync_to_layer()
     after1 = gather_reference_state(model)
+    if "master" in getattr(tr._upd, "slab", {}):
+        after1 = _slab_masters(tr)      # the model holds the bf16 return
     m1 = [gather_reference_state(model, _moment1(tr, model))]
     # step 2 without the clip: step 1's clip acts, so a gradient's size
     # shows in the first moments only after an unclipped step
@@ -4878,9 +4971,19 @@ def hybrid_run(dev, rank, name, axes, zero, dtype, batch, cfg=None):
                       "collectives": tr_sum.get("collectives")},
                peak_bytes=torch.cuda.max_memory_allocated(dev)
                if dev.type == "cuda" else None)
+    if ref is not None:
+        _int8_checks(dev, rank, tr, model, toks, res, ref, ckpt_dir, cfg,
+                     after1, m1)
+        del tr, model, init, after1, m1
+        M.set_mesh(None)
+        _free_memory(dev)
+        return res
     del tr, model
     M.set_mesh(None)
     _free_memory(dev)
+    if name == "dp2_zero2":
+        # run (g)'s reference (hybrid_worker drops it before writing)
+        res["_kept"] = {"after1": after1, "m1": m1}
     if rank == 0:
         keep = None
         if name == "tp2_recipe":
@@ -4912,6 +5015,127 @@ def hybrid_run(dev, rank, name, axes, zero, dtype, batch, cfg=None):
     return res
 
 
+def _slab_masters(tr) -> dict:
+    """The slab route's f32 masters, whole on every rank (a collective),
+    by parameter name, as host arrays."""
+    from paddle_tpu_torch.distributed import qcomm
+
+    upd = tr._upd
+    flat = qcomm.all_gather_cast(upd.slab["master"], upd.mesh)
+    out, off = {}, 0
+    for n, p, sz in zip(tr._names, upd.params, upd.sizes):
+        out[n] = flat[off:off + sz].view(p.shape).float().cpu().numpy()
+        off += sz
+    return out
+
+
+def _int8_checks(dev, rank, tr, model, toks, res, ref, ckpt_dir, cfg,
+                 after1, m1):
+    """Run (g)'s checks (``hybrid_run``): losses, the f32 masters after
+    step 1 (``after1``) and the first moments after step 2 (``m1[1]``)
+    against run (b) (``ref``, see HYBRID_RUNS); the dp gradient bytes
+    against (b)'s; a third step whose ring-reduced gradient
+    is held to the f32 reduce-scatter of the same local gradients within
+    the hop's quantization bound (at dp 2 the one hop carries the other
+    rank's chunk at its block amax / 127: each element within half a
+    step); then every rank saves its ZeRO shard (``device_state``, a
+    sync save to ``ckpt_dir``) and rank 0 restores the directory into a
+    degree-1 trainer (a change of topology): its parameters bit-equal
+    to the gathered ones."""
+    import torch
+
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.distributed import qcomm
+    from paddle_tpu_torch.distributed.mesh import create_mesh
+    from paddle_tpu_torch.distributed.parallel_layers import \
+        gather_reference_state
+    from paddle_tpu_torch.models.gpt import GPT
+
+    l_g, l_b = res["losses"], ref["losses"]
+    for i in range(2):
+        assert abs(l_g[i] - l_b[i]) <= HYBRID_LOSS_RTOL * abs(l_b[i]), \
+            (l_g, l_b)
+    kept = ref.pop("_kept")
+    beta1 = tr.optimizer._beta1
+    share, checked, within = {}, 0, 0
+    for n, want in kept["after1"].items():
+        # (b)'s clipped step-1 gradient: its first moment / (1 - beta1)
+        g = torch.from_numpy(kept["m1"][0][n]).to(dev).abs() / (1 - beta1)
+        clear = (g > HYBRID_G_CLEAR * g.max()) & (g > HYBRID_G_EPS)
+        d = (torch.from_numpy(after1[n]).to(dev)
+             - torch.from_numpy(want).to(dev))[clear].abs()
+        ok = int((d <= HYBRID_PARAM_ATOL).sum())
+        share[n] = ok / d.numel() if d.numel() else 1.0
+        checked += d.numel()
+        within += ok
+    moment = _moment_check(m1[1], kept["m1"][1], dev)
+    res["vs_b"] = {"share": within / max(1, checked),
+                   "worst_tensor_share": min(share.values()),
+                   "worst_tensor_share_param": min(share, key=share.get),
+                   "params_checked": checked / sum(
+                       a.size for a in kept["after1"].values()),
+                   "moment1_step2_scale": moment["scale"],
+                   "moment1_step2_worst_rel_err": moment["worst_rel_err"]}
+    del kept
+    assert res["vs_b"]["share"] >= HYBRID_PARAM_SHARE, res["vs_b"]
+    assert abs(moment["scale"] - 1) <= HYBRID_M1_TENSOR_SCALE_TOL, \
+        res["vs_b"]
+    ratio = res["expected"]["grad_bytes"] / ref["expected"]["grad_bytes"]
+    assert ratio <= HYBRID_INT8_BYTES_RATIO, ratio
+    ring = qcomm.quantized_reduce_scatter
+    seen = []
+
+    def checked(x, mesh, n, block=2048, mean=False):
+        out = ring(x, mesh, n, block=block, mean=mean)
+        with uncounted():
+            exact = qcomm.reduce_scatter(x, mesh, n, mean=mean)
+        scale = n if mean else 1
+        own = x.float().reshape(n, -1)[mesh.axis_index("dp")]
+        other = (exact * scale - own).reshape(-1, block)
+        half = other.abs().amax(1, keepdim=True) / 127 / 2
+        # plus the f32 roundings of the sum and the mean, and of the
+        # sender's chunk as recovered here (the sum less this rank's)
+        lim = (half * (1 + 2.0 ** -10) + 2.0 ** -20 * (
+            exact * scale).abs().reshape(-1, block)) / scale
+        err = (out - exact).abs().reshape(-1, block)
+        seen.append({"worst_over_bound": float((err / lim.clamp(
+            min=1e-30)).max()), "max_abs_err": float(err.max()),
+            "max_half_step": float(half.max() / scale)})
+        return out
+
+    qcomm.quantized_reduce_scatter = checked
+    try:
+        res["losses"].append(float(tr.step(toks[0])))
+    finally:
+        qcomm.quantized_reduce_scatter = ring
+    res["int8_grad_check"] = seen[0]
+    assert seen[0]["worst_over_bound"] <= 1.0, seen
+    res["grad_bytes_ratio"] = ratio
+    dck.save(ckpt_dir, tr.device_state(), step=3, async_=False)
+    tr.sync_to_layer()
+    final = gather_reference_state(model)
+    if rank == 0:
+        with uncounted():
+            rep = GPT(cfg, device=dev)
+            rtr = _hybrid_trainer(rep, create_mesh({"dp": 1}, [0]), 0, None)
+            t0 = time.perf_counter()
+            rtr.load_device_state(dck.restore(ckpt_dir, rtr.device_state()),
+                                  step=3)
+            _sync(dev)
+            res["restore_s"] = time.perf_counter() - t0
+            differ = [n for n, p in rep.named_parameters()
+                      if not torch.equal(p.detach().cpu(),
+                                         torch.from_numpy(final[n]))]
+            assert not differ, differ[:8]
+            res["restored_params"] = len(final)
+            del rtr, rep
+    del final
+    emit({"hybrid": "int8", "rank": rank, "losses": res["losses"],
+          "ref_losses": l_b, "vs_b": res["vs_b"], "grad_bytes_ratio": ratio,
+          "int8_grad_check": seen[0],
+          "restored_params": res.get("restored_params")})
+
+
 def hybrid_worker(out_dir) -> int:
     """One rank of the hybrid phase (started by the launcher)."""
     import torch
@@ -4925,11 +5149,17 @@ def hybrid_worker(out_dir) -> int:
     assert env.world_size == 2 and dev == torch.device("cuda", 0), \
         (env.world_size, dev)
     runs = []
-    for name, axes, zero, dtype, batch in HYBRID_RUNS:
+    for name, axes, zero, dtype, batch, kw in HYBRID_RUNS:
         t0 = time.perf_counter()
-        r = hybrid_run(dev, rank, name, axes, zero, dtype, batch)
+        int8 = kw.get("dp_grad_comm") == "int8"
+        r = hybrid_run(dev, rank, name, axes, zero, dtype, batch, tr_kw=kw,
+                       ckpt_dir=os.path.join(out_dir, "ckpt_" + name),
+                       ref=next(x for x in runs if x["run"] == "dp2_zero2")
+                       if int8 else None)
         r["seconds"] = time.perf_counter() - t0
         runs.append(r)
+    for r in runs:
+        r.pop("_kept", None)
     res = {"rank": rank, "runs": runs, "foreign_modules": sorted(
         m for m in sys.modules if m == "jax" or m.startswith("jax.")
         or m == "paddle_tpu" or m.startswith("paddle_tpu."))}
@@ -5190,6 +5420,8 @@ def parallel_run(dev, rank, name, axes, dtype, batch, tr_kw, moe, cfg=None,
     routes = [_routes(model) if moe else None]
     tr.sync_to_layer()
     after1 = gather_reference_state(model)
+    if "master" in getattr(tr._upd, "slab", {}):
+        after1 = _slab_masters(tr)      # the model holds the bf16 return
     m1 = [gather_reference_state(model, _moment1(tr, model))]
     tr.optimizer._grad_clip = None
     with device_trace.capture(steps=1, label=name) as cap:
@@ -5219,6 +5451,9 @@ def parallel_run(dev, rank, name, axes, dtype, batch, tr_kw, moe, cfg=None,
     del tr, model
     M.set_mesh(None)
     _free_memory(dev)
+    if name == "dp2_zero2":
+        # run (g)'s reference (hybrid_worker drops it before writing)
+        res["_kept"] = {"after1": after1, "m1": m1}
     if rank == 0:
         keep = None
         if moe:
@@ -5289,6 +5524,8 @@ def parallel_worker(out_dir) -> int:
         r = parallel_run(dev, rank, name, axes, dtype, batch, tr_kw, moe)
         r["seconds"] = time.perf_counter() - t0
         runs.append(r)
+    for r in runs:
+        r.pop("_kept", None)
     res = {"rank": rank, "runs": runs, "foreign_modules": sorted(
         m for m in sys.modules if m == "jax" or m.startswith("jax.")
         or m == "paddle_tpu" or m.startswith("paddle_tpu."))}
@@ -5338,16 +5575,570 @@ def parallel_phase(dev, timeout=600):
     return counts, {}
 
 
+# ---------------------------------------------------------------------------
+# resume phase: checkpoints, the elastic restart and host offload
+# ---------------------------------------------------------------------------
+#: the resume phase's global batch and each elastic child's steps
+RESUME_BATCH = (4, 2048)
+RESUME_STEPS = 6
+#: a resumed (or restored) run's loss may differ from an uninterrupted
+#: run's by the two uninterrupted runs' spread, or by this share of the
+#: loss where that spread is smaller: the card's bf16 atomics sum the
+#: embedding's gradient in another order on each run (ROADMAP queue 3
+#: item 5), so two runs from the same state need not agree bit for bit
+RESUME_SPREAD_FLOOR = 1e-3
+#: the offload variants (3 steps each from one seed), held to the
+#: resident run
+RESUME_OFFLOAD = (
+    ("resident", {}),
+    ("offload_optimizer", {"offload_optimizer": True}),
+    ("offload_params_stream", {"offload_params": True,
+                               "offload_optimizer": True,
+                               "stream_layers": True, "offload_depth": 2}),
+    ("offload_params_stream_conservative", {
+        "offload_params": True, "offload_optimizer": True,
+        "stream_layers": True, "offload_depth": 2,
+        "conservative_fetch": True}))
+
+
+def _resume_trainer(dev, seed=21, **kw):
+    """(trainer, config): GPT at gpt3_1_3b widths cut to DIST_LAYERS
+    layers under the train recipe (amp, recompute, bf16 parameters and
+    moments, AdamW with the global-norm clip) on one rank; ``kw``: more
+    of the trainer's knobs (the offload ones)."""
+    import dataclasses
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+
+    cfg = dataclasses.replace(GPTConfig.gpt3_1_3b(), num_layers=DIST_LAYERS)
+    paddle_tpu_torch.seed(seed)
+    return _hybrid_trainer(GPT(cfg, device=dev), None, 0, "bfloat16",
+                           **kw), cfg
+
+
+def _resume_batch(cfg, cursor):
+    """The resume phase's batch at data cursor ``cursor`` (host int64)."""
+    import numpy as np
+
+    rng = np.random.RandomState(1000 + cursor)
+    return (rng.randint(0, cfg.vocab_size, RESUME_BATCH).astype(np.int64),)
+
+
+def _state_pieces(st):
+    """Every Sharded piece of a device_state tree, by key."""
+    from paddle_tpu_torch.utils.tree import flatten
+
+    return dict(flatten(st))
+
+
+def _digest(st) -> dict:
+    """Each piece of a device_state tree by its bits: their sum and their
+    sum weighted by position, in int64 (wrapping; integer sums do not
+    depend on order), so bit-equal states give equal digests."""
+    import torch
+
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = {}
+    for k, p in _state_pieces(st).items():
+        w = p.data.detach().reshape(-1).view(
+            ints[p.data.element_size()]).to(torch.int64)
+        pos = torch.arange(w.numel(), device=w.device) % 65521 + 1
+        out[k] = [int(w.sum()), int((w * pos).sum())]
+    return out
+
+
+def resume_sync_check(dev, d) -> dict:
+    """(r1): one step, a sync save of ``device_state`` to ``d``, a restore
+    into a fresh trainer from other weights (every tensor bit-equal to
+    the saved one), then one more step on both (losses within
+    RESUME_SPREAD_FLOOR). Save and restore GB/s over the state's bytes
+    (the restore read warm from the page cache)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import checkpoint as dck
+
+    tr, cfg = _resume_trainer(dev)
+    tr.step(*_resume_batch(cfg, 0))
+    want = _state_pieces(tr.device_state())
+    nbytes = sum(p.data.numel() * p.data.element_size()
+                 for p in want.values())
+    _sync(dev)
+    t0 = time.perf_counter()
+    dck.save(d, tr.device_state(), step=1, async_=False)
+    save_s = time.perf_counter() - t0
+    tr2, _ = _resume_trainer(dev, seed=22)
+    _sync(dev)
+    t0 = time.perf_counter()
+    got = dck.restore(d, tr2.device_state(), verify=False)
+    tr2.load_device_state(got, step=1)
+    _sync(dev)
+    restore_s = time.perf_counter() - t0
+    back = _state_pieces(tr2.device_state())
+    differ = [k for k, p in want.items() if not torch.equal(p.data,
+                                                             back[k].data)]
+    assert not differ, differ[:8]
+    batch = _resume_batch(cfg, 1)
+    l1, l2 = float(tr.step(*batch)), float(tr2.step(*batch))
+    assert abs(l1 - l2) <= RESUME_SPREAD_FLOOR * abs(l1), (l1, l2)
+    out = {"resume": "sync", "state_bytes": nbytes, "pieces": len(want),
+           "save_s": save_s, "restore_s": restore_s,
+           "save_GBps": nbytes / save_s / 1e9,
+           "restore_GBps": nbytes / restore_s / 1e9,
+           "restore_read": "warm (page cache)",
+           "step2_losses": [l1, l2]}
+    del tr, tr2, want, back, got
+    _free_memory(dev)
+    return out
+
+
+def resume_worker(out_dir, dev=None) -> int:
+    """One life of the elastic run (the resume phase starts it): the
+    ElasticTrainer loop on this card with save_interval 2, prefetch_depth
+    2, async_dispatch and snapshot_async, ``RESUME_STEPS`` steps; each
+    drained loss appended to ``out_dir/losses.log``, and before each save
+    the step, the data cursor and the digest of the state it saves
+    (``_digest``) to ``out_dir/saves.log``. At the end a sync save of the
+    same state times the stall a blocking save costs. Writes
+    ``out_dir/life.json`` (launch counts, the step it resumed from, the
+    restored state's digest, the data cursor each step trained on,
+    whether the first batch after a resume is its cursor's batch, the
+    snapshot and sync stalls, the prefetch-depth gauge at each step)."""
+    import torch
+
+    from paddle_tpu_torch import profiler
+    from paddle_tpu_torch.distributed import checkpoint as dck
+    from paddle_tpu_torch.distributed.elastic import ElasticTrainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    interval = int(os.environ.get("RESUME_SAVE_INTERVAL", "2"))
+    tr, cfg = _resume_trainer(dev)
+    el = ElasticTrainer(tr, os.path.join(out_dir, "ckpt"),
+                        save_interval=interval, keep=2, prefetch_depth=2,
+                        async_dispatch=True, snapshot_async=True)
+    reg = profiler.registry()
+    profiler.enable(reset=False)
+    depth = []
+    log = open(os.path.join(out_dir, "losses.log"), "a")
+
+    def on_step(step, loss):
+        depth.append(reg.gauge("elastic/prefetch_depth").value)
+        log.write(f"{step},{loss!r}\n")
+        log.flush()
+        os.fsync(log.fileno())
+
+    resumed, save_ms, cursors, first = [], [], {}, {}
+    resume, save, step = el.resume, el.save, tr.step
+    saves = open(os.path.join(out_dir, "saves.log"), "a")
+
+    def timed_save(at, *a, **k):
+        saves.write(json.dumps({"step": at, "cursor": el.data_cursor,
+                                "digest": _digest(tr.device_state())})
+                    + "\n")
+        saves.flush()
+        os.fsync(saves.fileno())
+        t0 = time.perf_counter()
+        h = save(at, *a, **k)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        return h
+
+    def digested_resume(*a, **k):
+        resumed.append(resume(*a, **k))
+        first["digest"] = _digest(tr.device_state())
+        return resumed[-1]
+
+    def traced_step(*batch):
+        cursors[tr._step] = el.data_cursor
+        if "batch_equal" not in first:
+            want = torch.from_numpy(_resume_batch(cfg, el.data_cursor)[0])
+            first["batch_equal"] = torch.equal(batch[0].cpu(), want)
+        return step(*batch)
+
+    el.resume, el.save, tr.step = digested_resume, timed_save, traced_step
+    stall = reg.counter("ckpt/stall_ms")
+    set_counts()
+    s0 = stall.value
+    el.run(lambda c: _resume_batch(cfg, c), RESUME_STEPS, on_step=on_step)
+    snap_stall = stall.value - s0
+    counts, _ = read_counts()
+    profiler.disable()
+    sync_ms = None
+    if os.environ.get("RESUME_SYNC_SAVE") == "1":
+        _sync(dev)
+        t0 = time.perf_counter()
+        dck.save(os.path.join(out_dir, "sync"), tr.device_state(), step=1,
+                 async_=False)
+        sync_ms = (time.perf_counter() - t0) * 1e3
+    res = {"resumed": resumed[0], "launches": counts,
+           "resumed_digest": first["digest"], "cursors": cursors,
+           "first_batch_equal": first["batch_equal"],
+           "prefetch_depth": depth, "snapshot_stall_ms": snap_stall,
+           "save_call_ms": save_ms, "sync_save_ms": sync_ms,
+           "loss_syncs": el.loss_syncs,
+           "foreign_modules": sorted(
+               m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m == "paddle_tpu" or m.startswith("paddle_tpu."))}
+    assert not res["foreign_modules"], res["foreign_modules"]
+    with open(os.path.join(out_dir, "life.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def _life(out_dir, interval=2, sync_save=False):
+    """Start one life of the elastic run (``--resume-worker out_dir``)."""
+    env = dict(os.environ, OMP_NUM_THREADS="4",
+               RESUME_SAVE_INTERVAL=str(interval),
+               RESUME_SYNC_SAVE="1" if sync_save else "0",
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    log = open(os.path.join(out_dir, "stdout.log"), "a")
+    return subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--resume-worker", out_dir], env=env, cwd=HERE,
+        stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _life_losses(out_dir) -> dict:
+    path = os.path.join(out_dir, "losses.log")
+    out = {}
+    if os.path.exists(path):
+        for line in open(path):
+            s, v = line.strip().split(",")
+            out[int(s)] = float(v)
+    return out
+
+
+def _join(p, out_dir, timeout):
+    import signal
+
+    try:
+        rc = p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+        rc = "timeout"
+    if rc != 0:
+        with open(os.path.join(out_dir, "stdout.log")) as f:
+            print(f"--- resume life {out_dir} ---\n" + f.read()[-4000:],
+                  file=sys.stderr)
+        raise AssertionError(f"a resume life exited {rc}")
+    with open(os.path.join(out_dir, "life.json")) as f:
+        return json.load(f)
+
+
+def _saves(out_dir) -> dict:
+    """``saves.log`` of a life: {step: {"cursor", "digest"}}."""
+    out = {}
+    path = os.path.join(out_dir, "saves.log")
+    if os.path.exists(path):
+        for line in open(path):
+            if line.endswith("\n"):
+                rec = json.loads(line)
+                out[rec["step"]] = rec
+    return out
+
+
+def resume_elastic_check(dev, root, timeout=400) -> tuple:
+    """(r2): an uninterrupted life (A) beside one SIGKILLed once step 3 is
+    logged and a step is committed (B); B started again must resume from
+    the newest committed step, with the state B saved there bit for bit
+    (their digests), the data cursor B saved there, which is A's cursor
+    at that step, and that cursor's batch. A second uninterrupted life
+    (A', saving only at the end) beside it gives the spread: B's losses
+    from its resumed step lie within max(|A - A'|, RESUME_SPREAD_FLOOR ·
+    |A|) of A's. Returns (result, the completed lives' summed launch
+    counts)."""
+    import shutil
+    import signal
+
+    from paddle_tpu_torch.distributed import checkpoint as dck
+
+    dirs = {k: os.path.join(root, k) for k in ("a", "a2", "b")}
+    for d in dirs.values():
+        os.makedirs(d)
+    t0 = time.perf_counter()
+    pa_, pb = _life(dirs["a"], sync_save=True), _life(dirs["b"])
+    deadline = time.time() + timeout
+    ckpt_b = os.path.join(dirs["b"], "ckpt")
+    while len(_life_losses(dirs["b"])) < 4 or \
+            dck.latest_step(ckpt_b) is None:
+        assert pb.poll() is None, "life B ended before it was killed"
+        assert time.time() < deadline, "life B logged no step 3"
+        time.sleep(0.05)
+    os.killpg(pb.pid, signal.SIGKILL)
+    pb.wait()
+    killed_at = len(_life_losses(dirs["b"]))
+    newest = dck.latest_step(ckpt_b)
+    saved_b = _saves(dirs["b"])
+    lives = [_join(pa_, dirs["a"], timeout)]
+    shutil.rmtree(os.path.join(dirs["a"], "ckpt"), ignore_errors=True)
+    shutil.rmtree(os.path.join(dirs["a"], "sync"), ignore_errors=True)
+    pa2, pb2 = _life(dirs["a2"], interval=RESUME_STEPS), _life(dirs["b"])
+    lives += [_join(pa2, dirs["a2"], timeout), _join(pb2, dirs["b"],
+                                                     timeout)]
+    wall = time.perf_counter() - t0
+    la, la2, lb = (_life_losses(dirs[k]) for k in ("a", "a2", "b"))
+    assert lives[2]["resumed"] == newest and newest is not None, \
+        (lives[2]["resumed"], newest)
+    b2, at_save = lives[2], saved_b[newest]
+    differ = [k for k, v in at_save["digest"].items()
+              if b2["resumed_digest"].get(k) != v]
+    assert not differ and len(b2["resumed_digest"]) == len(
+        at_save["digest"]), differ[:8]
+    cur_a = {int(k): v for k, v in lives[0]["cursors"].items()}
+    cur_b = {int(k): v for k, v in b2["cursors"].items()}
+    assert cur_b[newest] == at_save["cursor"] == cur_a[newest], \
+        (cur_b, at_save["cursor"], cur_a)
+    assert all(cur_b[s] == cur_a[s] for s in cur_b), (cur_b, cur_a)
+    assert b2["first_batch_equal"], b2["first_batch_equal"]
+    a_state = _saves(dirs["a"]).get(newest, {}).get("digest")
+    worst = 0.0
+    for s in range(newest, RESUME_STEPS):
+        spread = max(abs(la[s] - la2[s]), RESUME_SPREAD_FLOOR * abs(la[s]))
+        worst = max(worst, abs(lb[s] - la[s]) / spread)
+        assert abs(lb[s] - la[s]) <= spread, (s, lb[s], la[s], la2[s])
+    res = {"resume": "elastic", "killed_after_losses": killed_at,
+           "resumed_from": newest, "losses_a": [la[s] for s in sorted(la)],
+           "losses_a2": [la2[s] for s in sorted(la2)],
+           "losses_b": [lb[s] for s in sorted(lb)],
+           "worst_over_spread": worst, "wall_s": wall,
+           "restored_state_bit_equal_to_saved": True,
+           "restored_pieces": len(b2["resumed_digest"]),
+           "resumed_cursor": cur_b[newest],
+           "a_state_equal_at_resumed_step": a_state == at_save["digest"],
+           "snapshot_stall_ms": lives[0]["snapshot_stall_ms"],
+           "snapshot_save_call_ms": lives[0]["save_call_ms"],
+           "sync_save_ms": lives[0]["sync_save_ms"],
+           "prefetch_depth": lives[0]["prefetch_depth"],
+           "loss_syncs": lives[0]["loss_syncs"],
+           "launches_by_life": [l["launches"] for l in lives]}
+    counts = {k: sum(l["launches"][k] for l in lives)
+              for k in LAUNCH_COUNTERS}
+    for l in lives:
+        for k in ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc"):
+            assert l["launches"][k] > 0, (k, l["launches"])
+        for k in ("flash", "bwd_single", "bwd_dq", "bwd_dkv"):
+            assert l["launches"][k] == 0, (k, l["launches"])
+    return res, counts
+
+
+#: the caching allocator may hand a tensor a block up to 1 MiB larger
+#: than it asked for (a large block is not split when less would
+#: remain): the measured byte checks allow that much a tensor
+RESUME_BLOCK_SLACK = 2 ** 20
+
+
+def _offload_plan(tr) -> dict:
+    """Bytes of the offloaded state, from the tensors themselves: what
+    leaves the card between steps (the host moments, plus the host
+    masters less the compute copies that stay), the largest group's
+    streamed working set (its masters and moments on the card) and the
+    first ``offload_depth`` groups' (the prefetch), and the number of
+    offloaded tensors."""
+    upd = tr._upd
+
+    def nb(t):
+        return t.numel() * t.element_size()
+
+    def working(i):
+        b = sum(nb(v) for v in upd.states[i].values()) \
+            if upd.offload_optimizer else 0
+        return b + (nb(upd.master[i]) if upd.master[i] is not None else 0)
+
+    groups = [sum(working(i) for i in g) for g in upd.groups]
+    off = sum(nb(v) for st in upd.states for v in st.values()) \
+        if upd.offload_optimizer else 0
+    off += sum(nb(m) - nb(p.data) for p, m in zip(upd.params, upd.master)
+               if m is not None)
+    n = sum(len(st) for st in upd.states) if upd.offload_optimizer else 0
+    n += sum(m is not None for m in upd.master)
+    return {"offloaded_bytes": off, "largest_group_bytes": max(groups),
+            "prefetch_bytes": sum(groups[:upd.depth]), "tensors": n,
+            "depth": upd.depth, "groups": len(groups)}
+
+
+def _measured_step(tr, tok, dev) -> dict:
+    """One step with the card's allocated bytes sampled: between steps
+    (before it), the forward and backward's peak, at the update's entry,
+    and the update's peak (``torch.cuda`` allocator statistics; the
+    update is wrapped with a synchronize on each side)."""
+    import torch
+
+    upd = tr._upd
+    getattr(upd, "host_sync", lambda: None)()
+    _sync(dev)
+    mem = {"between_steps": torch.cuda.memory_allocated(dev)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    update = upd.update
+
+    def sampled(*a, **k):
+        _sync(dev)
+        mem["fwd_bwd_peak"] = torch.cuda.max_memory_allocated(dev)
+        mem["update_entry"] = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        update(*a, **k)
+        _sync(dev)
+        mem["update_peak"] = torch.cuda.max_memory_allocated(dev)
+
+    upd.update = sampled
+    try:
+        mem["loss"] = float(tr.step(tok))
+    finally:
+        del upd.update
+    return mem
+
+
+def resume_offload_check(dev) -> dict:
+    """(r3): each RESUME_OFFLOAD variant 4 steps from one seed, held to
+    the resident run: losses within RESUME_SPREAD_FLOOR, the parameters
+    after step 1 within one bf16 ulp on HYBRID_PARAM_SHARE of each
+    tensor's elements. Each variant's warm step ms (the third step) and
+    memory_ledger (an estimate: the schedule's bound, not a reading).
+    The fourth step is measured on the card (``_measured_step``) and held
+    to the resident run's: between steps the card holds at least the
+    offloaded bytes less (the moments and masters are on the host); the
+    update's rise over the between-steps bytes exceeds the resident
+    update's by at most offload_depth + 1 groups' working sets (the
+    groups in flight: the one updating, the depth fetched ahead); and
+    conservative_fetch's forward and backward peak lies below the free
+    schedule's by the prefetched groups."""
+    import torch
+
+    cuda = dev.type == "cuda"
+    rows, base, base_p, fails = [], None, None, []
+    for name, kw in RESUME_OFFLOAD:
+        _free_memory(dev)
+        tr, cfg = _resume_trainer(dev, **kw)
+        losses, ms = [], []
+        for i in range(3):
+            loss, t = _timed_step(tr, _resume_batch(cfg, i)[0], dev)
+            losses.append(loss)
+            ms.append(t)
+            if i == 0:
+                # host copies: the card holds no more than the run itself
+                after1 = {k: p.data.to("cpu", copy=True) for k, p in
+                          _state_pieces(tr.device_state()).items()
+                          if k.startswith("params/")}
+        tok = _resume_batch(cfg, 3)[0]
+        if cuda:
+            mem = _measured_step(tr, tok, dev)
+            losses.append(mem.pop("loss"))
+        else:
+            mem = None
+            losses.append(float(tr.step(tok)))
+        led = tr.memory_ledger()
+        row = {"resume": "offload", "variant": name, "knobs": kw,
+               "losses": losses, "step_ms": ms, "warm_step_ms": ms[2],
+               "measured_bytes": mem, "ledger_estimate": led,
+               "ledger_device_bytes": sum(
+                   v for k, v in led.items() if not k.startswith("host_")),
+               "ledger_host_bytes": sum(
+                   v for k, v in led.items() if k.startswith("host_"))}
+        if base is None:
+            base, base_p = row, after1
+        else:
+            worst = 1.0
+            for k, w in base_p.items():
+                g = after1[k].to(dev).float()
+                w = w.to(dev).float()
+                ok = (g - w).abs() <= HYBRID_BF16_ULP * torch.maximum(
+                    g.abs(), w.abs())
+                worst = min(worst, float(ok.float().mean()))
+            row["worst_share"] = worst
+            assert worst >= HYBRID_PARAM_SHARE, (name, worst)
+            for a, b in zip(losses, base["losses"]):
+                assert abs(a - b) <= RESUME_SPREAD_FLOOR * abs(b), \
+                    (name, losses, base["losses"])
+            plan = _offload_plan(tr)
+            row["plan"] = plan
+            if cuda:
+                fails += _offload_memory_checks(row, base, rows, plan)
+        rows.append(row)
+        emit(row)
+        del tr, after1
+    del base_p
+    _free_memory(dev)
+    # every variant's row is printed before a failed byte check stops it
+    assert not fails, fails
+    return {"resume": "offload", "variants": [r["variant"] for r in rows],
+            "warm_step_ms": {r["variant"]: r["warm_step_ms"] for r in rows},
+            "measured_bytes": {r["variant"]: r["measured_bytes"]
+                               for r in rows}}
+
+
+def _offload_memory_checks(row, base, rows, plan) -> list:
+    """The measured checks of ``resume_offload_check`` on one variant's
+    row against the resident run's (``base``) and, for
+    conservative_fetch, the free schedule's (in ``rows``); returns the
+    failed ones."""
+    got, res = row["measured_bytes"], base["measured_bytes"]
+    slack = plan["tensors"] * RESUME_BLOCK_SLACK
+    saved = res["between_steps"] - got["between_steps"]
+    rise = (got["update_peak"] - got["between_steps"]) - \
+        (res["update_peak"] - res["between_steps"])
+    window = (plan["depth"] + 1) * plan["largest_group_bytes"]
+    checks = row["memory_checks"] = {
+        "saved_between_steps": saved, "update_rise_over_resident": rise,
+        "window_bound": window, "slack": slack}
+    fails = []
+    if saved < plan["offloaded_bytes"] - slack:
+        fails.append((row["variant"], "saved_between_steps", checks))
+    if rise > window + slack:
+        fails.append((row["variant"], "update_rise", checks))
+    if row["knobs"].get("conservative_fetch"):
+        free = next(r for r in rows if r["knobs"].get("stream_layers")
+                    and not r["knobs"].get("conservative_fetch"))
+        lower = free["measured_bytes"]["fwd_bwd_peak"] - \
+            got["fwd_bwd_peak"]
+        checks["fwd_bwd_peak_below_free"] = lower
+        if lower < plan["prefetch_bytes"] - slack:
+            fails.append((row["variant"], "fwd_bwd_peak", checks))
+    return fails
+
+
+def resume_phase(dev, timeout=400) -> tuple:
+    """(r1) the sync save and restore, (r2) the elastic restart in child
+    processes, (r3) the offload variants; checkpoints under a temporary
+    directory the phase deletes. Returns (the phase's launch counts, this
+    process's and the completed lives', {})."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="resume_phase_")
+    t0 = time.perf_counter()
+    try:
+        set_counts()
+        r1 = resume_sync_check(dev, os.path.join(root, "sync"))
+        emit(r1)
+        shutil.rmtree(os.path.join(root, "sync"), ignore_errors=True)
+        r3 = resume_offload_check(dev)
+        own, _ = read_counts()
+        r2, lives = resume_elastic_check(dev, os.path.join(root, "elastic"),
+                                         timeout)
+        emit(r2)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    counts = {k: own[k] + lives[k] for k in LAUNCH_COUNTERS}
+    emit({"resume": "phase", "seconds": time.perf_counter() - t0,
+          "launches": counts, "offload_warm_step_ms": r3["warm_step_ms"],
+          "offload_measured_bytes": r3["measured_bytes"]})
+    return counts, {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--phases", default="kernels,model,engine,spec,kvint8,"
                                         "generate,observe,handoff,deploy,"
-                                        "grad,train,dist,hybrid,parallel",
+                                        "grad,train,dist,hybrid,parallel,"
+                                        "resume",
                     help="comma-separated subset of kernels, model, engine, "
                          "spec, kvint8, generate, observe, handoff, deploy, "
-                         "grad, train, dist, hybrid, parallel (debugging)")
+                         "grad, train, dist, hybrid, parallel, resume "
+                         "(debugging)")
     ap.add_argument("--dist-worker", metavar="OUT_DIR", default=None,
                     help="run one rank of the dist phase (the phase starts "
                          "two through the port's launcher)")
@@ -5355,6 +6146,8 @@ def main(argv=None) -> int:
                     help="run one rank of the hybrid phase")
     ap.add_argument("--parallel-worker", metavar="OUT_DIR", default=None,
                     help="run one rank of the parallel phase")
+    ap.add_argument("--resume-worker", metavar="OUT_DIR", default=None,
+                    help="run one life of the resume phase's elastic run")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -5381,6 +6174,8 @@ def main(argv=None) -> int:
         return hybrid_worker(args.hybrid_worker)
     if args.parallel_worker:
         return parallel_worker(args.parallel_worker)
+    if args.resume_worker:
+        return resume_worker(args.resume_worker)
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -5705,6 +6500,11 @@ def main(argv=None) -> int:
         drive("parallel", ("flash_tc", "bwd_single_tc", "bwd_dq_tc",
                            "bwd_dkv_tc"),
               parallel_phase, dev, forbid=f32_kernels, remote=True)
+    if "resume" in phases:
+        # checkpoints, the elastic restart (child processes) and host
+        # offload, one rank: amp at S 2048 (the wgmma forward, dQ, dK/dV)
+        drive("resume", ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc"),
+              resume_phase, dev, forbid=f32_kernels, remote=True)
     emit({"launches_by_path": by_path,
           "chunk_row_launches_by_t": by_t_path})
 

@@ -82,3 +82,20 @@ def scope_key() -> Optional[int]:
     entry = stack[-1]
     entry[1] += 1
     return fold_in(entry[0], entry[1] - 1)
+
+
+def get_rng_state() -> dict:
+    """The port's random state as JSON-able data: the seed and every
+    per-device generator's state bytes (an elastic checkpoint's meta)."""
+    return {"seed": _seed,
+            "generators": {k: g.get_state().tolist()
+                           for k, g in _generators.items()}}
+
+
+def set_rng_state(state: dict) -> None:
+    """Inverse of :func:`get_rng_state` (generators of devices this
+    process has not used yet are made first)."""
+    global _seed
+    _seed = int(state["seed"])
+    for k, st in state.get("generators", {}).items():
+        generator(k).set_state(torch.tensor(st, dtype=torch.uint8))

@@ -6,9 +6,11 @@
 ``distributed_optimizer`` returns a ``DistributedOptimizer`` that applies
 the strategy's eager semantics at ``step``: the per-parameter gradient
 all-reduce and its division, ``gradient_merge``, and ``localsgd`` /
-``adaptive_localsgd``. The LARS/LAMB swap needs ``Momentum``, ``Lars``
-and ``Lamb`` (ROADMAP queue 1 item 9) and ``save_persistables`` needs
-``distributed.checkpoint`` (item 7d): both raise, naming their item.
+``adaptive_localsgd``. ``save_persistables`` saves a trainer's sharded
+state through ``distributed.checkpoint``, or an eager model's
+``state_dict`` as ``persistables.pdparams`` (``framework.io``). The
+LARS/LAMB swap needs ``Momentum``, ``Lars`` and ``Lamb`` (ROADMAP queue
+1 item 9) and raises, naming the item.
 
 The double gradient sync is kept on purpose: with a model wrapped by
 ``DataParallel``, whose ``apply_collective_grads`` has already averaged
@@ -22,6 +24,7 @@ the trainer, ``distributed.hybrid.HybridPipelineTrainer`` (or
 """
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -102,10 +105,42 @@ class Fleet:
         self._model = model
         return DataParallel(model)
 
-    def save_persistables(self, *args, **kwargs):
-        raise NotImplementedError(
-            "save_persistables is not ported yet: ROADMAP queue 1 item 7d "
-            "(distributed.checkpoint)")
+    def save_persistables(self, exe=None, dirname=None, main_program=None,
+                          mode=0, trainer=None, model=None, optimizer=None,
+                          step=0):
+        """Save training persistables (parameters and optimizer state),
+        as the reference's (``fleet_base.py:93-125``).
+
+        ``trainer``: a trainer with ``device_state()``: a sharded sync
+        save of step ``step`` (``distributed.checkpoint``; every rank
+        calls it); returns the step directory. ``model``/``optimizer``
+        (default the model of ``distributed_model``): rank 0 writes
+        ``{"model": state_dict[, "optimizer": state_dict]}`` to
+        ``dirname/persistables.pdparams`` with ``framework.io.save``;
+        returns ``dirname``."""
+        if dirname is None:
+            dirname = exe if isinstance(exe, str) else None
+        if dirname is None:
+            raise ValueError("save_persistables needs dirname")
+        if trainer is not None and hasattr(trainer, "device_state"):
+            from .. import checkpoint as dck
+
+            h = dck.save(dirname, trainer.device_state(), step=step,
+                         meta={"step": step}, async_=False)
+            return h.directory
+        model = model or getattr(self, "_model", None)
+        if model is None:
+            raise ValueError(
+                "save_persistables needs trainer= or model= (no global "
+                "static program exists)")
+        if self.is_first_worker():
+            from ...framework import io as fio
+
+            state = {"model": model.state_dict()}
+            if optimizer is not None:
+                state["optimizer"] = optimizer.state_dict()
+            fio.save(state, os.path.join(dirname, "persistables.pdparams"))
+        return dirname
 
     def stop_worker(self):
         pass

@@ -111,8 +111,7 @@ def _check_protocol(model):
                 f"protocol ({m}); see distributed/hybrid.py docstring")
 
 
-_ITEMS = {"7d": "quantized collectives, checkpoints and offload",
-          "7e": "planning without allocation", "8": "resilience"}
+_ITEMS = {"7e": "planning without allocation", "8": "resilience"}
 
 
 def _queue(item: str, what: str) -> NotImplementedError:
@@ -153,6 +152,25 @@ def _check_layers(model, mesh) -> None:
                     "distributed.mesh.init_mesh(...) of the same degrees")
 
 
+def _stage_on(dev: torch.device, batch) -> tuple:
+    """``batch`` on ``dev`` (see ``HybridPipelineTrainer._stage_batch``);
+    on the CPU the leaves as tensors."""
+    if dev.type != "cuda":
+        return tuple(torch.as_tensor(b) for b in batch)
+    main = torch.cuda.default_stream(dev)
+    side = torch.cuda.Stream(dev)
+    out = []
+    with torch.cuda.stream(side):
+        for b in batch:
+            t = torch.as_tensor(b)
+            if t.device.type == "cpu":
+                t = t.pin_memory().to(dev, non_blocking=True)
+            t.record_stream(main)
+            out.append(t)
+    side.synchronize()
+    return tuple(out)
+
+
 def pipeline_layout(n_layers: int, pp: int, v: int):
     """Stage s's circuits: ``[[layer of (c, j) for j] for c]`` per stage,
     layer ``c·(pp·lps_v) + s·lps_v + j`` (the reference's circular
@@ -174,7 +192,10 @@ class HybridPipelineTrainer:
                  param_dtype=None, moment_dtype=None,
                  offload_optimizer: bool = False,
                  offload_params: bool = False,
+                 offload_depth: int = 2,
                  stream_layers: bool = False,
+                 comp_resident: bool = True,
+                 conservative_fetch: bool = False,
                  free_eager: bool = False,
                  guard_bad_steps: bool = False,
                  dp_grad_comm: str = "f32",
@@ -210,8 +231,28 @@ class HybridPipelineTrainer:
             computes in f32 and casts back (ref :822-834). The model's
             parameters are converted in place. Either one sends ZeRO 1-2
             to the per-parameter route, as in the reference.
-        dp_param_comm: the slab route's all-gather payload, 'f32' or
-            'bf16' (then with an f32 master chunk in the optimizer state).
+        dp_grad_comm: 'int8' reduces the dp gradients on the quantized
+            ring (``qcomm``: the slab's reduce-scatter at ZeRO 1-2, one
+            fused all-reduce at ZeRO 0); pure-dp meshes, ZeRO <= 2, not
+            with ``offload_params`` or ``stream_layers`` (the reference's
+            rules). ``dp_grad_block``: its quantization block.
+        dp_param_comm: the slab route's all-gather payload, 'f32', 'bf16'
+            or 'int8' (a compressed one with an f32 master chunk in the
+            optimizer state); default 'bf16' on the slab route with int8
+            gradients, else 'f32', as in the reference.
+        offload_optimizer / offload_params / offload_depth / stream_layers
+            / conservative_fetch: the optimizer state and,
+            with ``offload_params`` (needs amp), the f32 masters live in
+            pinned host memory and stream through the card around the
+            update, ``offload_depth`` groups at a time (``offload.py``);
+            ``stream_layers`` makes a group one layer (needs an offload
+            knob and ``v_virtual`` 1). Offload runs the per-parameter
+            update at ZeRO 0.
+        comp_resident: accepted; under ``offload_params`` the bf16
+            compute copies always stay on the card between steps (each
+            update writes them from the new masters). The reference's
+            ``False`` releases them for an XLA reason the port does not
+            have.
         free_eager: accepted; there is nothing to free, because the
             trainer holds no second copy of the model's parameters.
 
@@ -235,8 +276,7 @@ class HybridPipelineTrainer:
         state category.
 
         Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-        item): the offload and ``stream_layers`` knobs, int8
-        collectives, ``device_state`` (7d); planning a LazyGuard model,
+        item): planning a LazyGuard model,
         ``aot_lower``/``aot_compile``/``memory_analysis`` (7e);
         ``guard_bad_steps`` (8)."""
         _check_protocol(model)
@@ -244,9 +284,6 @@ class HybridPipelineTrainer:
         mesh = mesh if mesh is not None else build_mesh_from_strategy(s)
         if remat_policy not in (None, "dots"):
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
-        if offload_optimizer or offload_params or stream_layers:
-            raise _queue("7d", "host offload (offload_optimizer, "
-                               "offload_params, stream_layers)")
         if guard_bad_steps:
             raise _queue("8", "guard_bad_steps")
         _check_layers(model, mesh)
@@ -272,16 +309,40 @@ class HybridPipelineTrainer:
             else None
         self.moment_dtype = convert_dtype(moment_dtype) if moment_dtype \
             else None
-        _qcomm.validate_dp_grad_comm(dp_grad_comm, mesh,
-                                     zero_stage=self.zero,
-                                     block=int(dp_grad_block))
+        self.offload_optimizer = bool(offload_optimizer)
+        self.offload_params = bool(offload_params)
+        self.offload_depth = max(1, int(offload_depth))
+        self.stream_layers = bool(stream_layers)
+        self.comp_resident = bool(comp_resident)
+        self.conservative_fetch = bool(conservative_fetch)
+        if offload_params and not self.amp:
+            raise ValueError("offload_params requires strategy.amp (the "
+                             "compute copies are bf16)")
+        if self.stream_layers:
+            if not (offload_params or offload_optimizer):
+                raise ValueError(
+                    "stream_layers requires offload_params and/or "
+                    "offload_optimizer (it schedules host streams)")
+            if self.v != 1:
+                raise ValueError(
+                    "stream_layers supports v_virtual == 1 (per-layer "
+                    "groups assume the [pp, lps, ...] stacking)")
+        offload = self.offload_optimizer or self.offload_params
+        _qcomm.validate_dp_grad_comm(
+            dp_grad_comm, mesh, zero_stage=self.zero,
+            block=int(dp_grad_block),
+            unsupported=(("offload_params (the host-streamed update "
+                          "builders bypass the shard_map grad wrap)",
+                          offload_params),
+                         ("stream_layers", stream_layers)))
         self.dp_grad_comm = dp_grad_comm
         self.dp_grad_block = int(dp_grad_block)
         self.zero_manual = _zero_route(
             mesh, self.zero, self.param_dtype is None
-            and self.moment_dtype is None)
+            and self.moment_dtype is None and not offload)
         if dp_param_comm is None:
-            dp_param_comm = "f32"
+            dp_param_comm = "bf16" if self.zero_manual and \
+                dp_grad_comm == "int8" else "f32"
         _qcomm.validate_dp_param_comm(dp_param_comm, self.zero_manual)
         self.dp_param_comm = dp_param_comm
         _validate_zero_clip(optimizer, self.zero_manual)
@@ -341,10 +402,24 @@ class HybridPipelineTrainer:
         if mesh.shape.get("ep", 1) > 1:
             masks.append(("ep", ["ep" in _spec_axes(specs[n])
                                  for n, _ in named]))
-        self._upd = _ShardedUpdate(
-            mesh, named, specs, optimizer, self.zero, self.zero_manual,
-            self.dp_grad_block, dp_param_comm, self.param_dtype,
-            self.moment_dtype, grad_sums=sums, norm_axes=masks)
+        args = (mesh, named, specs, optimizer, self.zero, self.zero_manual,
+                self.dp_grad_block, dp_param_comm, self.param_dtype,
+                self.moment_dtype)
+        kw = dict(grad_sums=sums, norm_axes=masks, grad_comm=dp_grad_comm)
+        if offload:
+            from .offload import _OffloadUpdate
+
+            self._upd = _OffloadUpdate(
+                *args, offload_optimizer=self.offload_optimizer,
+                offload_params=self.offload_params,
+                groups=self._offload_groups(local), depth=self.offload_depth,
+                conservative=self.conservative_fetch, **kw)
+        else:
+            self._upd = _ShardedUpdate(*args, **kw)
+        # per parameter, the axes its piece is cut over beyond its spec
+        # (device_state): a pipeline stage's blocks over pp
+        self._cut_axes = [("pp",) if self.pp > 1 and n not in other
+                          else () for n in self._names]
         self._step = 0
         # the root of the steps' dropout keys (_loss)
         self._key = _rng.generator(self._device()).initial_seed()
@@ -352,6 +427,20 @@ class HybridPipelineTrainer:
         self._prof_site = _precomp.unique_site("hybrid.step")
         # the step site's counted first dispatch (program_stats.dispatch)
         self._program_counts: Dict[str, dict] = {}
+
+    def _offload_groups(self, local):
+        """The streamed update's parameter groups: one layer each under
+        ``stream_layers``, else one parameter suffix over this stage's
+        layers; then one group a non-block parameter."""
+        idx = self._index
+        if self.stream_layers:
+            groups = [[idx[full] for _, full in self._block_names[l]]
+                      for l in local]
+        else:
+            n_sfx = len(self._block_names[local[0]]) if local else 0
+            groups = [[idx[self._block_names[l][j][1]] for l in local]
+                      for j in range(n_sfx)]
+        return groups + [[idx[n]] for n in self._other_names]
 
     # ---------------------------------------------------------------------
     def _value(self, name: str) -> torch.Tensor:
@@ -458,6 +547,11 @@ class HybridPipelineTrainer:
             return loss + aux
         return out
 
+    #: a profiled step waits for its loss; an async-dispatch loop
+    #: (``elastic.ElasticTrainer``) clears it, and the histogram is then
+    #: ``hybrid/dispatch_ms``
+    profiled_step_sync = True
+
     def step(self, *batch) -> torch.Tensor:
         """One optimizer step on the GLOBAL ``batch`` (e.g. ``tokens [B,
         S]``, int; every rank passes the same one); returns the f32 loss
@@ -475,18 +569,28 @@ class HybridPipelineTrainer:
         with _ptrace.scope("hybrid/step"):
             loss = _pstats.dispatch(self._program_counts, self._prof_site,
                                     self._step_body, batch)
-            with _ptrace.scope("sync_wait"):
-                float(loss)                  # truthful sync on the loss
+            if self.profiled_step_sync:
+                with _ptrace.scope("sync_wait"):
+                    float(loss)              # truthful sync on the loss
         reg = _preg()
         reg.counter("train/steps").add(1)
         reg.counter("train/tokens").add(_pinstr.tokens_in_batch(batch))
-        reg.histogram("hybrid/step_ms").observe(
+        reg.histogram("hybrid/step_ms" if self.profiled_step_sync
+                      else "hybrid/dispatch_ms").observe(
             (time.perf_counter_ns() - t0) / 1e6)
         _pinstr.record_memory_high_water(device=dev)
         return loss
 
     def _device(self) -> torch.device:
         return self._upd.leaves()[0].device
+
+    def _stage_batch(self, batch) -> tuple:
+        """The batch on the device, for a prefetch thread
+        (``prefetch.BatchPrefetcher``'s ``stage``): each leaf copied from
+        pinned host memory on a side stream that the thread waits for,
+        and recorded on the compute stream so that the allocator keeps
+        it until the step that reads it is done."""
+        return _stage_on(self._device(), batch)
 
     def _local(self, batch):
         """This rank's dp slice of every micro-batch of the global
@@ -561,6 +665,9 @@ class HybridPipelineTrainer:
         lr = self.optimizer.get_lr()
         self._step += 1
         self._upd.zero_grad()
+        start = getattr(self._upd, "start_step", None)
+        if start is not None:
+            start()
         loss = self._loss(batch, backward=True)
         self._upd.update(lr, self._step)
         self._upd.zero_grad()
@@ -598,9 +705,14 @@ class HybridPipelineTrainer:
         parameter of this rank (its stage's blocks under pp, its experts
         under ep, its tp shard, its dp slice at ZeRO 3) at its storage
         dtype, ``grad`` as 4 bytes per local parameter element (the
-        gradients' f32 peak), the optimizer's state where it lives (1/dp
-        of it on a ZeRO route) and, on the slab route with a bf16
-        ``dp_param_comm``, the f32 ``master`` chunk."""
+        gradients' f32 peak; 2 for the bf16 gradients of
+        ``offload_params``), the optimizer's state where it lives (1/dp
+        of it on a ZeRO route) and, on the slab route with a compressed
+        ``dp_param_comm``, the f32 ``master`` chunk. Under host offload
+        the device's ``opt_state`` and ``master`` are estimates: the
+        streamed window (``offload_depth`` groups' worth) as the
+        schedule bounds it, not the allocator's reading; the host's are
+        apart: ``host_opt_state`` and ``host_master``."""
         return self._upd.ledger()
 
     def sync_to_layer(self):
@@ -613,10 +725,27 @@ class HybridPipelineTrainer:
         self._upd.sync()
         return self.model
 
-    def device_state(self):
-        raise _queue("7d", "device_state / load_device_state (checkpoints)")
+    def device_state(self) -> dict:
+        """This rank's training state for ``distributed.checkpoint``:
+        ``{"params": {name: Sharded}, "opt": {name: {key: Sharded}}}``
+        (``"master"`` too on the slab route with a compressed return),
+        each piece this rank's local tensor with its global shape and
+        index: tp shards (GPT's qkv in its ``[3, H, D]`` view), experts
+        over ep, a ZeRO slice over dp or each parameter's flat range of
+        the slab, a pipeline stage's blocks. Under ``offload_params``
+        the parameters' pieces are the host masters (the compute copies
+        are derived and not saved)."""
+        return self._upd.state_pieces(self.model, self._cut_axes)
 
-    load_device_state = device_state
+    def load_device_state(self, st: dict, step: Optional[int] = None):
+        """Inverse of :meth:`device_state` (the restore path): every
+        piece copied into place; under ``offload_params`` the bf16
+        compute copies are rebuilt from the restored masters. ``step``
+        restores the step count and the optimizer's ``_global_step``."""
+        self._upd.load_pieces(self.model, self._cut_axes, st)
+        if step is not None:
+            self._step = int(step)
+            self.optimizer._global_step = int(step)
 
     def aot_lower(self, *batch):
         raise _queue("7e", "aot_lower / aot_compile / memory_analysis")

@@ -48,6 +48,7 @@ over the same update (``_ShardedUpdate``).
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -160,6 +161,41 @@ def _global_shape(layer, name, p, mesh):
     return tuple(shape)
 
 
+def _layout(model, name, local_shape, mesh):
+    """Parameter ``name``'s checkpoint layout: (local shape, global shape,
+    index, axes it is cut over, the layout dims of each local dim). A dim
+    its layer's spec cuts over tp or ep counts the axis' size times, at
+    this rank's index; a dim the layer reads through ``shard_views`` is
+    laid out as that view (GPT's qkv ``[..., 3h]`` as ``[..., 3, H, D]``
+    cut on the heads), so every piece is one box of the global array."""
+    from .parallel_layers import _sharded_dims
+
+    view, dims = _sharded_dims(model, name, mesh)
+    cuts = {d: (axes, n) for d, axes, n in dims}
+    lshape, gshape, index, vdims = [], [], [], []
+    for d, size in enumerate(local_shape):
+        if d not in cuts:
+            vdims.append([len(lshape)])
+            lshape.append(size)
+            gshape.append(size)
+            index.append([0, size])
+            continue
+        axes, n = cuts[d]
+        r = mesh.axis_index(axes)
+        parts = [(size * n, True)] if view is None else \
+            [(v, j == view[1]) for j, v in enumerate(view[0])]
+        vdims.append(list(range(len(lshape), len(lshape) + len(parts))))
+        for g, cut in parts:
+            k = g // n if cut else g
+            lshape.append(k)
+            gshape.append(g)
+            index.append([r * k, (r + 1) * k] if cut else [0, g])
+    axes = set()
+    for _, a, _ in dims:
+        axes |= set((a,) if isinstance(a, str) else a)
+    return tuple(lshape), tuple(gshape), index, axes, vdims
+
+
 def resolve_param_specs(layer, mesh, zero_stage: int = 0) -> Dict[str, P]:
     """Every parameter's PartitionSpec: the tp specs the layers declare
     (``param_shardings``), axes absent from the mesh or of size 1
@@ -263,14 +299,16 @@ class _ShardedUpdate:
     ``named``: ``[(name, parameter)]``, the rank's local (tp-shard)
     parameters, which the trainer updates in place. ``specs``: their tp
     specs (``resolve_param_specs`` at stage 0). ``zero``: the ZeRO stage;
-    ``manual`` selects the flat slab (``qcomm.dp_zero_step``). Optimizer
-    states live here (``states[i]``) and go back to the optimizer's
-    accumulators, whole, in ``sync``."""
+    ``manual`` selects the flat slab (``qcomm.dp_zero_step``);
+    ``grad_comm`` 'int8' reduces the gradients over ``dp`` on the
+    quantized ring (the slab's reduce-scatter, or one fused all-reduce of
+    every gradient elsewhere). Optimizer states live here (``states[i]``)
+    and go back to the optimizer's accumulators, whole, in ``sync``."""
 
     def __init__(self, mesh, named, specs, optimizer, zero: int,
                  manual: bool, block: int = 2048, param_comm: str = "f32",
                  param_dtype=None, moment_dtype=None, grad_sums=(),
-                 norm_axes=()):
+                 norm_axes=(), grad_comm: str = "f32"):
         self.mesh = mesh
         # [(axis, per-parameter bool)]: gradients summed over the axis
         # before the dp reduction (hybrid.py: every one over sp, the
@@ -284,9 +322,13 @@ class _ShardedUpdate:
         self.manual = manual
         self.block = int(block)
         self.param_comm = param_comm
+        self.grad_comm = grad_comm
         self.moment_dtype = moment_dtype
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
+        # each parameter's local (tp-shard) shape, kept when ZeRO 3
+        # releases the whole parameter's storage
+        self.shapes = [tuple(p.shape) for p in self.params]
         shape = mesh.shape if mesh is not None else {}
         self.dp = shape.get("dp", 1)
         self.tp = shape.get("tp", 1)
@@ -437,6 +479,13 @@ class _ShardedUpdate:
         grads: List[Optional[torch.Tensor]] = [None] * len(leaves)
         if self.dp == 1:
             return [t.grad for t in leaves]
+        if self.grad_comm == "int8":
+            means = _qcomm.quantized_all_reduce_tree(
+                [self._grad(t) for t in leaves], self.mesh, self.dp,
+                block=self.block, mean=True)
+            return [g.float() if self.sdim[i] is None
+                    else self._slice(i, g.float())
+                    for i, g in enumerate(means)]
         bucket = []
         for i, t in enumerate(leaves):
             if self.sdim[i] is None:
@@ -515,7 +564,8 @@ class _ShardedUpdate:
         if self.manual:
             clip = opt._grad_clip
             _qcomm.dp_zero_step(
-                self.mesh, self.dp, self.block, "f32", self.param_comm,
+                self.mesh, self.dp, self.block, self.grad_comm,
+                self.param_comm,
                 make_flat_update(opt), self.params,
                 [self._grad(p) for p in self.params], self.slab, lr,
                 step_no, self.plr, self.wd,
@@ -533,6 +583,110 @@ class _ShardedUpdate:
                               opt._decoupled_wd(p))
             if self.sdim[i] is not None and self.shards[i] is None:
                 p.data.copy_(self._gather_dp(self._view(i), self.sdim[i]))
+
+    # -- checkpoint pieces -----------------------------------------------
+    def _stored(self, i: int) -> torch.Tensor:
+        """Parameter i's stored values: its dp shard at ZeRO 3, else the
+        parameter."""
+        return self.shards[i].data if self.shards[i] is not None \
+            else self.params[i].data
+
+    def _pieces(self, model, cut_axes) -> List[tuple]:
+        """Every piece of state this rank holds, for ``distributed.
+        checkpoint``: ``(key, storage, local shape, global shape, index,
+        replica_id)``. Shapes and indices are in the parameter's global
+        (view) layout (``_layout``): its tp and ep cuts, a ZeRO slice's
+        dp cut, and on the slab route each parameter's flat range of this
+        rank's chunk. ``cut_axes[i]``: further axes parameter i is cut
+        over (``pp`` for a pipeline stage's blocks). A piece is written by
+        the rank whose index is 0 on every axis it is not cut over."""
+        out = []
+        for i, name in enumerate(self.names):
+            lay = _layout(model, name, self.shapes[i], self.mesh)
+            axes = lay[3] | set(cut_axes[i])
+            dp_cut = self.shards[i] is not None
+            key = f"params/{name}"
+            out.append((key, self._stored(i)) + self._cut(lay, i, dp_cut)
+                       + (self._replica(axes | ({"dp"} if dp_cut else
+                                                set())),))
+            if self.manual:
+                continue
+            for k, v in self.states[i].items():
+                sliced = self.sdim[i] is not None
+                if tuple(v.shape) != tuple(self._view(i).shape):
+                    out.append((f"opt/{name}/{k}", v, tuple(v.shape),
+                                tuple(v.shape), None,
+                                self._replica(set(cut_axes[i]))))
+                    continue
+                out.append((f"opt/{name}/{k}", v) + self._cut(lay, i, sliced)
+                           + (self._replica(axes | ({"dp"} if sliced
+                                                    else set())),))
+        if self.manual:
+            lo, hi = self.dp_index * self.chunk, \
+                (self.dp_index + 1) * self.chunk
+            off = 0
+            for name, sz in zip(self.names, self.sizes):
+                a, b = max(off, lo), min(off + sz, hi)
+                if a < b:
+                    for k, v in self.slab.items():
+                        key = f"master/{name}" if k == "master" \
+                            else f"opt/{name}/{k}"
+                        out.append((key, v[a - lo:b - lo], (b - a,), (sz,),
+                                    [[a - off, b - off]], 0))
+                off += sz
+        return out
+
+    def _cut(self, lay, i: int, dp_cut: bool):
+        """(local shape, global shape, index) of parameter i's layout,
+        with the dp slice of ``sdim`` when ``dp_cut``."""
+        lshape, gshape, index, _, vdims = lay
+        lshape, index = list(lshape), [list(x) for x in index]
+        if dp_cut:
+            dims = vdims[self.sdim[i]]
+            if len(dims) != 1:
+                raise NotImplementedError(
+                    f"checkpoint of {self.names[i]}: its ZeRO dp slice "
+                    "cuts a dim its shard_views reshape")
+            d = dims[0]
+            k = lshape[d] // self.dp
+            lo = index[d][0] + self.dp_index * k
+            index[d] = [lo, lo + k]
+            lshape[d] = k
+        return tuple(lshape), tuple(gshape), index
+
+    def _replica(self, cut: set) -> int:
+        shape = self.mesh.shape if self.mesh is not None else {}
+        return int(any(self.mesh.axis_index(a) != 0
+                       for a, n in shape.items() if n > 1 and a not in cut))
+
+    def state_pieces(self, model, cut_axes) -> dict:
+        """``{"params": {name: Sharded}, "opt": {name: {key: Sharded}}}``
+        (and ``"master"`` on the slab route with a compressed return):
+        the trainers' ``device_state``."""
+        from .checkpoint import Sharded
+
+        tree: dict = {}
+        for key, t, lshape, gshape, index, rep in self._pieces(model,
+                                                               cut_axes):
+            node = tree
+            parts = key.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = Sharded(t.reshape(lshape), gshape, index, rep)
+        return tree
+
+    @torch.no_grad()
+    def load_pieces(self, model, cut_axes, st: dict) -> None:
+        """The inverse of ``state_pieces``: every piece of ``st`` copied
+        into the storage it came from, in place."""
+        from .checkpoint import Sharded
+
+        for key, t, _, _, _, _ in self._pieces(model, cut_axes):
+            node = st
+            for part in key.split("/"):
+                node = node[part]
+            src = node.data if isinstance(node, Sharded) else node
+            t.copy_(torch.as_tensor(src).reshape(t.shape))
 
     # -- ledger and sync -------------------------------------------------
     def ledger(self) -> dict:
@@ -594,22 +748,65 @@ def _validate_zero_clip(optimizer, manual: bool) -> None:
             f"gradient on every shard); got {type(clip).__name__}")
 
 
-@contextlib.contextmanager
-def _swapped(module: torch.nn.Module, values: Dict[str, torch.Tensor]):
+class _swapped:
     """Run ``module`` with ``values`` in place of the named parameters
     (the reference's ``_swapped_state``); the stored ones come back on
-    exit."""
-    saved = []
-    for name, t in values.items():
-        owner, _, leaf = name.rpartition(".")
-        mod = module.get_submodule(owner) if owner else module
-        saved.append((mod, leaf, mod._parameters[leaf]))
-        mod._parameters[leaf] = t
-    try:
-        yield
-    finally:
-        for mod, leaf, p in reversed(saved):
+    exit.
+
+    Same-thread nesting is legal and restores LIFO. Two threads swapping
+    the same parameter slot is not (a prefetch or snapshot thread reading
+    the model while a step runs would see the other's tensors): each swap
+    records its thread per slot in ``_owner`` and a swap from another
+    thread raises ``RuntimeError``."""
+
+    _owner: dict = {}                # (id(module), leaf) -> (thread, depth)
+    _owner_lock = threading.Lock()
+
+    def __init__(self, module: torch.nn.Module,
+                 values: Dict[str, torch.Tensor]):
+        self.slots = []
+        for name, t in values.items():
+            owner, _, leaf = name.rpartition(".")
+            mod = module.get_submodule(owner) if owner else module
+            self.slots.append((mod, leaf, t))
+
+    def __enter__(self):
+        tid = threading.get_ident()
+        reg = _swapped._owner
+        with _swapped._owner_lock:
+            # every slot checked before any is registered: a raise here
+            # leaves no entry behind (no __exit__ runs)
+            for mod, leaf, _ in self.slots:
+                owner = reg.get((id(mod), leaf))
+                if owner is not None and owner[0] != tid:
+                    raise RuntimeError(
+                        "_swapped: parameter slot is already swapped by "
+                        "another thread — two threads are running the "
+                        "same module with substituted parameters. Build "
+                        "separate module instances per thread.")
+            for mod, leaf, _ in self.slots:
+                owner = reg.get((id(mod), leaf))
+                reg[(id(mod), leaf)] = (tid, 1 if owner is None
+                                        else owner[1] + 1)
+        self.saved = []
+        for mod, leaf, t in self.slots:
+            self.saved.append(mod._parameters[leaf])
+            mod._parameters[leaf] = t
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, leaf, _), p in zip(reversed(self.slots),
+                                     reversed(self.saved)):
             mod._parameters[leaf] = p
+        reg = _swapped._owner
+        with _swapped._owner_lock:
+            for mod, leaf, _ in self.slots:
+                tid, depth = reg[(id(mod), leaf)]
+                if depth <= 1:
+                    del reg[(id(mod), leaf)]
+                else:
+                    reg[(id(mod), leaf)] = (tid, depth - 1)
+        return False
 
 
 def _dp_slices(batch, mesh, specs=None):
@@ -640,7 +837,12 @@ class HybridParallelTrainer:
     the micro-batches' dp-mean losses. ``data_spec``: per batch leaf
     ``P('dp')`` (sliced over dp) or ``P()`` (whole on every rank); the
     default is ``qcomm.dp_batch_specs``. ``donate`` is accepted: an eager
-    step holds no second copy to donate."""
+    step holds no second copy to donate. ``dp_grad_comm="int8"`` reduces
+    the dp gradients on the quantized ring (pure dp, ZeRO <= 2; with
+    ``accumulate_steps`` the global batch must divide dp ×
+    accumulate_steps, as the reference's per-shard split needs);
+    ``dp_param_comm`` defaults to 'bf16' on the slab route with int8
+    gradients, as in the reference."""
 
     def __init__(self, layer, optimizer, strategy: Optional[
             DistributedStrategy] = None, mesh=None,
@@ -666,7 +868,8 @@ class HybridParallelTrainer:
         self.dp_grad_block = int(dp_grad_block)
         self.zero_manual = _zero_route(self.mesh, zero)
         if dp_param_comm is None:
-            dp_param_comm = "f32"
+            dp_param_comm = "bf16" if self.zero_manual and \
+                dp_grad_comm == "int8" else "f32"
         _qcomm.validate_dp_param_comm(dp_param_comm, self.zero_manual)
         self.dp_param_comm = dp_param_comm
         _validate_zero_clip(optimizer, self.zero_manual)
@@ -679,7 +882,8 @@ class HybridParallelTrainer:
             if self.mesh.shape.get("ep", 1) > 1 else []
         self._upd = _ShardedUpdate(
             self.mesh, named, specs, optimizer, zero, self.zero_manual,
-            self.dp_grad_block, dp_param_comm, norm_axes=norm_axes)
+            self.dp_grad_block, dp_param_comm, norm_axes=norm_axes,
+            grad_comm=dp_grad_comm)
         self.data_spec = data_spec
         self._step = 0
         self._prof_site = _precomp.unique_site("compile_train_step")
@@ -710,11 +914,17 @@ class HybridParallelTrainer:
         """The dp-mean loss of the step over its micro-batches, with each
         micro-batch's backward (scaled 1/k) when ``backward``."""
         k = self.accumulate_steps
+        qdp = self.mesh.shape.get("dp", 1) \
+            if self.dp_grad_comm == "int8" else 1
         for b in batch:
-            if b.dim() and b.shape[0] % k:
+            if b.dim() and b.shape[0] % (k * qdp if k > 1 else 1):
                 raise ValueError(
                     f"gradient merge: batch size {b.shape[0]} is "
-                    f"not divisible by accumulate_steps={k}")
+                    f"not divisible by accumulate_steps={k}"
+                    + (" — the PER-SHARD batch: dp_grad_comm='int8' "
+                       "splits micro-batches inside each dp shard, so "
+                       "the global batch must divide dp × "
+                       "accumulate_steps" if qdp > 1 else ""))
         micros = [torch.chunk(b, k, 0) if b.dim() else [b] * k
                   for b in batch]
         dev = batch[0].device
@@ -792,12 +1002,25 @@ class HybridParallelTrainer:
         self._upd.sync()
         return self.layer
 
-    def device_state(self):
-        raise NotImplementedError(
-            "device_state is not ported yet: ROADMAP queue 1 item 7d "
-            "(checkpoints)")
+    def device_state(self) -> dict:
+        """This rank's training state for ``distributed.checkpoint``:
+        ``{"params": {name: Sharded}, "opt": {name: {key: Sharded}}}``
+        (``"master"`` too on the slab route with a compressed return),
+        each piece this rank's local tensor with its global shape and
+        index (``_ShardedUpdate.state_pieces``): a ZeRO slab saves each
+        parameter's flat range of this rank's chunk, so a restore at
+        another dp degree or ZeRO stage reads it back."""
+        return self._upd.state_pieces(self.layer,
+                                      [()] * len(self.param_names))
 
-    load_device_state = device_state
+    def load_device_state(self, st: dict, step: Optional[int] = None):
+        """Inverse of :meth:`device_state` (the restore path): every
+        piece copied into place; ``step`` restores the step count and
+        the optimizer's ``_global_step``."""
+        self._upd.load_pieces(self.layer, [()] * len(self.param_names), st)
+        if step is not None:
+            self._step = int(step)
+            self.optimizer._global_step = int(step)
 
 
 def compile_train_step(layer, optimizer, strategy=None, mesh=None,

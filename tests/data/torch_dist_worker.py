@@ -22,7 +22,11 @@ shard's heads, logits, loss and gradients, the state's round trip),
 amp, recompute, storage dtypes; 2 or 4 ranks), ``compile``
 (``compile_train_step`` with a ``loss_fn`` and gradient merge) and
 ``dp_pair`` (the eager DataParallel + fleet optimizer pair against the
-trainer at dp = 2).
+trainer at dp = 2), ``qring`` (the int8 ring of ``qcomm`` on 2 or 4
+ranks) and ``ckpt`` (sharded checkpoints of plain pieces). A ``hybrid``
+case may name ``"trainer": "compile"`` (``compile_train_step``) and
+``"ckpt": true``: its ``device_state`` after the steps is saved under
+``<out_dir>/ckpt/<name>``.
 """
 import json
 import os
@@ -579,12 +583,23 @@ def _trainer_case(inp, case, rank, arrays, values):
     if case.get("zero"):
         s.sharding = True
         s.sharding_configs = {"sharding_stage": case["zero"]}
-    kw = {k: case[k] for k in ("param_dtype", "moment_dtype",
-                               "remat_policy", "dp_param_comm", "n_micro",
-                               "v_virtual")
-          if k in case}
-    tr = GPTHybridTrainer(net, opt, s, m, **kw)
+    keys = ("dp_param_comm", "dp_grad_comm", "dp_grad_block")
+    if case.get("trainer") == "compile":
+        from paddle_tpu_torch.distributed.strategy_compiler import \
+            compile_train_step
+
+        tr = compile_train_step(net, opt, s, m,
+                                **{k: case[k] for k in keys if k in case})
+        tr.circuits = None
+    else:
+        keys += ("param_dtype", "moment_dtype", "remat_policy", "n_micro",
+                 "v_virtual", "offload_optimizer", "offload_params",
+                 "offload_depth", "stream_layers", "comp_resident",
+                 "conservative_fetch")
+        tr = GPTHybridTrainer(net, opt, s, m,
+                              **{k: case[k] for k in keys if k in case})
     values[f"{name}.zero_manual"] = tr.zero_manual
+    values[f"{name}.dp_param_comm"] = tr.dp_param_comm
     values[f"{name}.circuits"] = tr.circuits
     values[f"{name}.held"] = sorted(
         n for n, p in net.named_parameters() if p.numel())
@@ -615,6 +630,11 @@ def _trainer_case(inp, case, rank, arrays, values):
     values[f"{name}.traces"] = recompile.trace_counts().get(tr._prof_site)
     values[f"{name}.numel"] = sum(p.numel() for p in net.parameters()
                                   if p.numel())
+    if case.get("ckpt"):
+        from paddle_tpu_torch.distributed import checkpoint as dck
+
+        dck.save(os.path.join(_OUT[0], "ckpt", name), tr.device_state(),
+                 step=len(losses), meta={"step": len(losses)}, async_=False)
     tr.sync_to_layer()
     full = PL.gather_reference_state(net)
     moments = {}
@@ -633,6 +653,96 @@ def _trainer_case(inp, case, rank, arrays, values):
 def job_hybrid(inp, rank, arrays, values):
     for case in json.loads(str(inp["cases"])):
         _trainer_case(inp, case, rank, arrays, values)
+
+
+def job_qring(inp, rank, arrays, values):
+    """The int8 ring on this job's ranks ({"dp": n}): rank r's row of
+    ``x`` through ``quantized_reduce_scatter`` (its chunk),
+    ``quantized_all_gather`` of that chunk, ``quantized_all_reduce``
+    (mean) with its counted collectives, the fused tree of ``a`` (f32)
+    and ``b`` (bf16), and ``dp_quantized_value_and_grads`` on a linear
+    least-squares loss."""
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import qcomm
+    from paddle_tpu_torch.distributed.mesh import P
+    from paddle_tpu_torch.profiler import instrument
+
+    x = torch.from_numpy(inp["x"])
+    n, blk = x.shape[0], int(inp["block"])
+    m = M.init_mesh({"dp": n})
+    mine = x[rank]
+    chunk = qcomm.quantized_reduce_scatter(mine, m, n, block=blk)
+    arrays["rs"] = chunk.numpy()
+    arrays["rs_mean"] = qcomm.quantized_reduce_scatter(
+        mine, m, n, block=blk, mean=True).numpy()
+    arrays["ag"] = qcomm.quantized_all_gather(chunk, m, block=blk).numpy()
+    y = torch.from_numpy(inp["y"][rank])
+    with instrument.count_collectives() as cc:
+        arrays["ar"] = qcomm.quantized_all_reduce(y, m, n, block=blk,
+                                                  mean=True).numpy()
+    values["ar_stats"] = instrument.collective_stats(cc)
+    tree = {"a": torch.from_numpy(inp["ta"][rank]),
+            "b": torch.from_numpy(inp["tb"][rank]).to(torch.bfloat16)}
+    out = qcomm.quantized_all_reduce_tree(tree, m, n, block=64)
+    arrays["tree_a"] = out["a"].numpy()
+    arrays["tree_b"] = out["b"].float().numpy()
+    values["tree_dtypes"] = [str(out["a"].dtype), str(out["b"].dtype)]
+
+    w = torch.from_numpy(inp["w"])
+    xb, yb = torch.from_numpy(inp["xb"]), torch.from_numpy(inp["yb"])
+
+    def fn(rep_args, key, batch):
+        wt = rep_args.clone().requires_grad_(True)
+        loss = ((batch[0] @ wt - batch[1]) ** 2).mean()
+        loss.backward()
+        return loss.detach(), {"n": torch.tensor(batch[0].shape[0])}, \
+            {"w": wt.grad}
+
+    loss, aux, grads = qcomm.dp_quantized_value_and_grads(
+        m, n, 64, fn, w, (xb, yb), (P("dp"), P("dp")), 0)
+    values["vg_loss"] = float(loss)
+    values["vg_rows"] = int(aux["n"])
+    arrays["vg_grad"] = grads["w"].numpy()
+    M.set_mesh(None)
+
+
+def job_ckpt(inp, rank, arrays, values):
+    """Sharded checkpoints of plain pieces on 2 ranks: rank r holds row
+    block r of ``w`` [8, 8] (and its bf16 vector's half), saved sync as
+    step 3 and, with ``snapshot_async``, as step 4 after which the pieces
+    are overwritten once ``wait_snapshot`` has passed; then every rank
+    restores step 3 whole and step 4 as its own piece."""
+    import torch
+
+    from paddle_tpu_torch.distributed import checkpoint as dck
+
+    d = os.path.join(_OUT[0], "ckpt_plain")
+    w = torch.from_numpy(inp["w"])
+    b = torch.from_numpy(inp["b"]).to(torch.bfloat16)
+    mine = w[4 * rank:4 * rank + 4].clone()
+    bh = b[4 * rank:4 * rank + 4].clone()
+    state = {"w": dck.Sharded(mine, (8, 8), [[4 * rank, 4 * rank + 4],
+                                            [0, 8]]),
+             "nested": {"b": dck.Sharded(bh, (8,), [[4 * rank,
+                                                     4 * rank + 4]])}}
+    dck.save(d, state, step=3, meta={"k": 1}).wait()
+    h = dck.save(d, state, step=4, snapshot_async=True)
+    h.wait_snapshot()
+    mine.add_(1000.0)                  # after the gate: not in step 4
+    bh.fill_(7)
+    h.wait()
+    values["steps"] = dck.all_steps(d)
+    whole = dck.restore(d, {"w": w, "nested": {"b": b}}, step=3,
+                        verify=True)
+    arrays["w3"] = whole["w"].numpy()
+    arrays["b3"] = whole["nested"]["b"].float().numpy()
+    own = dck.restore(d, state, step=4)
+    arrays["w4_own"] = own["w"].data.numpy()
+    values["w4_index"] = own["w"].index
+    if "cases" in inp:
+        job_hybrid(inp, rank, arrays, values)
 
 
 def job_compile(inp, rank, arrays, values):
@@ -919,8 +1029,13 @@ def job_moe(inp, rank, arrays, values):
         M.set_mesh(None)
 
 
+#: this rank's output directory (``main``)
+_OUT = [None]
+
+
 def main():
     job, out_dir = sys.argv[1], sys.argv[2]
+    _OUT[0] = out_dir
     import paddle_tpu_torch.distributed as dist
 
     env = dist.init_parallel_env()

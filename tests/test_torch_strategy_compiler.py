@@ -13,7 +13,8 @@ held to the JAX package's functions case by case, on one process:
 - ``_flat_knob``, ``zero_chunk_len``, ``dp_batch_specs``;
 - the validation errors (int8 with ZeRO 3, ``dp_param_comm`` without the
   sharded update, a per-leaf clip under the slab route) with the
-  reference's messages; every int8 spelling raises naming item 7d.
+  reference's messages; the int8 spellings run at degree 1 (the ring
+  against the reference: ``tests/test_torch_qcomm.py``).
 """
 import types
 
@@ -234,17 +235,19 @@ def test_validation_errors_equal_the_reference():
 
 
 def test_int8_spellings_name_item_7d():
+    """The int8 spellings raised naming item 7d until it was ported; they
+    run now (held to the reference in tests/test_torch_qcomm.py): at
+    degree 1 the ring is the identity and the knobs validate."""
     mesh = types.SimpleNamespace(shape={"dp": 2})
-    for fn, args in ((tq.validate_dp_grad_comm, ("int8", mesh)),
-                     (tq.validate_dp_param_comm, ("int8", True)),
-                     (tq.quantize_blockwise, (torch.zeros(4),)),
-                     (tq.quantized_all_reduce, (torch.zeros(4),)),
-                     (tq.quantized_reduce_scatter, (torch.zeros(4),)),
-                     (tq.quantized_all_gather, (torch.zeros(4),)),
-                     (tq.quantized_all_reduce_tree, ({},)),
-                     (tq.dequantize_blockwise, (None, None))):
-        with pytest.raises(NotImplementedError, match="item 7d"):
-            fn(*args)
+    tq.validate_dp_grad_comm("int8", mesh)
+    tq.validate_dp_param_comm("int8", True)
+    q, s = tq.quantize_blockwise(torch.zeros(4), block=4)
+    assert q.dtype == torch.int8 and not q.any() and not s.any()
+    assert not tq.dequantize_blockwise(q, s, block=4).any()
+    x = torch.arange(4.0)
+    for fn in (tq.quantized_all_reduce, tq.quantized_reduce_scatter):
+        assert torch.equal(fn(x, None, 1), x)
+    assert tq.quantized_all_reduce_tree({}, None, 1) == {}
 
 
 def test_functional_clip_is_the_optimizers():
