@@ -366,6 +366,34 @@ of the 1200 s limit).
    and the prefetch-depth gauge, are printed. The checkpoints live in a
    temporary directory the phase deletes; every run launches the wgmma
    forward, dQ and dK/dV and none of the f32 route's.
+16. plan phase — planning without allocation (distributed/plan.py: the
+   trainer's own step code run on fake tensors). GPT-3 13B
+   (GPTConfig.gpt3_13b: V 50304, h 5120, 40 layers, 40 heads, S 2048)
+   built under LazyGuard, the HybridPipelineTrainer under the
+   reference's recipe (amp, recompute, bf16 parameters and moments,
+   AdamW) at the three factorizations of PLAN_13B (the names of
+   benchmarks/plan_13b.py: A_tp8_pp2, B_tp4_pp4, C_tp4_pp2_dp2_zero2) on
+   a planning world of 16 (env.plan_world, torch.distributed's fake
+   backend), rank 0 and rank 15 (a rank of the last stage, which holds
+   the loss head), each in a child process (chip_smoke.py --plan-worker
+   OUT NAME RANK), all six at once: memory_analysis at a [32, 2048]
+   batch spec, peak_bytes_est against the card's total memory, the
+   host's RSS before the model is built and after the plan, and the
+   plan's wall time; the phase fails if a
+   child's allocated bytes on the card moved, it launched a kernel or it
+   planned a [B, H, S, S] tensor. In this process: the resume phase's resident
+   configuration (DIST_LAYERS layers at RESUME_BATCH) planned from its
+   materialized trainer, then measured on the card as the resume phase
+   measures it (_measured_step, after one warm step; the plan_check
+   path): the forward-and-backward and update peaks within
+   PLAN_PEAK_RTOL of the allocator's (less the bytes allocated before
+   the trainer); the train phase's recipe at 24 layers planned
+   abstractly, its peak_bytes_est printed beside the train phase's
+   max_memory_allocated_gib (printed only: that figure spans the
+   profiled step and the clip probe too); hybrid run (a) (tp 2) planned
+   at a planning world of 2 on each rank, its collectives equal to run
+   (a)'s count when the hybrid phase ran. The plan path launches no
+   kernel.
 
 Every launch counter is set to 0 just before each of phases 2-11 and read
 just after it (the dist, hybrid and parallel phases' ranks do the same
@@ -389,7 +417,8 @@ merged backward, no wgmma one; the hybrid path, on each rank: the wgmma
 forward, dQ and dK/dV, none of the f32 route's; the parallel path, on
 each rank: those and the merged backward, none of the f32 route's; the
 resume path, in this process and in each completed life: the wgmma
-forward, dQ and dK/dV, none of the f32 route's). Prints
+forward, dQ and dK/dV, none of the f32 route's; the plan path: no kernel
+at all; the plan_check path: the wgmma forward, dQ and dK/dV). Prints
 JSON lines per case, then {"kernels": [...]}, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -411,6 +440,8 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
     python3 chip_smoke.py --phases parallel        # pp, sp and ep, 2 ranks
     python3 chip_smoke.py --phases resume          # checkpoints, elastic
                                                    # restart, host offload
+    python3 chip_smoke.py --phases hybrid,plan     # planning without
+                                                   # allocation, 13B plans
 """
 from __future__ import annotations
 
@@ -3246,6 +3277,7 @@ def train_phase(dev, steps=8, short_steps=2, batch=4, seq=2048, n_micro=2,
     row["short_losses"] = [run(short)[0] for _ in range(short_steps)]
     row["phases"] = train_phases(tr, tokens, cfg, dev, row["mfu"])
     emit(row)
+    PHASE_RESULTS["train"] = row
     return row
 
 
@@ -3362,20 +3394,23 @@ def train_phases(tr, tokens, cfg, dev, phase_mfu):
     return res
 
 
-def make_trainer(dev, cfg, seed, n_micro=2):
+def make_trainer(dev, cfg, seed, n_micro=2, lazy=False):
     """(HybridPipelineTrainer, its lr schedule): a GPT of ``cfg`` from
     ``seed`` under the single-chip recipe (amp, recompute, bf16 parameters
     and moments, AdamW 0.1 under the warmup-cosine schedule, global-norm
-    clip 1.0)."""
+    clip 1.0); ``lazy``: the GPT built under LazyGuard (an abstract
+    trainer, which plans and allocates nothing)."""
     from paddle_tpu_torch import nn
     from paddle_tpu_torch.core import rng as _rng
     from paddle_tpu_torch.distributed.fleet import DistributedStrategy
     from paddle_tpu_torch.distributed.hybrid import HybridPipelineTrainer
+    from paddle_tpu_torch.framework.lazy import LazyGuard
     from paddle_tpu_torch.models.gpt import GPT
     from paddle_tpu_torch.optimizer import AdamW, lr
 
     _rng.seed(seed)
-    model = GPT(cfg, device=dev)
+    with LazyGuard() if lazy else contextlib.nullcontext():
+        model = GPT(cfg, device=dev)
     sched = lr.LinearWarmup(lr.CosineAnnealingDecay(2e-4, T_max=1000),
                             warmup_steps=20, start_lr=1e-6, end_lr=2e-4)
     opt = AdamW(sched, parameters=model.named_parameters(), weight_decay=0.1,
@@ -5175,6 +5210,7 @@ def hybrid_phase(dev, timeout=600):
     and check their results. Returns (the ranks' summed launch counts,
     {})."""
     res, wall = _run_ranks(dev, "--hybrid-worker", "hybrid", timeout)
+    PHASE_RESULTS["hybrid"] = res
     counts = {k: sum(run["launches"][k] for r in res for run in r["runs"])
               for k in LAUNCH_COUNTERS}
     tc = ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc")
@@ -6127,6 +6163,319 @@ def resume_phase(dev, timeout=400) -> tuple:
     return counts, {}
 
 
+# ---------------------------------------------------------------------------
+# plan phase: planning without allocation
+# ---------------------------------------------------------------------------
+#: GPT-3 13B's factorizations on a planning world of PLAN_WORLD (the
+#: reference's names, benchmarks/plan_13b.py): (name, tp, pp, dp, ZeRO
+#: stage, n_micro)
+PLAN_13B = (("A_tp8_pp2", 8, 2, 1, 0, 8),
+            ("B_tp4_pp4", 4, 4, 1, 0, 16),
+            ("C_tp4_pp2_dp2_zero2", 4, 2, 2, 2, 8))
+PLAN_WORLD = 16
+#: global batch [sequences, S] of the 13B plans
+PLAN_13B_BATCH = (32, 2048)
+#: the resident plan's forward-and-backward and update peaks within this
+#: share of the allocator's readings (what the plan does not see:
+#: cuBLAS's workspace, allocator blocks larger than their request)
+PLAN_PEAK_RTOL = 0.10
+#: results of earlier phases the plan phase reads (the train phase's row,
+#: the hybrid phase's ranks)
+PHASE_RESULTS: dict = {}
+
+
+def _allocated(dev) -> int:
+    """The card's allocated bytes (0 on the CPU: a rehearsal)."""
+    import torch
+
+    return torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+
+
+def _host_rss_gb():
+    """This process's resident bytes now (/proc/self/statm), in GB, or
+    None where it cannot be read. Not getrusage's ru_maxrss: a child
+    keeps its parent's across exec. VmHWM is missing on some hosts, so a
+    plan's host peak is read as its RSS at the end (Python keeps what it
+    took)."""
+    try:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") \
+                / 1e9
+    except (OSError, IndexError, ValueError):
+        return None
+
+
+def _plan_spec(batch):
+    """A ``meta`` tensor: the shape spec of a token batch."""
+    import torch
+
+    return torch.empty(batch, dtype=torch.int64, device="meta")
+
+
+def _scores(low, s) -> int:
+    """Ops of a plan with a ``[..., S, S]`` output of four dims (the plain
+    attention's scores)."""
+    return sum(any(len(shape) == 4 and shape[-2:] == (s, s)
+                   for shape, _, _ in outs) for _, outs, _ in low.ops)
+
+
+def _plan_row(tr, low, dev, t0) -> dict:
+    import torch
+
+    comp = low.compile()
+    ma = comp.memory_analysis()
+    total = torch.cuda.get_device_properties(dev).total_memory \
+        if dev.type == "cuda" else None
+    return {"memory_analysis": ma,
+            "peak_GB": ma["peak_bytes_est"] / 1e9,
+            "card_total_GB": None if total is None else total / 1e9,
+            "fits": None if total is None else ma["peak_bytes_est"] <= total,
+            "fwd_bwd_peak_bytes": comp.fwd_bwd_peak_bytes,
+            "update_peak_bytes": comp.update_peak_bytes,
+            "ledger": tr.memory_ledger(),
+            "ops": len(low.ops), "collectives": low.collective_stats(),
+            "score_ops": _scores(low, PLAN_13B_BATCH[1]),
+            "lower_s": low.wall_s, "plan_wall_s": time.perf_counter() - t0,
+            "host_rss_GB": _host_rss_gb()}
+
+
+def plan_worker(out_path, name, rank, dev=None) -> int:
+    """One 13B plan (``--plan-worker OUT NAME RANK``): rank ``rank`` of a
+    planning world of PLAN_WORLD (``env.plan_world``), GPT-3 13B built
+    under LazyGuard, the HybridPipelineTrainer at the factorization
+    ``name`` of PLAN_13B under the reference's recipe (amp, recompute,
+    bf16 parameters and moments, AdamW 1e-4 with weight decay 0.01),
+    its step planned on a [32, 2048] batch spec. Writes the row to
+    ``out_path``, with the bytes the card's allocator moved and the
+    kernels launched meanwhile (``plan_phase`` holds both to 0)."""
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.env import plan_world
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.hybrid import HybridPipelineTrainer
+    from paddle_tpu_torch.distributed.strategy_compiler import \
+        build_mesh_from_strategy
+    from paddle_tpu_torch.framework.lazy import LazyGuard
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.optimizer import AdamW
+
+    dev = dev or torch.device("cuda", 0)
+    _, tp, pp, dp, zero, n_micro = next(p for p in PLAN_13B if p[0] == name)
+    alloc0 = _allocated(dev)
+    rss0 = _host_rss_gb()
+    set_counts()
+    t0 = time.perf_counter()
+    with plan_world(PLAN_WORLD, rank):
+        s = DistributedStrategy()
+        s.amp = s.recompute = True
+        s.hybrid_configs = {"dp_degree": dp, "mp_degree": tp,
+                            "pp_degree": pp}
+        if zero:
+            s.sharding = True
+            s.sharding_configs = {"sharding_stage": zero}
+        mesh = M.set_mesh(build_mesh_from_strategy(s))
+        with LazyGuard():
+            model = GPT(GPTConfig.gpt3_13b(), device=dev)
+        opt = AdamW(1e-4, weight_decay=0.01,
+                    parameters=model.named_parameters())
+        tr = HybridPipelineTrainer(model, opt, s, mesh, n_micro=n_micro,
+                                   param_dtype="bfloat16",
+                                   moment_dtype="bfloat16")
+        low = tr.aot_lower(_plan_spec(PLAN_13B_BATCH))
+        row = {"plan": "gpt3_13b", "name": name, "rank": rank,
+               "host_rss_before_build_GB": rss0,
+               "stage": tr.stage, "mesh": dict(mesh.shape), "zero": zero,
+               "n_micro": n_micro, "layers_held": len(
+                   [l for c in tr.circuits for l in c])}
+        row.update(_plan_row(tr, low, dev, t0))
+    counts, _ = read_counts()
+    row["launches"] = {k: n for k, n in counts.items() if n}
+    row["allocated_moved_bytes"] = _allocated(dev) - alloc0
+    with open(out_path, "w") as f:
+        json.dump(row, f)
+    return 0
+
+
+def _plan_children(dev, out_dir, timeout):
+    """Start every 13B plan (rank 0 and the last stage's rank
+    PLAN_WORLD - 1 of each factorization) as a child process, all at
+    once; returns a function that waits for them and returns their rows
+    (a failed or late child fails the phase; every child is stopped)."""
+    import signal
+
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    jobs = []
+    for name, *_ in PLAN_13B:
+        for rank in (0, PLAN_WORLD - 1):
+            out = os.path.join(out_dir, f"plan.{name}.{rank}.json")
+            log = open(out + ".log", "w")
+            p = subprocess.Popen(
+                [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                 "--plan-worker", out, name, str(rank)],
+                env=env, cwd=HERE, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True)
+            jobs.append((name, rank, out, p, log))
+    t0 = time.perf_counter()
+
+    def wait():
+        rows, failed = [], []
+        try:
+            for name, rank, out, p, log in jobs:
+                left = max(1.0, timeout - (time.perf_counter() - t0))
+                try:
+                    rc = p.wait(timeout=left)
+                except subprocess.TimeoutExpired:
+                    rc = "timeout"
+                log.close()
+                if rc != 0:
+                    with open(out + ".log") as f:
+                        print(f"--- plan {name} rank {rank} ({rc}) ---\n"
+                              + f.read()[-4000:], file=sys.stderr)
+                    failed.append((name, rank, rc))
+                    continue
+                with open(out) as f:
+                    rows.append(json.load(f))
+        finally:
+            for *_, p, log in jobs:
+                if p.poll() is None:
+                    os.killpg(p.pid, signal.SIGKILL)
+                    p.wait()
+                log.close()
+        if failed:
+            raise AssertionError(f"13B plans failed: {failed}")
+        return rows
+
+    return wait
+
+
+def plan_phase(dev, timeout=600) -> dict:
+    """The plan phase (the module docstring): the 13B plans in child
+    processes; in this process the resident configuration's plan (its
+    trainer is kept for ``plan_allocator_check``), the 24-layer train
+    recipe's plan and the tp 2 plans of hybrid run (a) at a planning
+    world of 2, their collectives held to run (a)'s count. Launches no
+    kernel. Returns what ``plan_allocator_check`` needs."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.env import plan_world
+    from paddle_tpu_torch.framework.lazy import LazyGuard
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+
+    t_phase = time.perf_counter()
+    out_dir = tempfile.mkdtemp(prefix="plan_phase_")
+    try:
+        wait = _plan_children(dev, out_dir, timeout)
+        _free_memory(dev)
+        # the resident configuration (the resume phase's): planned from
+        # the materialized trainer, whose step the allocator then measures
+        base = _allocated(dev)
+        tr, cfg = _resume_trainer(dev)
+        before = _allocated(dev)
+        t0 = time.perf_counter()
+        low = tr.aot_lower(*_resume_batch(cfg, 0))
+        resident = _plan_row(tr, low, dev, t0)
+        moved = _allocated(dev) - before
+        assert moved == 0, ("resident plan allocated", moved)
+        emit({"plan": "resident", "layers": cfg.num_layers,
+              "batch": list(RESUME_BATCH), **resident})
+        # the train phase's recipe at full depth, planned abstractly
+        t0 = time.perf_counter()
+        before = _allocated(dev)
+        full, _ = make_trainer(dev, GPTConfig.gpt3_1_3b(), 6, lazy=True)
+        low = full.aot_lower(_plan_spec((4, 2048)))
+        row = _plan_row(full, low, dev, t0)
+        assert _allocated(dev) == before
+        train = PHASE_RESULTS.get("train")
+        emit({"plan": "train_recipe", "layers": 24, "batch": [4, 2048],
+              "peak_GiB": row["memory_analysis"]["peak_bytes_est"] / 2 ** 30,
+              "train_phase_max_memory_allocated_gib":
+                  None if train is None else
+                  train["max_memory_allocated_gib"], **row})
+        del full, low
+        # hybrid run (a) at a planning world of 2: its collectives
+        name, axes, zero, dtype, batch, kw = HYBRID_RUNS[0]
+        hcfg = dataclasses.replace(GPTConfig.gpt3_1_3b(),
+                                   num_layers=DIST_LAYERS)
+        ran = PHASE_RESULTS.get("hybrid")
+        tp_rows = []
+        for rank in (0, 1):
+            t0 = time.perf_counter()
+            with plan_world(2, rank):
+                mesh = M.init_mesh(axes)
+                with LazyGuard():
+                    model = GPT(hcfg, device=dev)
+                htr = _hybrid_trainer(model, mesh, zero, dtype, **kw)
+                low = htr.aot_lower(_plan_spec(batch))
+                got = low.collective_stats()
+                prow = {"plan": "hybrid_" + name, "rank": rank,
+                        "collectives": got, "ops": len(low.ops),
+                        "plan_wall_s": time.perf_counter() - t0}
+                del htr, model, low
+            if ran is not None:
+                want = next(r for r in ran[rank]["runs"]
+                            if r["run"] == name)["collective_stats"]
+                prow["run_a_collectives"] = want
+                for key in ("ops", "bytes", "total_bytes"):
+                    assert got[key] == want[key], (rank, key, got, want)
+            emit(prow)
+            tp_rows.append(prow)
+        rows = wait()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r in rows:
+        emit(r)
+        assert r["allocated_moved_bytes"] == 0, r
+        assert not r["launches"], r
+        assert r["score_ops"] == 0, r
+        assert r["memory_analysis"]["peak_bytes_est"] > 0, r
+    emit({"plan": "phase", "seconds": time.perf_counter() - t_phase,
+          "gpt3_13b": {f"{r['name']}.rank{r['rank']}": {
+              "peak_GB": r["peak_GB"], "fits": r["fits"],
+              "plan_wall_s": r["plan_wall_s"],
+              "host_rss_GB": r["host_rss_GB"],
+              "host_rss_before_build_GB": r["host_rss_before_build_GB"]}
+              for r in rows},
+          "hybrid_a_bytes_equal": ran is not None})
+    return {"trainer": tr, "cfg": cfg, "base": base, "resident": resident}
+
+
+def plan_allocator_check(dev, planned) -> dict:
+    """The resident plan against the allocator: one warm step, then one
+    step measured as the resume phase measures it (``_measured_step``:
+    the forward-and-backward peak and the update's peak), less the bytes
+    allocated before the trainer was built; each within PLAN_PEAK_RTOL
+    of the plan's."""
+    tr, cfg, base = planned["trainer"], planned["cfg"], planned["base"]
+    plan = planned["resident"]
+    tr.step(*_resume_batch(cfg, 1))
+    mem = _measured_step(tr, _resume_batch(cfg, 2)[0], dev)
+    got = {"between_steps": mem["between_steps"] - base,
+           "fwd_bwd_peak": mem["fwd_bwd_peak"] - base,
+           "update_peak": mem["update_peak"] - base}
+    want = {"between_steps":
+            plan["memory_analysis"]["argument_size_in_bytes"],
+            "fwd_bwd_peak": plan["fwd_bwd_peak_bytes"],
+            "update_peak": plan["update_peak_bytes"]}
+    gap = {k: (got[k] - want[k]) / got[k] for k in got}
+    row = {"plan": "resident_vs_allocator", "allocator_bytes": got,
+           "plan_bytes": want, "gap_share": gap, "rtol": PLAN_PEAK_RTOL,
+           "base_bytes": base, "loss": mem["loss"]}
+    emit(row)
+    for k in ("fwd_bwd_peak", "update_peak"):
+        assert abs(gap[k]) <= PLAN_PEAK_RTOL, row
+    del planned["trainer"], tr
+    _free_memory(dev)
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20,
@@ -6134,10 +6483,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="kernels,model,engine,spec,kvint8,"
                                         "generate,observe,handoff,deploy,"
                                         "grad,train,dist,hybrid,parallel,"
-                                        "resume",
+                                        "resume,plan",
                     help="comma-separated subset of kernels, model, engine, "
                          "spec, kvint8, generate, observe, handoff, deploy, "
-                         "grad, train, dist, hybrid, parallel, resume "
+                         "grad, train, dist, hybrid, parallel, resume, plan "
                          "(debugging)")
     ap.add_argument("--dist-worker", metavar="OUT_DIR", default=None,
                     help="run one rank of the dist phase (the phase starts "
@@ -6148,6 +6497,10 @@ def main(argv=None) -> int:
                     help="run one rank of the parallel phase")
     ap.add_argument("--resume-worker", metavar="OUT_DIR", default=None,
                     help="run one life of the resume phase's elastic run")
+    ap.add_argument("--plan-worker", nargs=3, default=None,
+                    metavar=("OUT_JSON", "NAME", "RANK"),
+                    help="plan one rank of one GPT-3 13B factorization "
+                         "(the plan phase starts them)")
     args = ap.parse_args(argv)
     phases = set(args.phases.split(","))
 
@@ -6176,6 +6529,9 @@ def main(argv=None) -> int:
         return parallel_worker(args.parallel_worker)
     if args.resume_worker:
         return resume_worker(args.resume_worker)
+    if args.plan_worker:
+        out, name, rank = args.plan_worker
+        return plan_worker(out, name, int(rank))
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import flash_attention as fa
@@ -6505,6 +6861,15 @@ def main(argv=None) -> int:
         # offload, one rank: amp at S 2048 (the wgmma forward, dQ, dK/dV)
         drive("resume", ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc"),
               resume_phase, dev, forbid=f32_kernels, remote=True)
+    if "plan" in phases:
+        # planning without allocation: no kernel runs (the 13B plans'
+        # child processes check their own counts); then the resident
+        # plan's step on the card, the allocator's readings of it
+        planned = drive("plan", (), plan_phase, dev,
+                        forbid=tuple(LAUNCH_COUNTERS))
+        drive("plan_check", ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc"),
+              plan_allocator_check, dev, planned, forbid=f32_kernels)
+        del planned
     emit({"launches_by_path": by_path,
           "chunk_row_launches_by_t": by_t_path})
 

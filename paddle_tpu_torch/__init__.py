@@ -20,10 +20,21 @@ clips, and ``distributed.hybrid.HybridPipelineTrainer`` at degree 1;
 process groups and collectives on ``torch.distributed``
 (``distributed``: the env protocol and launcher, the mesh, the eager
 collectives and SPMD primitives, ``DataParallel``, ``fleet``, the
-tensor-parallel layers at tp > 1).
+tensor-parallel layers at tp > 1); the strategy compiler and the hybrid
+trainer at dp, tp and ZeRO 1-3, with GPT's heads split over tp and a
+vocab-parallel fused loss head; pipeline parallelism (GPipe and
+interleaved), ring attention over sp and expert-parallel MoE in the
+hybrid trainer; int8 quantized collectives, sharded asynchronous
+checkpoints, prefetch, elastic resume and host offload with layer
+streaming; and planning without allocation: ``LazyGuard``
+(``framework.lazy``), the abstract hybrid trainer, and
+``aot_lower``/``aot_compile``/``memory_analysis`` of any trainer on fake
+tensors (``distributed.plan``), in a planning world of any size
+(``distributed.env.plan_world``).
 """
 from .core.place import resolve_device
 from .core.rng import seed
 from .distributed.parallel import DataParallel
+from .framework.lazy import LazyGuard
 
-__all__ = ["resolve_device", "seed", "DataParallel"]
+__all__ = ["resolve_device", "seed", "DataParallel", "LazyGuard"]

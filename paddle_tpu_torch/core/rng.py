@@ -99,3 +99,13 @@ def set_rng_state(state: dict) -> None:
     _seed = int(state["seed"])
     for k, st in state.get("generators", {}).items():
         generator(k).set_state(torch.tensor(st, dtype=torch.uint8))
+
+
+def initial_seed(device) -> int:
+    """The seed ``generator(device)`` starts from, without making a
+    generator for ``device`` (a plan names a card the host may not have)."""
+    dev = torch.device(device)
+    key = str(dev) if dev.type == "cpu" else \
+        f"cuda:{dev.index if dev.index is not None else 0}"
+    gen = _generators.get(key)
+    return gen.initial_seed() if gen is not None else _seed

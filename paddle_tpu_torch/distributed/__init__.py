@@ -13,7 +13,10 @@ pipeline protocol; ``hybrid_gpt.GPTHybridTrainer``) and
 ``strategy_compiler.compile_train_step`` (any layer; dp, tp and ep);
 ``qcomm`` holds their data-parallel update, ``pipeline`` the schedules
 over ``pp``, ``moe`` the expert-parallel MoE layer and
-``ops.ring_attention`` the ring over ``sp``.
+``ops.ring_attention`` the ring over ``sp``. ``plan`` runs a trainer's
+step on fake tensors (its ``aot_lower``/``aot_compile``/
+``memory_analysis``), in a world of any size in one process
+(``env.plan_world``).
 """
 from . import fleet, primitives
 from .collective import (ReduceOp, all_gather, all_reduce, alltoall,

@@ -18,9 +18,19 @@ overrides that default and never moves the device, except ``cpu``, the
 reference's spelling, which means gloo on the CPU. Without a card the
 default device raises; nothing drops to the CPU on its own. A world of
 one process is a no-op, as in the reference.
+
+``plan_world(world_size, rank)`` is the planning world: torch.distributed's
+``fake`` backend (``FakeStore``), a world of any size inside one process
+seen from one rank, whose collectives move nothing. A mesh built in it
+makes the same axis groups as a real world of that size, so a trainer
+there plans one rank's step (``plan.py``): the counterpart of the
+reference's ``--xla_force_host_platform_device_count=16``
+(``benchmarks/plan_13b.py:21-25``). The backend lives in a private module
+of torch; where it is missing, ``plan_world`` raises.
 """
 from __future__ import annotations
 
+import contextlib
 import os
 from typing import Optional
 
@@ -30,7 +40,7 @@ import torch.distributed as dist
 from ..core.place import resolve_device
 
 __all__ = ["ParallelEnv", "init_parallel_env", "get_rank", "get_world_size",
-           "is_initialized"]
+           "is_initialized", "plan_world"]
 
 _initialized = False
 _device: Optional[torch.device] = None
@@ -135,3 +145,28 @@ def get_world_size() -> int:
 def is_initialized() -> bool:
     return _initialized
 
+
+
+@contextlib.contextmanager
+def plan_world(world_size: int, rank: int = 0):
+    """A planning world of ``world_size`` ranks in this process, as rank
+    ``rank`` (module docstring). The default process group is destroyed
+    on exit and the current mesh restored."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from .mesh import get_mesh, set_mesh
+
+    if dist.is_initialized():
+        raise RuntimeError("plan_world: this process already has a process "
+                           "group; plan in a process of its own")
+    if not 0 <= rank < world_size:
+        raise ValueError(f"plan_world: rank {rank} outside a world of "
+                         f"{world_size}")
+    mesh = get_mesh()
+    dist.init_process_group("fake", store=FakeStore(), rank=rank,
+                            world_size=world_size)
+    try:
+        yield
+    finally:
+        set_mesh(mesh)
+        dist.destroy_process_group()

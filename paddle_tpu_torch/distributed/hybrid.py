@@ -73,6 +73,20 @@ use. ``sync_to_layer()`` makes the model's stage parameters and the
 optimizer's state whole over ``dp`` (collective);
 ``parallel_layers.gather_reference_state`` then assembles the global
 state across tp, ep and pp.
+
+Planning (the reference's ``hybrid.py:338-345, 1369-1374, 1563-1644``):
+a model built under ``framework.lazy.LazyGuard`` makes an abstract
+trainer (``self.abstract``). Its parameters become fake tensors on their
+devices (``plan.fake_parameters``) and every piece of state the trainer
+builds is a fake too (the storage casts, the pipeline's stage release,
+the ZeRO slices and slab, offload's host state), so nothing is allocated
+on the host or the card; ``step()`` raises. ``aot_lower(*batch)`` runs
+the step's own code on fakes of any trainer's state (``plan.py``),
+``aot_compile`` analyses its buffers and ``memory_analysis`` gives the
+reference's keys. Unlike the reference, which turns its manual ZeRO off
+when it plans abstractly (``hybrid.py:361-366``), the port plans the
+route its ``step()`` would take: a plan is worth what its match with the
+allocator is worth.
 """
 from __future__ import annotations
 
@@ -86,6 +100,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core import rng as _rng
 from ..core.dtype import convert_dtype
+from ..framework.lazy import is_abstract
 from ..profiler import instrument as _pinstr
 from ..profiler import is_enabled as _prof_enabled
 from ..profiler import program_stats as _pstats
@@ -93,6 +108,7 @@ from ..profiler import recompile as _precomp
 from ..profiler import registry as _preg
 from ..profiler import trace as _ptrace
 from . import context as _dctx
+from . import plan as _plan
 from . import qcomm as _qcomm
 from .fleet.distributed_strategy import DistributedStrategy
 from .pipeline import _global_share, pipeline_apply
@@ -111,7 +127,7 @@ def _check_protocol(model):
                 f"protocol ({m}); see distributed/hybrid.py docstring")
 
 
-_ITEMS = {"7e": "planning without allocation", "8": "resilience"}
+_ITEMS = {"8": "resilience"}
 
 
 def _queue(item: str, what: str) -> NotImplementedError:
@@ -275,10 +291,12 @@ class HybridPipelineTrainer:
         steps); ``memory_ledger`` gives this rank's resident bytes by
         state category.
 
-        Not ported (each raises ``NotImplementedError`` naming its ROADMAP
-        item): planning a LazyGuard model,
-        ``aot_lower``/``aot_compile``/``memory_analysis`` (7e);
-        ``guard_bad_steps`` (8)."""
+        A model built under ``LazyGuard`` makes an abstract trainer, which
+        plans (``aot_lower``/``aot_compile``/``memory_analysis``) and does
+        not step (module docstring).
+
+        Not ported (raises ``NotImplementedError`` naming its ROADMAP
+        item): ``guard_bad_steps`` (8)."""
         _check_protocol(model)
         s = strategy or DistributedStrategy()
         mesh = mesh if mesh is not None else build_mesh_from_strategy(s)
@@ -287,6 +305,10 @@ class HybridPipelineTrainer:
         if guard_bad_steps:
             raise _queue("8", "guard_bad_steps")
         _check_layers(model, mesh)
+        #: built from a LazyGuard model: plans, never steps
+        self.abstract = any(is_abstract(p) for p in model.parameters())
+        self._fake_mode = _plan.fake_parameters(model, optimizer) \
+            if self.abstract else None
         cfg = getattr(model, "config", None)
         self.moe = bool(getattr(cfg, "moe_num_experts", 0))
         self.moe_aux_weight = float(getattr(cfg, "moe_aux_weight", 0.0))
@@ -346,7 +368,25 @@ class HybridPipelineTrainer:
         _qcomm.validate_dp_param_comm(dp_param_comm, self.zero_manual)
         self.dp_param_comm = dp_param_comm
         _validate_zero_clip(optimizer, self.zero_manual)
+        with self._fake_mode or contextlib.nullcontext():
+            self._init_state(model, optimizer, mesh, offload, dp_grad_comm)
+        # per parameter, the axes its piece is cut over beyond its spec
+        # (device_state): a pipeline stage's blocks over pp
+        other = set(self._other_names)
+        self._cut_axes = [("pp",) if self.pp > 1 and n not in other
+                          else () for n in self._names]
+        self._step = 0
+        # the root of the steps' dropout keys (_loss)
+        self._key = _rng.initial_seed(self._device()) if self.abstract \
+            else _rng.generator(self._device()).initial_seed()
+        # the batch signatures the step has run (profiler/recompile.py)
+        self._prof_site = _precomp.unique_site("hybrid.step")
+        # the step site's counted first dispatch (program_stats.dispatch)
+        self._program_counts: Dict[str, dict] = {}
 
+    def _init_state(self, model, optimizer, mesh, offload, dp_grad_comm):
+        """The stage layout, the released blocks of the other stages and
+        the update's state (under the fake mode when abstract)."""
         blocks = list(model.pipeline_blocks())
         L = len(blocks)
         if L % (self.pp * self.v) != 0:
@@ -403,7 +443,7 @@ class HybridPipelineTrainer:
             masks.append(("ep", ["ep" in _spec_axes(specs[n])
                                  for n, _ in named]))
         args = (mesh, named, specs, optimizer, self.zero, self.zero_manual,
-                self.dp_grad_block, dp_param_comm, self.param_dtype,
+                self.dp_grad_block, self.dp_param_comm, self.param_dtype,
                 self.moment_dtype)
         kw = dict(grad_sums=sums, norm_axes=masks, grad_comm=dp_grad_comm)
         if offload:
@@ -416,17 +456,6 @@ class HybridPipelineTrainer:
                 conservative=self.conservative_fetch, **kw)
         else:
             self._upd = _ShardedUpdate(*args, **kw)
-        # per parameter, the axes its piece is cut over beyond its spec
-        # (device_state): a pipeline stage's blocks over pp
-        self._cut_axes = [("pp",) if self.pp > 1 and n not in other
-                          else () for n in self._names]
-        self._step = 0
-        # the root of the steps' dropout keys (_loss)
-        self._key = _rng.generator(self._device()).initial_seed()
-        # the batch signatures the step has run (profiler/recompile.py)
-        self._prof_site = _precomp.unique_site("hybrid.step")
-        # the step site's counted first dispatch (program_stats.dispatch)
-        self._program_counts: Dict[str, dict] = {}
 
     def _offload_groups(self, local):
         """The streamed update's parameter groups: one layer each under
@@ -555,7 +584,14 @@ class HybridPipelineTrainer:
     def step(self, *batch) -> torch.Tensor:
         """One optimizer step on the GLOBAL ``batch`` (e.g. ``tokens [B,
         S]``, int; every rank passes the same one); returns the f32 loss
-        (the dp mean), not waited for unless profiling."""
+        (the dp mean), not waited for unless profiling. An abstract trainer
+        raises: it plans, it does not run."""
+        if self.abstract:
+            raise RuntimeError(
+                "This trainer was built from a LazyGuard (abstract) model: "
+                "it can plan (memory_analysis / aot_lower) but not execute. "
+                "Materialize the model (framework.lazy.materialize) and "
+                "build the optimizer and the trainer again to train.")
         dev = self._device()
         prof = _prof_enabled()
         t0 = time.perf_counter_ns() if prof else 0
@@ -631,7 +667,9 @@ class HybridPipelineTrainer:
         ``backward``; the f32 loss, not waited for. The dropout masks are
         keyed by the port's seed, the step and the micro-batch
         (``core.rng.fold_in``)."""
-        counter = getattr(self.model, "pipeline_label_count", None)
+        # a plan reads no device value: its micro-batches weigh equally
+        counter = None if _plan.planning() else \
+            getattr(self.model, "pipeline_label_count", None)
         total = counter(*batch) if counter is not None else None
         local, share = self._local(batch)
         bsz = local[0].shape[0]
@@ -747,7 +785,22 @@ class HybridPipelineTrainer:
             self._step = int(step)
             self.optimizer._global_step = int(step)
 
-    def aot_lower(self, *batch):
-        raise _queue("7e", "aot_lower / aot_compile / memory_analysis")
+    def aot_lower(self, *batch) -> "_plan.Lowered":
+        """The step on ``batch`` (tensors, arrays, or ``meta`` tensors as
+        shape specs) planned on fakes of this trainer's state, abstract or
+        materialized: nothing runs, nothing is allocated and nothing real
+        changes (``plan.py``). Its ``as_text()`` lists the program, its
+        ``collectives`` what ``count_collectives`` would count."""
+        return _plan.lower(self, batch)
 
-    aot_compile = memory_analysis = aot_lower
+    def aot_compile(self, *batch) -> "_plan.Compiled":
+        """``aot_lower(*batch).compile()``: the buffer analysis."""
+        return self.aot_lower(*batch).compile()
+
+    def memory_analysis(self, *batch) -> dict:
+        """The planned step's bytes under the reference's keys
+        (``argument/output/temp/alias_size_in_bytes``, ``peak_bytes_est``
+        = arguments − alias + temps) and, under host offload,
+        ``host_resident_argument_bytes``, ``hbm_argument_bytes`` and
+        ``hbm_peak_bytes_est`` (``plan.Compiled``)."""
+        return self.aot_compile(*batch).memory_analysis()

@@ -53,6 +53,7 @@ from torch import nn
 from torch.autograd import Function
 from torch.nn import functional as TF
 
+from ..framework.lazy import in_lazy_mode, parameter
 from ..nn import initializer as I
 from .collective import ReduceOp
 from .mesh import P, get_mesh
@@ -292,13 +293,10 @@ class MoEMLP(nn.Module):
         self.capacity_factor = capacity_factor
         self._mesh = mesh
 
+        dev = torch.get_default_device() if device is None else device
+
         def param(shape, normal):
-            t = torch.empty(shape, device=device)
-            if normal:
-                init(t)
-            else:
-                t.zero_()
-            return nn.Parameter(t)
+            return parameter(shape, init if normal else I.Constant(0.0), dev)
 
         self.gate = param((h, e), True)
         self.w_in = param((e_l, h, f), True)
@@ -310,7 +308,8 @@ class MoEMLP(nn.Module):
             "gate": P(), "w_in": P("ep", None, None),
             "b_in": P("ep", None), "w_out": P("ep", None, None),
             "b_out": P("ep", None)}
-        self.aux_loss = torch.zeros((), device=device)
+        self.aux_loss = torch.zeros((), device="meta" if in_lazy_mode()
+                                    else dev)
         #: the routing of the last forward (``switch_moe``'s ``stats``)
         self.last_route: dict = {}
 

@@ -161,6 +161,14 @@ class _OffloadUpdate(_ShardedUpdate):
                 buf.record_stream(self.d2h)
         self._wb[g] = self._record(self.d2h)
 
+    def host_state(self) -> List[torch.Tensor]:
+        """The state that lives on the host: the moments under
+        ``offload_optimizer``, the f32 masters under ``offload_params``
+        (a plan's host-resident arguments, ``plan.py``)."""
+        out = [v for st in self.states for v in st.values()] \
+            if self.offload_optimizer else []
+        return out + [m for m in self.master if m is not None]
+
     def host_sync(self) -> None:
         """Wait for every write-back: the host state is current."""
         for ev in self._wb:

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 from torch.autograd import Function
 
+from ..framework.lazy import is_abstract
 from ..optimizer.clip import _scale_, functional_clip
 from ..profiler import instrument as _pinstr
 from ..profiler import is_enabled as _prof_enabled
@@ -373,8 +374,9 @@ class _ShardedUpdate:
     def _broadcast(self) -> None:
         """Every dp rank starts from the values of dp index 0 (its own tp
         shard's), so the replicas of a dp group are equal from the first
-        step on, as the reference's one global array is."""
-        if self.dp == 1:
+        step on, as the reference's one global array is. An abstract
+        trainer's parameters hold no values to send."""
+        if self.dp == 1 or any(is_abstract(p) for p in self.params):
             return
         import torch.distributed as dist
 
@@ -837,7 +839,10 @@ class HybridParallelTrainer:
     the micro-batches' dp-mean losses. ``data_spec``: per batch leaf
     ``P('dp')`` (sliced over dp) or ``P()`` (whole on every rank); the
     default is ``qcomm.dp_batch_specs``. ``donate`` is accepted: an eager
-    step holds no second copy to donate. ``dp_grad_comm="int8"`` reduces
+    step holds no second copy to donate. A layer built under ``LazyGuard``
+    makes an abstract trainer, which plans (``aot_lower``,
+    ``aot_compile``, ``memory_analysis``: ``plan.py``) and does not step,
+    as ``hybrid.HybridPipelineTrainer``'s. ``dp_grad_comm="int8"`` reduces
     the dp gradients on the quantized ring (pure dp, ZeRO <= 2; with
     ``accumulate_steps`` the global batch must divide dp ×
     accumulate_steps, as the reference's per-shard split needs);
@@ -880,10 +885,18 @@ class HybridParallelTrainer:
         norm_axes = [("ep", ["ep" in _spec_axes(specs[n])
                              for n, _ in named])] \
             if self.mesh.shape.get("ep", 1) > 1 else []
-        self._upd = _ShardedUpdate(
-            self.mesh, named, specs, optimizer, zero, self.zero_manual,
-            self.dp_grad_block, dp_param_comm, norm_axes=norm_axes,
-            grad_comm=dp_grad_comm)
+        self.abstract = any(is_abstract(p) for _, p in named)
+        self._fake_mode = None
+        if self.abstract:
+            from .plan import fake_parameters
+
+            self._fake_mode = fake_parameters(layer, optimizer)
+            named = list(layer.named_parameters())
+        with self._fake_mode or contextlib.nullcontext():
+            self._upd = _ShardedUpdate(
+                self.mesh, named, specs, optimizer, zero, self.zero_manual,
+                self.dp_grad_block, dp_param_comm, norm_axes=norm_axes,
+                grad_comm=dp_grad_comm)
         self.data_spec = data_spec
         self._step = 0
         self._prof_site = _precomp.unique_site("compile_train_step")
@@ -954,7 +967,13 @@ class HybridParallelTrainer:
 
     def step(self, *batch) -> torch.Tensor:
         """One step on the GLOBAL batch (every rank passes the same one);
-        returns the f32 loss."""
+        returns the f32 loss. An abstract trainer raises."""
+        if self.abstract:
+            raise RuntimeError(
+                "This trainer was built from a LazyGuard (abstract) layer: "
+                "it can plan (memory_analysis / aot_lower) but not execute. "
+                "Materialize the layer (framework.lazy.materialize) and "
+                "build the optimizer and the trainer again to train.")
         dev = self._device()
         prof = _prof_enabled()
         t0 = time.perf_counter_ns() if prof else 0
@@ -995,6 +1014,19 @@ class HybridParallelTrainer:
         (and the master of a bf16 ``dp_param_comm``) is this rank's
         1/dp."""
         return self._upd.ledger()
+
+    def aot_lower(self, *batch):
+        """The step planned on fakes of this trainer's state (``plan.py``),
+        as ``hybrid.HybridPipelineTrainer.aot_lower``."""
+        from .plan import lower
+
+        return lower(self, batch)
+
+    def aot_compile(self, *batch):
+        return self.aot_lower(*batch).compile()
+
+    def memory_analysis(self, *batch) -> dict:
+        return self.aot_compile(*batch).memory_analysis()
 
     def sync_to_layer(self):
         """The model with whole parameters, the optimizer with whole

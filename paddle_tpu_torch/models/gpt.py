@@ -83,6 +83,7 @@ from torch.nn import functional as TF
 
 from ..core.place import resolve_device
 from ..core import rng as _rng
+from ..framework.lazy import in_lazy_mode, is_abstract
 from ..distributed.parallel_layers import (ColumnParallelLinear,
                                            RowParallelLinear,
                                            VocabParallelEmbedding,
@@ -164,14 +165,21 @@ class _ReplicatedMasks:
     """The generator of the replicated regions' dropout masks at tp > 1
     (the module docstring): reseeded from ``core.rng.scope_key()`` and
     the ``dp`` coordinate at each draw inside a key scope, else drawn on
-    from its seed (the port's seed and the ``dp`` coordinate)."""
+    from its seed (the port's seed and the ``dp`` coordinate). A model
+    built under ``LazyGuard`` makes it at its first draw (on the device
+    its parameters were materialized on)."""
 
     def __init__(self, dev, dp_index: int):
         self.dp_index = dp_index
-        self.gen = torch.Generator(device=dev).manual_seed(
-            _rng.generator(dev).initial_seed() + 7919 * (1 + dp_index))
+        self.gen = None if in_lazy_mode() else self._make(dev)
 
-    def generator(self) -> torch.Generator:
+    def _make(self, dev) -> torch.Generator:
+        return torch.Generator(device=dev).manual_seed(
+            _rng.generator(dev).initial_seed() + 7919 * (1 + self.dp_index))
+
+    def generator(self, dev) -> torch.Generator:
+        if self.gen is None:
+            self.gen = self._make(dev)
         key = _rng.scope_key()
         if key is not None:
             self.gen.manual_seed(_rng.fold_in(key, self.dp_index))
@@ -180,11 +188,13 @@ class _ReplicatedMasks:
 
 def _dropout(x, p: float, training: bool, masks=None):
     """``TF.dropout``, or with ``masks`` (tp > 1: the replicated regions'
-    ``_ReplicatedMasks``) a mask drawn from its generator."""
+    ``_ReplicatedMasks``) a mask drawn from its generator. A plan's fake
+    ``x`` (``distributed/plan.py``) draws from no generator: its mask has
+    the shape and no values."""
     if masks is None or not training or not p:
         return TF.dropout(x, p, training=training)
-    keep = torch.rand(x.shape, generator=masks.generator(),
-                      device=x.device) >= p
+    gen = None if is_abstract(x) else masks.generator(x.device)
+    keep = torch.rand(x.shape, generator=gen, device=x.device) >= p
     return x * keep.to(x.dtype) / (1.0 - p)
 
 
@@ -896,7 +906,13 @@ def load_reference_state(model: nn.Module,
     from the JAX package's ``state_dict()`` — into ``model``. Raises on
     missing, extra or mis-shaped keys. Under a pipeline the blocks of the
     other stages (``model._pipeline_layout``) are not loaded and may be
-    missing."""
+    missing. An abstract model (built under ``LazyGuard``) has nowhere to
+    load into: it raises."""
+    if any(is_abstract(p) for p in model.parameters()):
+        raise ValueError(
+            "load_reference_state: the model is abstract (built under "
+            "LazyGuard, or planned by a trainer): its parameters hold no "
+            "values; framework.lazy.materialize(model) first")
     own = model.state_dict()
     layout = getattr(model, "_pipeline_layout", None)
     if layout is not None:

@@ -2,7 +2,8 @@
 
 ``Linear`` keeps the reference's ``weight [in, out]`` layout and applies
 ``x @ W + b``, so weights carry across from the JAX package without a
-transpose.
+transpose. Parameters are made through ``framework.lazy.parameter``:
+abstract under ``LazyGuard``.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import torch
 from torch import nn
 
 from ...core.place import resolve_device
+from ...framework.lazy import parameter
 from .. import initializer as I
 
 
@@ -23,11 +25,10 @@ class Linear(nn.Module):
                  has_bias: bool = True, device=None):
         super().__init__()
         dev = resolve_device(device)
-        self.weight = nn.Parameter(torch.empty(in_features, out_features,
-                                               device=dev))
-        (weight_attr or I.Normal(0.0, 0.02))(self.weight)
+        self.weight = parameter((in_features, out_features),
+                                weight_attr or I.Normal(0.0, 0.02), dev)
         if has_bias:
-            self.bias = nn.Parameter(torch.zeros(out_features, device=dev))
+            self.bias = parameter((out_features,), I.Constant(0.0), dev)
         else:
             self.register_parameter("bias", None)
 
@@ -43,9 +44,8 @@ class Embedding(nn.Module):
                  weight_attr: Optional[I.Initializer] = None, device=None):
         super().__init__()
         dev = resolve_device(device)
-        self.weight = nn.Parameter(torch.empty(num_embeddings, embedding_dim,
-                                               device=dev))
-        (weight_attr or I.Normal(0.0, 0.02))(self.weight)
+        self.weight = parameter((num_embeddings, embedding_dim),
+                                weight_attr or I.Normal(0.0, 0.02), dev)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return self.weight[ids]

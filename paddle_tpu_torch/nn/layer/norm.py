@@ -3,6 +3,7 @@
 Same parameter names (``weight``, ``bias``) and the same eps semantics as
 the reference's ``_ln`` (``models/gpt.py``): biased variance, eps inside
 the square root, ``(x - mean) / sqrt(var + eps) * weight + bias``.
+Abstract under ``LazyGuard`` (``framework.lazy.parameter``).
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from torch import nn
 from torch.nn import functional as TF
 
 from ...core.place import resolve_device
+from ...framework.lazy import parameter
+from .. import initializer as I
 
 
 class LayerNorm(nn.Module):
@@ -20,8 +23,8 @@ class LayerNorm(nn.Module):
         dev = resolve_device(device)
         self.normalized_shape = (int(normalized_shape),)
         self.epsilon = float(epsilon)
-        self.weight = nn.Parameter(torch.ones(normalized_shape, device=dev))
-        self.bias = nn.Parameter(torch.zeros(normalized_shape, device=dev))
+        self.weight = parameter(self.normalized_shape, I.Constant(1.0), dev)
+        self.bias = parameter(self.normalized_shape, I.Constant(0.0), dev)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return TF.layer_norm(x, self.normalized_shape, self.weight,

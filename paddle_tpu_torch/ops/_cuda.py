@@ -1,6 +1,7 @@
 """Small helpers shared by the kernel wrappers (no counterpart in the JAX
-package): dtype codes of the C interface, argument checks, and the
-``ctypes`` binding of a kernel's C entry."""
+package): dtype codes of the C interface, argument checks, the
+``ctypes`` binding of a kernel's C entry, and ``planned``, the test of a
+wrapper's shape rule."""
 from __future__ import annotations
 
 import ctypes
@@ -33,6 +34,26 @@ def entry(lib_name: str, fn_name: str, signature: str):
         fn.argtypes = [_CTYPES[c] for c in signature]
         fn.restype = _INT
     return fn
+
+
+def planned(t: torch.Tensor) -> bool:
+    """True for a tensor with no values: a ``FakeTensor`` (a plan of the
+    train step, ``distributed/plan.py``) or a ``meta`` tensor. A wrapper on
+    the CUDA route given one takes its shape rule: it allocates exactly
+    what its kernel allocates and launches nothing (no build, no count).
+    A real CUDA tensor always launches the kernel."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return t.is_meta or isinstance(t, FakeTensor)
+
+
+def refuse_planned(name: str, tensors: Sequence[torch.Tensor]) -> None:
+    """Raise for a kernel with no shape rule given a tensor with no
+    values (``planned``): a plan does not reach it."""
+    if any(planned(t) for t in tensors):
+        raise NotImplementedError(
+            f"{name}: no shape rule; a plan of the train step does not "
+            "reach this kernel (its inputs hold no values)")
 
 
 def check_cuda(name: str, tensors: Sequence[torch.Tensor],

@@ -40,7 +40,12 @@ plain PyTorch version sits beside it (``_plain_fwd``,
 ``_plain_bwd_single_tile``, ``_plain_bwd_dq``, ``_plain_bwd_dkv``): CPU
 tensors run it, and ``chip_smoke.py`` holds the kernel against it on the
 card. A CUDA tensor always launches a kernel; a failed build or launch
-raises.
+raises. A tensor with no values (``_cuda.planned``: a fake tensor of a
+plan of the train step on the CUDA route, ``distributed/plan.py``, or a
+``meta`` tensor) takes each wrapper's shape rule: the wrapper allocates
+what its kernel allocates (O and the LSE; the gradients, with the merged
+kernel's f32 dQ scratch and tickets) and launches nothing, so a plan
+holds no ``[B, H, S, S]`` scores.
 
 ``flash_fwd_cost`` and ``flash_bwd_cost`` give each kernel's work
 (FLOPs, bytes): what each launch adds to a counted program
@@ -249,7 +254,7 @@ def _flash_cuda(q, k, v, causal, scale):
     """The forward on the card: the tensor-core or the SIMT kernel, by
     ``_tc_route``."""
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not (dev.type == "meta" and _cuda.planned(q)):
         raise ValueError(f"flash_attention: unsupported device {dev}")
     _cuda.check_cuda("flash_attention", (q, k, v), dev)
     if q.dtype not in _cuda.DTYPE_CODE or k.dtype != q.dtype or \
@@ -275,6 +280,8 @@ def _flash_simt(q, k, v, causal, scale):
     global FLASH_FWD_LAUNCHES
     b, sq, h, d = q.shape
     o, lse, s = _fwd_outputs(q, scale)
+    if _cuda.planned(q):
+        return o, lse
     fn = _cuda.entry("flash_attention_fwd", "flash_attention_fwd",
                      "pppppiiiiiifip")
     with torch.cuda.device(q.device):
@@ -298,8 +305,10 @@ def _flash_tc(q, k, v, causal, scale):
     if not _tc_route(q.dtype, d):
         raise TypeError(f"{name} takes bf16 at D in {_TC_HEAD_DIMS}, got "
                         f"{q.dtype} at D {d}")
-    _tma_aligned(name, (q, k, v))
     o, lse, s = _fwd_outputs(q, scale)
+    if _cuda.planned(q):
+        return o, lse
+    _tma_aligned(name, (q, k, v))
     fn = _cuda.entry(name, name, "pppppiiiiiifp")
     with torch.cuda.device(q.device):
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
@@ -393,10 +402,11 @@ def _plain_bwd_dkv(scale, causal, res, do, delta, dtypes):
 
 def _bwd_args(name, scale, causal, res, do, delta, out_dtypes):
     """Checks shared by the three backward wrappers; returns the
-    leading C arguments (pointers of q, k, v, dO, LSE, δ)."""
+    leading C arguments (pointers of q, k, v, dO, LSE, δ), or None for a
+    planned ``q`` (``_cuda.planned``: the shape rule)."""
     q, k, v, lse = res
     dev = q.device
-    if dev.type != "cuda":
+    if dev.type != "cuda" and not (dev.type == "meta" and _cuda.planned(q)):
         raise ValueError(f"{name}: unsupported device {dev}")
     _cuda.check_cuda(name, (q, k, v, do, lse, delta), dev)
     if q.dtype not in _cuda.DTYPE_CODE or any(
@@ -410,6 +420,8 @@ def _bwd_args(name, scale, causal, res, do, delta, out_dtypes):
     if len(set(out_dtypes)) != 1 or out_dtypes[0] not in _cuda.DTYPE_CODE:
         raise TypeError(f"{name}: gradients of one dtype, f32 or bf16, "
                         f"got {out_dtypes}")
+    if _cuda.planned(q):
+        return None
     return (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr())
 
@@ -421,7 +433,8 @@ def _tc_check(name, res, do):
     if not _tc_route(q.dtype, q.shape[3]):
         raise TypeError(f"{name} takes bf16 at D in {_TC_HEAD_DIMS}, got "
                         f"{q.dtype} at D {q.shape[3]}")
-    _tma_aligned(name, (q, k, v, do))
+    if not _cuda.planned(q):
+        _tma_aligned(name, (q, k, v, do))
 
 
 def _dims(res, causal, scale):
@@ -446,7 +459,8 @@ def _bwd_single_tile(scale, causal, res, do, delta, dtypes):
 def _single_tile_outputs(res, dtypes):
     """The merged kernels' outputs and their zeroed f32 dQ scratch and
     per-head tickets; with an f32 output the scratch is dQ itself (no
-    tickets)."""
+    tickets). Returns (their pointers, or None for a planned ``q``; (dq,
+    dk, dv))."""
     q, k = res[0], res[1]
     dev = q.device
     out = dtypes[0]
@@ -459,6 +473,8 @@ def _single_tile_outputs(res, dtypes):
                               dtype=torch.int32)
     dk = torch.empty(k.shape, device=dev, dtype=out)
     dv = torch.empty(k.shape, device=dev, dtype=out)
+    if _cuda.planned(q):
+        return None, (dq, dk, dv)
     return (None if dq is dq_acc else dq.data_ptr(), dk.data_ptr(),
             dv.data_ptr(), dq_acc.data_ptr(),
             None if tickets is None else tickets.data_ptr()), (dq, dk, dv)
@@ -472,6 +488,8 @@ def _bwd_single_tile_mma(scale, causal, res, do, delta, dtypes):
     ptrs = _bwd_args(name, scale, causal, res, do, delta, dtypes)
     dev = res[0].device
     out_ptrs, grads = _single_tile_outputs(res, dtypes)
+    if ptrs is None:
+        return grads
     fn = _cuda.entry("flash_attention_bwd", name, "ppppppppppp" "iiiiiifiip")
     with torch.cuda.device(dev):
         err = fn(*ptrs, *out_ptrs, *_dims(res, causal, scale),
@@ -494,6 +512,8 @@ def _bwd_single_tile_tc(scale, causal, res, do, delta, dtypes):
     _tc_check(name, res, do)
     dev = res[0].device
     out_ptrs, grads = _single_tile_outputs(res, dtypes)
+    if ptrs is None:
+        return grads
     fn = _cuda.entry(name, name, "ppppppppppp" "iiiiiifip")
     with torch.cuda.device(dev):
         err = fn(*ptrs, *out_ptrs, *_dims(res, causal, scale)[:-1],
@@ -524,6 +544,8 @@ def _bwd_dq_mma(scale, causal, res, do, delta, dtype):
     ptrs = _bwd_args(name, scale, causal, res, do, delta, (dtype,))
     q = res[0]
     dq = torch.empty(q.shape, device=q.device, dtype=dtype)
+    if ptrs is None:
+        return dq
     fn = _cuda.entry("flash_attention_bwd", name, "ppppppp" "iiiiiifiip")
     with torch.cuda.device(q.device):
         err = fn(*ptrs, dq.data_ptr(), *_dims(res, causal, scale),
@@ -545,6 +567,8 @@ def _bwd_dq_tc(scale, causal, res, do, delta, dtype):
     _tc_check(name, res, do)
     q = res[0]
     dq = torch.empty(q.shape, device=q.device, dtype=dtype)
+    if ptrs is None:
+        return dq
     fn = _cuda.entry(name, name, "ppppppp" "iiiiiifip")
     with torch.cuda.device(q.device):
         err = fn(*ptrs, dq.data_ptr(), *_dims(res, causal, scale)[:-1],
@@ -576,6 +600,8 @@ def _bwd_dkv_mma(scale, causal, res, do, delta, dtypes):
     k = res[1]
     dk = torch.empty(k.shape, device=k.device, dtype=dtypes[0])
     dv = torch.empty(k.shape, device=k.device, dtype=dtypes[1])
+    if ptrs is None:
+        return dk, dv
     fn = _cuda.entry("flash_attention_bwd", name, "pppppppp" "iiiiiifiip")
     with torch.cuda.device(k.device):
         err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(),
@@ -599,6 +625,8 @@ def _bwd_dkv_tc(scale, causal, res, do, delta, dtypes):
     k = res[1]
     dk = torch.empty(k.shape, device=k.device, dtype=dtypes[0])
     dv = torch.empty(k.shape, device=k.device, dtype=dtypes[1])
+    if ptrs is None:
+        return dk, dv
     fn = _cuda.entry(name, name, "pppppppp" "iiiiiifip")
     with torch.cuda.device(k.device):
         err = fn(*ptrs, dk.data_ptr(), dv.data_ptr(),

@@ -143,6 +143,7 @@ def quantize_x(x, qscale, amax: float = 127.0):
         return _plain_quantize_x(x, qscale, float(amax))
     global INT8_QUANTIZE_LAUNCHES
     name = "quantize_x"
+    _cuda.refuse_planned(name, (x,))
     _cuda.check_cuda(name, (x, qscale), x.device)
     xq = torch.empty(x.shape, dtype=torch.int8, device=x.device)
     fn = _cuda.entry("int8_matmul", "int8_quantize", "ppplifp")
@@ -233,6 +234,7 @@ def _int8_matmul_cuda(x, wq, scale, bias, qscale, relu, quant_out,
         raise ValueError(f"{name}: unsupported device {dev}")
     tensors = [t for t in (x, wq, scale, bias, qscale, wq_kn)
                if t is not None]
+    _cuda.refuse_planned(name, tensors)
     _cuda.check_cuda(name, tensors, dev)
     if _mm_route(x, wq_kn) == "wgmma":
         return _mm_wgmma(x, wq.t().contiguous() if wq_kn is None else wq_kn,

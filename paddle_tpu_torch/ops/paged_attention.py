@@ -212,6 +212,7 @@ def _ragged_cuda(q, k_pool, v_pool, page_table, pos0, true_len,
         raise ValueError(f"ragged_paged_attention: unsupported device {dev}")
     name = "ragged_paged_attention"
     scales = () if k_scale is None else (k_scale, v_scale)
+    _cuda.refuse_planned(name, (q, k_pool, v_pool))
     _cuda.check_cuda(name, (q, k_pool, v_pool, page_table, pos0, true_len)
                      + scales, dev)
     if q.dim() != 4 or k_pool.dim() != 4 or k_pool.shape != v_pool.shape:

@@ -15,7 +15,9 @@
 - the collective accounting (``collective_stats``,
   ``record_collective_stats``, ``record_collectives_from``). The
   reference parses a lowered program's text for its collectives; PyTorch
-  lowers nothing, so the port counts at its own wrappers: every
+  lowers nothing, so the port counts at its own wrappers (in a planned
+  step too, ``distributed/plan.py``, whose notes ``record_collectives_from``
+  takes as the reference takes a lowered program): every
   collective of ``distributed`` (the eager API, the mesh primitives,
   DataParallel, the tensor-parallel layers, the fleet optimizer) calls
   ``note_collective(kind, dtype, bytes)`` after it runs, and each active
@@ -159,13 +161,20 @@ def record_collective_stats(counted, prefix: str = "comm") -> dict:
     return st
 
 
-def record_collectives_from(fn, *args, prefix: str = "comm",
+def record_collectives_from(program, *args, prefix: str = "comm",
                             **kwargs) -> dict:
-    """``record_collective_stats`` over one run of ``fn(*args,
-    **kwargs)`` (the reference's takes a lowered program; the port's
-    program is the run): returns the stats."""
+    """``record_collective_stats`` of a planned step: ``program`` a
+    ``Lowered`` (a trainer's ``aot_lower``, ``distributed/plan.py``: the
+    reference's ``record_collectives_from(lowered, mesh)``; a mesh passed
+    after it is not needed), its collectives by kind, dtype and bytes as
+    ``count_collectives`` counts them at run time; or a callable, the
+    stats of one run of ``program(*args, **kwargs)``. Returns the
+    stats."""
+    notes = getattr(program, "collectives", None)
+    if notes is not None:
+        return record_collective_stats(notes, prefix)
     with count_collectives() as c:
-        fn(*args, **kwargs)
+        program(*args, **kwargs)
     return record_collective_stats(c, prefix)
 
 
