@@ -394,10 +394,55 @@ of the 1200 s limit).
    at a planning world of 2 on each rank, its collectives equal to run
    (a)'s count when the hybrid phase ran. The plan path launches no
    kernel.
+17. disagg phase — the multi-process serving mesh
+   (paddle_tpu_torch/serving/disagg.py) on the engine phase's model
+   (gpt3_1_3b widths, SERVE_LAYERS layers, f32 pools) and workload (16
+   requests of 64-1024 prompt tokens, half behind a 512-token prefix, 32
+   greedy tokens; 8 slots, page 16, 128 pages a slot, chunks of 256).
+   The parent writes the model's state once (models.gpt.state_to_numpy)
+   and the prompts into the phase's directory (the streams it compares
+   with are the engine phase's, or one engine's, uncounted, when that
+   phase did not run) and starts two ranks on this card
+   (FLAGS_selected_gpus=0; gloo for the process group, which only names
+   the rank) through paddle_tpu_torch.distributed.mp_mesh (chip_smoke.py
+   --disagg-worker DIR A,B,C). Each rank loads the state with
+   load_reference_state (its sha1 must equal the parent's), then serves
+   runs A, B and C in turn through DisaggServer (lease DISAGG_LEASE_S,
+   kept by the heartbeat thread), every launch count set to 0 just before
+   a run and read just after, each run with its own board, channel and
+   sink (rank<K>/). Run A: MeshSpec(rank, 2, prefill_ranks=(1,)), the
+   whole workload: rank 1 prefills every prompt of at least one chunk + 1
+   tokens and hands its KV to rank 0; rank 1's clock is skewed by
+   DISAGG_SKEW (PADDLE_CLOCK_SKEW, for all three runs). Every gid finishes
+   exactly once, handoffs sent == received > 0, both pool audits are [],
+   the streams agree with the parent's single engine at >=
+   SPEC_MATCH_FLOOR and teacher-forced at >= 0.9, rank 1's agreed offset
+   lies within unc_s + 0.05 of the skew, every handed-off TTFT is > 0
+   with an uncertainty below DISAGG_TTFT_UNC_MS, and tools/merge_traces.py
+   (a subprocess) over the two sinks gives a whole trace without a
+   monotonicity violation whose handoffs equal rank 0's imports. Run B:
+   prefill_ranks=() (symmetric), the first 8 requests: every gid once, no
+   handoff, the streams held as in A. Run C: A's layout on the first 8
+   requests, the launch's chaos kill:1:pre_handoff_commit armed: rank 1
+   dies between its first payload's bytes and their rename; the survivor
+   imports nothing (the channel holds the corpse's .tmp and no .npz),
+   keeps its audit at [], finishes its direct requests and, once the mesh
+   declares rank 1 dead, re-prefills every orphan (each gid once, held as
+   in A). Printed for
+   each run, with the card's name and power limit: wall s, tokens/s, TTFT
+   p50/p95, handoffs and their bytes, the consensus decisions by family,
+   the vote round trip's p50, and row 5's launches by rank. Every
+   unified tick runs one decode row a slot (idle ones on the null page)
+   and, with prompt chunks, one chunk-row call, so the checks read what
+   the rows carried: in run A the prefill rank has no decode-only tick
+   and its decode rows emit no token, while the decode rank's do; in run
+   B both ranks prefill and decode. Two ranks share one card: a run's
+   tokens/s is a record, not a speed-up.
 
-Every launch counter is set to 0 just before each of phases 2-11 and read
-just after it (the dist, hybrid and parallel phases' ranks do the same
-around their steps, and each phase sums its ranks' counts): those are
+Every launch counter is set to 0 just before each of phases 2-11 and 17
+and read just after it (the dist, hybrid, parallel and disagg phases'
+ranks do the same around their parts, and each phase sums its ranks'
+counts): those are
 the main paths' launches,
 and each path must
 launch each of its kernels (the generate path: the ragged decode and
@@ -418,7 +463,9 @@ forward, dQ and dK/dV, none of the f32 route's; the parallel path, on
 each rank: those and the merged backward, none of the f32 route's; the
 resume path, in this process and in each completed life: the wgmma
 forward, dQ and dK/dV, none of the f32 route's; the plan path: no kernel
-at all; the plan_check path: the wgmma forward, dQ and dK/dV). Prints
+at all; the plan_check path: the wgmma forward, dQ and dK/dV; the disagg
+path, summed over its runs' ranks: both ragged row kinds, not the int8
+path). Prints
 JSON lines per case, then {"kernels": [...]}, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -442,6 +489,8 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
                                                    # restart, host offload
     python3 chip_smoke.py --phases hybrid,plan     # planning without
                                                    # allocation, 13B plans
+    python3 chip_smoke.py --phases disagg          # the serving mesh,
+                                                   # 2 ranks a run
 """
 from __future__ import annotations
 
@@ -4172,6 +4221,562 @@ def handoff_phase(model, dev, engine_kw, n_req=16, max_new=32, n_check=4,
 
 
 # ---------------------------------------------------------------------------
+# disagg phase: the multi-process serving mesh, two ranks on one card
+# ---------------------------------------------------------------------------
+#: run A's injected wall-clock skew on rank 1 (s): large beside the sync's
+#: uncertainty on one host, small beside the run
+DISAGG_SKEW = 0.4
+#: the board's lease (s); a member is declared dead after two
+DISAGG_LEASE_S = 3.0
+#: a handed-off TTFT's clock uncertainty must stay below this (ms)
+DISAGG_TTFT_UNC_MS = 200.0
+#: (run, layout, requests: None for the whole workload), served in turn by
+#: one pair of processes (one state load): A prefill rank 1 + decode rank
+#: 0, B symmetric, C A's layout with rank 1 killed between its first
+#: payload and its rename (so C comes last)
+DISAGG_RUNS = (("A", "disagg", None), ("B", "symmetric", 8),
+               ("C", "chaos", 8))
+#: the script each rank runs (``--disagg-worker DIR RUNS``)
+DISAGG_WORKER_SCRIPT = os.path.join(HERE, "chip_smoke.py")
+
+
+def _state_checksum(model) -> str:
+    """A digest of every parameter's bytes (sha1 over the state in name
+    order, read back to the host): equal on ranks that serve one model."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for name, t in sorted(model.state_dict().items()):
+        h.update(name.encode())
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _drive_until(srv, pred, deadline_s, what):
+    deadline = time.monotonic() + deadline_s
+    while not pred():
+        if not srv.step():
+            time.sleep(0.002)
+        if time.monotonic() > deadline:
+            raise AssertionError(
+                f"disagg rank {srv.mesh.rank}: {what} timed out: served "
+                f"{sorted(srv.results())}, members {sorted(srv.members)}")
+
+
+def disagg_worker(out_dir, runs) -> int:
+    """One rank of one or more disagg runs (``--disagg-worker DIR RUNS``,
+    RUNS comma-separated, started by ``distributed.mp_mesh``): load the
+    parent's model state once, then serve each run's workload in turn
+    (``_disagg_serve``), and end with the launcher's marker."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.distributed import mp_mesh
+    from paddle_tpu_torch.distributed.env import ParallelEnv
+    from paddle_tpu_torch.models.gpt import (GPT, GPTConfig,
+                                             load_reference_state)
+    from paddle_tpu_torch.profiler.sink import _detect_rank
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(os.path.join(out_dir, "spec.json")) as f:
+        spec = json.load(f)
+    rank, world = mp_mesh.init()
+    dev = ParallelEnv().device
+    assert world == 2 and str(dev) == spec["device"], (world, dev)
+    assert torch.distributed.get_backend() == "gloo"
+    assert _detect_rank() == rank
+    t0 = time.perf_counter()
+    model = GPT(GPTConfig(**spec["config"]), device=dev)
+    with np.load(spec["state"]) as z:
+        load_reference_state(model, {k: z[k] for k in z.files})
+    model.eval()
+    base = {"rank": rank, "device": str(dev),
+            "load_s": time.perf_counter() - t0,
+            "state_checksum": _state_checksum(model)}
+    with np.load(spec["prompts"]) as z:
+        prompts = [z[f"p{i}"] for i in range(len(z.files))]
+    for name in runs.split(","):
+        run = spec["runs"][name]
+        _disagg_serve(model, dev, spec, os.path.join(out_dir, name),
+                      run["layout"], prompts[:run["n_req"]], dict(base))
+        _free_memory(dev)
+    mp_mesh.finish(os.path.join(out_dir, f"ok.{rank}"))
+    return 0
+
+
+def _time_handoff_legs(srv) -> dict:
+    """Time every leg of a handed-off request's TTFT on this rank: wrap
+    its engine's ``step``, ``export_held`` and ``admit_prefilled`` and its
+    channel's ``send`` and ``poll`` (attributes of these instances, for
+    the phase's measurement only). Wall stamps are ``srv._walltime()``,
+    the clock the offset-corrected TTFT uses; ``_ttft_legs`` joins the two
+    ranks' stamps."""
+    eng, ch = srv.engine, srv.channel
+    legs = {"out": {}, "in": {}, "poll_s": 0.0, "polls": 0,
+            "tick_ms": []}
+    perf_to_wall = srv._walltime() - time.perf_counter()
+    step, export_held, admit = eng.step, eng.export_held, \
+        eng.admit_prefilled
+    send, poll = ch.send, ch.poll
+
+    def _step():
+        t = time.perf_counter()
+        out = step()
+        legs["tick_ms"].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def _export(rid):
+        gid, er = srv._local[rid], eng._requests[rid]
+        t = srv._walltime()
+        payload = export_held(rid)
+        legs["out"][gid] = {
+            "submit_w": srv._reqs[gid].submit_w,
+            "engine_submit_w": er.submit_t + perf_to_wall,
+            "first_token_w": er.first_token_t + perf_to_wall,
+            "export_w": t, "exported_w": srv._walltime()}
+        return payload
+
+    def _send(dst, gid, payload, kind="h"):
+        t = srv._walltime()
+        n = send(dst, gid, payload, kind=kind)
+        if kind == "h" and gid in legs["out"]:
+            legs["out"][gid].update(send_w=t, sent_w=srv._walltime())
+        return n
+
+    def _poll(kind="h"):
+        t = time.perf_counter()
+        got = poll(kind=kind)
+        legs["poll_s"] += time.perf_counter() - t
+        legs["polls"] += 1
+        return got
+
+    def _admit(payload):
+        gid = int(json.loads(str(payload["trace_ctx"]))["gid"])
+        t = srv._walltime()
+        lr = admit(payload)
+        leg = legs["in"].setdefault(gid, {"first_try_w": t})
+        if lr is not None:
+            leg.update(admit_w=t, admitted_w=srv._walltime())
+        return lr
+
+    eng.step, eng.export_held, eng.admit_prefilled = _step, _export, _admit
+    ch.send, ch.poll = _send, _poll
+    return legs
+
+
+def _disagg_serve(model, dev, spec, run_dir, layout, prompts, res):
+    """One rank's part of one run: serve ``prompts`` through
+    ``DisaggServer`` with every launch count set to 0 just before and read
+    just after, and write ``run_dir/results.<rank>.json`` and the rank's
+    sink under ``run_dir/sink``."""
+    import paddle_tpu_torch.profiler as profiler
+    from paddle_tpu_torch.distributed import mp_mesh
+    from paddle_tpu_torch.profiler import events as pev
+    from paddle_tpu_torch.profiler.metrics import registry
+    from paddle_tpu_torch.serving import (DisaggServer, HandoffChannel,
+                                          MeshSpec, ServingConfig)
+
+    rank = res["rank"]
+    res["layout"] = layout
+    profiler.enable_sink(os.path.join(run_dir, "sink"), interval_s=0.5)
+    if layout == "chaos" and rank == 1:
+        # die between the payload bytes landing and the atomic rename
+        HandoffChannel.pre_commit = staticmethod(
+            lambda: mp_mesh.chaos_point("pre_handoff_commit"))
+    mesh = MeshSpec(rank, 2, prefill_ranks=() if layout == "symmetric"
+                    else (1,))
+    srv = DisaggServer(model, ServingConfig(**spec["engine_kw"]), mesh,
+                       os.path.join(run_dir, "shared"),
+                       lease_s=DISAGG_LEASE_S)
+    legs = _time_handoff_legs(srv)
+    for p in prompts:
+        srv.submit(p, spec["max_new"])
+    mp_mesh.barrier(f"engines-up-{os.path.basename(run_dir)}")
+    # an anchor line before any handoff: even a killed rank's sink holds
+    # its clock anchor and its first events
+    profiler.flush_active("manual")
+    reg = registry()
+    names = ("serving/handoff_bytes_out", "serving/handoff_bytes_in",
+             "serving/ticks", "serving/prefills", "serving/tokens_generated")
+    c0 = {n: reg.counter(n).value for n in names}
+    seq0 = pev.log().next_seq
+    _sync(dev)
+    set_counts()
+    t0 = time.perf_counter()
+    legs["run_w"] = srv._walltime()
+    if layout != "chaos":
+        srv.run(timeout_s=spec["timeout_s"])
+    elif rank == 1:
+        deadline = time.monotonic() + spec["timeout_s"]
+        while time.monotonic() < deadline:
+            srv.step()
+        raise AssertionError("the chaos kill never fired on rank 1")
+    else:
+        # the survivor: its direct requests first, then, once the mesh
+        # declares rank 1 dead, the orphans it re-prefills
+        direct = [i for i, p in enumerate(prompts)
+                  if len(p) < srv.long_prompt_threshold]
+        _drive_until(srv, lambda: all(g in srv.results() for g in direct),
+                     spec["timeout_s"], "the direct requests")
+        res["direct"] = direct
+        res["recv_before_death"] = srv.handoffs_recv
+        _drive_until(srv, lambda: len(srv.results()) == len(prompts),
+                     spec["timeout_s"], "the re-dispatched requests")
+    _sync(dev)
+    res["wall_s"] = time.perf_counter() - t0
+    res["launches"], res["chunk_launches_by_t"] = read_counts()
+    res["counters"] = {n: reg.counter(n).value - c0[n] for n in names}
+    evs = pev.log().events(since_seq=seq0)
+    res["decisions"] = {}
+    for e in evs:
+        if e.kind == "consensus_decision":
+            fam = e.attrs["family"]
+            res["decisions"][fam] = res["decisions"].get(fam, 0) + 1
+    res["vote_rtt_ms"] = [e.attrs["rtt_ms"] for e in evs
+                          if e.kind == "consensus_decision"
+                          and "rtt_ms" in e.attrs]
+    res["legs"] = legs
+    res["audit"] = srv.check_consistency()
+    res["foreign_modules"] = sorted(
+        m for m in sys.modules if m == "jax" or m.startswith("jax.")
+        or m == "paddle_tpu" or m.startswith("paddle_tpu."))
+    path = os.path.join(run_dir, f"results.{rank}.json")
+    srv.write_results(path)
+    with open(path) as f:
+        doc = json.load(f)
+    doc.update(res)
+    with open(path, "w") as f:
+        json.dump(doc, f)
+    srv.close()
+    profiler.disable_sink()             # os._exit skips atexit
+
+
+def _disagg_launch(out, dev, timeout):
+    """Start the pair of ranks on ``dev`` through ``distributed.mp_mesh``
+    for every run of DISAGG_RUNS, served in turn; returns ({run: each
+    reporting rank's results}, the launcher's verdict). Rank 1's clock is
+    skewed by DISAGG_SKEW throughout (run A checks it), and it dies in
+    run C."""
+    from paddle_tpu_torch.distributed import mp_mesh
+
+    runs = [(n, lay) for n, lay, _ in DISAGG_RUNS]
+    assert [lay for _, lay in runs][-1] == "chaos"
+    for n, _ in runs:
+        os.makedirs(os.path.join(out, n))
+    # gloo with both ranks on cuda:0; gloo on the CPU for a rehearsal of
+    # the phase without a card
+    env = {"FLAGS_selected_gpus": "0", "OMP_NUM_THREADS": "4",
+           "PADDLE_DISTRI_BACKEND": "gloo" if dev.type == "cuda" else "cpu",
+           "PADDLE_CLOCK_SKEW": f"1:{DISAGG_SKEW}"}
+    names = [n for n, _ in runs]
+    res = mp_mesh.launch(2, DISAGG_WORKER_SCRIPT,
+                         ["--disagg-worker", out, ",".join(names)],
+                         log_dir=os.path.join(out, "logs"), timeout=timeout,
+                         chaos="kill:1:pre_handoff_commit",
+                         expect_fail_ranks=(1,), env_extra=env)
+    if not res.ok:
+        print(f"--- disagg runs {names} ---\n{res.tail(4000)}",
+              file=sys.stderr)
+        raise AssertionError(f"disagg runs {names}: ranks exited "
+                             f"{res.returncodes}")
+    docs = {}
+    for n, lay in runs:
+        docs[n] = []
+        for r in ((0,) if lay == "chaos" else (0, 1)):
+            with open(os.path.join(out, n, f"results.{r}.json")) as f:
+                docs[n].append(json.load(f))
+    return docs, res
+
+
+def _disagg_streams(docs, n_req):
+    """The union of the ranks' results: every gid exactly once."""
+    import numpy as np
+
+    owner = {}
+    for d in docs:
+        for g in d["results"]:
+            if g in owner:
+                raise AssertionError(f"disagg: gid {g} finished on ranks "
+                                     f"{owner[g]} and {d['rank']}")
+            owner[g] = d["rank"]
+    if sorted(int(g) for g in owner) != list(range(n_req)):
+        raise AssertionError(f"disagg: finished gids {sorted(owner)}")
+    return [np.asarray(next(d["results"][str(g)] for d in docs
+                            if str(g) in d["results"]), np.int32)
+            for g in range(n_req)]
+
+
+def _nearest_rank(vals, q):
+    s = sorted(vals)
+    return s[min(int(q / 100.0 * len(s)), len(s) - 1)] if s else None
+
+
+def disagg_phase(model, dev, engine_kw, plain=None, card=None, n_req=16,
+                 max_new=32, n_check=4, timeout=300):
+    """Runs A, B and C of the serving mesh (module docstring), two ranks
+    on this card; the parent writes the model's state once and, unless
+    ``plain`` holds the engine phase's streams of the same workload,
+    serves it on one engine (uncounted) for the streams' comparison.
+    Returns (the ranks' summed launch counts, their chunk-row launches by
+    T)."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from paddle_tpu_torch.models.gpt import state_to_numpy
+
+    t_phase = time.perf_counter()
+    cfg = model.config
+    prompts = engine_prompts(cfg, n_req)
+    out = tempfile.mkdtemp(prefix="disagg_phase_")
+    try:
+        spec = {"state": os.path.join(out, "state.npz"),
+                "prompts": os.path.join(out, "prompts.npz"),
+                "config": dataclasses.asdict(cfg), "device": str(dev),
+                "max_new": max_new, "engine_kw": engine_kw,
+                "timeout_s": timeout / 2,
+                "runs": {name: {"layout": lay, "n_req": n or n_req}
+                         for name, lay, n in DISAGG_RUNS}}
+        np.savez(spec["state"], **state_to_numpy(model))
+        np.savez(spec["prompts"], **{f"p{i}": p
+                                     for i, p in enumerate(prompts)})
+        parent_sum = _state_checksum(model)
+        with open(os.path.join(out, "spec.json"), "w") as f:
+            json.dump(spec, f)
+        single = plain
+        if single is None:
+            with uncounted():
+                single = _serve_counted(model, dev, prompts, max_new,
+                                        engine_kw)[0]
+        counts = {k: 0 for k in LAUNCH_COUNTERS}
+        by_t = {}
+        fails = []
+        t0 = time.perf_counter()
+        launched, res = _disagg_launch(out, dev, timeout)
+        launch_s = time.perf_counter() - t0
+        for name, layout, _ in DISAGG_RUNS:
+            docs = launched[name]
+            n_run = spec["runs"][name]["n_req"]
+            for d in docs:
+                for k in LAUNCH_COUNTERS:
+                    counts[k] += d["launches"][k]
+                for t, n in d["chunk_launches_by_t"].items():
+                    by_t[int(t)] = by_t.get(int(t), 0) + n
+            row = _disagg_row(
+                name, layout, docs, res, os.path.join(out, name),
+                prompts[:n_run], single[:n_run], parent_sum, cfg.num_layers,
+                fails)
+            if layout == "disagg":
+                with uncounted():
+                    row["teacher_forced_match"] = teacher_match(
+                        model, dev, prompts, _disagg_streams(docs, n_run),
+                        n_check)
+                if row["teacher_forced_match"] < 0.9:
+                    fails.append(f"A: teacher-forced "
+                                 f"{row['teacher_forced_match']}")
+                row["merge"] = _disagg_merge(os.path.join(out, name),
+                                             docs[0], fails)
+            emit({"disagg": "run", "card": card, **row})
+        emit({"disagg": "phase", "card": card, "requests": n_req,
+              "max_new_tokens": max_new, "layers": cfg.num_layers,
+              "state_sha1": parent_sum, "launch_s": launch_s,
+              "seconds": time.perf_counter() - t_phase,
+              "launches": counts})
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
+    if fails:
+        raise AssertionError(f"disagg: {fails}")
+    return counts, by_t
+
+
+def _row5(doc, layers) -> dict:
+    """A rank's row-5 launches and what its ticks carried. Every unified
+    tick runs one decode row per slot (idle slots on the null page) and,
+    when it has prompt chunks, one chunk-row call: per layer, so decode
+    launches = ticks x layers, and a tick without chunk rows is a
+    decode-only tick. Tokens emitted by decode rows = tokens generated
+    less the first tokens of completed prefills."""
+    n, c = doc["launches"], doc["counters"]
+    ticks = int(c["serving/ticks"])
+    return {"decode_rows": n["ragged"] - n["ragged_chunk"],
+            "chunk_rows": n["ragged_chunk"], "int8": n["ragged_int8"],
+            "ticks": ticks,
+            "decode_only_ticks": ticks - n["ragged_chunk"] // layers,
+            "decode_tokens": int(c["serving/tokens_generated"]
+                                 - c["serving/prefills"])}
+
+
+#: the legs of a handed-off TTFT, in order: (name, from stamp, to stamp);
+#: stamps of rank 1 (prefill) but the last two, which are rank 0's
+TTFT_LEGS = (("before_run", "submit_w", "run_w"),
+             ("admission", "run_w", "engine_submit_w"),
+             ("prefill", "engine_submit_w", "first_token_w"),
+             ("to_export", "first_token_w", "export_w"),
+             ("export", "export_w", "exported_w"),
+             ("to_send", "exported_w", "send_w"),
+             ("send", "send_w", "sent_w"),
+             ("to_import", "sent_w", "admit_w"),
+             ("import", "admit_w", "admitted_w"))
+
+
+def _ttft_legs(r0, r1) -> dict:
+    """Run A's handed-off TTFT split into TTFT_LEGS, each leg's p50 and
+    max over the handed-off requests in ms, on the reference clock (each
+    rank's stamps less its agreed offset), beside the TTFT the server
+    reports. ``to_import`` holds the decode rank's poll cadence, its loads
+    and any wait for a free slot; ``before_run`` the barrier that starts
+    the run."""
+    o = {0: r0["clock"]["offset_s"] or 0.0, 1: r1["clock"]["offset_s"] or 0.0}
+    out, inn = r1["legs"]["out"], r0["legs"]["in"]
+    per_leg = {name: [] for name, _, _ in TTFT_LEGS}
+    gaps = []
+    for g, ttft in r0["ttft_unc_ms"].items():
+        if g not in out or g not in inn:
+            continue
+        w = {k: v - o[1] for k, v in out[g].items()}
+        w["run_w"] = r1["legs"]["run_w"] - o[1]
+        w.update({k: v - o[0] for k, v in inn[g].items()})
+        for name, a, b in TTFT_LEGS:
+            per_leg[name].append((w[b] - w[a]) * 1e3)
+        gaps.append(abs((w["admitted_w"] - w["submit_w"]) * 1e3
+                        - r0["ttft_ms"][g]))
+    row = {name: {"p50": _nearest_rank(v, 50), "max": max(v, default=None)}
+           for name, v in per_leg.items()}
+    row["requests"] = len(gaps)
+    row["sum_vs_ttft_ms_max"] = max(gaps, default=None)
+    for r, d in (("0", r0), ("1", r1)):
+        ticks = d["legs"]["tick_ms"]
+        row[f"rank{r}"] = {
+            "polls": d["legs"]["polls"], "poll_s": d["legs"]["poll_s"],
+            "ticks": len(ticks), "first_tick_ms": ticks[:3],
+            "tick_ms_p50": _nearest_rank(ticks, 50),
+            "tick_s": sum(ticks)}
+    return row
+
+
+def _disagg_row(name, layout, docs, res, run_dir, prompts, single,
+                parent_sum, layers, fails):
+    """One run's numbers, its checks appended to ``fails``."""
+    n_req = len(prompts)
+    streams = _disagg_streams(docs, n_req)
+    row = {"run": name, "layout": layout,
+           "state_sha1": [d["state_checksum"] for d in docs],
+           "wall_s": max(d["wall_s"] for d in docs),
+           "load_s": [d["load_s"] for d in docs],
+           "match_vs_single": match_rate(streams, single)}
+    row["tokens_per_s"] = sum(len(s) for s in streams) / row["wall_s"]
+    ttft = [t for d in docs for t in d["ttft_ms"].values()]
+    row["ttft_ms_p50"] = _nearest_rank(ttft, 50)
+    row["ttft_ms_p95"] = _nearest_rank(ttft, 95)
+    row["handoffs"] = [d["handoffs_sent"] for d in docs] + \
+        [d["handoffs_recv"] for d in docs]
+    row["handoff_bytes"] = {str(d["rank"]): {
+        "out": d["counters"]["serving/handoff_bytes_out"],
+        "in": d["counters"]["serving/handoff_bytes_in"]} for d in docs}
+    row["decisions_by_rank"] = {str(d["rank"]): d["decisions"]
+                                for d in docs}
+    rtts = [v for d in docs for v in d["vote_rtt_ms"]]
+    row["vote_rtt_ms_p50"] = _nearest_rank(rtts, 50)
+    row["row5_by_rank"] = {str(d["rank"]): _row5(d, layers) for d in docs}
+    row["redispatched"] = {k: v for d in docs
+                           for k, v in d["redispatched"].items()}
+    row["members"] = {str(d["rank"]): sorted(d["members"]) for d in docs}
+    row["clock"] = {str(d["rank"]): d["clock"] for d in docs}
+    if row["match_vs_single"] < SPEC_MATCH_FLOOR:
+        fails.append(f"{name}: match vs single {row['match_vs_single']}")
+    for d in docs:
+        if d["audit"]:
+            fails.append(f"{name}: rank {d['rank']} audit {d['audit'][:4]}")
+        if d["foreign_modules"]:
+            fails.append(f"{name}: rank {d['rank']} imported "
+                         f"{d['foreign_modules'][:4]}")
+        if d["state_checksum"] != parent_sum:
+            fails.append(f"{name}: rank {d['rank']} state checksum differs")
+        if d["launches"]["ragged"] == 0:
+            fails.append(f"{name}: rank {d['rank']} launched no row-5 kernel")
+    by = row["row5_by_rank"]
+    if layout == "disagg":
+        r0, r1 = docs
+        if not r1["handoffs_sent"] == r0["handoffs_recv"] > 0:
+            fails.append(f"A: handoffs {r1['handoffs_sent']} sent, "
+                         f"{r0['handoffs_recv']} received")
+        # the prefill rank's ticks all carry chunk rows and its decode rows
+        # emit nothing; the decode rank decodes
+        if by["1"]["decode_only_ticks"] or by["1"]["decode_tokens"] or \
+                by["1"]["chunk_rows"] == 0:
+            fails.append(f"A: the prefill rank's row-5 launches {by['1']}")
+        if by["0"]["decode_tokens"] == 0 or by["0"]["decode_rows"] == 0:
+            fails.append(f"A: the decode rank's row-5 launches {by['0']}")
+        clk = r1["clock"]
+        if not clk["synced"] or abs(clk["offset_s"] - DISAGG_SKEW) > \
+                clk["unc_s"] + 0.05:
+            fails.append(f"A: rank 1's clock {clk}")
+        row["clock_offset_err_s"] = None if clk["offset_s"] is None else \
+            abs(clk["offset_s"] - DISAGG_SKEW)
+        handed = sorted(r0["ttft_unc_ms"])
+        if len(handed) != r0["handoffs_recv"] or any(
+                r0["ttft_ms"][g] <= 0 or
+                r0["ttft_unc_ms"][g] >= DISAGG_TTFT_UNC_MS for g in handed):
+            fails.append(f"A: handed-off TTFTs {r0['ttft_ms']} "
+                         f"+- {r0['ttft_unc_ms']}")
+        row["ttft_unc_ms_max"] = max(r0["ttft_unc_ms"].values(), default=None)
+        row["ttft_legs_ms"] = _ttft_legs(r0, r1)
+    elif layout == "symmetric":
+        if any(d["handoffs_sent"] or d["handoffs_recv"] for d in docs):
+            fails.append(f"B: handoffs {row['handoffs']}")
+        if any(by[r]["decode_tokens"] == 0 or by[r]["chunk_rows"] == 0
+               for r in by):
+            fails.append(f"B: row-5 launches {by}")
+    else:
+        (r0,) = docs
+        if res.returncodes.get(1) != 137 or "chaos-killed" not in res.log(1):
+            fails.append(f"C: rank 1 exited {res.returncodes.get(1)}")
+        if r0["handoffs_recv"] or r0["recv_before_death"]:
+            fails.append(f"C: the survivor imported {r0['handoffs_recv']}")
+        names = os.listdir(os.path.join(run_dir, "shared", "handoff"))
+        if not any(".tmp" in n for n in names) or \
+                any(n.endswith(".npz") for n in names):
+            fails.append(f"C: the channel holds {names}")
+        orphans = set(range(n_req)) - set(r0["direct"])
+        if {int(g) for g in r0["redispatched"]} != orphans or \
+                set(r0["redispatched"].values()) != {"reprefill"}:
+            fails.append(f"C: re-dispatched {r0['redispatched']}, "
+                         f"orphans {sorted(orphans)}")
+        if r0["members"] != {"0": "decode"}:
+            fails.append(f"C: members {r0['members']}")
+        row["orphans"] = len(orphans)
+        row["channel_files"] = names
+    return row
+
+
+def _disagg_merge(run_dir, r0, fails):
+    """``tools/merge_traces.py`` over run A's two sinks, as a
+    subprocess."""
+    merged = os.path.join(run_dir, "merged.json")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "tools", "merge_traces.py"),
+         os.path.join(run_dir, "sink"), "--out", merged],
+        capture_output=True, text=True, timeout=300)
+    if proc.returncode != 0:
+        fails.append(f"A: merge_traces exited {proc.returncode}: "
+                     f"{proc.stderr[-2000:]}")
+        return None
+    with open(merged) as f:
+        doc = json.load(f)
+    row = {k: doc.get(k) for k in ("partial", "handoffs",
+                                   "monotonic_violations",
+                                   "requests_total")}
+    row["ttft_ms"] = doc.get("latency", {}).get("ttft_ms")
+    if doc["monotonic_violations"] != 0 or doc["partial"] or \
+            doc["handoffs"] != r0["handoffs_recv"]:
+        fails.append(f"A: merged trace {row}")
+    return row
+
+
+# ---------------------------------------------------------------------------
 # ---------------------------------------------------------------------------
 # dist phase: two ranks on one card over gloo
 # ---------------------------------------------------------------------------
@@ -6481,13 +7086,13 @@ def main(argv=None) -> int:
     ap.add_argument("--iters", type=int, default=20,
                     help="timed calls per kernel measurement")
     ap.add_argument("--phases", default="kernels,model,engine,spec,kvint8,"
-                                        "generate,observe,handoff,deploy,"
-                                        "grad,train,dist,hybrid,parallel,"
-                                        "resume,plan",
+                                        "generate,observe,handoff,disagg,"
+                                        "deploy,grad,train,dist,hybrid,"
+                                        "parallel,resume,plan",
                     help="comma-separated subset of kernels, model, engine, "
-                         "spec, kvint8, generate, observe, handoff, deploy, "
-                         "grad, train, dist, hybrid, parallel, resume, plan "
-                         "(debugging)")
+                         "spec, kvint8, generate, observe, handoff, disagg, "
+                         "deploy, grad, train, dist, hybrid, parallel, "
+                         "resume, plan (debugging)")
     ap.add_argument("--dist-worker", metavar="OUT_DIR", default=None,
                     help="run one rank of the dist phase (the phase starts "
                          "two through the port's launcher)")
@@ -6497,6 +7102,10 @@ def main(argv=None) -> int:
                     help="run one rank of the parallel phase")
     ap.add_argument("--resume-worker", metavar="OUT_DIR", default=None,
                     help="run one life of the resume phase's elastic run")
+    ap.add_argument("--disagg-worker", nargs=2, default=None,
+                    metavar=("OUT_DIR", "RUNS"),
+                    help="run one rank of the named disagg runs (the "
+                         "phase starts two through distributed.mp_mesh)")
     ap.add_argument("--plan-worker", nargs=3, default=None,
                     metavar=("OUT_JSON", "NAME", "RANK"),
                     help="plan one rank of one GPT-3 13B factorization "
@@ -6529,6 +7138,8 @@ def main(argv=None) -> int:
         return parallel_worker(args.parallel_worker)
     if args.resume_worker:
         return resume_worker(args.resume_worker)
+    if args.disagg_worker:
+        return disagg_worker(*args.disagg_worker)
     if args.plan_worker:
         out, name, rank = args.plan_worker
         return plan_worker(out, name, int(rank))
@@ -6787,7 +7398,7 @@ def main(argv=None) -> int:
 
     model = None
     if phases & {"model", "engine", "spec", "kvint8", "generate", "observe",
-                 "handoff"}:
+                 "handoff", "disagg"}:
         _rng.seed(0)
         model = GPT(cfg, device=dev)
         model.eval()
@@ -6825,6 +7436,13 @@ def main(argv=None) -> int:
               engine_kw, forbid=("ragged_int8",))
         drive("handoff", ("ragged", "ragged_chunk", "ragged_int8"),
               handoff_phase, model, dev, engine_kw)
+    if "disagg" in phases:
+        # the serving mesh, two ranks on this card a run: A (rank 1
+        # prefills, rank 0 decodes), B (symmetric), C (A's layout, rank 1
+        # killed mid-handoff); both row kinds, not the int8 path
+        drive("disagg", ("ragged", "ragged_chunk"), disagg_phase, model,
+              dev, engine_kw, plain=f32_run.get("streams"), card=smi,
+              forbid=("ragged_int8",), remote=True)
     del model, f32_run
     if "deploy" in phases:
         drive("deploy", ("int8_matmul_wgmma", "int8_quantize"),

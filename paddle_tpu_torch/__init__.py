@@ -30,7 +30,12 @@ streaming; and planning without allocation: ``LazyGuard``
 (``framework.lazy``), the abstract hybrid trainer, and
 ``aot_lower``/``aot_compile``/``memory_analysis`` of any trainer on fake
 tensors (``distributed.plan``), in a planning world of any size
-(``distributed.env.plan_world``).
+(``distributed.env.plan_world``); and multi-process serving: the
+consensus board (``distributed.consensus``), clock agreement
+(``profiler.disttrace.ClockSync``), the KV handoff channel, the routing
+function and ``serving.DisaggServer`` (disaggregated and symmetric
+layouts, the elastic mesh, prefix routing), on real processes started by
+``distributed.mp_mesh``.
 """
 from .core.place import resolve_device
 from .core.rng import seed

@@ -127,7 +127,7 @@ def _check_protocol(model):
                 f"protocol ({m}); see distributed/hybrid.py docstring")
 
 
-_ITEMS = {"8": "resilience"}
+_ITEMS = {"8b": "resilience"}
 
 
 def _queue(item: str, what: str) -> NotImplementedError:
@@ -303,7 +303,7 @@ class HybridPipelineTrainer:
         if remat_policy not in (None, "dots"):
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
         if guard_bad_steps:
-            raise _queue("8", "guard_bad_steps")
+            raise _queue("8b", "guard_bad_steps")
         _check_layers(model, mesh)
         #: built from a LazyGuard model: plans, never steps
         self.abstract = any(is_abstract(p) for p in model.parameters())

@@ -189,10 +189,10 @@ def dp_zero_step(mesh, axis_size: int, block: int, grad_comm: str,
        written into ``params`` in place.
 
     ``flat_state`` is updated in place. ``guard`` (the bad-step verdict)
-    is ROADMAP queue 1 item 8."""
+    is ROADMAP queue 1 item 8b."""
     if guard:
         raise NotImplementedError(
-            "guard_bad_steps is not ported yet: ROADMAP queue 1 item 8 "
+            "guard_bad_steps is not ported yet: ROADMAP queue 1 item 8b "
             "(resilience)")
     n = int(axis_size)
     sizes = [p.numel() for p in params]

@@ -45,7 +45,7 @@ in the scope and the rank's ``dp`` coordinate, so a block that
 outside every scope they come from a generator seeded by the ``dp``
 coordinate only, which checkpoint does not restore. Attention-probability
 dropout on the local heads uses the device's default generator. Serving
-and ``generate`` under tp > 1 or a pipeline are ROADMAP queue 1 item 8.
+and ``generate`` under tp > 1 or a pipeline are ROADMAP queue 1 item 8c.
 
 MoE (``moe_num_experts > 0``): each block's FFN is a
 ``distributed.moe.MoEMLP`` (top-k routing with a capacity, the Switch
@@ -891,8 +891,8 @@ def _gpt_decode_state(model: GPT) -> Tuple[List[Dict[str, torch.Tensor]],
             getattr(model, "_pipeline_layout", None) is not None:
         raise NotImplementedError(
             "serving and generate() of a GPT built at tp > 1 or held in "
-            "pipeline stages are not ported yet: ROADMAP queue 1 item 8 "
-            "(multi-process serving)")
+            "pipeline stages are not ported yet: ROADMAP queue 1 item 8c "
+            "(serving at tp > 1)")
     stacked = [{n: t.detach() for n, t in blk.named_parameters()}
                for blk in model.blocks]
     other = {n: t.detach() for n, t in model.named_parameters()

@@ -41,8 +41,11 @@ Quick use::
 Since the distributed slice (ROADMAP queue 1 item 7a): the collective
 accounting (``count_collectives``, ``collective_stats`` and its
 recorders, counted at the port's collective wrappers) and the cross-rank
-reduction (``summary(aggregate=True)``). Not yet here: clock agreement,
-live telemetry and the watchdog hooks (item 8).
+reduction (``summary(aggregate=True)``). Since the serving mesh (ROADMAP
+queue 1 item 8a): clock agreement (``disttrace.ClockSync``; the agreed
+offset and the adopted consensus epochs ride every sink line, frame and
+flight dump). Not yet here: live telemetry and the watchdog hooks (item
+8b).
 """
 from __future__ import annotations
 

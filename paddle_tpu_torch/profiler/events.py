@@ -425,9 +425,11 @@ class FlightRecorder:
             from . import disttrace as _disttrace
             from .sink import _detect_rank
 
-            # no consensus in the port yet (ROADMAP queue 1 item 8): no
-            # epoch was adopted
-            epochs = {}
+            # the last consensus epoch adopted per family orders dumps
+            # of several ranks by their agreement history
+            from ..distributed.consensus import adopted_epochs
+
+            epochs = adopted_epochs()
             doc = {
                 "kind": "flight_recorder_dump",
                 "reason": reason,

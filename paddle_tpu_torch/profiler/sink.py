@@ -32,9 +32,11 @@ every file keeps strictly increasing sequence numbers. Every line carries
 the writer's rank (``torch.distributed``'s when it is initialized, else
 0), and with more than one process ``enable_sink`` writes into a
 ``rank<K>/`` subdirectory, so no two processes append to one file. The
-writer thread touches no tensor: pure host I/O. Clock alignment across
-hosts comes with ROADMAP queue 1 item 8; until then the clock stamp says
-``synced: false``.
+writer thread touches no tensor: pure host I/O. Every line and frame
+carries the rank's clock anchor and its agreed clock offset
+(``disttrace.clock_state``, adopted by a serving mesh's ``clock``
+round), and every frame the consensus epochs this rank adopted, so
+``tools/merge_traces.py`` aligns the ranks' sinks from them alone.
 """
 from __future__ import annotations
 
@@ -323,8 +325,8 @@ class MetricsSink:
         deltas-since-last-frame, last-value gauges, CUMULATIVE sketch
         buckets (cross-rank merge stays exact; a lost frame costs
         nothing — the next one carries the full state), this flush's
-        clock anchor, and the consensus epochs this rank adopted (none:
-        the port has no consensus yet, ROADMAP queue 1 item 8). Old
+        clock anchor, and the consensus epochs this rank adopted
+        (``consensus.adopted_epochs``). Old
         frames beyond ``frame_keep`` are pruned — the frames dir is a
         rolling tail, not an archive (metrics.jsonl is the archive)."""
         counters: Dict[str, dict] = {}
@@ -340,7 +342,9 @@ class MetricsSink:
                 new_prev[name] = v
             elif s.get("type") == "gauge":
                 gauges[name] = s["value"]
-        epochs: Dict[str, int] = {}
+        from ..distributed.consensus import adopted_epochs
+
+        epochs: Dict[str, int] = adopted_epochs()
         frame = {"kind": "telemetry_frame", "rank": self.rank,
                  "seq": seq, "ts": line["ts"], "t_ns": line["t_ns"],
                  "clock": line["clock"],
