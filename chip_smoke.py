@@ -333,6 +333,17 @@ of the 1200 s limit).
    saves its ZeRO shard (device_state, a sync save) and rank 0 restores
    the directory into a degree-1 trainer: its parameters bit-equal to
    the gathered ones.
+   The hybrid phase's run (h): {"dp": 2} ZeRO 1 with int8 gradients
+   (the slab's int8 ring), f32 storage, GPT at gpt3_1_3b widths cut to
+   HYBRID_RESIL_LAYERS = 2 layers, guard_bad_steps, ResilientRunner with
+   the consensus board (one board and one checkpoint directory both
+   ranks share, a checkpoint every 3 steps), bad_step_limit 2, a NaN
+   injected on rank 1 alone at cursors 3 and 4, 7 steps of a global
+   [2, 2048]: both ranks' verdicts False at those cursors and True
+   elsewhere (the trainer's MIN over dp), both states' digests unchanged
+   there, one agreed rollback each to the same step, skips [3, 4], the
+   losses finite and bit-equal across the ranks (the reference's
+   tests/multihost/test_resilience_mesh.py, zero mode).
 15. resume phase — checkpoints, the elastic restart and host offload on
    one rank, GPT at gpt3_1_3b widths cut to DIST_LAYERS = 4 layers under
    the train recipe (amp, recompute, bf16 parameters and moments, AdamW
@@ -437,12 +448,50 @@ of the 1200 s limit).
    the rows carried: in run A the prefill rank has no decode-only tick
    and its decode rows emit no token, while the decode rank's do; in run
    B both ranks prefill and decode. Two ranks share one card: a run's
-   tokens/s is a record, not a speed-up.
+   tokens/s is a record, not a speed-up. The live plane (check (l)):
+   while the ranks serve, this process ticks a LiveAggregator
+   (profiler/live.py, viewer mode) every LIVE_TICK_S over run A's and
+   run C's sink roots with their boards (frames older than
+   LIVE_STALENESS_S and an expired lease make a rank dead): A's last
+   mesh_status.json names both ranks and passes
+   tools/check_sink_schema.py --live-status (a subprocess), and its
+   merged e2e TTFT p50 and p95 lie within the sketch's rel_err of the
+   nearest-rank values of A's results; C's first dead_rank firing names
+   rank 1, its lease expired, rank 0 alive.
+18. resilience phase — paddle_tpu_torch/resilience on one rank, GPT at
+   gpt3_1_3b widths cut to RESIL_LAYERS = 2 layers under the train
+   recipe (amp, recompute, bf16 parameters and moments, AdamW with the
+   clip at 1.0) at RESIL_BATCH [4, 2048], the trainer built with
+   guard_bad_steps: (s1) in this process, RESIL_TIMED pairs of warm
+   steps with the guard and without it in turn (medians printed), then a
+   step after inject_fault_scale(nan): NaN loss, last_step_ok False, the
+   SHA-1 of device_state unchanged, the next step's verdict True; (s2)
+   ResilientRunner over ChaosPlan(nan_cursors={3, 4, 5},
+   flaky_cursors={6: 1}), bad_step_limit 3, save_interval 3, 8 steps,
+   twice from the same seed (the determinism check): one rollback to
+   step 3, skips [3, 4, 5], one data retry, 8 finite losses; the restore
+   and each save timed; (s3) a child life (chip_smoke.py
+   --resilience-worker DIR preempt) runs the same plan, gets a real
+   SIGTERM from this process at cursor 9 (step 6), commits step 7 and
+   exits 75; a byte of that shard is flipped; the restarted life
+   (restart) walks back to step 6 (resilience/restore_fallbacks 1) and
+   finishes: both lives' losses equal (s2)'s bit for bit if (s2)'s two
+   runs were, else within their spread (at least RESUME_SPREAD_FLOOR of
+   the loss); the commit's ms printed; (s4) a child life (watchdog) with
+   the watchdog (timeout RESIL_WD_TIMEOUT_S, jitter RESIL_WD_JITTER, the
+   first step's grace RESIL_WD_GRACE_S, abort) and a sink queues
+   RESIL_HANG_S of torch.cuda._sleep behind step 2, so the host blocks
+   in the loss sync: it exits 74, its dump holds the stacks and the open
+   hybrid/sync_wait span, its sink a watchdog line and one watchdog_fire
+   event at step 2 (its cold first step did not fire: printed beside the
+   grace), with the fire's latency. The lives start while this process
+   runs (s2); the checkpoints live in a temporary directory the phase
+   deletes.
 
-Every launch counter is set to 0 just before each of phases 2-11 and 17
-and read just after it (the dist, hybrid, parallel and disagg phases'
-ranks do the same around their parts, and each phase sums its ranks'
-counts): those are
+Every launch counter is set to 0 just before each of phases 2-11, 17
+and 18 and read just after it (the dist, hybrid, parallel and disagg
+phases' ranks and the resilience phase's lives do the same around their
+parts, and each phase sums its ranks' or lives' counts): those are
 the main paths' launches,
 and each path must
 launch each of its kernels (the generate path: the ragged decode and
@@ -465,7 +514,8 @@ resume path, in this process and in each completed life: the wgmma
 forward, dQ and dK/dV, none of the f32 route's; the plan path: no kernel
 at all; the plan_check path: the wgmma forward, dQ and dK/dV; the disagg
 path, summed over its runs' ranks: both ragged row kinds, not the int8
-path). Prints
+path; the resilience path, this process and its lives: the wgmma
+forward, dQ and dK/dV, none of the f32 route's). Prints
 JSON lines per case, then {"kernels": [...]}, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -491,6 +541,8 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
                                                    # allocation, 13B plans
     python3 chip_smoke.py --phases disagg          # the serving mesh,
                                                    # 2 ranks a run
+    python3 chip_smoke.py --phases resilience      # the guard, rollback,
+                                                   # preemption, watchdog
 """
 from __future__ import annotations
 
@@ -501,6 +553,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -4512,6 +4565,90 @@ def _nearest_rank(vals, q):
     return s[min(int(q / 100.0 * len(s)), len(s) - 1)] if s else None
 
 
+#: check (l), the live plane over runs A's and C's sinks: this process
+#: tails them with a LiveAggregator (viewer mode, a tick every
+#: LIVE_TICK_S) while the ranks serve; a rank whose newest frame is
+#: LIVE_STALENESS_S old and whose lease expired is dead
+LIVE_RUNS = ("A", "C")
+LIVE_TICK_S = 0.5
+LIVE_STALENESS_S = 2.0
+
+
+def _live_tail(out, stop, aggs, hist):
+    """Tick an aggregator over each of LIVE_RUNS' sink roots (once it
+    exists) until ``stop``; each tick's rank block and alert transitions
+    go to ``hist[run]``."""
+    from paddle_tpu_torch.profiler.live import LiveAggregator
+
+    while True:
+        for name in LIVE_RUNS:
+            root = os.path.join(out, name, "sink")
+            if not os.path.isdir(root):
+                continue
+            if name not in aggs:
+                aggs[name] = LiveAggregator(
+                    root, interval_s=LIVE_TICK_S,
+                    staleness_s=LIVE_STALENESS_S, world=2,
+                    board_dir=os.path.join(out, name, "shared", "board"),
+                    lease_s=DISAGG_LEASE_S, emit_alerts=False)
+            st = aggs[name].tick()
+            hist.setdefault(name, []).append({
+                "tick": st["tick"], "transitions": st["alert_transitions"],
+                "ranks": {r: {k: b[k] for k in ("dead", "stale", "age_s",
+                                                "lease_age_s")}
+                          for r, b in st["ranks"].items()}})
+        if stop.wait(LIVE_TICK_S):
+            return
+
+
+def _live_checks(out, aggs, hist, rows, fails) -> dict:
+    """(l): run A's last status names both ranks, passes
+    tools/check_sink_schema.py (``--live-status``, a subprocess) and its
+    merged e2e TTFT p50/p95 lie within the sketch's rel_err of the
+    nearest-rank values of A's results; run C's first dead_rank firing
+    names rank 1, whose lease had expired, while rank 0 was alive."""
+    res = {}
+    if set(aggs) != set(LIVE_RUNS):
+        fails.append(f"live: aggregators for {sorted(aggs)}")
+        return res
+    st = aggs["A"].tick()
+    lat = st["latency"].get("ttft_ms") or {}
+    res["A"] = {"ranks": sorted(st["ranks"]), "ttft_ms": lat,
+                "ticks": len(hist["A"])}
+    if sorted(st["ranks"]) != ["0", "1"]:
+        fails.append(f"live A: ranks {sorted(st['ranks'])}")
+    for q in ("p50", "p95"):
+        want = rows["A"][f"ttft_ms_{q}"]
+        got = lat.get(q)
+        if got is None or abs(got - want) > lat["rel_err"] * abs(want):
+            fails.append(f"live A: ttft {q} {got} vs {want}")
+    root = os.path.join(out, "A", "sink")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(HERE, "tools", "check_sink_schema.py"),
+         os.path.join(root, "rank0"), "--live-status", root],
+        capture_output=True, text=True, timeout=120)
+    res["A"]["schema_rc"] = proc.returncode
+    if proc.returncode != 0:
+        fails.append(f"live A: schema {proc.stdout[-1500:]}"
+                     f"{proc.stderr[-1500:]}")
+    firing = [(h, t) for h in hist["C"] for t in h["transitions"]
+              if t["rule"] == "dead_rank" and t["state"] == "firing"]
+    res["C"] = {"ticks": len(hist["C"]),
+                "first_dead_rank": None if not firing else {
+                    "tick": firing[0][0]["tick"], "rank": firing[0][1].get(
+                        "rank"), "ranks": firing[0][0]["ranks"]}}
+    if not firing:
+        fails.append("live C: no dead_rank alert")
+        return res
+    h, t = firing[0]
+    r1, r0 = h["ranks"].get("1", {}), h["ranks"].get("0", {})
+    if t.get("rank") != "1" or not r1.get("dead") or \
+            r1.get("lease_age_s") is None or \
+            r1["lease_age_s"] < DISAGG_LEASE_S or r0.get("dead", True):
+        fails.append(f"live C: first dead_rank firing {t} at {h}")
+    return res
+
+
 def disagg_phase(model, dev, engine_kw, plain=None, card=None, n_req=16,
                  max_new=32, n_check=4, timeout=300):
     """Runs A, B and C of the serving mesh (module docstring), two ranks
@@ -4554,8 +4691,17 @@ def disagg_phase(model, dev, engine_kw, plain=None, card=None, n_req=16,
         counts = {k: 0 for k in LAUNCH_COUNTERS}
         by_t = {}
         fails = []
+        rows, aggs, hist = {}, {}, {}
+        stop = threading.Event()
+        tail = threading.Thread(target=_live_tail,
+                                args=(out, stop, aggs, hist), daemon=True)
+        tail.start()
         t0 = time.perf_counter()
-        launched, res = _disagg_launch(out, dev, timeout)
+        try:
+            launched, res = _disagg_launch(out, dev, timeout)
+        finally:
+            stop.set()
+            tail.join()
         launch_s = time.perf_counter() - t0
         for name, layout, _ in DISAGG_RUNS:
             docs = launched[name]
@@ -4579,7 +4725,10 @@ def disagg_phase(model, dev, engine_kw, plain=None, card=None, n_req=16,
                                  f"{row['teacher_forced_match']}")
                 row["merge"] = _disagg_merge(os.path.join(out, name),
                                              docs[0], fails)
+            rows[name] = row
             emit({"disagg": "run", "card": card, **row})
+        emit({"disagg": "live", "card": card,
+              **_live_checks(out, aggs, hist, rows, fails)})
         emit({"disagg": "phase", "card": card, "requests": n_req,
               "max_new_tokens": max_new, "layers": cfg.num_layers,
               "state_sha1": parent_sum, "launch_s": launch_s,
@@ -5776,6 +5925,122 @@ def _int8_checks(dev, rank, tr, model, toks, res, ref, ckpt_dir, cfg,
           "restored_params": res.get("restored_params")})
 
 
+#: run (h): the guard and the mesh-agreed rollback at {"dp": 2}, ZeRO 1,
+#: int8 gradients (the slab's int8 ring), f32 storage; a NaN on rank 1
+#: alone at cursors HYBRID_RESIL_NAN, bad_step_limit 2, a checkpoint every
+#: 3 steps in one directory both ranks share, the consensus board beside
+#: it
+HYBRID_RESIL_LAYERS = 2
+HYBRID_RESIL_BATCH = (2, 2048)
+HYBRID_RESIL_NAN = (3, 4)
+HYBRID_RESIL_STEPS = 7
+
+
+def hybrid_resilience_run(dev, rank, out_dir, cfg=None,
+                          batch=HYBRID_RESIL_BATCH) -> dict:
+    """Run (h) on this rank: ``ResilientRunner`` with the consensus board
+    over the guarded trainer (GPT at gpt3_1_3b widths cut to
+    HYBRID_RESIL_LAYERS layers, the hybrid recipe); each step's verdict,
+    whether the poisoned cursors' steps left this rank's state's digest
+    as it was, the rollbacks, skips, restored steps and losses, the
+    launch counts of the run."""
+    import dataclasses
+
+    import numpy as np
+
+    import paddle_tpu_torch
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.consensus import Consensus
+    from paddle_tpu_torch.models.gpt import GPT, GPTConfig
+    from paddle_tpu_torch.resilience import (ResilienceConfig,
+                                             ResilientRunner, chaos)
+
+    cfg = cfg or dataclasses.replace(GPTConfig.gpt3_1_3b(),
+                                     num_layers=HYBRID_RESIL_LAYERS)
+    mesh = M.init_mesh({"dp": 2})
+    paddle_tpu_torch.seed(5)
+    tr = _hybrid_trainer(GPT(cfg, device=dev), mesh, 1, None,
+                         dp_grad_comm="int8", guard_bad_steps=True)
+    assert tr.zero_manual, "run (h) did not take the slab route"
+    cons = Consensus(os.path.join(out_dir, "resil_board"), rank, 2,
+                     lease_s=DISAGG_LEASE_S, timeout_s=120.0)
+    runner = ResilientRunner(
+        tr, os.path.join(out_dir, "resil_ckpt"), save_interval=3,
+        config=ResilienceConfig(bad_step_limit=2, consensus=cons),
+        chaos=chaos.ChaosPlan(nan_cursors=HYBRID_RESIL_NAN)
+        if rank == 1 else None)
+    el = runner.elastic
+    verdicts, kept, restored = {}, {}, []
+    step, resume = tr.step, el.resume
+
+    def watched(*b):
+        cur = el.data_cursor
+        before = _digest(tr.device_state()) \
+            if cur in HYBRID_RESIL_NAN else None
+        loss = step(*b)
+        verdicts[cur] = tr.last_step_ok_device()
+        if before is not None:
+            kept[cur] = _digest(tr.device_state()) == before
+        return loss
+
+    tr.step = watched
+    el.resume = lambda *a, **k: (restored.append(resume(*a, **k)),
+                                 restored[-1])[1]
+
+    def data(cursor):
+        rng = np.random.RandomState(4000 + cursor)
+        return (rng.randint(0, cfg.vocab_size, batch).astype(np.int64),)
+
+    set_counts()
+    t0 = time.perf_counter()
+    res = runner.run(data, HYBRID_RESIL_STEPS)
+    out = {"run": "h_resilience", "rank": rank,
+           "seconds": time.perf_counter() - t0,
+           "launches": read_counts()[0], "rollbacks": res.rollbacks,
+           "skips": sorted(runner._skips), "restored": restored,
+           "losses": {str(s): v for s, v in sorted(res.losses.items())},
+           "verdicts": {str(c): bool(v) for c, v in verdicts.items()},
+           "kept": {str(c): v for c, v in kept.items()}}
+    del runner, tr
+    _free_memory(dev)
+    return out
+
+
+def _hybrid_resilience_checks(rs) -> dict:
+    """Run (h) across the two ranks: both verdicts False at the poisoned
+    cursors and True elsewhere, both states unchanged there, one
+    rollback each to the same step, skips equal to the poisoned cursors,
+    the losses finite and bit-equal across the ranks."""
+    import math
+
+    bad = {str(c) for c in HYBRID_RESIL_NAN}
+    fails = []
+    for r in rs:
+        if {c for c, ok in r["verdicts"].items() if not ok} != bad or \
+                set(r["kept"]) != bad or not all(r["kept"].values()):
+            fails.append(f"rank {r['rank']}: verdicts {r['verdicts']}, "
+                         f"kept {r['kept']}")
+        if r["rollbacks"] != 1 or r["skips"] != list(HYBRID_RESIL_NAN) \
+                or sorted(map(int, r["losses"])) != \
+                list(range(HYBRID_RESIL_STEPS)) or \
+                not all(math.isfinite(v) for v in r["losses"].values()):
+            fails.append(f"rank {r['rank']}: {r['rollbacks']} rollbacks, "
+                         f"skips {r['skips']}, losses {r['losses']}")
+    if rs[0]["restored"] != rs[1]["restored"] or \
+            rs[0]["losses"] != rs[1]["losses"]:
+        fails.append(f"ranks differ: restored {rs[0]['restored']} / "
+                     f"{rs[1]['restored']}, losses {rs[0]['losses']} / "
+                     f"{rs[1]['losses']}")
+    if fails:
+        raise AssertionError(f"hybrid run (h): {fails}")
+    return {"hybrid": "resilience", "rollbacks": [r["rollbacks"]
+                                                  for r in rs],
+            "skips": rs[0]["skips"], "restored": rs[0]["restored"],
+            "losses": rs[0]["losses"], "verdicts": rs[0]["verdicts"],
+            "seconds": [r["seconds"] for r in rs],
+            "launches": [r["launches"] for r in rs]}
+
+
 def hybrid_worker(out_dir) -> int:
     """One rank of the hybrid phase (started by the launcher)."""
     import torch
@@ -5800,7 +6065,10 @@ def hybrid_worker(out_dir) -> int:
         runs.append(r)
     for r in runs:
         r.pop("_kept", None)
-    res = {"rank": rank, "runs": runs, "foreign_modules": sorted(
+    _free_memory(dev)
+    resil = hybrid_resilience_run(dev, rank, out_dir)
+    res = {"rank": rank, "runs": runs, "resilience": resil,
+           "foreign_modules": sorted(
         m for m in sys.modules if m == "jax" or m.startswith("jax.")
         or m == "paddle_tpu" or m.startswith("paddle_tpu."))}
     assert not res["foreign_modules"], res["foreign_modules"]
@@ -5816,12 +6084,14 @@ def hybrid_phase(dev, timeout=600):
     {})."""
     res, wall = _run_ranks(dev, "--hybrid-worker", "hybrid", timeout)
     PHASE_RESULTS["hybrid"] = res
-    counts = {k: sum(run["launches"][k] for r in res for run in r["runs"])
+    counts = {k: sum(run["launches"][k] for r in res
+                     for run in r["runs"] + [r["resilience"]])
               for k in LAUNCH_COUNTERS}
     tc = ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc")
     f32_route = ("flash", "bwd_single", "bwd_dq", "bwd_dkv")
+    emit(_hybrid_resilience_checks([r["resilience"] for r in res]))
     for r in res:
-        for run in r["runs"]:
+        for run in r["runs"] + [r["resilience"]]:
             emit({"hybrid": "run", "rank": r["rank"], **run})
             for k in tc:
                 assert run["launches"][k] > 0, (r["rank"], run["run"], k)
@@ -6769,6 +7039,514 @@ def resume_phase(dev, timeout=400) -> tuple:
 
 
 # ---------------------------------------------------------------------------
+# resilience phase: the bad-step guard, the runner, preemption, the watchdog
+# ---------------------------------------------------------------------------
+#: GPT at gpt3_1_3b widths cut to RESIL_LAYERS layers under the train
+#: recipe (amp, recompute, bf16 parameters and moments, AdamW at
+#: RESIL_LR with the global-norm clip at RESIL_CLIP), global batch
+#: RESIL_BATCH
+RESIL_LAYERS = 2
+RESIL_BATCH = (4, 2048)
+RESIL_LR = 1e-4
+RESIL_CLIP = 1.0
+#: the runner's chaos plan (a NaN streak of K = RESIL_K at cursors 3-5,
+#: one failed fetch of cursor 6), its save interval and its steps
+RESIL_NAN = (3, 4, 5)
+RESIL_FLAKY = {6: 1}
+RESIL_K = 3
+RESIL_SAVE = 3
+RESIL_STEPS = 8
+#: (s1)'s timed pairs of warm steps, guarded and not, interleaved
+RESIL_TIMED = 4
+#: the cursor the preempted life waits at for the parent's SIGTERM: the
+#: batch of step 6 (the streak's cursors are skipped), after the
+#: rollback's replay and the commit at step 6, so the preemption commits
+#: step 7, outside any bad streak
+RESIL_PREEMPT_CURSOR = 9
+RESIL_PREEMPT_COMMIT = RESIL_PREEMPT_CURSOR - len(RESIL_NAN) + 1
+#: the watchdog's life: timeout, the first step's grace (a cold step on
+#: the card took 8.6-13.2 s in the disagg and hybrid phases), jitter,
+#: the step whose batch is followed on the stream by a torch.cuda._sleep
+#: of RESIL_HANG_S (the host then blocks in the loss sync)
+RESIL_WD_TIMEOUT_S = 2.0
+RESIL_WD_GRACE_S = 60.0
+RESIL_WD_JITTER = 0.1
+RESIL_HANG_STEP = 2
+RESIL_HANG_S = 6.0
+RESIL_COUNTERS = ("resilience/steps_skipped", "resilience/rollbacks",
+                  "resilience/restore_fallbacks", "resilience/preemptions",
+                  "resilience/data_retries", "resilience/watchdog_fires")
+
+
+def _resil_trainer(dev, cfg, guard=True, seed=31):
+    """The phase's guarded trainer on ``cfg`` (one rank, degree 1)."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.hybrid import HybridPipelineTrainer
+    from paddle_tpu_torch.models.gpt import GPT
+    from paddle_tpu_torch.optimizer import AdamW
+
+    paddle_tpu_torch.seed(seed)
+    model = GPT(cfg, device=dev)
+    opt = AdamW(RESIL_LR, parameters=model.named_parameters(),
+                weight_decay=0.1,
+                grad_clip=tnn.ClipGradByGlobalNorm(RESIL_CLIP))
+    s = DistributedStrategy()
+    s.amp = s.recompute = True
+    return HybridPipelineTrainer(model, opt, s, n_micro=2,
+                                 param_dtype="bfloat16",
+                                 moment_dtype="bfloat16",
+                                 guard_bad_steps=guard)
+
+
+def _resil_spec(root) -> tuple:
+    """(GPTConfig, global batch, device) of the phase (``spec.json``)."""
+    import torch
+
+    from paddle_tpu_torch.models.gpt import GPTConfig
+
+    with open(os.path.join(root, "spec.json")) as f:
+        spec = json.load(f)
+    return (GPTConfig(**spec["config"]), tuple(spec["batch"]),
+            torch.device(spec["device"]))
+
+
+def _resil_batch(cfg, batch, cursor):
+    import numpy as np
+
+    rng = np.random.RandomState(3000 + cursor)
+    return (rng.randint(0, cfg.vocab_size, batch).astype(np.int64),)
+
+
+def _state_sha1(tr) -> str:
+    """SHA-1 over every piece of ``device_state``'s bytes, in key order."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha1()
+    for k, p in sorted(_state_pieces(tr.device_state()).items()):
+        h.update(k.encode())
+        h.update(p.data.detach().contiguous().reshape(-1)
+                 .view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def resil_guard_check(dev, cfg, batch) -> dict:
+    """(s1): a cold step, two warm ones, RESIL_TIMED pairs of warm steps
+    with the guard and without it in turn (the same trainer: the knob is
+    read each step), then a step after ``inject_fault_scale(nan)``: NaN
+    loss, ``last_step_ok`` False, the SHA-1 of ``device_state`` unchanged;
+    the next clean step's verdict True."""
+    import math
+    import statistics
+
+    tr = _resil_trainer(dev, cfg)
+    data = functools.partial(_resil_batch, cfg, batch)
+    cold = _timed_step(tr, data(0)[0], dev)[1]
+    for c in (1, 2):
+        tr.step(*data(c))
+    ms = {"guarded": [], "unguarded": []}
+    c = 3
+    for _ in range(RESIL_TIMED):
+        for mode in ms:
+            tr.guard_bad_steps = mode == "guarded"
+            ms[mode].append(_timed_step(tr, data(c)[0], dev)[1])
+            c += 1
+    tr.guard_bad_steps = True
+    before = _state_sha1(tr)
+    tr.inject_fault_scale(float("nan"))
+    loss = float(tr.step(*data(c)))
+    ok = tr.last_step_ok
+    after = _state_sha1(tr)
+    if not (math.isnan(loss) and ok is False and before == after):
+        raise AssertionError(f"resilience (s1): loss {loss}, verdict {ok}, "
+                             f"sha1 {before} -> {after}")
+    tr.step(*data(c + 1))
+    if not tr.last_step_ok:
+        raise AssertionError("resilience (s1): the clean step after the "
+                             "poisoned one was judged bad")
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    out = {"resilience": "guard", "cold_step_ms": cold,
+           "warm_step_ms": ms, "median_ms": med,
+           "guard_cost": med["guarded"] / med["unguarded"] - 1.0,
+           "poisoned_loss": repr(loss), "verdict": ok,
+           "state_sha1": before, "state_sha1_after": after,
+           "state_bytes": sum(p.data.numel() * p.data.element_size()
+                              for p in _state_pieces(
+                                  tr.device_state()).values())}
+    del tr
+    _free_memory(dev)
+    return out
+
+
+def _resil_run(tr, cfg, batch, ckpt, dev, gate=None, on_step=None):
+    """``ResilientRunner`` over the chaos plan (RESIL_NAN, RESIL_FLAKY,
+    K RESIL_K, save interval RESIL_SAVE) for RESIL_STEPS steps. ``gate``
+    wraps the data function. Returns the run's record: losses, the
+    rollbacks, the skipped cursors, the step each resume restored and
+    its ms (sync before and after), each save call's ms, the
+    ``resilience/*`` counters' moves."""
+    from paddle_tpu_torch.profiler import registry
+    from paddle_tpu_torch.resilience import (ResilienceConfig,
+                                             ResilientRunner, chaos)
+
+    runner = ResilientRunner(
+        tr, ckpt, save_interval=RESIL_SAVE,
+        config=ResilienceConfig(bad_step_limit=RESIL_K,
+                                data_retry_base_delay=0.01),
+        chaos=chaos.ChaosPlan(nan_cursors=RESIL_NAN,
+                              flaky_cursors=RESIL_FLAKY))
+    el = runner.elastic
+    restored, restore_ms, saves = [], [], []
+    resume, save = el.resume, el.save
+
+    def timed_resume(*a, **k):
+        _sync(dev)
+        t0 = time.perf_counter()
+        restored.append(resume(*a, **k))
+        _sync(dev)
+        restore_ms.append((time.perf_counter() - t0) * 1e3)
+        return restored[-1]
+
+    def timed_save(step, *a, **k):
+        _sync(dev)
+        t0 = time.perf_counter()
+        h = save(step, *a, **k)
+        saves.append({"step": step, "async": k.get("async_", True),
+                      "ms": (time.perf_counter() - t0) * 1e3})
+        return h
+
+    el.resume, el.save = timed_resume, timed_save
+    reg = registry()
+    c0 = {n: reg.counter(n).value for n in RESIL_COUNTERS}
+    data = functools.partial(_resil_batch, cfg, batch)
+    t0 = time.perf_counter()
+    res = runner.run(gate(runner, data) if gate else data, RESIL_STEPS,
+                     on_step=on_step)
+    return {"losses": {str(s): v for s, v in sorted(res.losses.items())},
+            "rollbacks": res.rollbacks, "skips": sorted(runner._skips),
+            "preempted": res.preempted, "exit_code": res.exit_code,
+            "start_step": res.start_step, "final_step": res.final_step,
+            "restored": restored, "restore_ms": restore_ms,
+            "saves": saves, "wall_s": time.perf_counter() - t0,
+            "counters": {n: reg.counter(n).value - c0[n]
+                         for n in RESIL_COUNTERS}}
+
+
+def _resil_gate(out_dir):
+    """The preempted life's data function: at RESIL_PREEMPT_CURSOR it
+    writes ``ready`` and waits for the parent's SIGTERM to be flagged."""
+    def gate(runner, data):
+        def fetch(cursor):
+            if cursor == RESIL_PREEMPT_CURSOR:
+                open(os.path.join(out_dir, "ready"), "w").close()
+                deadline = time.time() + 120
+                while not runner.preemption.requested and \
+                        time.time() < deadline:
+                    time.sleep(0.01)
+            return data(cursor)
+        return fetch
+    return gate
+
+
+def resilience_worker(out_dir, mode) -> int:
+    """One life of the resilience phase (``--resilience-worker DIR
+    MODE``): ``preempt`` runs the chaos plan on ``DIR/ckpt`` and waits at
+    RESIL_PREEMPT_CURSOR for the parent's SIGTERM (exit 75 once the
+    preemption commit lands); ``restart`` resumes it; ``watchdog`` runs
+    with the watchdog (RESIL_WD_*, abort on) and a sink, and at step
+    RESIL_HANG_STEP queues RESIL_HANG_S of ``torch.cuda._sleep`` behind
+    the step (the watchdog ends the process with 74). Each writes
+    ``DIR/<mode>.json``; the counts and step times as it goes."""
+    import torch
+
+    from paddle_tpu_torch import profiler
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = os.path.dirname(out_dir)
+    cfg, batch, dev = _resil_spec(root)
+    tr = _resil_trainer(dev, cfg)
+    prog = os.path.join(out_dir, f"{mode}.steps.json")
+    times = []
+    t_start = time.time()
+
+    def on_step(step, loss):
+        times.append((step, time.time()))
+        with open(prog + ".tmp", "w") as f:
+            json.dump({"t_start": t_start, "steps": times,
+                       "launches": read_counts()[0]}, f)
+        os.replace(prog + ".tmp", prog)
+
+    set_counts()
+    if mode != "watchdog":
+        rec = _resil_run(tr, cfg, batch, os.path.join(out_dir, "ckpt"), dev,
+                         gate=_resil_gate(out_dir) if mode == "preempt"
+                         else None, on_step=on_step)
+    else:
+        from paddle_tpu_torch.resilience import (ResilienceConfig,
+                                                 ResilientRunner)
+
+        profiler.enable_sink(os.path.join(out_dir, "sink"),
+                             interval_s=3600.0, per_rank_subdir=False)
+        profiler.enable(reset=False)
+        runner = ResilientRunner(
+            tr, os.path.join(out_dir, "ckpt"), save_interval=100,
+            config=ResilienceConfig(
+                watchdog_timeout_s=RESIL_WD_TIMEOUT_S,
+                watchdog_first_grace_s=RESIL_WD_GRACE_S,
+                watchdog_jitter=RESIL_WD_JITTER, watchdog_abort=True,
+                watchdog_dump_file=os.path.join(out_dir, "dump.txt")))
+        step = tr.step
+        cycles = int(RESIL_HANG_S * 1e3 * _sleep_cycles_per_ms(dev)) \
+            if dev.type == "cuda" else 0
+
+        class _HeldLoss:
+            """A CPU rehearsal's stand-in for a loss behind a sleeping
+            kernel: its read blocks the host as the card's sync would."""
+
+            def __init__(self, loss):
+                self.loss = loss
+
+            def __float__(self):
+                time.sleep(RESIL_HANG_S)
+                return float(self.loss)
+
+        def hanging_step(*b):
+            loss = step(*b)
+            if tr._step == RESIL_HANG_STEP + 1:
+                if cycles:
+                    torch.cuda._sleep(cycles)
+                else:
+                    loss = _HeldLoss(loss)
+                with open(os.path.join(out_dir, "hang_t"), "w") as f:
+                    f.write(repr(time.time()))
+            return loss
+
+        tr.step = hanging_step
+        res = runner.run(functools.partial(_resil_batch, cfg, batch),
+                         RESIL_HANG_STEP + 2, on_step=on_step)
+        rec = {"losses": {str(s): v for s, v in res.losses.items()}}
+    rec.update(mode=mode, t_start=t_start, steps=times,
+               launches=read_counts()[0], foreign_modules=sorted(
+                   m for m in sys.modules if m == "jax"
+                   or m.startswith("jax.") or m == "paddle_tpu"
+                   or m.startswith("paddle_tpu.")))
+    with open(os.path.join(out_dir, f"{mode}.json"), "w") as f:
+        json.dump(rec, f)
+    return rec.get("exit_code", 0)
+
+
+def _resil_child(root, name, mode):
+    """Start one life (``--resilience-worker root/name mode``)."""
+    d = os.path.join(root, name)
+    os.makedirs(d, exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="4",
+               PYTHONPATH=HERE + os.pathsep + os.environ.get("PYTHONPATH",
+                                                             ""))
+    log = open(os.path.join(d, "stdout.log"), "a")
+    return subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--resilience-worker", d, mode], env=env, cwd=HERE,
+        stdout=log, stderr=subprocess.STDOUT, start_new_session=True)
+
+
+def _resil_join(p, d, want, timeout):
+    """Wait for a life; it must exit ``want`` (its log's tail otherwise)."""
+    import signal
+
+    try:
+        rc = p.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        p.wait()
+        rc = "timeout"
+    if rc != want:
+        with open(os.path.join(d, "stdout.log")) as f:
+            print(f"--- resilience life {d} ---\n" + f.read()[-4000:],
+                  file=sys.stderr)
+        raise AssertionError(f"a resilience life exited {rc}, not {want}")
+
+
+def _resil_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _resil_losses_held(got, want, spread, exact, what):
+    """Every step of ``got`` within ``spread[step]`` of ``want`` (bit for
+    bit when ``exact``)."""
+    for s, v in got.items():
+        w = want[s]
+        if exact and v != w or abs(v - w) > spread[s]:
+            raise AssertionError(f"resilience {what}: step {s} loss {v!r}, "
+                                 f"uninterrupted {w!r} (spread "
+                                 f"{spread[s]!r}, bitwise {exact})")
+
+
+def resilience_phase(dev, cfg=None, batch=RESIL_BATCH, timeout=300) -> tuple:
+    """(s1) the guard in this process; then the watchdog's life and the
+    preempted life start while this process runs (s2), the
+    uninterrupted chaos sequence, twice (the determinism check); (s3) the
+    preempted life gets a real SIGTERM at its gate, commits and exits
+    75, a byte of its newest shard is flipped and the restarted life
+    walks back one step and finishes: its losses and the preempted
+    life's held to (s2)'s, bitwise if (s2)'s two runs were bitwise equal,
+    else within their spread (at least RESUME_SPREAD_FLOOR of the loss);
+    (s4) the watchdog's life exits 74 with the stacks and the open span
+    in its dump, a ``watchdog`` line in its sink, its cold first step
+    unfired. Returns (the phase's launch counts, this process's and the
+    lives', {})."""
+    import dataclasses
+    import math
+    import shutil
+    import signal
+    import tempfile
+
+    from paddle_tpu_torch.models.gpt import GPTConfig
+    from paddle_tpu_torch.resilience import chaos
+
+    cfg = cfg or dataclasses.replace(GPTConfig.gpt3_1_3b(),
+                                     num_layers=RESIL_LAYERS)
+    batch = tuple(batch)
+    root = tempfile.mkdtemp(prefix="resilience_phase_")
+    t0 = time.perf_counter()
+    fails, procs = [], []
+    try:
+        with open(os.path.join(root, "spec.json"), "w") as f:
+            json.dump({"config": dataclasses.asdict(cfg),
+                       "batch": list(batch), "device": str(dev)}, f)
+        set_counts()
+        s1 = resil_guard_check(dev, cfg, batch)
+        emit(s1)
+        lives = {"watchdog": _resil_child(root, "wd", "watchdog"),
+                 "preempt": _resil_child(root, "life", "preempt")}
+        procs += lives.values()
+        t_lives = time.perf_counter()
+        runs = []
+        for tag in ("a", "a2"):
+            tr = _resil_trainer(dev, cfg)
+            runs.append(_resil_run(tr, cfg, batch,
+                                   os.path.join(root, "ckpt_" + tag), dev))
+            del tr
+            _free_memory(dev)
+        own, _ = read_counts()
+        a, a2 = runs
+        exact = a["losses"] == a2["losses"]
+        spread = {s: max(abs(v - a2["losses"][s]),
+                         RESUME_SPREAD_FLOOR * abs(v))
+                  for s, v in a["losses"].items()}
+        nan = [float(c) for c in RESIL_NAN]
+        for run in runs:
+            if run["rollbacks"] != 1 or run["skips"] != list(RESIL_NAN) \
+                    or run["counters"]["resilience/data_retries"] != 1 \
+                    or run["counters"]["resilience/steps_skipped"] != \
+                    len(RESIL_NAN) or run["restored"] != [0, RESIL_SAVE] \
+                    or sorted(map(int, run["losses"])) != \
+                    list(range(RESIL_STEPS)) \
+                    or not all(math.isfinite(v)
+                               for v in run["losses"].values()):
+                fails.append(f"(s2) {run}")
+        emit({"resilience": "runner", "bitwise_repeat": exact,
+              "losses": a["losses"], "losses_repeat": a2["losses"],
+              "spread": spread, "nan_cursors": nan,
+              **{k: a[k] for k in ("rollbacks", "skips", "restored",
+                                   "restore_ms", "saves", "counters",
+                                   "wall_s")}})
+        # (s3): the SIGTERM at the preempted life's gate
+        life = os.path.join(root, "life")
+        deadline = time.time() + timeout
+        while not os.path.exists(os.path.join(life, "ready")):
+            if lives["preempt"].poll() is not None or time.time() > deadline:
+                _resil_join(lives["preempt"], life, 75, 1)
+                raise AssertionError("the preempted life never reached "
+                                     "its gate")
+            time.sleep(0.05)
+        os.kill(lives["preempt"].pid, signal.SIGTERM)
+        _resil_join(lives["preempt"], life, 75, timeout)
+        first = _resil_json(os.path.join(life, "preempt.json"))
+        ckpt = os.path.join(life, "ckpt")
+        newest = chaos.newest_committed_step(ckpt)
+        chaos.flip_shard_byte(ckpt)
+        restart = _resil_child(root, "life", "restart")
+        procs.append(restart)
+        _resil_join(restart, life, 0, timeout)
+        second = _resil_json(os.path.join(life, "restart.json"))
+        pre_save = [s for s in first["saves"] if not s["async"]]
+        if not (first["preempted"] and first["exit_code"] == 75
+                and first["counters"]["resilience/preemptions"] == 1
+                and len(pre_save) == 1 and pre_save[0]["step"] == newest
+                == RESIL_PREEMPT_COMMIT):
+            fails.append(f"(s3) the preempted life {first}")
+        if not (second["start_step"] == RESIL_SAVE * 2
+                and second["counters"]["resilience/restore_fallbacks"] == 1
+                and second["final_step"] == RESIL_STEPS
+                and second["skips"] == list(RESIL_NAN)):
+            fails.append(f"(s3) the restarted life {second}")
+        for what, life_rec in (("preempted", first), ("restarted", second)):
+            try:
+                _resil_losses_held(life_rec["losses"], a["losses"], spread,
+                                   exact, f"(s3) {what} life")
+            except AssertionError as e:
+                fails.append(str(e))
+        emit({"resilience": "preempt", "commit_step": newest,
+              "commit_ms": pre_save[0]["ms"] if pre_save else None,
+              "restored": second["restored"],
+              "restore_ms": second["restore_ms"],
+              "restore_fallbacks":
+                  second["counters"]["resilience/restore_fallbacks"],
+              "losses_first": first["losses"],
+              "losses_restart": second["losses"], "bitwise": exact})
+        # (s4): the watchdog's life
+        wd = os.path.join(root, "wd")
+        _resil_join(lives["watchdog"], wd, 74, timeout)
+        steps = _resil_json(os.path.join(wd, "watchdog.steps.json"))
+        dump = open(os.path.join(wd, "dump.txt")).read()
+        lines = [json.loads(ln) for ln in
+                 open(os.path.join(wd, "sink", "metrics.jsonl"))]
+        fires = [json.loads(ln) for ln in
+                 open(os.path.join(wd, "sink", "events.jsonl"))
+                 if '"watchdog_fire"' in ln]
+        with open(os.path.join(wd, "hang_t")) as f:
+            hang_t = float(f.read())
+        wd_line = [ln for ln in lines if ln["reason"] == "watchdog"]
+        cold_s = steps["steps"][0][1] - steps["t_start"]
+        if not ("hung-step dump" in dump and "hybrid/sync_wait" in dump
+                and wd_line and len(fires) == 1
+                and fires[0]["step"] == RESIL_HANG_STEP
+                and [s for s, _ in steps["steps"]] ==
+                list(range(RESIL_HANG_STEP))):
+            fails.append(f"(s4) fires {fires}, dump {dump[:400]!r}, "
+                         f"lines {[ln['reason'] for ln in lines]}")
+        emit({"resilience": "watchdog", "exit_code": 74,
+              "timeout_s": RESIL_WD_TIMEOUT_S, "jitter": RESIL_WD_JITTER,
+              "first_step_grace_s": RESIL_WD_GRACE_S,
+              "cold_first_step_s": cold_s,
+              "fire_elapsed_s": fires[0]["elapsed_s"] if fires else None,
+              "fire_latency_s": wd_line[-1]["ts"] - hang_t
+              if wd_line else None,
+              "step_walls": steps["steps"],
+              "dump_has_open_span": "hybrid/sync_wait" in dump})
+        counts = {k: own[k] + first["launches"][k] +
+                  second["launches"][k] + steps["launches"][k]
+                  for k in LAUNCH_COUNTERS}
+        emit({"resilience": "phase", "seconds": time.perf_counter() - t0,
+              "lives_s": time.perf_counter() - t_lives,
+              "launches": counts})
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+        shutil.rmtree(root, ignore_errors=True)
+    if fails:
+        raise AssertionError(f"resilience: {fails}")
+    return counts, {}
+
+
+# ---------------------------------------------------------------------------
 # plan phase: planning without allocation
 # ---------------------------------------------------------------------------
 #: GPT-3 13B's factorizations on a planning world of PLAN_WORLD (the
@@ -7088,11 +7866,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="kernels,model,engine,spec,kvint8,"
                                         "generate,observe,handoff,disagg,"
                                         "deploy,grad,train,dist,hybrid,"
-                                        "parallel,resume,plan",
+                                        "parallel,resume,resilience,plan",
                     help="comma-separated subset of kernels, model, engine, "
                          "spec, kvint8, generate, observe, handoff, disagg, "
                          "deploy, grad, train, dist, hybrid, parallel, "
-                         "resume, plan (debugging)")
+                         "resume, resilience, plan (debugging)")
     ap.add_argument("--dist-worker", metavar="OUT_DIR", default=None,
                     help="run one rank of the dist phase (the phase starts "
                          "two through the port's launcher)")
@@ -7102,6 +7880,10 @@ def main(argv=None) -> int:
                     help="run one rank of the parallel phase")
     ap.add_argument("--resume-worker", metavar="OUT_DIR", default=None,
                     help="run one life of the resume phase's elastic run")
+    ap.add_argument("--resilience-worker", nargs=2, default=None,
+                    metavar=("OUT_DIR", "MODE"),
+                    help="run one life of the resilience phase (MODE "
+                         "preempt, restart or watchdog)")
     ap.add_argument("--disagg-worker", nargs=2, default=None,
                     metavar=("OUT_DIR", "RUNS"),
                     help="run one rank of the named disagg runs (the "
@@ -7138,6 +7920,8 @@ def main(argv=None) -> int:
         return parallel_worker(args.parallel_worker)
     if args.resume_worker:
         return resume_worker(args.resume_worker)
+    if args.resilience_worker:
+        return resilience_worker(*args.resilience_worker)
     if args.disagg_worker:
         return disagg_worker(*args.disagg_worker)
     if args.plan_worker:
@@ -7479,6 +8263,12 @@ def main(argv=None) -> int:
         # offload, one rank: amp at S 2048 (the wgmma forward, dQ, dK/dV)
         drive("resume", ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc"),
               resume_phase, dev, forbid=f32_kernels, remote=True)
+    if "resilience" in phases:
+        # the bad-step guard, the resilient runner's rollback, preemption
+        # and the watchdog, in this process and in child lives on this
+        # card: amp at S 2048 (the wgmma forward, dQ and dK/dV)
+        drive("resilience", ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc"),
+              resilience_phase, dev, forbid=f32_kernels, remote=True)
     if "plan" in phases:
         # planning without allocation: no kernel runs (the 13B plans'
         # child processes check their own counts); then the resident

@@ -65,7 +65,11 @@ the flat slab of ``qcomm.dp_zero_step``; everything else the
 per-parameter ``_add_axis`` route, which composes with every axis). The
 data-parallel path reduces every gradient once; the eager pair
 ``DataParallel`` + ``fleet.distributed_optimizer`` keeps the reference's
-eager semantics and all-reduces twice (``fleet_base.py``).
+eager semantics and all-reduces twice (``fleet_base.py``). With
+``guard_bad_steps`` the update is guarded: the verdict (the loss and
+every clipped gradient finite) is agreed as a MIN over every mesh axis
+and a bad step's update is deselected bit for bit (``_ShardedUpdate.
+verdict``, ``strategy_compiler.select_update``, ``qcomm.dp_zero_step``).
 
 The trainer trains the model's own (local) parameters in place; at
 ZeRO 3 it holds each parameter's dp slice and all-gathers it before
@@ -125,15 +129,6 @@ def _check_protocol(model):
             raise TypeError(
                 f"{type(model).__name__} does not implement the pipeline "
                 f"protocol ({m}); see distributed/hybrid.py docstring")
-
-
-_ITEMS = {"8b": "resilience"}
-
-
-def _queue(item: str, what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue 1 item {item} "
-        f"({_ITEMS[item]})")
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -291,19 +286,31 @@ class HybridPipelineTrainer:
         steps); ``memory_ledger`` gives this rank's resident bytes by
         state category.
 
+        guard_bad_steps: the bad-step guard (reference :164-175) that
+            ``paddle_tpu_torch.resilience`` rides on. The verdict is
+            ``isfinite(loss)`` and every gradient finite after the clip,
+            taken where each rank holds its part (its tp shard, pp stage,
+            sp chunk, experts, dp slice) and agreed as a MIN over every
+            axis of the mesh, so that every rank keeps or skips the same
+            update. A bad step computes the update and deselects it: the
+            parameters and every optimizer state stay bit for bit as they
+            were (momentum does not decay, weight decay does not apply);
+            the step count and the LR schedule still advance.
+            ``last_step_ok_device()`` is the verdict as a device tensor
+            (no sync), ``last_step_ok`` reads it; ``inject_fault_scale(
+            nan)`` poisons the next step's loss. Composes with
+            ``offload_optimizer`` (the deselect runs on the device copies
+            fetched for the update); ``offload_params`` and
+            ``stream_layers`` raise ``ValueError``, as in the reference.
+
         A model built under ``LazyGuard`` makes an abstract trainer, which
         plans (``aot_lower``/``aot_compile``/``memory_analysis``) and does
-        not step (module docstring).
-
-        Not ported (raises ``NotImplementedError`` naming its ROADMAP
-        item): ``guard_bad_steps`` (8)."""
+        not step (module docstring)."""
         _check_protocol(model)
         s = strategy or DistributedStrategy()
         mesh = mesh if mesh is not None else build_mesh_from_strategy(s)
         if remat_policy not in (None, "dots"):
             raise ValueError(f"unknown remat_policy {remat_policy!r}")
-        if guard_bad_steps:
-            raise _queue("8b", "guard_bad_steps")
         _check_layers(model, mesh)
         #: built from a LazyGuard model: plans, never steps
         self.abstract = any(is_abstract(p) for p in model.parameters())
@@ -349,6 +356,18 @@ class HybridPipelineTrainer:
                 raise ValueError(
                     "stream_layers supports v_virtual == 1 (per-layer "
                     "groups assume the [pp, lps, ...] stacking)")
+        self.guard_bad_steps = bool(guard_bad_steps)
+        if self.guard_bad_steps and (offload_params or stream_layers):
+            raise ValueError(
+                "guard_bad_steps is not supported with offload_params/"
+                "stream_layers yet (the bad-step select would stream "
+                "host-resident state through the card a second time); "
+                "offload_optimizer alone composes: its deselect runs on "
+                "the device copies already fetched for the update")
+        # the device verdict of the last guarded step (None before one);
+        # _fault_scale poisons exactly one coming step's loss
+        self._last_ok_dev: Optional[torch.Tensor] = None
+        self._fault_scale: Optional[float] = None
         offload = self.offload_optimizer or self.offload_params
         _qcomm.validate_dp_grad_comm(
             dp_grad_comm, mesh, zero_stage=self.zero,
@@ -660,13 +679,16 @@ class HybridPipelineTrainer:
         stack.enter_context(_dctx.moe_routing_scope(self.mesh, axes))
         return stack
 
-    def _loss(self, batch, backward: bool) -> torch.Tensor:
+    def _loss(self, batch, backward: bool,
+              fault: Optional[float] = None) -> torch.Tensor:
         """The step's loss (the dp mean) over this rank's micro-batches
         (each weighed by its share of the global batch's targets, times
         dp where the batch was cut over dp), with the backward when
         ``backward``; the f32 loss, not waited for. The dropout masks are
         keyed by the port's seed, the step and the micro-batch
-        (``core.rng.fold_in``)."""
+        (``core.rng.fold_in``). ``fault`` (``inject_fault_scale``)
+        multiplies each loss before its backward: a NaN poisons the loss
+        and, through the cotangent, every gradient."""
         # a plan reads no device value: its micro-batches weigh equally
         counter = None if _plan.planning() else \
             getattr(self.model, "pipeline_label_count", None)
@@ -681,6 +703,8 @@ class HybridPipelineTrainer:
             if self.pp > 1:
                 w = counter(*local) * share / total if total else 1.0
                 loss = self._pipeline_loss(local, step_key, w)
+                if fault is not None:
+                    loss = loss * fault
                 if backward:
                     loss.backward()
                 return _dp_mean(loss.detach(), self.mesh)
@@ -692,6 +716,8 @@ class HybridPipelineTrainer:
                 w = counter(*mb) * share / total if total \
                     else 1.0 / self.n_micro
                 part = self._forward_loss(mb, _rng.fold_in(step_key, i), w)
+                if fault is not None:
+                    part = part * fault
                 if backward:
                     part.backward()
                 loss = loss + part.detach()
@@ -699,20 +725,53 @@ class HybridPipelineTrainer:
 
     def _step_body(self, batch) -> torch.Tensor:
         """Forward, backward, clip and update of one step; the f32 loss,
-        not waited for."""
+        not waited for. Guarded, the update is kept only where the
+        mesh-agreed verdict holds (``last_step_ok_device``); the step
+        count and the LR schedule advance either way (reference
+        ``hybrid.py:1377``)."""
         lr = self.optimizer.get_lr()
         self._step += 1
         self._upd.zero_grad()
         start = getattr(self._upd, "start_step", None)
         if start is not None:
             start()
-        loss = self._loss(batch, backward=True)
-        self._upd.update(lr, self._step)
+        fault, self._fault_scale = self._fault_scale, None
+        loss = self._loss(batch, backward=True, fault=fault)
+        ok = self._upd.update(lr, self._step,
+                              loss if self.guard_bad_steps else None)
+        if self.guard_bad_steps:
+            self._last_ok_dev = ok
         self._upd.zero_grad()
         self.optimizer._global_step = self._step
         return loss
 
     __call__ = step
+
+    # -- the bad-step guard's surface (paddle_tpu_torch.resilience) -------
+    @property
+    def last_step_ok(self) -> bool:
+        """The verdict of the last guarded step (True before one, or
+        unguarded). Reading it syncs on the verdict."""
+        if self._last_ok_dev is None:
+            return True
+        return bool(self._last_ok_dev)
+
+    def last_step_ok_device(self) -> Optional[torch.Tensor]:
+        """The last guarded step's verdict as the device bool (None before
+        one): the async window's handle, read without a sync here."""
+        return self._last_ok_dev
+
+    def inject_fault_scale(self, value: float) -> None:
+        """Chaos hook: multiply the NEXT step's loss by ``value`` (NaN
+        poisons the loss and every gradient). One-shot; it needs
+        ``guard_bad_steps``, so that the poison cannot reach the
+        weights."""
+        if not self.guard_bad_steps:
+            raise RuntimeError(
+                "inject_fault_scale requires guard_bad_steps=True: "
+                "injecting a NaN without the guard would poison the "
+                "weights permanently")
+        self._fault_scale = float(value)
 
     def profile_step_phases(self, *batch, iters: int = 2,
                             trace_window: int = 0) -> dict:

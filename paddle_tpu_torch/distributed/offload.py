@@ -42,7 +42,7 @@ from typing import List, Optional
 
 import torch
 
-from .strategy_compiler import _ShardedUpdate
+from .strategy_compiler import _ShardedUpdate, select_update
 
 __all__ = ["_OffloadUpdate"]
 
@@ -192,11 +192,18 @@ class _OffloadUpdate(_ShardedUpdate):
                     self._fetch(g)
 
     @torch.no_grad()
-    def update(self, lr: float, step_no: int) -> None:
+    def update(self, lr: float, step_no: int,
+               loss: Optional[torch.Tensor] = None
+               ) -> Optional[torch.Tensor]:
+        """The streamed update; with ``loss``, guarded as the resident
+        one: the deselect runs on the device copies fetched for the
+        update, before they are written back to the host (reference
+        ``hybrid.py:172-175``), so a bad step streams nothing twice."""
         opt = self.opt
         self._axis_sums()
         grads = self._reduced_grads()
         self._clip(opt._grad_clip, grads)
+        ok = None if loss is None else self.verdict(loss, grads)
         for g in range(min(self.depth, len(self.groups))):
             if g not in self._fetched:
                 self._fetch(g)
@@ -210,14 +217,15 @@ class _OffloadUpdate(_ShardedUpdate):
                     else self._view(i)
                 st = {k: bufs[(k, i)][1] for k in self.states[i]} \
                     if self.offload_optimizer else self.states[i]
-                opt._update_param(target, grads[i], st, lr, step_no,
-                                  opt._lr_ratio(p), opt._decoupled_wd(p))
+                select_update(opt, target, grads[i], st, lr, step_no,
+                              opt._lr_ratio(p), opt._decoupled_wd(p), ok)
                 if ("m", i) in bufs:
                     p.data.copy_(target)
             nxt = g + self.depth
             if nxt < len(self.groups) and nxt not in self._fetched:
                 self._fetch(nxt)
             self._write_back(g, bufs)
+        return ok
 
     # -- checkpoint pieces, ledger, sync -----------------------------------
     def _stored(self, i: int) -> torch.Tensor:

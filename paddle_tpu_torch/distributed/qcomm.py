@@ -30,7 +30,8 @@ every rank runs them on its own tensors over its ``dp`` process group
 - ``dp_quantized_value_and_grads``: a loss and its gradients on this
   rank's batch slice, the gradients reduced by the quantized ring;
 - ``dp_zero_step``: the ZeRO-1/2 flat-slab update of both trainers, on
-  the f32 or the int8 ring, with an f32, bf16 or int8 return.
+  the f32 or the int8 ring, with an f32, bf16 or int8 return, and the
+  bad-step guard's verdict on the reduced chunk.
 
 Counted result bytes of the int8 all-reduce (``profiler.instrument``):
 ``(N-1)/N·T + T`` int8 bytes plus ``4·T/block`` f32 scale bytes a hop
@@ -165,7 +166,9 @@ def dp_zero_step(mesh, axis_size: int, block: int, grad_comm: str,
                                                                  torch.Tensor],
                  lr, step_no: int, plr, wd, *,
                  clip_norm: Optional[float] = None,
-                 guard: bool = False) -> None:
+                 guard: bool = False,
+                 loss: Optional[torch.Tensor] = None
+                 ) -> Optional[torch.Tensor]:
     """The ZeRO-1/2 flat-slab update over the ``dp`` group (the body of
     the reference's ``dp_zero_step``, run by each rank after its own
     backward):
@@ -188,12 +191,17 @@ def dp_zero_step(mesh, axis_size: int, block: int, grad_comm: str,
        'bf16' cast for transport, 'int8' the quantized gather) and
        written into ``params`` in place.
 
-    ``flat_state`` is updated in place. ``guard`` (the bad-step verdict)
-    is ROADMAP queue 1 item 8b."""
-    if guard:
-        raise NotImplementedError(
-            "guard_bad_steps is not ported yet: ROADMAP queue 1 item 8b "
-            "(resilience)")
+    ``flat_state`` is updated in place. ``guard=True`` (the bad-step
+    guard; ``loss`` is the step's dp-mean loss) takes the verdict on the
+    reduced chunk after the clip and the loss, agreed as a MIN over
+    ``dp`` (reference ``qcomm.py:474-478``), and returns it as a device
+    bool: on a bad step the moments and the master keep their values and
+    every parameter reverts to its input bits (after the gather, so a NaN
+    step's compressed payload is discarded, never applied). On the int8
+    ring a NaN or Inf survives the quantizer through its block's scale
+    (``amax / 127`` is NaN or Inf, and the dequantized chunk, codes times
+    scale, is NaN whatever a NaN's int8 code was), and the verdict reads
+    the dequantized chunk, never the codes. Returns None unguarded."""
     n = int(axis_size)
     sizes = [p.numel() for p in params]
     total = sum(sizes)
@@ -213,11 +221,19 @@ def dp_zero_step(mesh, axis_size: int, block: int, grad_comm: str,
         gn = torch.sqrt(gsq)
         g_c = g_c * torch.where(gn > clip_norm, clip_norm / gn,
                                 torch.ones_like(gn))
+    ok = None
+    if guard:
+        ok_local = torch.isfinite(loss.detach().float()).reshape(()) & \
+            torch.isfinite(g_c).all()
+        ok = _reduced(ok_local.to(torch.int32), ReduceOp.MIN,
+                      mesh.group("dp")).bool()
     r = mesh.axis_index("dp")
     if "master" in flat_state:
         p_c = flat_state["master"]
     else:
         p_c = _flat_chunk(params, r, chunk, chunk * n)
+    old = {k: v.clone() for k, v in flat_state.items()} \
+        if ok is not None else None
     moments = {k: v for k, v in flat_state.items() if k != "master"}
     update_fn(p_c, g_c, moments, lr, step_no, plr, wd)
     if param_comm == "int8":
@@ -227,9 +243,15 @@ def dp_zero_step(mesh, axis_size: int, block: int, grad_comm: str,
                                if param_comm == "bf16" else torch.float32)
     off = 0
     with torch.no_grad():
+        if ok is not None:
+            for k, v in flat_state.items():
+                v.copy_(torch.where(ok, v, old[k]))
         for p, sz in zip(params, sizes):
-            p.copy_(full[off:off + sz].view(p.shape))
+            new = full[off:off + sz].view(p.shape)
+            p.copy_(new if ok is None
+                    else torch.where(ok, new.to(p.dtype), p))
             off += sz
+    return ok
 
 
 #: symmetric int8 range of every payload (round half to even, as the

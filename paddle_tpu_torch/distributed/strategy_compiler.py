@@ -246,6 +246,25 @@ def make_param_update(opt):
     return upd
 
 
+def select_update(opt, p, g, s: dict, lr, step_no, plr, wd, ok) -> None:
+    """``opt._update_param`` of ``p`` and its state ``s`` in place; with a
+    verdict ``ok`` (a device bool, the bad-step guard) the update is
+    computed on copies and kept only where ``ok``: on a bad step ``p``
+    and every state stay bit for bit as they were (the reference's
+    ``jnp.where(ok, new, old)``), on a good one they take the update's
+    values exactly. No host sync."""
+    if ok is None:
+        opt._update_param(p, g, s, lr, step_no, plr, wd)
+        return
+    new_p = p.detach().clone()
+    new_s = {k: v.clone() if torch.is_tensor(v) else v for k, v in s.items()}
+    opt._update_param(new_p, g, new_s, lr, step_no, plr, wd)
+    p.copy_(torch.where(ok, new_p, p))
+    for k, v in s.items():
+        if torch.is_tensor(v):
+            v.copy_(torch.where(ok, new_s[k], v))
+
+
 #: the reference's name for the ZeRO slab's update (``qcomm.dp_zero_step``):
 #: the same rule on the owned flat slice, with ``plr``/``wd`` numbers or
 #: vectors laid out like the flat buffer; exact, as ``_update`` is
@@ -558,33 +577,57 @@ class _ShardedUpdate:
         for g, sc in zip(gs, scales):
             _scale_(g, sc)
 
+    def verdict(self, loss: torch.Tensor, grads) -> torch.Tensor:
+        """The bad-step guard's verdict (reference ``hybrid.py:1071-1080``):
+        the loss and every clipped gradient this rank holds finite, as a
+        device bool, agreed over the mesh. A rank sees only its part (its
+        tp shard, pp stage, sp chunk, experts, dp slice), so the verdict
+        is a MIN over every axis of the mesh: no rank keeps an update
+        that another skips. ``isfinite`` a gradient, not a squared norm,
+        so that a huge but finite gradient cannot overflow the check."""
+        ok = torch.isfinite(loss.detach().float()).reshape(())
+        for g in grads:
+            if g is not None:
+                ok = ok & torch.isfinite(g).all()
+        flag = ok.to(torch.int32)
+        shape = self.mesh.shape if self.mesh is not None else {}
+        for axis, n in shape.items():
+            if n > 1:
+                flag = _reduced(flag, ReduceOp.MIN, self.mesh.group(axis))
+        return flag.bool()
+
     @torch.no_grad()
-    def update(self, lr: float, step_no: int) -> None:
+    def update(self, lr: float, step_no: int,
+               loss: Optional[torch.Tensor] = None
+               ) -> Optional[torch.Tensor]:
         """Reduce, clip, update and regather: the rest of a step after
-        the backward."""
+        the backward. With the step's ``loss`` given, the guarded update:
+        it returns the mesh-agreed verdict (a device bool) and keeps the
+        update only where it is true (``select_update``)."""
         opt = self.opt
         if self.manual:
             clip = opt._grad_clip
-            _qcomm.dp_zero_step(
+            return _qcomm.dp_zero_step(
                 self.mesh, self.dp, self.block, self.grad_comm,
                 self.param_comm,
                 make_flat_update(opt), self.params,
                 [self._grad(p) for p in self.params], self.slab, lr,
                 step_no, self.plr, self.wd,
                 clip_norm=float(clip.clip_norm) if clip is not None
-                else None)
-            return
+                else None, guard=loss is not None, loss=loss)
         self._axis_sums()
         grads = self._reduced_grads()
         self._clip(opt._grad_clip, grads)
+        ok = None if loss is None else self.verdict(loss, grads)
         for i, p in enumerate(self.params):
             if not p.requires_grad or grads[i] is None:
                 continue
-            opt._update_param(self._view(i), grads[i], self.states[i], lr,
-                              step_no, opt._lr_ratio(p),
-                              opt._decoupled_wd(p))
+            select_update(opt, self._view(i), grads[i], self.states[i], lr,
+                          step_no, opt._lr_ratio(p), opt._decoupled_wd(p),
+                          ok)
             if self.sdim[i] is not None and self.shards[i] is None:
                 p.data.copy_(self._gather_dp(self._view(i), self.sdim[i]))
+        return ok
 
     # -- checkpoint pieces -----------------------------------------------
     def _stored(self, i: int) -> torch.Tensor:

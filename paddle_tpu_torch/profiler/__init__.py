@@ -44,8 +44,20 @@ recorders, counted at the port's collective wrappers) and the cross-rank
 reduction (``summary(aggregate=True)``). Since the serving mesh (ROADMAP
 queue 1 item 8a): clock agreement (``disttrace.ClockSync``; the agreed
 offset and the adopted consensus epochs ride every sink line, frame and
-flight dump). Not yet here: live telemetry and the watchdog hooks (item
-8b).
+flight dump). Since resilience (item 8b): the live mesh telemetry plane
+(``live.py``: ``LiveAggregator`` tails every rank's frames, merges their
+sketches, tracks staleness with lease corroboration and the board's
+membership, writes ``mesh_status.json``, ``mesh_status.prom`` and
+``mesh_status_history.jsonl`` and fires ``AlertRule`` rules, each firing an
+``alert`` event, a sink flush with reason ``alert`` and, the first time,
+a flight dump; its viewer is ``python -m paddle_tpu_torch.profiler.live
+ROOT``), and the watchdog's hooks: ``resilience.StepWatchdog`` dumps
+``live_spans``/``scope_summary`` and the flight recorder and flushes the
+sink with reason ``watchdog``; the runner's rollbacks emit ``rollback``
+events and flush with reason ``rollback``. ``live`` is imported at its
+first use (``profiler.LiveAggregator`` or ``from paddle_tpu_torch.
+profiler import live``), so the viewer runs as ``-m`` without a second
+copy of the module.
 """
 from __future__ import annotations
 
@@ -94,8 +106,20 @@ __all__ = [
     "program_inventory",
     "trace_capture", "TraceWindow", "last_trace_summary",
     "trace_id", "clock_state", "set_clock_state",
-    "QuantileSketch",
+    "QuantileSketch", "LiveAggregator", "AlertRule", "default_rules",
 ]
+
+#: the live plane's names, imported from ``live.py`` at their first use
+_LIVE = ("LiveAggregator", "AlertRule", "default_rules")
+
+
+def __getattr__(name):
+    if name == "live" or name in _LIVE:
+        import importlib
+
+        live = importlib.import_module(".live", __name__)
+        return live if name == "live" else getattr(live, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def enable(trace_dir=None, reset: bool = True) -> None:

@@ -49,9 +49,13 @@ __all__ = [
 #: an admission cycle), ``verify`` (the first verify tick carrying the
 #: request's drafts, once a cycle) and ``accept`` (every speculating
 #: verify tick, ``accepted``/``drafted``): at most one a verify tick.
-#: The other kinds belong to paths the reference has and the port does
-#: not yet (handoff, the mesh's control plane, alerts, rollback); they
-#: are listed so a log read by both packages names the same kinds. A
+#: The other kinds are the reference's too: the handoff and the mesh's
+#: control plane (``serving/disagg.py``, ``distributed/consensus.py``),
+#: ``rollback`` (the resilient runner: ``bad_cursors``, or ``mesh_abort``
+#: with ``participants``/``missing``), ``alert`` (``profiler/live.py``:
+#: ``rule``, ``state``, ``value``, ``threshold``, and ``rank`` for a
+#: per-rank rule) and the watchdog's ``watchdog_fire`` (``step``,
+#: ``elapsed_s``); a log read by both packages names the same kinds. A
 #: request submitted with a trace id stamps it as ``trace`` on each of
 #: its events.
 EVENT_KINDS = (

@@ -26,7 +26,10 @@ trainer at dp = 2), ``qring`` (the int8 ring of ``qcomm`` on 2 or 4
 ranks) and ``ckpt`` (sharded checkpoints of plain pieces). A ``hybrid``
 case may name ``"trainer": "compile"`` (``compile_train_step``) and
 ``"ckpt": true``: its ``device_state`` after the steps is saved under
-``<out_dir>/ckpt/<name>``.
+``<out_dir>/ckpt/<name>``; ``"guard_bad_steps": true`` with ``"poison":
+{"steps": [...], "rank": r}`` injects a NaN on rank r alone before those
+steps and records each step's verdict and whether the poisoned steps
+left every piece of the state's bytes as they were.
 """
 import json
 import os
@@ -556,6 +559,16 @@ def job_tp_rng_clip(inp, rank, arrays, values):
     M.set_mesh(None)
 
 
+def _state_bits(tr):
+    """Every piece of the trainer's ``device_state`` as its raw bytes."""
+    import torch
+
+    from paddle_tpu_torch.utils.tree import flatten
+
+    return [t.data.detach().contiguous().reshape(-1).view(torch.uint8)
+            .clone() for _, t in flatten(tr.device_state())]
+
+
 def _trainer_case(inp, case, rank, arrays, values):
     """One trainer case: build, train ``steps`` steps on the global batch,
     record losses, the first step's collectives, the ledger and the
@@ -595,7 +608,7 @@ def _trainer_case(inp, case, rank, arrays, values):
         keys += ("param_dtype", "moment_dtype", "remat_policy", "n_micro",
                  "v_virtual", "offload_optimizer", "offload_params",
                  "offload_depth", "stream_layers", "comp_resident",
-                 "conservative_fetch")
+                 "conservative_fetch", "guard_bad_steps")
         tr = GPTHybridTrainer(net, opt, s, m,
                               **{k: case[k] for k in keys if k in case})
     values[f"{name}.zero_manual"] = tr.zero_manual
@@ -616,16 +629,31 @@ def _trainer_case(inp, case, rank, arrays, values):
         for n, t in zip(tr._names, tr._upd.leaves()):
             arrays[f"{name}.grad.{n}"] = t.grad.float().numpy().copy()
         tr._upd.zero_grad()
-    losses = []
+    losses, oks = [], []
+    # {"steps": [...], "rank": r}: a NaN injected on rank r alone before
+    # each of those steps (the guard's chaos sequence)
+    poison = case.get("poison") or {}
     for i, tok in enumerate(inp["steps_tok"]):
         tok = torch.from_numpy(tok[:case.get("batch")]).long()
+        bad = i in poison.get("steps", ())
+        if bad:
+            before = _state_bits(tr)
+            if rank == poison["rank"]:
+                tr.inject_fault_scale(float("nan"))
         if i == 0:
             with instrument.count_collectives() as cc:
                 losses.append(float(tr.step(tok)))
             values[f"{name}.stats"] = instrument.collective_stats(cc)
         else:
             losses.append(float(tr.step(tok)))
+        if case.get("guard_bad_steps"):
+            oks.append(tr.last_step_ok)
+        if bad:
+            after = _state_bits(tr)
+            values[f"{name}.kept.{i}"] = len(before) == len(after) and all(
+                torch.equal(a, b) for a, b in zip(before, after))
     values[f"{name}.losses"] = losses
+    values[f"{name}.oks"] = oks
     values[f"{name}.ledger"] = tr.memory_ledger()
     values[f"{name}.traces"] = recompile.trace_counts().get(tr._prof_site)
     values[f"{name}.numel"] = sum(p.numel() for p in net.parameters()

@@ -135,3 +135,37 @@ def assert_params(got, want, state0, g0, atol=PARAM_ATOL, prefix=""):
 def foreign_free(res):
     for _, values in res:
         assert values["foreign_modules"] == [], values["foreign_modules"]
+
+
+#: the guard's chaos sequence: a NaN injected before these steps of
+#: ``tokens()`` (the resilience tests poison one rank of the port's mesh)
+POISON_STEPS = (1,)
+
+
+def jax_guarded(axes, zero=0, poison=POISON_STEPS, seed=3, clip=CLIP,
+                cfg=None, **kw):
+    """The JAX GPTHybridTrainer with ``guard_bad_steps`` at ``axes`` and
+    ZeRO ``zero`` over ``tokens()``, ``inject_fault_scale(nan)`` before
+    each step in ``poison``: (initial params, losses, verdicts, final
+    params)."""
+    net, state0 = ref_state(seed, cfg)
+    opt = paddle.optimizer.AdamW(
+        LR, parameters=net.parameters(), weight_decay=0.01,
+        grad_clip=None if clip is None
+        else paddle.nn.ClipGradByGlobalNorm(clip))
+    s = DistributedStrategy()
+    if zero:
+        s.sharding = True
+        s.sharding_configs = {"sharding_stage": zero}
+    tr = GPTHybridTrainer(net, opt, s, jax_mesh(axes),
+                          guard_bad_steps=True, **kw)
+    losses, oks = [], []
+    for i, t in enumerate(tokens()):
+        if i in poison:
+            tr.inject_fault_scale(float("nan"))
+        losses.append(float(tr.step(t)))
+        oks.append(tr.last_step_ok)
+    net = tr.sync_to_layer()
+    final = {k: np.asarray(v._value, np.float32)
+             for k, v in net.state_dict().items()}
+    return state0, losses, oks, final

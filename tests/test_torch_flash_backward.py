@@ -27,6 +27,17 @@ from paddle_tpu_torch.ops import flash_attention as tfa
 TOL = dict(rtol=3e-5, atol=3e-5)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the test workers share the machine's cores,
+    and this file's f64 emulations are the suite's heaviest host work
+    (oversubscribed, each case took minutes)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _inputs(seed, b, sq, sk, h, d):
     r = np.random.RandomState(seed)
     q = r.randn(b, sq, h, d).astype(np.float32)

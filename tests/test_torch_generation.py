@@ -23,6 +23,16 @@ from paddle_tpu_torch.profiler import registry
 from paddle_tpu_torch.utils import LRUCache
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the test workers share the machine's cores
+    (oversubscribed, this file's cases took several times longer)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def nets():
     """gpt_tiny at initializer_range 0.2: greedy decode is context

@@ -42,6 +42,16 @@ from paddle_tpu_torch.serving.paged_cache import PagePool
 REPO = Path(__file__).resolve().parent.parent
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the test workers share the machine's cores
+    (oversubscribed, this file's cases took several times longer)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_pools_equal(got, ref, what=""):
     """int8 pools equal; a difference is reported with its place and
     held to <= 1 LSB on <= 0.1% of the elements."""

@@ -9,6 +9,7 @@ against those by chip_smoke.py.
 """
 import numpy as np
 import pytest
+import torch
 
 import paddle_tpu as paddle
 from paddle_tpu.inference.serving import ServingPredictor as JPredictor
@@ -21,6 +22,16 @@ from paddle_tpu_torch.models import gpt as tgpt
 from paddle_tpu_torch.profiler import registry
 from paddle_tpu_torch.serving import ServingConfig, ServingEngine
 from paddle_tpu_torch.serving import paged_cache as tpc
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the test workers share the machine's cores
+    (oversubscribed, this file's cases took several times longer)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

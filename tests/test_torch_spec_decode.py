@@ -38,6 +38,16 @@ from paddle_tpu_torch.serving.sched import SpecKController as TSpecK
 TOL = dict(rtol=1e-4, atol=1e-4)     # test_torch_gpt.py's: f32, 4 layers
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    """One intra-op thread: the test workers share the machine's cores
+    (oversubscribed, this file's cases took several times longer)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _copy(jnet, tcfg):
     net = tgpt.GPT(tcfg, device="cpu")
     tgpt.load_reference_state(

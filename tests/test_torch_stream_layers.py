@@ -23,7 +23,8 @@ JAX trainer with the same knobs (the oracle: ``tests/test_stream_layers
   whose moments and masters fall to ``offload_depth`` layers' worth.
 - Validation: ``stream_layers`` needs an offload knob and ``v_virtual``
   1, ``offload_params`` needs amp, int8 gradients refuse
-  ``offload_params``, and ``guard_bad_steps`` still names item 8.
+  ``offload_params``, and ``guard_bad_steps`` refuses ``offload_params``
+  and ``stream_layers`` with the reference's ``ValueError``.
 """
 import functools
 import importlib.util
@@ -242,8 +243,16 @@ def test_validation():
         _make(stream_layers=True, v_virtual=2, **OFF)
     with pytest.raises(NotImplementedError, match="offload_params"):
         _make(offload_params=True, dp_grad_comm="int8")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        _make(offload_optimizer=True, guard_bad_steps=True)
+    # the guard composes with offload_optimizer alone (ROADMAP queue 1
+    # item 8b); with offload_params or stream_layers it raises, as the
+    # reference's does
+    assert _make(offload_optimizer=True, guard_bad_steps=True) \
+        .guard_bad_steps
+    with pytest.raises(ValueError, match="guard_bad_steps"):
+        _make(guard_bad_steps=True, **OFF)
+    with pytest.raises(ValueError, match="guard_bad_steps"):
+        _make(offload_optimizer=True, stream_layers=True,
+              guard_bad_steps=True)
 
     from paddle_tpu_torch.distributed.fleet import DistributedStrategy
     from paddle_tpu_torch.distributed.hybrid import HybridPipelineTrainer

@@ -301,8 +301,16 @@ def test_eager_loop_matches_trainer():
 def test_trainer_refuses_what_it_does_not_run():
     net = tgpt.GPT(tgpt.GPTConfig(**CFG), device="cpu")
     opt = AdamW(1e-3, parameters=net.named_parameters())
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        HybridPipelineTrainer(net, opt, guard_bad_steps=True)
+    # the bad-step guard runs since ROADMAP queue 1 item 8b
+    # (tests/test_torch_resilience.py); with host-offloaded masters it
+    # raises the reference's ValueError
+    assert HybridPipelineTrainer(net, opt, guard_bad_steps=True) \
+        .guard_bad_steps
+    amp = DistributedStrategy()
+    amp.amp = True
+    with pytest.raises(ValueError, match="guard_bad_steps"):
+        HybridPipelineTrainer(net, opt, amp, offload_params=True,
+                              guard_bad_steps=True)
     # the offload knobs and int8 gradients run since item 7d
     # (tests/test_torch_stream_layers.py, tests/test_torch_qcomm.py); what
     # the reference refuses of them, the port refuses with its errors
