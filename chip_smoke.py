@@ -64,10 +64,11 @@ CUDA kernel from paddle_tpu_torch/csrc/ into paddle_tpu_torch/_build/.
    flash forward, the ragged chunk rows), in the decode rows or in the
    mma.sync backward kernels.
 The serving phases (2, 3 and 6–11) run one GPT at gpt3_1_3b's widths cut
-to SERVE_LAYERS = 8 of its 24 layers (random weights from a seed, f32),
+to SERVE_LAYERS = 4 of its 24 layers (random weights from a seed, f32),
 which keeps the whole script inside its time limit as phases are added
 (12 until the resume phase and run (g) took the default phases to 1098 s
-of the 1200 s limit).
+of the 1200 s limit; 8 until the bert phase took them to 1188 s on a
+slow host).
 
 2. model phase — GPT.forward at gpt3_1_3b width (SERVE_LAYERS layers,
    random weights from a seed, f32) over 2 prompts of 1024 tokens (flash
@@ -487,9 +488,40 @@ of the 1200 s limit).
    grace), with the fire's latency. The lives start while this process
    runs (s2); the checkpoints live in a temporary directory the phase
    deletes.
+19. bert phase — BERT and ERNIE pretraining (paddle_tpu_torch/models/
+   bert.py, ernie.py). First the two flash kernels the path runs, at the
+   BERT micro-batch's attention BERT_ATTN [16, 512, 12, 64] bf16, not
+   causal (S 512 is one tile: the merged single-tile backward), each
+   held element-wise to its plain version as in the kernel phase and
+   timed beside its bound and SDPA. Then a check, uncounted: BERT-base's
+   widths at BERT_CHECK_LAYERS layers in bf16 on one micro-batch, the
+   loss and every gradient through the kernels against the plain
+   attention functions bound in (grad_phase's swap), each against the f32
+   model's on the plain functions: the kernels' error (max |dg| / max |g|
+   a parameter) at most the plain version's + GRAD_BF16_TOL. Then the
+   main path: BertConfig(vocab_size=32768, max_seq_len=512,
+   max_predictions=80) (h 768, 12 layers, 12 heads, FFN 3072: the
+   reference benchmark's cell, bench.py:926-936) from a seed, amp,
+   compile_train_step with accumulate_steps BERT_ACCUMULATE over a global
+   BERT_BATCH [64, 512] (bench.py's _mlm_batch, built here), AdamW
+   BERT_LR, BERT_STEPS steps on that one batch: the loss finite and
+   falling, the warm step median and spread (steps 3 on), tokens/s, MFU
+   (tokens/s x BertConfig.flops_per_token(512) / 989e12: the formula
+   counts neither the non-causal attention's second half nor the
+   gathered head), peak allocated memory, and the launches of the
+   forward and the merged backward each warm step (one each a layer a
+   micro-batch). Last, the ernie path: two ranks on this card over gloo
+   (chip_smoke.py --bert-worker DIR, through the port's launcher) train
+   ErnieConfig.ernie_base() widths (h 768, 12 heads, vocab 18000, type
+   vocab 4) at ERNIE_LAYERS layers with max_predictions 80 on a global
+   ERNIE_BATCH [8, 512] at dp 2 under ZeRO 3, recompute, amp and AdamW
+   with ClipGradByGlobalNorm(1.0), ERNIE_STEPS steps: the losses finite
+   and equal on both ranks, every block parameter held as a dp slice,
+   sync_to_layer + gather_reference_state giving every parameter at its
+   whole shape, and each rank's step ms (gloo's host ring, not NCCL).
 
-Every launch counter is set to 0 just before each of phases 2-11, 17
-and 18 and read just after it (the dist, hybrid, parallel and disagg
+Every launch counter is set to 0 just before each of phases 2-11 and
+17-19 and read just after it (the dist, hybrid, parallel and disagg
 phases' ranks and the resilience phase's lives do the same around their
 parts, and each phase sums its ranks' or lives' counts): those are
 the main paths' launches,
@@ -515,7 +547,9 @@ forward, dQ and dK/dV, none of the f32 route's; the plan path: no kernel
 at all; the plan_check path: the wgmma forward, dQ and dK/dV; the disagg
 path, summed over its runs' ranks: both ragged row kinds, not the int8
 path; the resilience path, this process and its lives: the wgmma
-forward, dQ and dK/dV, none of the f32 route's). Prints
+forward, dQ and dK/dV, none of the f32 route's; the bert path and the
+ernie path, on each rank: the wgmma forward and merged backward, not the
+dQ and dK/dV pair and none of the f32 route's). Prints
 JSON lines per case, then {"kernels": [...]}, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -543,6 +577,8 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
                                                    # 2 ranks a run
     python3 chip_smoke.py --phases resilience      # the guard, rollback,
                                                    # preemption, watchdog
+    python3 chip_smoke.py --phases bert            # BERT-base pretraining,
+                                                   # ERNIE at ZeRO 3
 """
 from __future__ import annotations
 
@@ -575,9 +611,9 @@ BF16_TOL = 2e-2  # one bf16 ulp at |o| <~ 1, f32 accumulation on both sides
 # bf16 before P.V, as the reference does (a relative 2^-9 on each weight,
 # averaged over the keys: far inside one output ulp).
 MODEL_TOL = 1e-3  # 24 layers of f32 in different reduction orders
-#: the serving phases' model: gpt3_1_3b's widths, 8 of its 24 layers
+#: the serving phases' model: gpt3_1_3b's widths, 4 of its 24 layers
 #: (the tolerances below were set at 24 and hold at fewer)
-SERVE_LAYERS = 8
+SERVE_LAYERS = 4
 BWD_F32_TOL = 3e-5  # the reference's own gradient tolerance (f32)
 # The mma.sync backward kernels (f32, and bf16 at D 96) keep P and dS in
 # f32 (3xTF32 products: f32 accuracy), so bf16 inputs are held to the
@@ -3249,6 +3285,22 @@ PLAIN_ATTENTION = {"_flash_simt": "_plain_fwd", "_flash_tc": "_plain_fwd",
                    "_bwd_dkv_tc": "_plain_bwd_dkv"}
 
 
+@contextlib.contextmanager
+def plain_attention():
+    """Inside, the flash wrappers' kernel entries are bound to their plain
+    versions (in this process only; the package has no such switch)."""
+    from paddle_tpu_torch.ops import flash_attention as fa
+
+    saved = {k: getattr(fa, k) for k in PLAIN_ATTENTION}
+    try:
+        for k, v in PLAIN_ATTENTION.items():
+            setattr(fa, k, getattr(fa, v))
+        yield
+    finally:
+        for k, v in saved.items():
+            setattr(fa, k, v)
+
+
 def grad_phase(dev, layers=2, seq=2048, seed=5, dtype="float32"):
     """GPT.loss at gpt3_1_3b width and `layers` deep, one sequence of
     `seq` tokens (2048: 2 x 2 tiles, the dQ + dK/dV pair; 1024: one tile,
@@ -3263,7 +3315,6 @@ def grad_phase(dev, layers=2, seq=2048, seed=5, dtype="float32"):
 
     from paddle_tpu_torch.core import rng as _rng
     from paddle_tpu_torch.models.gpt import GPT, GPTConfig
-    from paddle_tpu_torch.ops import flash_attention as fa
 
     cfg = GPTConfig.gpt3_1_3b()
     cfg.num_layers = layers
@@ -3281,14 +3332,8 @@ def grad_phase(dev, layers=2, seq=2048, seed=5, dtype="float32"):
                              for n, p in model.named_parameters()}
 
     loss, got = grads()
-    saved = {k: getattr(fa, k) for k in PLAIN_ATTENTION}
-    try:
-        for k, v in PLAIN_ATTENTION.items():
-            setattr(fa, k, getattr(fa, v))
+    with plain_attention():
         ref_loss, ref = grads()
-    finally:
-        for k, v in saved.items():
-            setattr(fa, k, v)
     worst, worst_name = 0.0, None
     for n, g in got.items():
         if not bool(torch.isfinite(g).all()):
@@ -7859,6 +7904,310 @@ def plan_allocator_check(dev, planned) -> dict:
     return row
 
 
+# ---------------------------------------------------------------------------
+# bert phase: BERT-base pretraining on one rank, ERNIE at ZeRO 3 on two
+# ---------------------------------------------------------------------------
+#: the reference benchmark's BERT-base cell (bench.py:926-936): a global
+#: batch of 64 x 512 in 4 micro-batches of 16, one AdamW update a step
+BERT_BATCH = (64, 512)
+BERT_ACCUMULATE = 4
+BERT_LR = 1e-4
+#: steps on one batch; the median is over steps 3 on (the first two warm
+#: the allocator and cuBLAS)
+BERT_STEPS = 8
+#: the micro-batch's attention, [B, S, H, D]
+BERT_ATTN = (BERT_BATCH[0] // BERT_ACCUMULATE, BERT_BATCH[1], 12, 64)
+#: the plain-attention check's depth (BERT-base widths)
+BERT_CHECK_LAYERS = 2
+#: the ernie path: ernie_base's widths at its full depth, dp 2
+ERNIE_LAYERS = 12
+ERNIE_BATCH = (8, 512)
+ERNIE_STEPS = 4
+ERNIE_LR = 1e-4
+#: the main paths of the bert phase (the kernels line counts their
+#: launches on its BERT-shape rows)
+BERT_PATHS = ("bert", "ernie")
+
+
+def mlm_batch(vocab, batch, seq, seed=0):
+    """The reference benchmark's synthetic MLM batch (bench.py's
+    _mlm_batch): (tokens, token_type_ids (zeros), mlm_labels (15% of the
+    positions, -100 elsewhere), nsp_labels), int32 numpy."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(0, vocab, (batch, seq)).astype(np.int32)
+    tt = np.zeros((batch, seq), np.int32)
+    mlm = np.where(rng.rand(batch, seq) < 0.15,
+                   rng.randint(0, vocab, (batch, seq)), -100).astype(np.int32)
+    nsp = rng.randint(0, 2, (batch,)).astype(np.int32)
+    return tokens, tt, mlm, nsp
+
+
+def bert_base_config(**kw):
+    from paddle_tpu_torch.models.bert import BertConfig
+
+    return BertConfig(vocab_size=32768, max_seq_len=512, max_predictions=80,
+                      **kw)
+
+
+def bert_check(dev, seed=3):
+    """BERT-base's widths at BERT_CHECK_LAYERS layers, one micro-batch of
+    the main path's shape: every parameter's gradient of the bf16 model
+    through the kernels and through the plain attention functions bound
+    in (grad_phase's swap), each against the f32 model's on the plain
+    functions. The kernels' error may exceed the plain version's by
+    GRAD_BF16_TOL at most (max |dg| / max |g| per parameter), and the
+    losses agree within it. Not the two bf16 runs against each other:
+    the token-type row's gradient is a sum over all 8192 positions that
+    cancels to a few bf16 ulps of its terms, so the two bf16 runs differ
+    there by most of the row (0.70 of it on the card), whichever is the
+    closer to the f32 one."""
+    import torch
+
+    from paddle_tpu_torch.core import rng as _rng
+    from paddle_tpu_torch.models.bert import BertForPretraining
+
+    cfg = bert_base_config(num_layers=BERT_CHECK_LAYERS)
+    _rng.seed(seed)
+    model = BertForPretraining(cfg, device=dev).to(torch.bfloat16)
+    batch = [torch.from_numpy(a).to(dev) for a in mlm_batch(
+        cfg.vocab_size, BERT_ATTN[0], BERT_ATTN[1], seed=seed)]
+
+    def grads():
+        for p in model.parameters():
+            p.grad = None
+        loss = model.loss(*batch)
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.float()
+                                      for n, p in model.named_parameters()}
+
+    loss, got = grads()
+    with plain_attention():
+        plain_loss, ref = grads()
+        model.float()
+        f32_loss, truth = grads()
+
+    def rel(g, n):
+        return float((g - truth[n]).abs().max()) / max(
+            float(truth[n].abs().max()), 1e-30)
+
+    worst, worst_name, excess, excess_name = 0.0, None, -1.0, None
+    for n, g in got.items():
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"bert check: {n} gradient not finite")
+        e, e_plain = rel(g, n), rel(ref[n], n)
+        if e > worst:
+            worst, worst_name = e, n
+        if e - e_plain > excess:
+            excess, excess_name = e - e_plain, n
+    row = {"phase": "bert_check", "layers": BERT_CHECK_LAYERS,
+           "batch": list(BERT_ATTN[:2]), "dtype": "bfloat16", "loss": loss,
+           "plain_loss": plain_loss, "f32_loss": f32_loss,
+           "max_rel_grad_err": worst, "worst_param": worst_name,
+           "max_excess_over_plain": excess, "excess_param": excess_name,
+           "tolerance": GRAD_BF16_TOL,
+           "tolerance_reason": "max |dg| / max |g| per parameter against "
+           "the f32 model's: the kernels' error at most the plain "
+           "version's + the tolerance (bf16 model: 8 significant bits; the "
+           "plain attention rounds its logits to bf16, the kernels keep "
+           "them in f32)"}
+    emit(row)
+    if excess > GRAD_BF16_TOL or \
+            abs(loss - f32_loss) > GRAD_BF16_TOL * abs(f32_loss):
+        raise AssertionError(f"bert check: {excess_name} err beyond the "
+                             f"plain version's by {excess}, loss {loss} vs "
+                             f"{f32_loss}")
+    return row
+
+
+def bert_phase(dev, steps=BERT_STEPS, batch=BERT_BATCH, layers=None,
+               seed=11):
+    """The check (uncounted), then BERT-base through compile_train_step
+    (amp, accumulate_steps BERT_ACCUMULATE, AdamW BERT_LR) on one fixed
+    global batch: the loss finite and falling, the warm step median and
+    spread, tokens/s, MFU, peak memory, and each warm step's launches of
+    the forward and the merged backward (one each a layer a
+    micro-batch)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch.core import rng as _rng
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.strategy_compiler import \
+        compile_train_step
+    from paddle_tpu_torch.models.bert import BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+
+    with uncounted():
+        check = bert_check(dev)
+    _free_memory(dev)
+    cfg = bert_base_config()
+    if layers:
+        cfg.num_layers = layers
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    _rng.seed(seed)
+    model = BertForPretraining(cfg, device=dev)
+    opt = AdamW(BERT_LR, parameters=model.named_parameters())
+    s = DistributedStrategy()
+    s.amp = True
+    tr = compile_train_step(model, opt, s, accumulate_steps=BERT_ACCUMULATE)
+    data = [torch.from_numpy(a).to(dev)
+            for a in mlm_batch(cfg.vocab_size, *batch)]
+    losses, times, launches = [], [], []
+    for _ in range(steps):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        c0 = read_counts()[0]
+        t0 = time.perf_counter()
+        loss = float(tr.step(*data))             # syncs on the loss
+        times.append((time.perf_counter() - t0) * 1e3)
+        c1 = read_counts()[0]
+        launches.append({k: c1[k] - c0[k] for k in ("flash_tc",
+                                                    "bwd_single_tc")})
+        losses.append(loss)
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"bert phase: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"bert phase: loss did not fall: {losses}")
+    per_step = cfg.num_layers * BERT_ACCUMULATE
+    if dev.type == "cuda" and any(
+            n != per_step for c in launches[2:] for n in c.values()):
+        raise AssertionError(f"bert phase: launches a step {launches}, "
+                             f"want {per_step} of each")
+    warm = times[2:]
+    step_ms = float(np.median(warm))
+    tok_s = batch[0] * batch[1] / (step_ms / 1e3)
+    row = {"phase": "bert", "config": "BertConfig(vocab_size=32768, "
+           "max_seq_len=512, max_predictions=80)",
+           "params": cfg.num_params(), "layers": cfg.num_layers,
+           "batch": list(batch), "accumulate_steps": BERT_ACCUMULATE,
+           "amp": True, "optimizer": f"AdamW({BERT_LR})",
+           "losses": losses, "step_ms": times,
+           "step_ms_median_3_to_8": step_ms,
+           "step_ms_spread": [min(warm), max(warm)],
+           "tokens_per_s": tok_s,
+           "mfu": tok_s * cfg.flops_per_token(batch[1])
+           / PEAK_FLOPS["bfloat16"],
+           "mfu_basis": "tokens/s x BertConfig.flops_per_token(512) / "
+                        "989e12 (6N + 12 L h S: not the non-causal "
+                        "attention's second half, not the heads)",
+           "max_memory_allocated_gib": (
+               torch.cuda.max_memory_allocated(dev) / 2 ** 30
+               if dev.type == "cuda" else None),
+           "launches_by_step": launches,
+           "check_excess_over_plain": check["max_excess_over_plain"]}
+    emit(row)
+    PHASE_RESULTS["bert"] = row
+    return row
+
+
+def ernie_run(dev, layers=ERNIE_LAYERS, batch=ERNIE_BATCH,
+              steps=ERNIE_STEPS, seed=13):
+    """This rank's part of the ernie path: ernie_base's widths at
+    ``layers`` layers under ZeRO 3, recompute, amp and the global-norm
+    clip at dp 2; returns its losses, step ms, launches and checks."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.core import rng as _rng
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import parallel_layers as PL
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.hybrid import HybridPipelineTrainer
+    from paddle_tpu_torch.framework.lazy import LazyGuard
+    from paddle_tpu_torch.models.ernie import (ErnieConfig,
+                                               ErnieForPretraining)
+    from paddle_tpu_torch.optimizer import AdamW
+
+    cfg = ErnieConfig.ernie_base()
+    cfg.num_layers, cfg.max_predictions = layers, 80
+    with LazyGuard():
+        shapes = {n: tuple(p.shape) for n, p in
+                  ErnieForPretraining(cfg, device=dev).named_parameters()}
+    mesh = M.init_mesh({"dp": 2})
+    _rng.seed(seed)
+    model = ErnieForPretraining(cfg, device=dev)
+    opt = AdamW(ERNIE_LR, parameters=model.named_parameters(),
+                grad_clip=nn.ClipGradByGlobalNorm(1.0))
+    s = DistributedStrategy()
+    s.amp = s.recompute = s.sharding = True
+    s.sharding_configs = {"sharding_stage": 3}
+    tr = HybridPipelineTrainer(model, opt, s, mesh)
+    blocks = [n for n in tr._names if n.startswith("bert.blocks.")]
+    sliced = {n for n, sh in zip(tr._names, tr._upd.shards)
+              if sh is not None}
+    data = [torch.from_numpy(a).to(dev)
+            for a in mlm_batch(cfg.vocab_size, *batch, seed=seed)]
+    set_counts()
+    losses, times = [], []
+    for _ in range(steps):
+        _sync(dev)
+        t0 = time.perf_counter()
+        losses.append(float(tr.step(*data)))
+        times.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()[0]
+    tr.sync_to_layer()
+    full = PL.gather_reference_state(model)
+    M.set_mesh(None)
+    return {"layers": layers, "batch": list(batch), "losses": losses,
+            "step_ms": times, "launches": counts,
+            "blocks": len(blocks),
+            "blocks_sliced": sum(n in sliced for n in blocks),
+            "whole": sorted(full) == sorted(shapes) and all(
+                tuple(a.shape) == shapes[n] for n, a in full.items()),
+            "finite": bool(np.isfinite(losses).all())}
+
+
+def bert_worker(out_dir) -> int:
+    """One rank of the bert phase's ernie path (started by the
+    launcher)."""
+    import torch
+
+    import paddle_tpu_torch.distributed as dist
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    env = dist.init_parallel_env()
+    rank, dev = env.rank, env.device
+    assert env.world_size == 2 and dev == torch.device("cuda", 0), \
+        (env.world_size, dev)
+    res = {"rank": rank, **ernie_run(dev)}
+    res["foreign_modules"] = sorted(
+        m for m in sys.modules if m == "jax" or m.startswith("jax.")
+        or m == "paddle_tpu" or m.startswith("paddle_tpu."))
+    assert not res["foreign_modules"], res["foreign_modules"]
+    dist.barrier()
+    with open(os.path.join(out_dir, f"bert.{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def ernie_phase(dev, timeout=400):
+    """Launch the ernie path's two ranks on this card over gloo; check
+    their results. Returns (the ranks' summed launch counts, {})."""
+    res, wall = _run_ranks(dev, "--bert-worker", "bert", timeout)
+    counts = {k: sum(r["launches"][k] for r in res) for k in LAUNCH_COUNTERS}
+    for r in res:
+        emit({"ernie": "rank", **r})
+        if not (r["finite"] and r["whole"]
+                and r["blocks_sliced"] == r["blocks"] > 0):
+            raise AssertionError(f"ernie rank {r['rank']}: finite "
+                                 f"{r['finite']}, whole {r['whole']}, "
+                                 f"{r['blocks_sliced']} of {r['blocks']} "
+                                 "block parameters sliced over dp")
+    if res[0]["losses"] != res[1]["losses"]:
+        raise AssertionError(f"ernie: the ranks' losses differ: "
+                             f"{[r['losses'] for r in res]}")
+    emit({"ernie": "phase", "seconds": wall, "losses": res[0]["losses"],
+          "step_ms": [r["step_ms"] for r in res],
+          "step_ms_basis": "two ranks on one card over gloo (its host "
+                           "ring, not NCCL)", "launches": counts})
+    return counts, {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20,
@@ -7866,16 +8215,19 @@ def main(argv=None) -> int:
     ap.add_argument("--phases", default="kernels,model,engine,spec,kvint8,"
                                         "generate,observe,handoff,disagg,"
                                         "deploy,grad,train,dist,hybrid,"
-                                        "parallel,resume,resilience,plan",
+                                        "parallel,resume,resilience,plan,"
+                                        "bert",
                     help="comma-separated subset of kernels, model, engine, "
                          "spec, kvint8, generate, observe, handoff, disagg, "
                          "deploy, grad, train, dist, hybrid, parallel, "
-                         "resume, resilience, plan (debugging)")
+                         "resume, resilience, plan, bert (debugging)")
     ap.add_argument("--dist-worker", metavar="OUT_DIR", default=None,
                     help="run one rank of the dist phase (the phase starts "
                          "two through the port's launcher)")
     ap.add_argument("--hybrid-worker", metavar="OUT_DIR", default=None,
                     help="run one rank of the hybrid phase")
+    ap.add_argument("--bert-worker", metavar="OUT_DIR", default=None,
+                    help="run one rank of the bert phase's ernie path")
     ap.add_argument("--parallel-worker", metavar="OUT_DIR", default=None,
                     help="run one rank of the parallel phase")
     ap.add_argument("--resume-worker", metavar="OUT_DIR", default=None,
@@ -7916,6 +8268,8 @@ def main(argv=None) -> int:
         return dist_worker(args.dist_worker)
     if args.hybrid_worker:
         return hybrid_worker(args.hybrid_worker)
+    if args.bert_worker:
+        return bert_worker(args.bert_worker)
     if args.parallel_worker:
         return parallel_worker(args.parallel_worker)
     if args.resume_worker:
@@ -8278,6 +8632,21 @@ def main(argv=None) -> int:
         drive("plan_check", ("flash_tc", "bwd_dq_tc", "bwd_dkv_tc"),
               plan_allocator_check, dev, planned, forbid=f32_kernels)
         del planned
+    if "bert" in phases:
+        # the two kernels of BERT's path at its micro-batch's attention
+        # (D 64, 12 heads, S 512 non-causal: one tile, the merged
+        # backward), then BERT-base on this rank and ERNIE at ZeRO 3 on
+        # two: the wgmma forward and merged backward, never the pair
+        b, s_, h, d = BERT_ATTN
+        kern["flash_tc_bert"] = kernel_phase_flash(
+            dev, args.iters, [((b, s_, h, d), False, "bfloat16")])[0]
+        kern["bwd_single_tc_bert"] = kernel_phase_flash_bwd(
+            dev, args.iters, [((b, s_, s_, h, d), False, "bfloat16", False,
+                               False)])[0]
+        drive("bert", ("flash_tc", "bwd_single_tc"), bert_phase, dev,
+              forbid=f32_kernels + ("bwd_dq_tc", "bwd_dkv_tc"))
+        drive("ernie", ("flash_tc", "bwd_single_tc"), ernie_phase, dev,
+              forbid=f32_kernels + ("bwd_dq_tc", "bwd_dkv_tc"), remote=True)
     emit({"launches_by_path": by_path,
           "chunk_row_launches_by_t": by_t_path})
 
@@ -8347,7 +8716,18 @@ def main(argv=None) -> int:
                  "paddle_tpu/ops/int8_matmul.py:50"),
                 ("int8_quantize", "int8_quantize",
                  "paddle_tpu_torch/csrc/int8_matmul.cu",
-                 "paddle_tpu/ops/int8_matmul.py:50")):
+                 "paddle_tpu/ops/int8_matmul.py:50"),
+                # the same kernels at BERT's micro-batch attention: their
+                # launches on the bert and ernie paths
+                ("flash_tc_bert", "flash_attention_fwd_tc_bert",
+                 "paddle_tpu_torch/csrc/flash_attention_fwd_tc.cu",
+                 "paddle_tpu/ops/flash_attention.py:118"),
+                ("bwd_single_tc_bert",
+                 "flash_attention_bwd_single_tile_tc_bert",
+                 "paddle_tpu_torch/csrc/flash_attention_bwd_single_tile_tc.cu",
+                 "paddle_tpu/ops/flash_attention.py:313")):
+            if key not in kern:          # a phase subset without its row
+                continue
             r = kern[key]
             extra = ({"bound_f32_fma_ms": r["bound_f32_fma_ms"]}
                      if "bound_f32_fma_ms" in r else {})
@@ -8363,8 +8743,12 @@ def main(argv=None) -> int:
             elif key.endswith("_ring"):
                 by_p = {"parallel_sp2": PARALLEL_RUN_COUNTS.get(
                     "sp2", {}).get(key[:-len("_ring")], 0)}
+            elif key.endswith("_bert"):
+                by_p = {p: n[key[:-len("_bert")]]
+                        for p, n in by_path.items() if p in BERT_PATHS}
             else:
-                by_p = {p: n[key] for p, n in by_path.items()}
+                by_p = {p: n[key] for p, n in by_path.items()
+                        if p not in BERT_PATHS}
             line.append({"name": name, "route": "cuda", "source": src,
                          "replaces": replaces, "launches": sum(by_p.values()),
                          "launches_by_path": by_p,

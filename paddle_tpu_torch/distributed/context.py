@@ -21,6 +21,13 @@ there is never a partially manual region and a kernel needs no nesting.
 MoE layer routes its tokens (``distributed/moe.py``). Under GSPMD the
 reference's router sees the global micro-batch; a rank of the port sees
 its slice, so the trainers name the axes the batch was cut over.
+
+``loss_totals_scope`` is the port's own too: the global denominators of
+a loss head whose terms are means over different counts (BERT's masked
+positions and its rows; ``models/bert.py``). The reference's head runs
+once over the global batch; a rank of the port runs it over its
+micro-batch's dp slice, so the trainers hand the head the global batch's
+counts and it returns its share of the global loss.
 """
 from __future__ import annotations
 
@@ -33,7 +40,8 @@ __all__ = ["sequence_parallel_scope", "manual_sequence_parallel_scope",
            "current_sequence_parallel", "pipeline_auto_axes_scope",
            "current_pipeline_auto_axes", "in_partial_manual_region",
            "nested_kernel_shard", "moe_routing_scope",
-           "current_moe_routing"]
+           "current_moe_routing", "loss_totals_scope",
+           "current_loss_totals"]
 
 _SP: Optional[Tuple[Mesh, str, bool]] = None
 
@@ -132,3 +140,26 @@ def moe_routing_scope(mesh: Optional[Mesh], axes=("dp",)):
 
 def current_moe_routing() -> Optional[Tuple[Mesh, Tuple[str, ...]]]:
     return _MOE_ROUTE
+
+
+_LOSS_TOTALS: Optional[tuple] = None
+
+
+@contextlib.contextmanager
+def loss_totals_scope(totals: Optional[tuple]):
+    """Within this scope a loss head that reads it divides each term's sum
+    by the matching entry of ``totals`` (the global batch's counts, from
+    the model's ``pipeline_loss_totals``), instead of by its own count:
+    its value is its share of the global loss. None: each head takes its
+    own means."""
+    global _LOSS_TOTALS
+    prev = _LOSS_TOTALS
+    _LOSS_TOTALS = totals
+    try:
+        yield
+    finally:
+        _LOSS_TOTALS = prev
+
+
+def current_loss_totals() -> Optional[tuple]:
+    return _LOSS_TOTALS

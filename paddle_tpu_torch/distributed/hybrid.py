@@ -21,7 +21,13 @@ cuts dim 1 itself (``context.sequence_parallel_scope``, opened here).
 A micro-batch's loss is weighed by its share of the GLOBAL batch's
 non-ignored targets (``pipeline_label_count``; equal shares without
 it), times dp, so that the dp mean of the ranks' losses and gradients
-is the reference's one head over the full output.
+is the reference's one head over the full output. A head whose loss is
+several means over different counts (BERT's masked positions and rows)
+cannot be weighed by one count: its model declares
+``pipeline_loss_totals(*batch)``, the global batch's counts, and each
+forward runs inside ``context.loss_totals_scope`` of them, where the
+head returns its part's share of the global loss; the trainer then
+weighs each part by dp alone.
 
 pp = 1: each micro-batch runs stem -> blocks -> head and its backward,
 and the gradients accumulate. pp > 1: each ``pp`` rank holds only its
@@ -667,61 +673,93 @@ class HybridPipelineTrainer:
 
         return tuple(cut(b) for b in batch), dp
 
-    def _scopes(self, dp_cut: bool):
-        """The sp scope (the model's ring attention and sequence shard)
-        and the MoE routing group: the ranks the micro-batch was cut over
-        (dp where ``dp_cut``, and sp unless the pipeline makes it
-        manual)."""
+    def _scopes(self, dp_cut: bool, totals=None):
+        """The sp scope (the model's ring attention and sequence shard),
+        the MoE routing group: the ranks the micro-batch was cut over (dp
+        where ``dp_cut``, and sp unless the pipeline makes it manual),
+        and the head's global counts (``totals``)."""
         axes = (("dp",) if dp_cut else ()) + \
             (("sp",) if self.pp == 1 else ())
         stack = contextlib.ExitStack()
         stack.enter_context(_dctx.sequence_parallel_scope(self.mesh))
         stack.enter_context(_dctx.moe_routing_scope(self.mesh, axes))
+        stack.enter_context(_dctx.loss_totals_scope(totals))
         return stack
 
     def _loss(self, batch, backward: bool,
               fault: Optional[float] = None) -> torch.Tensor:
         """The step's loss (the dp mean) over this rank's micro-batches
         (each weighed by its share of the global batch's targets, times
-        dp where the batch was cut over dp), with the backward when
-        ``backward``; the f32 loss, not waited for. The dropout masks are
-        keyed by the port's seed, the step and the micro-batch
-        (``core.rng.fold_in``). ``fault`` (``inject_fault_scale``)
-        multiplies each loss before its backward: a NaN poisons the loss
-        and, through the cotangent, every gradient."""
+        dp where the batch was cut over dp; under the model's
+        ``pipeline_loss_totals`` the head gives the share and the weight
+        is dp), with the backward when ``backward``; the f32 loss, not
+        waited for. The dropout masks are keyed by the port's seed, the
+        step and the micro-batch (``core.rng.fold_in``). ``fault``
+        (``inject_fault_scale``) multiplies each loss before its
+        backward: a NaN poisons the loss and, through the cotangent,
+        every gradient. Under pp the returned value is the product of
+        every stage's fault (one scalar all-reduce over ``pp`` a guarded
+        step), so that a NaN on any stage is every stage's loss, as the
+        reference's one global loss is."""
         # a plan reads no device value: its micro-batches weigh equally
-        counter = None if _plan.planning() else \
+        planning = _plan.planning()
+        totals_of = None if planning else \
+            getattr(self.model, "pipeline_loss_totals", None)
+        totals = totals_of(*batch) if totals_of is not None else None
+        counter = None if planning or totals is not None else \
             getattr(self.model, "pipeline_label_count", None)
         total = counter(*batch) if counter is not None else None
         local, share = self._local(batch)
+
+        def weight(part, equal):
+            """``part``'s weight: dp where the head gives its share of the
+            global loss (``totals``), else its share of the global
+            targets times dp, else ``equal``."""
+            if totals is not None:
+                return float(share)
+            return counter(*part) * share / total if total else equal
+
         bsz = local[0].shape[0]
         if bsz % self.n_micro:
             raise ValueError(f"batch {bsz} is not divisible by n_micro "
                              f"{self.n_micro}")
         step_key = _rng.fold_in(self._key, self._step)
-        with self._scopes(share > 1):
+        with self._scopes(share > 1, totals):
             if self.pp > 1:
-                w = counter(*local) * share / total if total else 1.0
-                loss = self._pipeline_loss(local, step_key, w)
-                if fault is not None:
-                    loss = loss * fault
+                loss = self._pipeline_loss(local, step_key,
+                                           weight(local, 1.0))
+                scaled = loss if fault is None else loss * fault
                 if backward:
-                    loss.backward()
-                return _dp_mean(loss.detach(), self.mesh)
+                    scaled.backward()
+                value = scaled.detach()
+                if self.guard_bad_steps:
+                    value = loss.detach() * self._pp_fault(fault,
+                                                           value.device)
+                return _dp_mean(value, self.mesh)
             micro = [torch.split(b, bsz // self.n_micro) for b in local]
             loss = torch.zeros((), dtype=torch.float32,
                                device=local[0].device)
             for i in range(self.n_micro):
                 mb = tuple(m[i] for m in micro)
-                w = counter(*mb) * share / total if total \
-                    else 1.0 / self.n_micro
-                part = self._forward_loss(mb, _rng.fold_in(step_key, i), w)
+                part = self._forward_loss(mb, _rng.fold_in(step_key, i),
+                                          weight(mb, 1.0 / self.n_micro))
                 if fault is not None:
                     part = part * fault
                 if backward:
                     part.backward()
                 loss = loss + part.detach()
         return _dp_mean(loss, self.mesh)
+
+    def _pp_fault(self, fault: Optional[float], dev) -> torch.Tensor:
+        """The product over ``pp`` of every stage's injected fault scale
+        (1 where none): a guarded step's returned loss is the loss times
+        it on every stage."""
+        from .collective import ReduceOp
+        from .primitives import _reduced
+
+        mine = 1.0 if fault is None else float(fault)
+        return _reduced(torch.tensor(mine, dtype=torch.float32, device=dev),
+                        ReduceOp.PROD, self.mesh.group("pp"))
 
     def _step_body(self, batch) -> torch.Tensor:
         """Forward, backward, clip and update of one step; the f32 loss,

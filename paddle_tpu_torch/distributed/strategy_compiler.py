@@ -66,7 +66,7 @@ from ..profiler import registry as _preg
 from ..profiler import trace as _ptrace
 from . import qcomm as _qcomm
 from .collective import ReduceOp
-from .context import moe_routing_scope
+from .context import loss_totals_scope, moe_routing_scope
 from .fleet.distributed_strategy import DistributedStrategy
 from .mesh import Mesh, P, create_mesh
 from .parallel import bucket_mean
@@ -881,9 +881,13 @@ class HybridParallelTrainer:
     each, and ONE update on the mean gradient. The loss is the mean of
     the micro-batches' dp-mean losses. ``data_spec``: per batch leaf
     ``P('dp')`` (sliced over dp) or ``P()`` (whole on every rank); the
-    default is ``qcomm.dp_batch_specs``. ``donate`` is accepted: an eager
-    step holds no second copy to donate. A layer built under ``LazyGuard``
-    makes an abstract trainer, which plans (``aot_lower``,
+    default is ``qcomm.dp_batch_specs``. A layer that declares
+    ``pipeline_loss_totals`` (a loss of several means, BERT's) runs each
+    micro-batch's dp slice inside ``context.loss_totals_scope`` of that
+    micro-batch's counts, so that the dp mean is the micro-batch's loss
+    as the reference's one head over it gives. ``donate`` is accepted:
+    an eager step holds no second copy to donate. A layer built under
+    ``LazyGuard`` makes an abstract trainer, which plans (``aot_lower``,
     ``aot_compile``, ``memory_analysis``: ``plan.py``) and does not step,
     as ``hybrid.HybridPipelineTrainer``'s. ``dp_grad_comm="int8"`` reduces
     the dp gradients on the quantized ring (pure dp, ZeRO <= 2; with
@@ -985,13 +989,24 @@ class HybridParallelTrainer:
                   for b in batch]
         dev = batch[0].device
         loss = torch.zeros((), dtype=torch.float32, device=dev)
+        from .plan import planning
+
+        totals_of = None if self.loss_fn is not None or planning() else \
+            getattr(self.layer, "pipeline_loss_totals", None)
         for i in range(k):
             whole = tuple(m[i] for m in micros)
             mb = self._local(whole)
             # an MoE layer routes over the micro-batch's dp slices
-            axes = ("dp",) if mb[0].shape[:1] != whole[0].shape[:1] else ()
-            with moe_routing_scope(self.mesh, axes):
-                part = self._forward_loss(mb) / k
+            cut = mb[0].shape[:1] != whole[0].shape[:1]
+            axes = ("dp",) if cut else ()
+            # a head of several means: its dp slice's share of the
+            # micro-batch's loss (hybrid.py), times dp for the dp mean
+            totals = totals_of(*whole) if totals_of is not None else None
+            w = self.mesh.shape.get("dp", 1) if totals is not None and cut \
+                else 1
+            with moe_routing_scope(self.mesh, axes), \
+                    loss_totals_scope(totals):
+                part = self._forward_loss(mb) * w / k
                 if backward:
                     part.backward()
             loss = loss + part.detach()

@@ -6,9 +6,9 @@ rate (a float or an ``lr.LRScheduler``), clips the gradients, adds an L2
 ``weight_decay`` to the gradient when one is set, and updates each
 parameter with ``_update`` in f32 math. The result is written back in
 place at the dtypes the parameter and its state are stored in (the
-trainer's ``param_dtype`` / ``moment_dtype`` cast-back rule). ``Adam``
-and ``AdamW`` are ported; ``torch.optim`` is not used, because its decay
-ordering differs from the reference's ``_decayed_update``.
+trainer's ``param_dtype`` / ``moment_dtype`` cast-back rule). ``SGD``,
+``Adam`` and ``AdamW`` are ported; ``torch.optim`` is not used, because
+its decay ordering differs from the reference's ``_decayed_update``.
 
 ``parameters`` takes tensors or ``(name, tensor)`` pairs, as
 ``model.named_parameters()`` gives them. ``AdamW``'s
@@ -16,7 +16,7 @@ ordering differs from the reference's ``_decayed_update``.
 carry none of their own); ``lr_ratio(param)`` scales the learning rate
 per parameter.
 
-Not ported here: SGD, Momentum, Adamax, Adagrad, Adadelta, RMSProp, Lamb,
+Not ported here: Momentum, Adamax, Adagrad, Adadelta, RMSProp, Lamb,
 Lars, ``GradientMerge`` and L1/L2 regularizer objects (ROADMAP queue 1
 item 9).
 """
@@ -29,7 +29,7 @@ import torch
 from .clip import apply_grad_clip
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
 
 
 def _long_tail(what):
@@ -182,6 +182,20 @@ class Optimizer:
                 self._accumulators[id(p)] = s
 
     set_dict = set_state_dict
+
+
+class SGD(Optimizer):
+    """reference: operators/optimizers/sgd_op.cc. No state: ``p - lr·g``
+    with the step rounded to the parameter's dtype before the
+    subtraction, as the reference's ``p - (lr * g).astype(p.dtype)``."""
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+
+    def _update(self, p, g, state, lr, step, wd=0.0):
+        p.copy_(p - (lr * g).to(p.dtype))
 
 
 class Adam(Optimizer):

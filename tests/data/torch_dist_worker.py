@@ -22,7 +22,10 @@ shard's heads, logits, loss and gradients, the state's round trip),
 amp, recompute, storage dtypes; 2 or 4 ranks), ``compile``
 (``compile_train_step`` with a ``loss_fn`` and gradient merge) and
 ``dp_pair`` (the eager DataParallel + fleet optimizer pair against the
-trainer at dp = 2), ``qring`` (the int8 ring of ``qcomm`` on 2 or 4
+trainer at dp = 2), ``bert`` (the trainer cases of ``inputs.npz`` on
+BERT or ERNIE: mesh, ZeRO stage, amp, recompute, SGD or AdamW, the
+global two-term loss or equal shares, ``compile_train_step``),
+``qring`` (the int8 ring of ``qcomm`` on 2 or 4
 ranks) and ``ckpt`` (sharded checkpoints of plain pieces). A ``hybrid``
 case may name ``"trainer": "compile"`` (``compile_train_step``) and
 ``"ckpt": true``: its ``device_state`` after the steps is saved under
@@ -676,6 +679,99 @@ def _trainer_case(inp, case, rank, arrays, values):
         for n, a in full_m.items():
             arrays[f"{name}.moment1.{n}"] = a
     M.set_mesh(None)
+
+
+def _bert_sharded(inp, cfg, axes):
+    """A port BertForPretraining or ErnieForPretraining of ``cfg`` (its
+    ``kind``) built under a mesh of ``axes``, loaded with this rank's
+    shard of the reference state; (mesh, model)."""
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import parallel_layers as PL
+    from paddle_tpu_torch.models import bert as tbert
+    from paddle_tpu_torch.models import ernie as ternie
+    from paddle_tpu_torch.models import gpt as tgpt
+
+    kw = dict(cfg)
+    kind = kw.pop("kind")
+    config_cls, model_cls = (
+        (tbert.BertConfig, tbert.BertForPretraining) if kind == "bert"
+        else (ternie.ErnieConfig, ternie.ErnieForPretraining))
+    m = M.init_mesh(axes)
+    net = model_cls(config_cls(**kw), device="cpu")
+    tgpt.load_reference_state(net, PL.shard_reference_state(
+        net, _state(inp), m))
+    return m, net
+
+
+def _bert_case(inp, case, rank, arrays, values):
+    """One BERT/ERNIE trainer case: build at ``mesh``, train ``steps``
+    steps on the global batches of ``inputs.npz`` (from batch ``first``
+    on), record the losses,
+    which of the trainer's block parameters hold dp slices, and the
+    gathered state (rank 0; after ``sync_to_layer``). ``equal_shares``
+    hides the model's ``pipeline_loss_totals`` from the trainer."""
+    import torch
+
+    from paddle_tpu_torch import nn as tnn
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed import parallel_layers as PL
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.hybrid import HybridPipelineTrainer
+    from paddle_tpu_torch.distributed.strategy_compiler import \
+        compile_train_step
+    from paddle_tpu_torch.optimizer import SGD, AdamW
+
+    name = case["name"]
+    cfg = dict(json.loads(str(inp["cfg"])), **case.get("cfg", {}))
+    m, net = _bert_sharded(inp, cfg, case["mesh"])
+    if case.get("equal_shares"):
+        net.pipeline_loss_totals = None
+    clip = case.get("clip")
+    gc = None if clip is None else tnn.ClipGradByGlobalNorm(clip)
+    if case.get("opt", "sgd") == "sgd":
+        opt = SGD(case.get("lr", 0.0), parameters=net.named_parameters(),
+                  grad_clip=gc)
+    else:
+        opt = AdamW(case["lr"], parameters=net.named_parameters(),
+                    grad_clip=gc)
+    s = DistributedStrategy()
+    s.amp, s.recompute = case.get("amp", False), case.get("recompute",
+                                                          False)
+    if case.get("zero"):
+        s.sharding = True
+        s.sharding_configs = {"sharding_stage": case["zero"]}
+    if case.get("trainer") == "compile":
+        tr = compile_train_step(net, opt, s, m,
+                                accumulate_steps=case.get("accumulate", 1))
+        names = tr.param_names
+    else:
+        tr = HybridPipelineTrainer(net, opt, s, m,
+                                   n_micro=case.get("n_micro"))
+        names = tr._names
+    values[f"{name}.zero_manual"] = tr.zero_manual
+    values[f"{name}.dp_sliced"] = sorted(
+        n for n, sh in zip(names, tr._upd.shards) if sh is not None)
+    losses = []
+    first = case.get("first", 0)
+    for i in range(first, first + case.get("steps", 1)):
+        batch = [torch.from_numpy(inp[k][i]).long() for k in
+                 ("steps_tok", "steps_tt", "steps_mlm", "steps_nsp")]
+        losses.append(float(tr.step(*batch)))
+    values[f"{name}.losses"] = losses
+    tr.sync_to_layer()
+    full = PL.gather_reference_state(net)
+    state = _state(inp)
+    values[f"{name}.whole"] = sorted(full) == sorted(state) and all(
+        full[n].shape == state[n].shape for n in state)
+    if rank == 0:
+        for n, a in full.items():
+            arrays[f"{name}.param.{n}"] = a
+    M.set_mesh(None)
+
+
+def job_bert(inp, rank, arrays, values):
+    for case in json.loads(str(inp["cases"])):
+        _bert_case(inp, case, rank, arrays, values)
 
 
 def job_hybrid(inp, rank, arrays, values):

@@ -169,3 +169,99 @@ def jax_guarded(axes, zero=0, poison=POISON_STEPS, seed=3, clip=CLIP,
     final = {k: np.asarray(v._value, np.float32)
              for k, v in net.state_dict().items()}
     return state0, losses, oks, final
+
+
+# ---------------------------------------------------------------------------
+# BERT and ERNIE (tests/test_torch_hybrid_bert*.py, test_torch_hybrid_ernie)
+# ---------------------------------------------------------------------------
+#: bert_tiny's and ernie_tiny's widths (the reference's ``models/bert.py``
+#: and ``models/ernie.py``): 4 heads, vocab 128
+BERT_CFG = dict(kind="bert", vocab_size=128, hidden_size=64, num_layers=2,
+                num_heads=4, max_seq_len=64, type_vocab_size=2)
+ERNIE_CFG = dict(kind="ernie", vocab_size=128, hidden_size=64, num_layers=4,
+                 num_heads=4, max_seq_len=64)
+
+
+def _bert_classes(kind):
+    from paddle_tpu.models import bert as jbert
+    from paddle_tpu.models import ernie as jernie
+
+    return ((jbert.BertConfig, jbert.BertForPretraining) if kind == "bert"
+            else (jernie.ErnieConfig, jernie.ErnieForPretraining))
+
+
+def bert_ref_state(cfg, seed):
+    """The reference BertForPretraining / ErnieForPretraining of ``cfg``
+    from ``seed``: (model, {name: array})."""
+    kw = dict(cfg)
+    config_cls, model_cls = _bert_classes(kw.pop("kind"))
+    paddle.seed(seed)
+    net = model_cls(config_cls(**kw))
+    return net, {k: np.asarray(v._value) for k, v in
+                 net.state_dict().items()}
+
+
+def bert_batches(n, b, s, vocab=128, seed=0, rate=0.15):
+    """``n`` global batches ``(tokens, token_type_ids, mlm_labels,
+    nsp_labels)`` as ``tests/test_hybrid_models.py`` draws them: arrays
+    ``[n, b, s]`` (three) and ``[n, b]``."""
+    rng = np.random.RandomState(seed)
+    tok = rng.randint(0, vocab, (n, b, s)).astype(np.int32)
+    tt = rng.randint(0, 2, (n, b, s)).astype(np.int32)
+    mlm = np.where(rng.rand(n, b, s) < rate,
+                   rng.randint(0, vocab, (n, b, s)), -100).astype(np.int32)
+    nsp = rng.randint(0, 2, (n, b)).astype(np.int32)
+    return tok, tt, mlm, nsp
+
+
+def bert_inputs(state, cfg, batches, **extra):
+    """The ``inputs.npz`` dict of a ``bert`` worker job."""
+    d = {f"state.{k}": v for k, v in state.items()}
+    d.update(cfg=json.dumps(cfg), steps_tok=batches[0], steps_tt=batches[1],
+             steps_mlm=batches[2], steps_nsp=batches[3])
+    d.update(extra)
+    return d
+
+
+def bert_eager_loss(net, batch):
+    """The reference model's ``loss`` on one global batch."""
+    return float(net.loss(*[paddle.to_tensor(a) for a in batch]).numpy())
+
+
+def jax_bert_train(cfg, axes, batches, steps, seed, opt="sgd", lr=0.0,
+                   clip=None, zero=0, amp=False, recompute=False,
+                   n_micro=None, trainer="hybrid", accumulate=1):
+    """The JAX trainer (``HybridPipelineTrainer``, or ``compile_train_step``
+    with ``accumulate`` micro-batches) on the reference model of ``cfg``
+    at ``axes`` over the first ``steps`` of ``batches``: (initial params,
+    losses, final params)."""
+    from paddle_tpu.distributed.hybrid import HybridPipelineTrainer
+    from paddle_tpu.distributed.strategy_compiler import compile_train_step
+
+    net, state0 = bert_ref_state(cfg, seed)
+    gc = None if clip is None else paddle.nn.ClipGradByGlobalNorm(clip)
+    if opt == "sgd":
+        o = paddle.optimizer.SGD(lr, parameters=net.parameters(),
+                                 grad_clip=gc)
+    else:
+        o = paddle.optimizer.AdamW(lr, parameters=net.parameters(),
+                                   grad_clip=gc)
+    s = DistributedStrategy()
+    s.amp, s.recompute = amp, recompute
+    if zero:
+        s.sharding = True
+        s.sharding_configs = {"sharding_stage": zero}
+    # the JAX trainers place the batch on "dp": the mesh always has it
+    axes = dict({"dp": 1}, **axes)
+    if trainer == "compile":
+        tr = compile_train_step(net, o, s, jax_mesh(axes),
+                                accumulate_steps=accumulate)
+    else:
+        tr = HybridPipelineTrainer(net, o, s, jax_mesh(axes),
+                                   n_micro=n_micro)
+    losses = [float(tr.step(*[b[i] for b in batches]))
+              for i in range(steps)]
+    net = tr.sync_to_layer()
+    final = {k: np.asarray(v._value, np.float32)
+             for k, v in net.state_dict().items()}
+    return state0, losses, final

@@ -193,7 +193,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     optimizer, distributed.hybrid and distributed.fleet, the int8
     slice's ops.int8_matmul and quantization and the profiler's trace,
     events, sink, recompile and disttrace and the serving engine, page
-    cache and scheduler (legacy mode, handoff, chains) among them — and
+    cache and scheduler (legacy mode, handoff, chains) and the BERT and
+    ERNIE models among them — and
     chip_smoke.py load in a fresh interpreter without pulling in jax or
     paddle_tpu."""
     code = (
@@ -202,6 +203,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'paddle_tpu_torch.')]\n"
         "need = {'paddle_tpu_torch.ops.fused_ce', "
+        "'paddle_tpu_torch.models.bert', 'paddle_tpu_torch.models.ernie', "
         "'paddle_tpu_torch.optimizer', 'paddle_tpu_torch.optimizer.lr', "
         "'paddle_tpu_torch.optimizer.clip', "
         "'paddle_tpu_torch.distributed.hybrid', "
