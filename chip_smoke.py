@@ -255,7 +255,7 @@ slow host).
 13. hybrid phase — the strategy compiler's trainer (HybridPipelineTrainer)
    on two ranks of this card over gloo, started by the launcher as the
    dist phase's (chip_smoke.py --hybrid-worker DIR), on GPT at gpt3_1_3b
-   widths cut to DIST_LAYERS = 4 layers (two ranks' models, optimizer
+   widths cut to HYBRID_LAYERS = 2 layers (two ranks' models, optimizer
    states and a replica share the card behind gloo's host ring), 2 steps
    each of three runs, all with amp, recompute and AdamW (lr 1e-4) with
    the global-norm clip at HYBRID_CLIP on the first of its two steps:
@@ -519,9 +519,37 @@ slow host).
    and equal on both ranks, every block parameter held as a dp slice,
    sync_to_layer + gather_reference_state giving every parameter at its
    whole shape, and each rank's step ms (gloo's host ring, not NCCL).
+20. vision phase — nn and vision (paddle_tpu_torch/nn, io, metric,
+   vision; ROADMAP queue 1 item 9b). (a) tests/test_e2e_mnist.py's loop:
+   seed(33), synthetic MNIST(512), DataLoader(64, shuffle, drop_last) on
+   the card, LeNet, Adam(0.002), 3 epochs: the last loss under 0.7 of
+   the first, train accuracy through metric.Accuracy over 0.5; the eager
+   step at bench.py:152-168's shape. (b) ResNet-50 (f32, TF32 off) from
+   a seed on the card and on the CPU with the same weights, [2, 3, 224,
+   224], uncounted: train-mode logits and running statistics and
+   eval-mode logits within RESNET_CHECK_TOL. (c) bench.py:213-243:
+   resnet50(1000), Momentum(0.1), amp, compile_train_step at dp 1, one
+   [64, 3, 224, 224] batch from RandomState(0) staged on the card,
+   RESNET_WARM + RESNET_TIMED steps: every loss finite, every running
+   statistic finite and moved; the warm median step ms, images/s, peak
+   memory, one step's kernels by device_trace.class_table and the
+   update's host and device ms (the trainer's optim range, torch.profiler),
+   then profile_step_phases(iters=1, trace_window=2). (d) Int8Conv2D at
+   INT8_CONV_CASES (LeNet's conv2, K 150: mma.sync; a ResNet-50 layer1
+   3x3 at [8, 64, 56, 56], K 576: wgmma): the layer's launches (one
+   quantize pass, one product of the case's route), its output against
+   the same layer on the CPU, then the product kernel alone on the
+   layer's int8 patches against its plain version (the quantized input
+   equal, the output at INT8_MM_RTOL/ATOL), timed beside its bound and
+   torch._int_mm + the epilogue. (e) a QAT LeNet trained one epoch and
+   deployed (convert_to_int8_deploy): its accuracy within
+   INT8_LENET_ACC_TOL of the fake-quant model's, and each of its five
+   int8 layers, on the input it met in the first batch, held and timed
+   as in (d). Each int8 row of (d) and (e) joins the kernels line with
+   the launches of its own layer on the path.
 
 Every launch counter is set to 0 just before each of phases 2-11 and
-17-19 and read just after it (the dist, hybrid, parallel and disagg
+17-20 and read just after it (the dist, hybrid, parallel and disagg
 phases' ranks and the resilience phase's lives do the same around their
 parts, and each phase sums its ranks' or lives' counts): those are
 the main paths' launches,
@@ -549,7 +577,9 @@ path, summed over its runs' ranks: both ragged row kinds, not the int8
 path; the resilience path, this process and its lives: the wgmma
 forward, dQ and dK/dV, none of the f32 route's; the bert path and the
 ernie path, on each rank: the wgmma forward and merged backward, not the
-dQ and dK/dV pair and none of the f32 route's). Prints
+dQ and dK/dV pair and none of the f32 route's; the vision path: both
+int8 product routes and the quantize pass, no flash or ragged kernel).
+Prints
 JSON lines per case, then {"kernels": [...]}, the nvidia-smi line, and
 as the last line {"ok": true, "device": {...}}. Any failure raises: no phase is caught.
 Exits non-zero without a CUDA device or outside a checkout of the repo.
@@ -579,6 +609,8 @@ Exits non-zero without a CUDA device or outside a checkout of the repo.
                                                    # preemption, watchdog
     python3 chip_smoke.py --phases bert            # BERT-base pretraining,
                                                    # ERNIE at ZeRO 3
+    python3 chip_smoke.py --phases vision          # LeNet/MNIST, ResNet-50,
+                                                   # the int8 conv
 """
 from __future__ import annotations
 
@@ -5490,6 +5522,8 @@ HYBRID_LR = 1e-4
 #: (the replica check asserts it: a wrong global norm then shows as a
 #: common scale of the first moments)
 HYBRID_CLIP = 0.5
+#: the hybrid runs' depth: gpt3_1_3b's widths, 2 of its 24 layers
+HYBRID_LAYERS = 2
 #: (name, mesh, ZeRO stage, storage dtypes, global batch, trainer knobs)
 HYBRID_RUNS = (
     ("tp2_recipe", {"dp": 1, "tp": 2}, 0, "bfloat16", (2, 2048), {}),
@@ -5759,7 +5793,7 @@ def hybrid_run(dev, rank, name, axes, zero, dtype, batch, cfg=None,
     from paddle_tpu_torch.profiler import device_trace, instrument
 
     cfg = cfg or dataclasses.replace(GPTConfig.gpt3_1_3b(),
-                                     num_layers=DIST_LAYERS)
+                                     num_layers=HYBRID_LAYERS)
     toks = [torch.randint(0, cfg.vocab_size, batch,
                           generator=torch.Generator().manual_seed(40 + i)
                           ).to(dev) for i in range(2)]
@@ -7831,7 +7865,7 @@ def plan_phase(dev, timeout=600) -> dict:
         # hybrid run (a) at a planning world of 2: its collectives
         name, axes, zero, dtype, batch, kw = HYBRID_RUNS[0]
         hcfg = dataclasses.replace(GPTConfig.gpt3_1_3b(),
-                                   num_layers=DIST_LAYERS)
+                                   num_layers=HYBRID_LAYERS)
         ran = PHASE_RESULTS.get("hybrid")
         tp_rows = []
         for rank in (0, 1):
@@ -8208,6 +8242,499 @@ def ernie_phase(dev, timeout=400):
     return counts, {}
 
 
+# ---------------------------------------------------------------------------
+# phase 20: vision — LeNet/MNIST, ResNet-50 and the int8 conv
+# ---------------------------------------------------------------------------
+#: ResNet-50's train step, bench.py:213-243: batch 64 at 224², amp
+RESNET_BATCH = (64, 3, 224, 224)
+RESNET_WARM, RESNET_TIMED = 2, 10
+#: the card-against-CPU forward: f32, TF32 off; max |Δ| over max(|ref|, 1)
+#: of the logits and of each running statistic (cuDNN's and oneDNN's convs
+#: sum in other orders through 53 convs and 53 norms)
+RESNET_CHECK_SHAPE = (2, 3, 224, 224)
+RESNET_CHECK_TOL = 1e-3
+#: the int8 conv rows: (case, C, O, k, padding, x shape, route). LeNet's
+#: conv2 at the loop's batch (K = 6·5·5 = 150: mma.sync) and a ResNet-50
+#: layer1 3x3 conv (K = 64·3·3 = 576: wgmma; M 8·56·56 = 25088, N 64)
+INT8_CONV_CASES = (("lenet_conv2", 6, 16, 5, 0, (64, 6, 14, 14), "mma"),
+                   ("resnet50_layer1_3x3", 64, 64, 3, 1, (8, 64, 56, 56),
+                    "wgmma"))
+#: a QAT LeNet after convert_to_int8_deploy: accuracy within this of its
+#: fake-quant accuracy
+INT8_LENET_ACC_TOL = 0.01
+#: the int8 kernels whose vision-path launches the kernels line counts by
+#: layer, not under the kernel phase's shape
+VISION_ROWED = ("int8_matmul", "int8_matmul_wgmma", "int8_quantize")
+
+
+def _mnist_loader(dev, batch_size, shuffle, drop_last=False, n=512):
+    from paddle_tpu_torch import io
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    return io.DataLoader(MNIST(mode="train", synthetic_size=n),
+                         batch_size=batch_size, shuffle=shuffle,
+                         drop_last=drop_last, device=dev)
+
+
+def _accuracy(net, dev):
+    import torch
+
+    from paddle_tpu_torch.metric import Accuracy
+
+    net.eval()
+    acc = Accuracy()
+    with torch.no_grad():
+        for x, y in _mnist_loader(dev, 128, False):
+            acc.update(acc.compute(net(x), y))
+    return acc.accumulate()
+
+
+def lenet_run(dev, epochs=3, seed=33, bench_steps=20):
+    """tests/test_e2e_mnist.py's loop on the card: seed(33), synthetic
+    MNIST(512), DataLoader(64, shuffle, drop_last), LeNet, Adam(0.002),
+    3 epochs; the last loss under 0.7 of the first and train accuracy
+    through metric.Accuracy over 0.5. Then the eager step at bench.py:
+    152-168's shape (batch 64, Adam 1e-3), its device ms a step."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import seed as pseed
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.vision.models import LeNet
+
+    pseed(seed)
+    loader = _mnist_loader(dev, 64, True, drop_last=True)
+    net = LeNet(device=dev)
+    opt = Adam(0.002, parameters=net.parameters())
+    losses = []
+    for _ in range(epochs):
+        for x, y in loader:
+            loss = F.cross_entropy(net(x), y)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            losses.append(float(loss.detach()))
+    acc = _accuracy(net, dev)
+    if not (np.isfinite(losses).all() and losses[-1] < 0.7 * losses[0]
+            and acc > 0.5):
+        raise AssertionError(f"lenet: losses {losses[0]} -> {losses[-1]}, "
+                             f"train accuracy {acc}")
+    bench = LeNet(device=dev)
+    bopt = Adam(1e-3, parameters=bench.parameters())
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        64, 1, 28, 28).astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 10, (64,)).astype(np.int64)).to(dev)
+
+    def step():
+        loss = F.cross_entropy(bench(x), y)
+        loss.backward()
+        bopt.step()
+        bopt.clear_grad()
+
+    step_ms, host_ms = timed(step, bench_steps, dev)
+    return {"losses": losses, "first_loss": losses[0],
+            "last_loss": losses[-1], "train_accuracy": acc,
+            "eager_step_ms": step_ms, "eager_step_host_ms": host_ms,
+            "eager_images_per_s": 64 / (host_ms / 1e3),
+            "eager_step_basis": "bench.py:152-168 (batch 64, Adam 1e-3): "
+                                "the card's ms a step behind a held "
+                                "stream, and the host loop's"}
+
+
+def resnet_check(dev, seed=5):
+    """ResNet-50 (1000 classes, f32) from a seed on the card and the same
+    weights on the CPU, one [2, 3, 224, 224] batch: train mode (the
+    logits and every running statistic after the forward) and eval mode
+    (the logits), each within RESNET_CHECK_TOL of max(|CPU|, 1)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import seed as pseed
+    from paddle_tpu_torch.models.gpt import load_reference_state, \
+        state_to_numpy
+    from paddle_tpu_torch.vision.models import resnet50
+
+    pseed(seed)
+    card = resnet50(device=dev)
+    cpu = resnet50(device="cpu")
+    load_reference_state(cpu, state_to_numpy(card))
+    x = np.random.RandomState(2).randn(*RESNET_CHECK_SHAPE).astype(
+        np.float32)
+    out = {}
+    with torch.no_grad():
+        for mode in ("train", "eval"):
+            card.train(mode == "train")
+            cpu.train(mode == "train")
+            a = card(torch.from_numpy(x).to(dev)).cpu().numpy()
+            b = cpu(torch.from_numpy(x)).numpy()
+            err = float(np.abs(a - b).max() / max(np.abs(b).max(), 1.0))
+            out[f"{mode}_logits_err"] = err
+            if mode == "train":
+                cb = dict(cpu.named_buffers())
+                out["running_stats_err"] = max(
+                    float((t.cpu() - cb[n]).abs().max()
+                          / max(float(cb[n].abs().max()), 1.0))
+                    for n, t in card.named_buffers())
+    bad = {k: v for k, v in out.items() if not v <= RESNET_CHECK_TOL}
+    if bad:
+        raise AssertionError(f"resnet check: card against CPU {bad} > "
+                             f"{RESNET_CHECK_TOL}")
+    return dict(out, tol=RESNET_CHECK_TOL,
+                tol_basis="max |card - CPU| / max(|CPU|, 1), f32, TF32 off")
+
+
+def resnet_train(dev, seed=0):
+    """bench.py:213-243 on the card: resnet50(num_classes=1000),
+    Momentum(0.1), amp, compile_train_step on a dp 1 mesh, the loss
+    cross_entropy(out.float(), label), one [64, 3, 224, 224] batch from
+    RandomState(0) with labels from RandomState(1) staged on the card.
+    RESNET_WARM + RESNET_TIMED steps: every loss finite, the running
+    statistics finite and moved; the warm median step ms, images/s and
+    peak memory; one step's kernels by name (torch.profiler), split by
+    device_trace.class_table, and the update's own time (the trainer's
+    "optim" range: its host ms and the device ms of the kernels launched
+    inside it); profile_step_phases(iters=1, trace_window=2)."""
+    import numpy as np
+    import torch
+
+    from paddle_tpu_torch import seed as pseed
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.strategy_compiler import \
+        compile_train_step
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet50
+
+    _free_memory(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    pseed(seed)
+    net = resnet50(num_classes=1000, device=dev)
+    opt = Momentum(0.1, parameters=net.named_parameters())
+    s = DistributedStrategy()
+    s.amp = True
+    tr = compile_train_step(net, opt, s, loss_fn=lambda out, lbl:
+                            F.cross_entropy(out.float(), lbl))
+    x = torch.from_numpy(np.random.RandomState(0).randn(
+        *RESNET_BATCH).astype(np.float32)).to(dev)
+    y = torch.from_numpy(np.random.RandomState(1).randint(
+        0, 1000, (RESNET_BATCH[0],)).astype(np.int64)).to(dev)
+    before = {n: b.clone() for n, b in net.named_buffers()}
+    losses, times = [], []
+    for _ in range(RESNET_WARM + RESNET_TIMED):
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        losses.append(float(tr.step(x, y)))            # syncs on the loss
+        times.append((time.perf_counter() - t0) * 1e3)
+    stats = dict(net.named_buffers())
+    if not np.isfinite(losses).all() or not all(
+            bool(torch.isfinite(b).all()) for b in stats.values()) or any(
+            torch.equal(before[n], b) for n, b in stats.items()):
+        raise AssertionError(f"resnet train: losses {losses}; running "
+                             "statistics finite and moved: "
+                             f"{sorted(n for n, b in stats.items() if torch.equal(before[n], b))}")
+    step_ms = float(np.median(times[RESNET_WARM:]))
+    flops_step = 3 * 4.1e9 * RESNET_BATCH[0]
+    row = {"config": "resnet50(num_classes=1000), Momentum(0.1), amp, "
+                     "compile_train_step dp 1 (bench.py:213-243)",
+           "batch": list(RESNET_BATCH), "losses": losses,
+           "step_ms": times, "step_ms_median_warm": step_ms,
+           "images_per_s": RESNET_BATCH[0] / (step_ms / 1e3),
+           "model_tflops_per_s": flops_step / (step_ms / 1e3) / 1e12,
+           "model_flops_basis": "3 x 4.1 GFLOP a 224² image x 64 a step "
+                                "(the textbook ResNet-50 forward count)",
+           "max_memory_allocated_gib": (
+               torch.cuda.max_memory_allocated(dev) / 2 ** 30
+               if dev.type == "cuda" else None)}
+    from paddle_tpu_torch.profiler import device_trace as dt
+
+    _, kernels, optim, _ = profile_kernels(
+        dev, lambda: float(tr.step(x, y)), label="optim")
+    if dev.type == "cuda" and not (optim["count"] == 1
+                                   and optim["cpu_ms"] > 0
+                                   and optim["device_ms"] > 0):
+        raise AssertionError(f"resnet: the step's optim range {optim}")
+    row.update(step_kernels_ms=sum(
+        e.self_device_time_total for e in kernels) / 1e3,
+        step_classes=dt.class_table(
+            (e.key, e.self_device_time_total / 1e3, e.count)
+            for e in kernels),
+        top_kernels=top_kernels(kernels, 12), n_kernel_names=len(kernels),
+        optim={"host_ms": optim["cpu_ms"], "device_ms": optim["device_ms"],
+               "span_ms": optim["span_ms"],
+               "basis": "the trainer's optim range in one profiled step: "
+                        "host time inside it, and the summed device time "
+                        "of the kernels launched inside it"})
+    phases = tr.profile_step_phases(x, y, iters=1, trace_window=2)
+    summary = phases.pop("trace")
+    # optim_ms is step - (fwd + bwd), derived from single timings of a
+    # host-bound step and clamped at 0: row["optim"] measures the update
+    phases.pop("optim_ms")
+    for k in ("fwd_ms", "bwd_ms", "step_ms"):
+        if k not in phases or (dev.type == "cuda" and not phases[k] > 0):
+            raise AssertionError(f"resnet phases: {k} in {phases}")
+    row["phases_ms"] = phases
+    row["trace_window"] = {k: summary.get(k) for k in (
+        "steps", "wall_ms", "device_busy_ms", "host_gap_ms", "busy_frac",
+        "device_ops", "categories", "host_annotations")}
+    return row
+
+
+INT8_KEYS = ("int8_matmul", "int8_matmul_wgmma", "int8_quantize")
+
+
+def _int8_layer_row(dev, layer, x, case, launches, iters):
+    """One int8 layer of the vision path (Int8Conv2D or Int8Linear) on an
+    input it met there: the layer on the card against a CPU copy of it
+    (int8 outputs equal, float outputs at INT8_MM_RTOL/ATOL); then its
+    one product alone on the same operands against its plain version on
+    the card (a conv's quantized input equal to the plain quantizer's,
+    the product at INT8_MM_RTOL/ATOL), the route it took read on the
+    launch counters, timed beside its bound and torch._int_mm + the
+    epilogue where that takes the shape; and its quantize pass where it
+    made one (_int8_quantize_row). ``launches``: {kernel: count} of this
+    layer on the driven path. Every launch here is uncounted. Returns
+    the rows."""
+    import copy
+
+    import torch
+
+    from paddle_tpu_torch.ops import int8_matmul as im
+    from paddle_tpu_torch.quantization import Int8Conv2D
+
+    with uncounted(), torch.no_grad():
+        y = layer(x)
+        ref = copy.deepcopy(layer).to("cpu")(x.cpu())
+        layer_err = float((y.cpu().float() - ref.float()).abs().max())
+        ok = torch.equal(y.cpu(), ref) if y.dtype == torch.int8 else \
+            torch.allclose(y.cpu(), ref, rtol=INT8_MM_RTOL,
+                           atol=INT8_MM_ATOL)
+        if not ok:
+            raise AssertionError(f"int8 layer {case}: the layer on the card "
+                                 f"misses the CPU's by {layer_err}")
+        amax = layer._amax
+        sa = layer.act_scale.clamp_min(1e-8)
+        qs = (amax / sa).reshape(1)
+        if isinstance(layer, Int8Conv2D):
+            xf = x.contiguous()
+            a, _ = layer._im2col(im.quantize_x(xf, qs, amax))
+            wq, wq_kn = layer._mats()
+        else:
+            if layer._fuse_relu or layer._next_scale is not None:
+                raise AssertionError(f"int8 layer {case}: a chain-fused "
+                                     "linear is not on this path")
+            a = xf = x.reshape(-1, x.shape[-1]).contiguous()
+            wq, wq_kn = layer.weight_q, layer._weight_kn()
+        qrow = _int8_quantize_row(dev, xf, qs, amax, case,
+                                  launches["int8_quantize"], iters) \
+            if launches["int8_quantize"] else None
+        scale = ((sa / amax) * (layer.w_scale.clamp_min(1e-8)
+                                / layer._wmax)).contiguous()
+        bias = layer.bias.float().contiguous()
+        m, kk = a.shape
+        o = wq.shape[1]
+
+        def kern():
+            return im.int8_matmul(a, wq, scale, bias, qs, wq_kn=wq_kn)
+
+        def plain():
+            return im._plain_int8_matmul(a, wq, scale, bias, qs, False,
+                                         False, torch.float32, amax)
+
+        c0 = read_counts()[0]
+        out, want_out = kern(), plain()
+        c1 = read_counts()[0]
+        route = "wgmma" if c1["int8_matmul_wgmma"] > \
+            c0["int8_matmul_wgmma"] else "mma"
+        key = "int8_matmul_wgmma" if route == "wgmma" else "int8_matmul"
+        if dev.type == "cuda" and (
+                c1[key] - c0[key] != 1 or launches[key] < 1
+                or launches["int8_matmul" if route == "wgmma"
+                            else "int8_matmul_wgmma"]):
+            raise AssertionError(f"int8 layer {case}: the product took "
+                                 f"{route}, the path's launches {launches}")
+        err = float((out - want_out).abs().max())
+        if not torch.allclose(out, want_out, rtol=INT8_MM_RTOL,
+                              atol=INT8_MM_ATOL):
+            raise AssertionError(f"int8 layer {case}: product max abs err "
+                                 f"{err} against the plain version")
+        kern_ms, host_ms = timed(kern, iters, dev)
+        plain_ms = time_ms(plain, max(1, iters // 4), dev)
+        lib_ms = None
+        if m > 16 and kk % 8 == 0 and o % 8 == 0:
+            def lib():
+                aq = a if a.dtype == torch.int8 else torch.round(
+                    a.float() * qs).clamp_(-127, 127).to(torch.int8)
+                return torch._int_mm(aq, wq).float() * scale + bias
+
+            lib_ms = time_ms(lib, iters, dev)
+        flops, nbytes = im.int8_matmul_cost(a, out, kk, o, True)
+        b_ms, b_by = bound(nbytes, flops, "int8")
+    row = {"phase": "vision", "kernel": key, "route": route,
+           "name": f"{key}_{case}",
+           "case": f"{case}_M{m}_K{kk}_N{o}_x{str(a.dtype)[6:]}",
+           "launches": launches[key], "path_launches": launches,
+           "max_abs_err": err, "layer_err_vs_cpu": layer_err,
+           "tolerance": {"rtol": INT8_MM_RTOL, "atol": INT8_MM_ATOL},
+           "kernel_ms": kern_ms, "host_ms": host_ms,
+           "plain_ms": plain_ms, "library_ms": lib_ms,
+           "library": "torch._int_mm (on x quantized in PyTorch where x "
+                      "is float) + the epilogue in PyTorch operations"
+           if lib_ms is not None else None,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "int8_rate_share": b_ms / kern_ms}
+    emit(row)
+    return [row] + ([qrow] if qrow else [])
+
+
+def _int8_quantize_row(dev, xf, qs, amax, case, launches, iters):
+    """The quantize pass of one int8 layer (its float input ``xf``)
+    against its plain version on the card, bit-equal, timed beside its
+    bound and torch.quantize_per_tensor."""
+    import torch
+
+    from paddle_tpu_torch.ops import int8_matmul as im
+
+    out = im.quantize_x(xf, qs, amax)
+    ref = im._plain_quantize_x(xf, qs, amax)
+    if not torch.equal(out, ref):
+        raise AssertionError(f"int8 layer {case}: {int((out != ref).sum())} "
+                             "quantized values differ from the plain version")
+    kern_ms, host_ms = timed(lambda: im.quantize_x(xf, qs, amax), iters, dev)
+    plain_ms = time_ms(lambda: im._plain_quantize_x(xf, qs, amax), iters,
+                       dev)
+    lib_ms, lib_off = quantize_library(xf, qs, ref, iters, dev)
+    flops, nbytes = im.int8_quantize_cost(xf)
+    b_ms, b_by = bound(nbytes, flops, "float32")
+    row = {"phase": "vision", "kernel": "int8_quantize",
+           "name": f"int8_quantize_{case}",
+           "case": f"{case}_x{'x'.join(map(str, xf.shape))}_"
+                   f"{str(xf.dtype)[6:]}",
+           "launches": launches, "max_abs_err": 0.0, "tolerance": "equal",
+           "kernel_ms": kern_ms, "host_ms": host_ms, "plain_ms": plain_ms,
+           "library_ms": lib_ms, "library_values_off": lib_off,
+           "library": "torch.quantize_per_tensor(f32(x), 1 / qscale, 0, "
+                      "qint8) (it clips at -128, not -127)",
+           "bound_ms": b_ms, "bound_by": b_by}
+    emit(row)
+    return row
+
+
+def int8_conv_rows(dev, iters, seed=12):
+    """Int8Conv2D at INT8_CONV_CASES on the card, each layer called once
+    on the driven path: the route on the launch counters (one quantize
+    pass, one product of the case's route), then _int8_layer_row."""
+    import torch
+
+    from paddle_tpu_torch.nn import Conv2D
+    from paddle_tpu_torch.quantization import Int8Conv2D
+
+    rows = []
+    for case, c, o, k, pad, xs, route in INT8_CONV_CASES:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        conv = Conv2D(c, o, k, padding=pad, device=dev)
+        x = torch.randn(xs, generator=g, device=dev)
+        layer = Int8Conv2D(conv, act_scale=3.5)       # ~3.5 sigma of x
+        c0 = read_counts()[0]
+        layer(x)
+        c1 = read_counts()[0]
+        ran = {n: c1[n] - c0[n] for n in INT8_KEYS}
+        want = {"int8_matmul": int(route == "mma"),
+                "int8_matmul_wgmma": int(route == "wgmma"),
+                "int8_quantize": 1}
+        if dev.type == "cuda" and ran != want:
+            raise AssertionError(f"int8 conv {case}: launches {ran}, want "
+                                 f"{want}")
+        rows += _int8_layer_row(dev, layer, x, case, ran, iters)
+    return rows
+
+
+def int8_lenet_check(dev, iters, seed=3):
+    """A QAT LeNet trained one epoch on synthetic MNIST(512) on the card,
+    then convert_to_int8_deploy (its convs Int8Conv2D, its linears
+    Int8Linear): accuracy on the set within INT8_LENET_ACC_TOL of the
+    fake-quant model's. Each int8 layer's launches in that pass are
+    counted apart (hooks around its forward), and each layer goes
+    through _int8_layer_row on the input it met in the first batch."""
+    from paddle_tpu_torch import seed as pseed
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Adam
+    from paddle_tpu_torch.quantization import (QAT, Int8Conv2D, Int8Linear,
+                                               convert_to_int8_deploy)
+    from paddle_tpu_torch.vision.models import LeNet
+
+    pseed(seed)
+    net = LeNet(device=dev)
+    QAT().quantize(net)
+    opt = Adam(0.002, parameters=net.parameters())
+    net.train()
+    for x, y in _mnist_loader(dev, 64, True, drop_last=True):
+        F.cross_entropy(net(x), y).backward()
+        opt.step()
+        opt.clear_grad()
+    fake = _accuracy(net, dev)
+    n = convert_to_int8_deploy(net)
+    layers = [(name, m) for name, m in net.named_modules()
+              if isinstance(m, (Int8Conv2D, Int8Linear))]
+    first, at = {}, {}
+    launches = {name: dict.fromkeys(INT8_KEYS, 0) for name, _ in layers}
+
+    def pre(name):
+        def hook(mod, args):
+            first.setdefault(name, args[0].detach().clone())
+            at[name] = read_counts()[0]
+        return hook
+
+    def post(name):
+        def hook(mod, args, out):
+            now = read_counts()[0]
+            for k in INT8_KEYS:
+                launches[name][k] += now[k] - at[name][k]
+        return hook
+
+    hooks = [h for name, m in layers for h in (
+        m.register_forward_pre_hook(pre(name)),
+        m.register_forward_hook(post(name)))]
+    try:
+        deployed = _accuracy(net, dev)
+    finally:
+        for h in hooks:
+            h.remove()
+    if n != 5 or len(layers) != 5 or \
+            not isinstance(net.features[3], Int8Conv2D) or \
+            abs(deployed - fake) > INT8_LENET_ACC_TOL or fake < 0.5:
+        raise AssertionError(f"int8 lenet: {n} layers, fake-quant "
+                             f"accuracy {fake}, int8 {deployed}")
+    rows = [r for name, m in layers for r in _int8_layer_row(
+        dev, m, first[name], "lenet_deploy_" + name.replace(".", "_"),
+        launches[name], iters)]
+    return {"converted": n, "fake_quant_accuracy": fake,
+            "int8_accuracy": deployed,
+            "launches_by_layer": launches}, rows
+
+
+def vision_phase(dev, iters, kern):
+    """The vision path: the LeNet loop, ResNet-50's card-against-CPU
+    forward (uncounted), its train step, the int8 conv cases and the QAT
+    LeNet's int8 deploy (their comparisons uncounted). The int8 rows, one
+    a layer with its own launches, go to ``kern["vision_int8"]``."""
+    t0 = time.perf_counter()
+    row = {"phase": "vision", "lenet": lenet_run(dev)}
+    with uncounted():
+        row["resnet50_check"] = resnet_check(dev)
+    row["resnet50_train"] = resnet_train(dev)
+    rows = int8_conv_rows(dev, iters)
+    row["int8_lenet"], deploy_rows = int8_lenet_check(dev, iters)
+    kern["vision_int8"] = rows + deploy_rows
+    row["seconds"] = time.perf_counter() - t0
+    emit(row)
+    PHASE_RESULTS["vision"] = row
+    return row
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iters", type=int, default=20,
@@ -8216,11 +8743,12 @@ def main(argv=None) -> int:
                                         "generate,observe,handoff,disagg,"
                                         "deploy,grad,train,dist,hybrid,"
                                         "parallel,resume,resilience,plan,"
-                                        "bert",
+                                        "bert,vision",
                     help="comma-separated subset of kernels, model, engine, "
                          "spec, kvint8, generate, observe, handoff, disagg, "
                          "deploy, grad, train, dist, hybrid, parallel, "
-                         "resume, resilience, plan, bert (debugging)")
+                         "resume, resilience, plan, bert, vision "
+                         "(debugging)")
     ap.add_argument("--dist-worker", metavar="OUT_DIR", default=None,
                     help="run one rank of the dist phase (the phase starts "
                          "two through the port's launcher)")
@@ -8329,6 +8857,9 @@ def main(argv=None) -> int:
     cfg = dataclasses.replace(GPTConfig.gpt3_1_3b(), num_layers=SERVE_LAYERS)
     nh, hd = cfg.num_heads, cfg.hidden_size // cfg.num_heads
     kern = {}
+    # each path's wall seconds (the kernels phase's and each driven path's)
+    seconds_by_path = {}
+    t_kernels = time.perf_counter()
     if "kernels" in phases:
         rag = kernel_phase_ragged(dev, args.iters, nh=nh, hd=hd)
         # chunk rows over a pool of 32-token pages (one page a key tile)
@@ -8506,6 +9037,7 @@ def main(argv=None) -> int:
             (4096, 4096, "bfloat16"), (4096, 4096, "float32"),
             (67, 130, "bfloat16")])
         kern["int8_quantize"] = iq[0]
+        seconds_by_path["kernels"] = time.perf_counter() - t_kernels
 
     from paddle_tpu_torch.core import rng as _rng
 
@@ -8520,9 +9052,11 @@ def main(argv=None) -> int:
         runs in other processes, and `fn` returns their counts (each
         process sets its counts to 0 just before its part of the path
         and reads them just after)."""
+        t_path = time.perf_counter()
         set_counts()
         out = fn(*a, **kw)
         got, by_t_path[path] = out if remote else read_counts()
+        seconds_by_path[path] = time.perf_counter() - t_path
         by_path[path] = got
         for k, n in got.items():
             launches[k] += n
@@ -8647,12 +9181,28 @@ def main(argv=None) -> int:
               forbid=f32_kernels + ("bwd_dq_tc", "bwd_dkv_tc"))
         drive("ernie", ("flash_tc", "bwd_single_tc"), ernie_phase, dev,
               forbid=f32_kernels + ("bwd_dq_tc", "bwd_dkv_tc"), remote=True)
+    if "vision" in phases:
+        drive("vision", ("int8_matmul", "int8_matmul_wgmma",
+                         "int8_quantize"), vision_phase, dev, args.iters,
+              kern, forbid=f32_kernels + tc_kernels + (
+                  "ragged", "ragged_chunk", "ragged_int8"))
     emit({"launches_by_path": by_path,
-          "chunk_row_launches_by_t": by_t_path})
+          "chunk_row_launches_by_t": by_t_path,
+          "seconds_by_path": seconds_by_path})
 
     if kern:
         line = []
         bwd_src = "paddle_tpu_torch/csrc/flash_attention_bwd.cu"
+
+        def kernel_entry(r, name, src, replaces, by_p, extra):
+            return {"name": name, "route": "cuda", "source": src,
+                    "replaces": replaces, "launches": sum(by_p.values()),
+                    "launches_by_path": by_p, "shape": r["case"],
+                    "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+                    "host_ms": r["host_ms"], "plain_ms": r["plain_ms"],
+                    "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                    "library_ms": r["library_ms"], **extra}
+
         for key, name, src, replaces in (
                 ("flash", "flash_attention_fwd",
                  "paddle_tpu_torch/csrc/flash_attention_fwd.cu",
@@ -8747,17 +9297,23 @@ def main(argv=None) -> int:
                 by_p = {p: n[key[:-len("_bert")]]
                         for p, n in by_path.items() if p in BERT_PATHS}
             else:
+                # the vision path's products have a row a layer (below)
                 by_p = {p: n[key] for p, n in by_path.items()
-                        if p not in BERT_PATHS}
-            line.append({"name": name, "route": "cuda", "source": src,
-                         "replaces": replaces, "launches": sum(by_p.values()),
-                         "launches_by_path": by_p,
-                         "shape": r["case"],
-                         "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
-                         "host_ms": r["host_ms"],
-                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                         "bound_by": r["bound_by"],
-                         "library_ms": r["library_ms"], **extra})
+                        if p not in BERT_PATHS and not (
+                            p == "vision" and key in VISION_ROWED)}
+            line.append(kernel_entry(r, name, src, replaces, by_p, extra))
+        vision = kern.get("vision_int8", [])
+        for k in VISION_ROWED if vision else ():
+            got = sum(r["launches"] for r in vision if r["kernel"] == k)
+            if got != by_path["vision"][k]:
+                raise AssertionError(f"the vision rows hold {got} launches "
+                                     f"of {k}, the path made "
+                                     f"{by_path['vision'][k]}")
+        for r in vision:
+            line.append(kernel_entry(
+                r, r["name"], "paddle_tpu_torch/csrc/int8_matmul.cu",
+                "paddle_tpu/ops/int8_matmul.py:50",
+                {"vision": r["launches"]}, {}))
         emit({"kernels": line})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,6 +1,7 @@
 """Random-number state (mirrors ``paddle_tpu/core/rng.py``).
 
-``seed(n)`` reseeds one ``torch.Generator`` per device. Initializers draw
+``seed(n)`` reseeds one ``torch.Generator`` per device, and the numpy
+``RandomState`` the data samplers draw from. Initializers draw
 from the generator of the device the parameter lives on, so a model built
 after ``seed(n)`` on a given device is reproducible. The JAX package's
 threefry keys and torch's Philox give different numbers from the same
@@ -20,18 +21,27 @@ import contextlib
 import threading
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 _seed = 0
 _generators: Dict[str, torch.Generator] = {}
 
+#: the host's sampling stream (the reference's ``_numpy_generator``):
+#: ``io``'s samplers and ``random_split`` draw from it, so the batches a
+#: loader shuffles after ``seed(n)`` are the reference's, index for index
+_numpy_generator = np.random.RandomState(0)
+
 
 def seed(value: int) -> None:
-    """Reseed every per-device generator (created lazily from ``value``)."""
+    """Reseed every per-device generator (created lazily from ``value``)
+    and the host's numpy stream (with ``value % 2**32``, as the
+    reference)."""
     global _seed
     _seed = int(value)
     for gen in _generators.values():
         gen.manual_seed(_seed)
+    _numpy_generator.seed(_seed % (2 ** 32))
 
 
 def generator(device) -> torch.Generator:

@@ -28,6 +28,17 @@ positions and its rows; ``models/bert.py``). The reference's head runs
 once over the global batch; a rank of the port runs it over its
 micro-batch's dp slice, so the trainers hand the head the global batch's
 counts and it returns its share of the global loss.
+
+``batch_norm_scope`` is the port's own as well: the mesh axis over which
+a batch norm takes its batch moments in training mode. On the
+reference's GSPMD route (ZeRO 0 or 3 with f32 gradients) its one
+program sees the whole logical batch, so the moments span every dp
+shard; a rank of the port sees its slice, so the trainer names ``dp``
+and ``nn.functional.batch_norm`` averages the moments over it with a
+differentiable all-reduce. On the manual routes (ZeRO 1/2 on a pure dp
+mesh, int8 gradients) the reference takes shard-local moments and
+averages the new running buffers after the step; there the trainer
+sets no scope.
 """
 from __future__ import annotations
 
@@ -41,7 +52,8 @@ __all__ = ["sequence_parallel_scope", "manual_sequence_parallel_scope",
            "current_pipeline_auto_axes", "in_partial_manual_region",
            "nested_kernel_shard", "moe_routing_scope",
            "current_moe_routing", "loss_totals_scope",
-           "current_loss_totals"]
+           "current_loss_totals", "batch_norm_scope",
+           "current_batch_norm"]
 
 _SP: Optional[Tuple[Mesh, str, bool]] = None
 
@@ -163,3 +175,25 @@ def loss_totals_scope(totals: Optional[tuple]):
 
 def current_loss_totals() -> Optional[tuple]:
     return _LOSS_TOTALS
+
+
+_BATCH_NORM: Optional[Tuple[Mesh, str]] = None
+
+
+@contextlib.contextmanager
+def batch_norm_scope(mesh: Optional[Mesh], axis: Optional[str] = "dp"):
+    """Within this scope a batch norm in training mode takes its batch
+    mean and variance over every rank along ``axis`` (when the mesh has
+    it at size > 1); None: over the rank's own rows."""
+    global _BATCH_NORM
+    prev = _BATCH_NORM
+    _BATCH_NORM = (mesh, axis) if mesh is not None and axis is not None \
+        and mesh.shape.get(axis, 1) > 1 else None
+    try:
+        yield
+    finally:
+        _BATCH_NORM = prev
+
+
+def current_batch_norm() -> Optional[Tuple[Mesh, str]]:
+    return _BATCH_NORM

@@ -35,6 +35,16 @@ process groups (``mesh.py``):
             nothing is cut over, so every rank along them computes the
             same step (the pipeline and the ring are ``hybrid.py``'s)
   amp       the forward runs on bf16 copies of the floating parameters
+            (buffers, a batch norm's running statistics, stay f32)
+  BN        a batch norm's statistics follow the reference's two routes:
+            on the GSPMD one (ZeRO 0 or 3, f32 gradients) the batch
+            moments span the micro-batch's dp slices
+            (``context.batch_norm_scope``, a differentiable all-reduce);
+            on the manual ones (the ZeRO 1/2 slab, int8 gradients) each
+            rank takes its own slice's moments and the floating buffers
+            are averaged over dp after the step, as the reference's
+            shard_map ``pmean``s them; the buffers move once a
+            micro-batch, in order
   clip      by global norm: a sharded parameter's squared norm is summed
             over its shard axes (tp, ep, a ZeRO slice's dp), a
             replicated one counts once
@@ -66,7 +76,7 @@ from ..profiler import registry as _preg
 from ..profiler import trace as _ptrace
 from . import qcomm as _qcomm
 from .collective import ReduceOp
-from .context import loss_totals_scope, moe_routing_scope
+from .context import batch_norm_scope, loss_totals_scope, moe_routing_scope
 from .fleet.distributed_strategy import DistributedStrategy
 from .mesh import Mesh, P, create_mesh
 from .parallel import bucket_mean
@@ -945,6 +955,10 @@ class HybridParallelTrainer:
                 self.dp_grad_block, dp_param_comm, norm_axes=norm_axes,
                 grad_comm=dp_grad_comm)
         self.data_spec = data_spec
+        # batch-norm moments shard-local, buffers averaged after the step
+        # (the reference's manual routes) instead of spanning dp
+        self._bn_local = self.mesh.shape.get("dp", 1) > 1 and (
+            self.zero_manual or dp_grad_comm == "int8")
         self._step = 0
         self._prof_site = _precomp.unique_site("compile_train_step")
         self._program_counts: Dict[str, dict] = {}
@@ -1004,8 +1018,10 @@ class HybridParallelTrainer:
             totals = totals_of(*whole) if totals_of is not None else None
             w = self.mesh.shape.get("dp", 1) if totals is not None and cut \
                 else 1
+            bn_axis = "dp" if cut and not self._bn_local else None
             with moe_routing_scope(self.mesh, axes), \
-                    loss_totals_scope(totals):
+                    loss_totals_scope(totals), \
+                    batch_norm_scope(self.mesh, bn_axis):
                 part = self._forward_loss(mb) * w / k
                 if backward:
                     part.backward()
@@ -1020,8 +1036,20 @@ class HybridParallelTrainer:
         with _ptrace.annotate("optim"):
             self._upd.update(lr, self._step)
         self._upd.zero_grad()
+        if self._bn_local:
+            self._mean_buffers()
         self.optimizer._global_step = self._step
         return loss
+
+    @torch.no_grad()
+    def _mean_buffers(self) -> None:
+        """The manual routes' buffer rule: every floating buffer (a batch
+        norm's running statistics) averaged over dp after the step."""
+        dp = self.mesh.shape.get("dp", 1)
+        for b in self.layer.buffers():
+            if b.is_floating_point():
+                b.copy_(_reduced(b, ReduceOp.SUM, self.mesh.group("dp"))
+                        / dp)
 
     def step(self, *batch) -> torch.Tensor:
         """One step on the GLOBAL batch (every rank passes the same one);
@@ -1147,6 +1175,11 @@ def _profile_phases(tr, batch, iters: int, trace_window: int) -> dict:
     trace returned under ``"trace"``."""
     dev = tr._device()
     b = tuple(torch.as_tensor(x, device=dev) for x in batch)
+    # the timed forwards leave the running statistics as they were: only
+    # the steps advance them
+    model = getattr(tr, "layer", None) or tr.model
+    bufs = [t for t in model.buffers() if t.is_floating_point()]
+    kept = [t.clone() for t in bufs]
 
     def fwd():
         with torch.no_grad():
@@ -1159,6 +1192,9 @@ def _profile_phases(tr, batch, iters: int, trace_window: int) -> dict:
     t_fwd = _pinstr.time_compiled(fwd, iters)
     t_fb = _pinstr.time_compiled(fwdbwd, iters)
     tr._upd.zero_grad()
+    with torch.no_grad():
+        for t, k in zip(bufs, kept):
+            t.copy_(k)
     t_step = _pinstr.time_compiled(lambda: tr.step(*batch), iters)
     ps = _pstats.record_counted(tr._prof_site,
                                 tr._program_counts[tr._prof_site])

@@ -7,8 +7,9 @@ rate (a float or an ``lr.LRScheduler``), clips the gradients, adds an L2
 parameter with ``_update`` in f32 math. The result is written back in
 place at the dtypes the parameter and its state are stored in (the
 trainer's ``param_dtype`` / ``moment_dtype`` cast-back rule). ``SGD``,
-``Adam`` and ``AdamW`` are ported; ``torch.optim`` is not used, because
-its decay ordering differs from the reference's ``_decayed_update``.
+``Momentum``, ``Adam`` and ``AdamW`` are ported; ``torch.optim`` is not
+used, because its decay ordering differs from the reference's
+``_decayed_update``.
 
 ``parameters`` takes tensors or ``(name, tensor)`` pairs, as
 ``model.named_parameters()`` gives them. ``AdamW``'s
@@ -16,7 +17,7 @@ its decay ordering differs from the reference's ``_decayed_update``.
 carry none of their own); ``lr_ratio(param)`` scales the learning rate
 per parameter.
 
-Not ported here: Momentum, Adamax, Adagrad, Adadelta, RMSProp, Lamb,
+Not ported here: Adamax, Adagrad, Adadelta, RMSProp, Lamb,
 Lars, ``GradientMerge`` and L1/L2 regularizer objects (ROADMAP queue 1
 item 9).
 """
@@ -29,7 +30,7 @@ import torch
 from .clip import apply_grad_clip
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Adam", "AdamW"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adam", "AdamW"]
 
 
 def _long_tail(what):
@@ -196,6 +197,34 @@ class SGD(Optimizer):
 
     def _update(self, p, g, state, lr, step, wd=0.0):
         p.copy_(p - (lr * g).to(p.dtype))
+
+
+class Momentum(Optimizer):
+    """reference: operators/optimizers/momentum_op.h. An f32 velocity
+    ``v = μ·v + g``; the step ``p - (lr·v)`` (``use_nesterov``:
+    ``p - lr·(g + μ·v)``), rounded to the parameter's dtype before the
+    subtraction, as the reference's ``_update``."""
+
+    def __init__(self, learning_rate=0.001, momentum=0.9, parameters=None,
+                 use_nesterov=False, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._momentum = momentum
+        self._use_nesterov = use_nesterov
+
+    def _init_state(self, p):
+        return {"velocity": torch.zeros(p.shape, dtype=torch.float32,
+                                        device=p.device)}
+
+    def _update(self, p, g, state, lr, step, wd=0.0):
+        vel = state["velocity"]
+        v = self._momentum * vel.float() + g
+        if self._use_nesterov:
+            p.copy_(p - lr * (g + self._momentum * v).to(p.dtype))
+        else:
+            p.copy_(p - (lr * v).to(p.dtype))
+        vel.copy_(v)
 
 
 class Adam(Optimizer):

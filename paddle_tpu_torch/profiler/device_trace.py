@@ -10,7 +10,9 @@ derives, per window:
 - **device-busy wall time** (the interval union of device slices) and the
   host-gap split, ``wall = device_busy + host_gap``;
 - a **per-category breakdown** (matmul / attention / scatter-gather /
-  elementwise / collective) by slice count and milliseconds;
+  elementwise / collective) by slice count and milliseconds
+  (``class_table`` splits matmul into conv and gemm, elementwise into
+  reduction and pointwise, for any list of named slices);
 - **per-collective durations by kind** and the measured **compute∩comm
   overlap fraction** (0 at degree 1, where no collective runs);
 - a **goodput/MFU ledger**: each site's counted FLOPs
@@ -96,7 +98,7 @@ __all__ = [
     "summarize", "record_summary", "last_summary",
     "last_trace_summary", "reset", "categorize_op", "collective_kind",
     "overlap_fraction", "interval_union_ms", "default_peak_flops",
-    "CATEGORIES",
+    "CATEGORIES", "CLASSES", "classify_op", "class_table",
 ]
 
 
@@ -178,6 +180,48 @@ def categorize_op(name: str) -> str:
     if any(p in n for p in _SCATTER_GATHER_PAT):
         return "scatter-gather"
     return "elementwise"
+
+
+# The port's own finer split (the reference's summary has none): inside
+# matmul, cuDNN's convolution kernels (forward, data and weight
+# gradients) and the CPU trace's convolution ops; inside elementwise, the
+# reductions (PyTorch's reduce and Welford kernels, the norm kernels,
+# cuDNN's batch-norm kernels, the CPU trace's reducing ops).
+_CONV_PAT = ("conv", "fprop", "dgrad", "wgrad", "implicit_gemm")
+_REDUCTION_PAT = ("reduce", "welford", "batch_norm", "layer_norm",
+                  "group_norm", "instance_norm", "rms_norm", "bn_fw",
+                  "bn_bw", "aten::sum", "aten::mean", "aten::var",
+                  "aten::std", "aten::amax", "aten::amin")
+
+#: classify_op's classes: matmul = conv + gemm, elementwise = reduction +
+#: pointwise; every other category is a class of its own
+CLASSES = ("conv", "gemm", "attention", "scatter-gather", "reduction",
+           "pointwise", "collective")
+
+
+def classify_op(name: str) -> str:
+    """The class of one device slice inside its :func:`categorize_op`
+    category (``CLASSES``): a matmul is a conv or a gemm, an elementwise
+    slice a reduction or pointwise; the other categories are kept."""
+    cat = categorize_op(name)
+    n = name.lower()
+    if cat == "matmul":
+        return "conv" if any(p in n for p in _CONV_PAT) else "gemm"
+    if cat == "elementwise":
+        return "reduction" if any(p in n for p in _REDUCTION_PAT) \
+            else "pointwise"
+    return cat
+
+
+def class_table(ops) -> Dict[str, dict]:
+    """``{class: {"count", "ms"}}`` over ``ops``, each ``(name, ms)`` or
+    ``(name, ms, count)`` (an aggregate of ``count`` slices)."""
+    out = {c: {"count": 0, "ms": 0.0} for c in CLASSES}
+    for name, ms, *count in ops:
+        c = out[classify_op(name)]
+        c["count"] += count[0] if count else 1
+        c["ms"] += ms
+    return out
 
 
 # ---------------------------------------------------------------------------

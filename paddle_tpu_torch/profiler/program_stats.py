@@ -155,6 +155,8 @@ class OpCounter(TorchDispatchMode):
         self.collectives: Dict[str, dict] = {}
         self._paused = 0
         self._lock = threading.Lock()
+        self.prev: Optional[OpCounter] = None   # ACTIVE when its count began
+        self.closed = False
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -236,6 +238,9 @@ class OpCounter(TorchDispatchMode):
 #: (a module global, not thread-local: the autograd engine's device
 #: threads launch backward kernels too)
 ACTIVE: Optional[OpCounter] = None
+#: guards ACTIVE's hand-back: counts on two threads at once (two
+#: in-process ranks' first dispatches) may end in either order
+_ACTIVE_LOCK = threading.Lock()
 
 
 def note_kernel(name: str, cost, *args, **kwargs) -> None:
@@ -266,13 +271,22 @@ def count(fn, *args, **kwargs):
             torch.zeros(1).add_(1)
         _warm = True
     counter = OpCounter()
-    prev, ACTIVE = ACTIVE, counter
+    with _ACTIVE_LOCK:
+        counter.prev, ACTIVE = ACTIVE, counter
     t0 = time.perf_counter()
     try:
         with counter:
             out = fn(*args, **kwargs)
     finally:
-        ACTIVE = prev
+        # hand back to the newest count still open, never to one that
+        # another thread has ended meanwhile
+        with _ACTIVE_LOCK:
+            counter.closed = True
+            if ACTIVE is counter:
+                prev = counter.prev
+                while prev is not None and prev.closed:
+                    prev = prev.prev
+                ACTIVE = prev
     return out, counter.result((time.perf_counter() - t0) * 1e3)
 
 

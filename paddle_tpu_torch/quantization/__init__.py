@@ -4,11 +4,20 @@ calibration) + int8 deploy layers and export (mirrors
 
 The fake-quant op is a quantize-dequantize with a straight-through
 gradient (a ``torch.autograd.Function``), layer wrapping is child
-replacement on the ``nn.Module`` tree, and the deploy form computes in
-int8: ``Int8Linear`` always goes through
+replacement on the ``nn.Module`` tree (``Linear`` and ``Conv2D``), and
+the deploy form computes in int8: ``Int8Linear`` always goes through
 ``ops.int8_matmul.int8_linear_fused`` — the CUDA kernel on a CUDA tensor,
 its plain version on a CPU tensor. There is no switch that avoids the
-kernel on a card.
+kernel on a card. ``Int8Conv2D`` (``groups == 1`` with an int or per-dim
+int padding) quantizes its input once with the frozen activation scale
+(``quantize_x``), unfolds the int8 image into patches (im2col, the
+reference's layout ``[N·OH·OW, C·kh·kw]``) and multiplies them by the
+per-out-channel int8 kernel in the same fused product: the wgmma route
+when ``C·kh·kw`` is a multiple of 16 (ResNet's 3x3 convs at C 64: K 576),
+the mma.sync route otherwise (LeNet's conv2: K 150; ResNet's stem: K
+147). A grouped conv, or one with another padding, keeps its weight in
+int8 and computes a float conv of the dequantized weight over the
+fake-quantized input, as the reference does.
 
     net = nn.Sequential(nn.Linear(64, 256), nn.ReLU(), nn.Linear(256, 64))
     QAT().quantize(net)          # wrap the Linear layers
@@ -17,9 +26,8 @@ kernel on a card.
     convert_to_int8_deploy(net)  # int8 weights; fc1 -> ReLU -> fc2 fused
     y = net(x)
 
-Waiting for later slices (each raises ``NotImplementedError`` naming its
-ROADMAP item): the conv layers ``QuantedConv2D``/``Int8Conv2D`` (``nn``
-has no conv yet) and ``save_quantized_model`` (needs ``jit.save``).
+Waiting for a later slice: ``save_quantized_model`` raises
+``NotImplementedError`` naming its ROADMAP item (it needs ``jit.save``).
 """
 from __future__ import annotations
 
@@ -30,17 +38,19 @@ import numpy as np
 import torch
 from torch import nn
 
+from torch.nn import functional as TF
+
 from ..models.gpt import load_reference_state as _load_module_state
+from ..nn import functional as F
 from ..nn.layer.common import Linear
-from ..ops.int8_matmul import int8_linear_fused
+from ..nn.layer.conv import Conv2D
+from ..ops.int8_matmul import int8_linear_fused, quantize_x
 
 __all__ = ["fake_quant", "QuantConfig", "QAT", "PTQ",
            "QuantedLinear", "QuantedConv2D", "Int8Linear", "Int8Conv2D",
            "convert_to_int8_deploy", "export_int8_state",
            "save_quantized_model", "load_reference_state"]
 
-_TODO_CONV = ("quantized conv layers are not ported yet: ROADMAP queue 1 "
-              "item 9 (long tail: the rest of nn, conv included)")
 _TODO_SAVE = ("save_quantized_model is not ported yet: it serialises "
               "through jit.save, ROADMAP queue 1 item 9 (long tail: jit, "
               "export, the artifact Predictor)")
@@ -145,11 +155,27 @@ class QuantedLinear(nn.Module):
 
 
 class QuantedConv2D(nn.Module):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_TODO_CONV)
+    """A ``Conv2D`` under fake-quant of its input (running abs-max) and of
+    its weight (abs-max, per output channel when channel-wise)."""
+
+    def __init__(self, inner: Conv2D, config: QuantConfig):
+        super().__init__()
+        self.inner = inner
+        self.act_quant = _ActQuant(config, device=inner.weight.device)
+        self.bits = config.weight_bits
+        self.channel_wise = "channel" in config.weight_quantize_type
+
+    def forward(self, x):
+        xq = self.act_quant(x)
+        wq = fake_quant(self.inner.weight, bits=self.bits,
+                        channel_axis=0 if self.channel_wise else None)
+        i = self.inner
+        return F.conv2d(xq, wq, i.bias, stride=i._stride,
+                        padding=i._padding, dilation=i._dilation,
+                        groups=i._groups)
 
 
-_WRAP = {Linear: QuantedLinear}
+_WRAP = {Linear: QuantedLinear, Conv2D: QuantedConv2D}
 
 
 def _wrap_tree(layer: nn.Module, config: QuantConfig) -> int:
@@ -193,7 +219,7 @@ class PTQ:
 
     def calibrate(self, model: nn.Module, data_iter, steps: int = 8):
         model.train()   # moving-average scales update during calibration
-        dev = next(model.parameters()).device
+        dev = next(iter(model.parameters())).device
         it = iter(data_iter)
         with torch.no_grad():
             for _ in range(steps):
@@ -212,6 +238,12 @@ class PTQ:
 # ---------------------------------------------------------------------------
 # deploy layers: the compute is int8
 # ---------------------------------------------------------------------------
+def _content_key(t: torch.Tensor):
+    """What identifies a tensor's content: its storage and, where it keeps
+    one, its version counter (bumped by every in-place write)."""
+    return (t.data_ptr(), t.device, None if t.is_inference() else t._version)
+
+
 class Int8Linear(nn.Module):
     """Deploy-time int8 linear:
 
@@ -245,7 +277,7 @@ class Int8Linear(nn.Module):
         # _weight_kn() if weight_q changes (an in-place load)
         self.register_buffer("weight_kn", self.weight_q.t().contiguous(),
                              persistent=False)
-        self._kn_of = self._weight_key()
+        self._kn_of = _content_key(self.weight_q)
         self.register_buffer("w_scale", torch.from_numpy(
             np.ascontiguousarray(scales, np.float32)).to(dev))
         self.register_buffer("act_scale", torch.tensor(
@@ -282,17 +314,10 @@ class Int8Linear(nn.Module):
         ref = self._int8_src_ref
         return None if ref is None else ref()
 
-    def _weight_key(self):
-        """What identifies weight_q's content: its storage and, where it
-        keeps one, its version counter (bumped by every in-place write)."""
-        wq = self.weight_q
-        return (wq.data_ptr(), wq.device,
-                None if wq.is_inference() else wq._version)
-
     def _weight_kn(self) -> torch.Tensor:
         """``weight_q.T.contiguous()``, rebuilt only when weight_q has
         changed since it was made."""
-        key = self._weight_key()
+        key = _content_key(self.weight_q)
         if key != self._kn_of:
             self.weight_kn = self.weight_q.t().contiguous()
             self._kn_of = key
@@ -316,9 +341,115 @@ class Int8Linear(nn.Module):
                 wq_kn=self._weight_kn())
 
 
+def _pair(v):
+    return tuple(v) if isinstance(v, (list, tuple)) else (v, v)
+
+
 class Int8Conv2D(nn.Module):
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(_TODO_CONV)
+    """Deploy-time conv, computed as int8 im2col and the int8 product of
+    ``int8_linear_fused`` (``groups == 1`` with an int or two-int
+    padding); a grouped conv keeps weight-only int8 storage and computes
+    in float over the fake-quantized input, as the reference's.
+
+        xq  = clip(round(x * amax / s_x))            (int8, once)
+        P   = im2col(xq)          [N·OH·OW, C·kh·kw] (data movement)
+        y   = (P @ wq) * (s_x/amax) * (s_w/wmax) + b (one fused product)
+
+    ``weight_q [O, C, kh, kw]`` is per-out-channel int8; its matrix
+    ``[O, C·kh·kw]`` is already the K-major copy the wgmma route reads,
+    and its transpose ``[K, O]`` is what the mma route reads: both are
+    kept out of the state_dict and rebuilt if ``weight_q`` changes."""
+
+    def __init__(self, inner: Conv2D, act_scale: float, bits: int = 8,
+                 act_bits: int = 8, channel_wise: bool = True):
+        super().__init__()
+        self._wmax = float(2 ** (bits - 1) - 1)
+        self._amax = float(2 ** (act_bits - 1) - 1)
+        dev = inner.weight.device
+        w = inner.weight.detach().float().cpu().numpy()    # [O, C, kh, kw]
+        if channel_wise:
+            scales = np.max(np.abs(w), axis=(1, 2, 3))
+        else:
+            scales = np.broadcast_to(np.max(np.abs(w)), (w.shape[0],))
+        scale = np.maximum(scales.reshape(-1, 1, 1, 1), 1e-8)
+        q = np.clip(np.round(w / scale * self._wmax),
+                    -self._wmax, self._wmax).astype(np.int8)
+        self.register_buffer("weight_q", torch.from_numpy(q).to(dev))
+        self.register_buffer("w_scale", torch.from_numpy(
+            np.ascontiguousarray(scales, np.float32)).to(dev))
+        self.register_buffer("act_scale", torch.tensor(
+            float(act_scale), dtype=torch.float32, device=dev))
+        self.bias = inner.bias
+        self._stride = inner._stride
+        self._padding = inner._padding
+        self._dilation = inner._dilation
+        self._groups = inner._groups
+        self._mats_of = None
+
+    def _mats(self):
+        """(``[K, O]``, ``[O, K]``) int8 matrices of ``weight_q``, made
+        again only when it has changed."""
+        wq = self.weight_q
+        key = _content_key(wq)
+        if key != self._mats_of:
+            kn = wq.reshape(wq.shape[0], -1).contiguous()
+            object.__setattr__(self, "_wq_kn", kn)
+            object.__setattr__(self, "_wq_mat", kn.t().contiguous())
+            self._mats_of = key
+        return self._wq_mat, self._wq_kn
+
+    def _simple(self) -> bool:
+        p = self._padding
+        return isinstance(p, int) or (isinstance(p, (list, tuple))
+                                      and len(p) == 2
+                                      and all(isinstance(v, int) for v in p))
+
+    def forward(self, x):
+        with torch.no_grad():
+            if self._groups == 1 and self._simple():
+                return self._im2col_forward(x)
+            return self._grouped_forward(x)
+
+    def _im2col(self, xq):
+        """The int8 patches ``[N·OH·OW, C·kh·kw]`` of a quantized input
+        (channel major, then the kernel's rows and columns, the
+        reference's layout) and ``(N, OH, OW)``."""
+        o, c, kh, kw = self.weight_q.shape
+        st, dl, pad = _pair(self._stride), _pair(self._dilation), \
+            _pair(self._padding)
+        vp = TF.pad(xq, (pad[1], pad[1], pad[0], pad[0]))
+        oh = (vp.shape[2] - (dl[0] * (kh - 1) + 1)) // st[0] + 1
+        ow = (vp.shape[3] - (dl[1] * (kw - 1) + 1)) // st[1] + 1
+        cols = [vp[:, :, i * dl[0]:i * dl[0] + oh * st[0]:st[0],
+                   j * dl[1]:j * dl[1] + ow * st[1]:st[1]]
+                for i in range(kh) for j in range(kw)]
+        n = xq.shape[0]
+        patches = torch.stack(cols, 2).permute(0, 3, 4, 1, 2).reshape(
+            n * oh * ow, c * kh * kw)
+        return patches, (n, oh, ow)
+
+    def _im2col_forward(self, x):
+        amax = self._amax
+        qs = (amax / self.act_scale.clamp_min(1e-8)).reshape(1)
+        patches, (n, oh, ow) = self._im2col(
+            quantize_x(x.contiguous(), qs, amax))
+        wq_mat, wq_kn = self._mats()
+        y = int8_linear_fused(patches, wq_mat, self.w_scale, self.act_scale,
+                              self.bias, wmax=self._wmax, amax=amax,
+                              out_dtype=x.dtype, wq_kn=wq_kn)
+        return y.reshape(n, oh, ow, -1).permute(0, 3, 1, 2)
+
+    def _grouped_forward(self, x):
+        amax = self._amax
+        sa = self.act_scale.clamp_min(1e-8)
+        xq = torch.clamp(torch.round(x.float() * (amax / sa)), -amax, amax) \
+            * (sa / amax)
+        w = (self.weight_q.float()
+             * (self.w_scale.clamp_min(1e-8).reshape(-1, 1, 1, 1)
+                / self._wmax)).to(x.dtype)
+        return F.conv2d(xq.to(x.dtype), w, self.bias, stride=self._stride,
+                        padding=self._padding, dilation=self._dilation,
+                        groups=self._groups)
 
 
 def _fuse_sequential_int8(seq) -> int:
@@ -342,12 +473,12 @@ def _fuse_sequential_int8(seq) -> int:
 
 
 def convert_to_int8_deploy(model: nn.Module, _undo=None) -> int:
-    """Swap every QuantedLinear for its deploy-time int8 layer IN PLACE.
-    Returns the count converted. ``_undo`` (internal): a list collecting
+    """Swap every QuantedLinear and QuantedConv2D for its deploy-time int8
+    layer IN PLACE. Returns the count converted. ``_undo`` (internal): a list collecting
     (parent, name, original) so a caller can restore the model."""
     n = 0
     for name, child in list(model.named_children()):
-        if isinstance(child, QuantedLinear):
+        if isinstance(child, (QuantedLinear, QuantedConv2D)):
             if child.bits > 8 or child.act_quant.bits > 8:
                 raise ValueError(
                     f"int8 deploy supports <=8-bit quantization, got "
@@ -364,7 +495,9 @@ def convert_to_int8_deploy(model: nn.Module, _undo=None) -> int:
                     "calibration batch) before converting to int8 deploy.")
             if _undo is not None:
                 _undo.append((model, name, child))
-            setattr(model, name, Int8Linear(
+            cls = Int8Linear if isinstance(child, QuantedLinear) \
+                else Int8Conv2D
+            setattr(model, name, cls(
                 child.inner, act_scale, bits=child.bits,
                 act_bits=child.act_quant.bits,
                 channel_wise=child.channel_wise))
@@ -381,9 +514,10 @@ def export_int8_state(model: nn.Module) -> Dict[str, dict]:
     artifact's weight transform)."""
     out = {}
     for name, sub in model.named_modules():
-        if isinstance(sub, QuantedLinear):
+        if isinstance(sub, (QuantedLinear, QuantedConv2D)):
             w = sub.inner.weight.detach().float().cpu().numpy()
-            axis = 1 if sub.channel_wise else None
+            axis = (1 if isinstance(sub, QuantedLinear) else 0) \
+                if sub.channel_wise else None
             if axis is None:
                 scale = np.max(np.abs(w))
                 scales = np.asarray([scale], np.float32)

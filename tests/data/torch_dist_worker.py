@@ -26,7 +26,9 @@ trainer at dp = 2), ``bert`` (the trainer cases of ``inputs.npz`` on
 BERT or ERNIE: mesh, ZeRO stage, amp, recompute, SGD or AdamW, the
 global two-term loss or equal shares, ``compile_train_step``),
 ``qring`` (the int8 ring of ``qcomm`` on 2 or 4
-ranks) and ``ckpt`` (sharded checkpoints of plain pieces). A ``hybrid``
+ranks), ``ckpt`` (sharded checkpoints of plain pieces) and ``vision``
+(ResNet-18 with its batch norms in ``compile_train_step`` at dp 2: each
+step from the reference's state before it). A ``hybrid``
 case may name ``"trainer": "compile"`` (``compile_train_step``) and
 ``"ckpt": true``: its ``device_state`` after the steps is saved under
 ``<out_dir>/ckpt/<name>``; ``"guard_bad_steps": true`` with ``"poison":
@@ -767,6 +769,79 @@ def _bert_case(inp, case, rank, arrays, values):
         for n, a in full.items():
             arrays[f"{name}.param.{n}"] = a
     M.set_mesh(None)
+
+
+def vision_step_case(inp, case, rank, arrays, values, mesh=None):
+    """One ``vision`` case: ResNet-18 under ``compile_train_step`` with
+    ``Momentum(0.1)`` at ``case["mesh"]`` and ZeRO ``case["zero"]``; before
+    each step the reference's state before it (parameters, buffers, the
+    velocity: whole, or this rank's chunk of the flat slab) is loaded, one
+    step taken on the global batch, and the loss, the parameters and the
+    buffers after it recorded (``case["steps"]``: the first steps only).
+    ``case["local"]`` takes the shard-local batch moments (the manual
+    routes' rule) on a route that spans dp, to show what the global rule
+    changes."""
+    import torch
+
+    from paddle_tpu_torch.distributed import mesh as M
+    from paddle_tpu_torch.distributed.fleet import DistributedStrategy
+    from paddle_tpu_torch.distributed.strategy_compiler import \
+        compile_train_step
+    from paddle_tpu_torch.models import gpt as tgpt
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import Momentum
+    from paddle_tpu_torch.vision.models import resnet18
+
+    name = case["name"]
+    m = mesh if mesh is not None else M.init_mesh(case["mesh"])
+    net = resnet18(num_classes=10, device="cpu")
+    opt = Momentum(0.1, parameters=net.named_parameters())
+    s = DistributedStrategy()
+    s.amp = case.get("amp", False)
+    if case.get("zero"):
+        s.sharding = True
+        s.sharding_configs = {"sharding_stage": case["zero"]}
+    tr = compile_train_step(net, opt, s, m, loss_fn=lambda out, lbl:
+                            F.cross_entropy(out.float(), lbl),
+                            accumulate_steps=case.get("accumulate", 1))
+    if case.get("local"):
+        tr._bn_local = True
+    values[f"{name}.zero_manual"] = tr.zero_manual
+    upd = tr._upd
+    losses = []
+
+    def ref(k, part):
+        pre = f"{name}.{k}.{part}."
+        return {key[len(pre):]: a for key, a in inp.items()
+                if key.startswith(pre)}
+
+    for k in range(case.get("steps", len(inp["xs"]))):
+        state = dict(ref(k, "params"), **ref(k, "buffers"))
+        tgpt.load_reference_state(net, state)
+        vel = ref(k, "velocity")
+        with torch.no_grad():
+            if upd.manual:
+                c = upd.chunk
+                upd.slab["velocity"].copy_(torch.from_numpy(
+                    vel["slab"][rank * c:(rank + 1) * c]))
+            else:
+                for n, st in zip(upd.names, upd.states):
+                    st["velocity"].copy_(torch.from_numpy(vel[n]))
+        tr._step = k
+        losses.append(float(tr.step(torch.from_numpy(inp["xs"][k]),
+                                    torch.from_numpy(inp["ys"][k]))))
+        tr.sync_to_layer()
+        for n, a in tgpt.state_to_numpy(net).items():
+            # a copy: on the CPU the array is a view of the live tensor
+            arrays[f"{name}.{k + 1}.{n}"] = a.copy()
+    values[f"{name}.losses"] = losses
+    if mesh is None:
+        M.set_mesh(None)
+
+
+def job_vision(inp, rank, arrays, values):
+    for case in json.loads(str(inp["cases"])):
+        vision_step_case(inp, case, rank, arrays, values)
 
 
 def job_bert(inp, rank, arrays, values):

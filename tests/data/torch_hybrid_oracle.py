@@ -265,3 +265,127 @@ def jax_bert_train(cfg, axes, batches, steps, seed, opt="sgd", lr=0.0,
     final = {k: np.asarray(v._value, np.float32)
              for k, v in net.state_dict().items()}
     return state0, losses, final
+
+
+# ---------------------------------------------------------------------------
+# ResNet with BatchNorm in compile_train_step (tests/test_torch_vision_*.py)
+# ---------------------------------------------------------------------------
+#: ResNet-18 at 10 classes, 32x32, global batch 8, Momentum(0.1)
+VISION_BATCH = (8, 3, 32, 32)
+VISION_LR = 0.1
+VISION_STEPS = 3
+
+
+def vision_ref_state(seed=3):
+    """The reference ResNet-18 (10 classes) with the port's state from
+    ``seed`` (``_torch_nn_oracle.paired_models``: built abstract, without
+    the reference's per-shape initializer programs): (model, {name:
+    array}), buffers included."""
+    from _torch_nn_oracle import paired_models
+
+    net, _ = paired_models("resnet18", seed, num_classes=10)
+    return net, {k: np.asarray(v._value) for k, v in
+                 net.state_dict().items()}
+
+
+def vision_batches(n=VISION_STEPS):
+    """``n`` global batches: images from ``RandomState(0)``, labels from
+    ``RandomState(1)``."""
+    xs = np.random.RandomState(0).randn(n, *VISION_BATCH).astype(np.float32)
+    ys = np.random.RandomState(1).randint(
+        0, 10, (n, VISION_BATCH[0])).astype(np.int64)
+    return xs, ys
+
+
+def _velocity(tr, names):
+    st = tr.opt_states
+    if isinstance(st, dict):                 # the ZeRO 1/2 flat slab
+        return {"slab": np.array(st["velocity"], np.float32)}
+    return {n: np.array(s["velocity"], np.float32)
+            for n, s in zip(names, st)}
+
+
+def jax_vision_trajectory(axes, zero=0, amp=False, accumulate=1, seed=3,
+                          steps=VISION_STEPS, perturb=None):
+    """The JAX ``compile_train_step`` on the reference ResNet-18 with
+    ``Momentum(0.1)`` at ``axes`` and ZeRO ``zero`` over
+    ``vision_batches``, the loss ``cross_entropy(out.float(), label)``:
+    {"names", "buffer_names", "states": [state before step 0, after step
+    0, ...], "losses"}; a state is {"params", "buffers", "velocity"} of
+    numpy arrays by name (the velocity of the flat slab under "slab").
+
+    ``perturb`` d: each step is also taken, from the same state, on the
+    batch's images times ``1 + d·N(0, 1)`` (a fixed draw): "perturbed"
+    holds the states after those and "perturbed_losses" their losses —
+    the reference's own response to input noise of that size, which
+    bounds how close an implementation that rounds differently can
+    come."""
+    import jax.numpy as jnp
+    import paddle_tpu.nn.functional as JF
+    from paddle_tpu.distributed.strategy_compiler import compile_train_step
+
+    net, _ = vision_ref_state(seed)
+    opt = paddle.optimizer.Momentum(VISION_LR, parameters=net.parameters())
+    s = DistributedStrategy()
+    s.amp = amp
+    if zero:
+        s.sharding = True
+        s.sharding_configs = {"sharding_stage": zero}
+    tr = compile_train_step(
+        net, opt, s, jax_mesh(axes),
+        loss_fn=lambda out, lbl: JF.cross_entropy(out.astype("float32"),
+                                                  lbl),
+        accumulate_steps=accumulate)
+    names, bnames = list(tr.param_names), list(tr.buffer_names)
+
+    def state():
+        # copies: the trainer donates its state arrays to the next step
+        return {"params": {n: np.array(p, np.float32)
+                           for n, p in zip(names, tr.params)},
+                "buffers": {n: np.array(b, np.float32)
+                            for n, b in zip(bnames, tr.buffers)},
+                "velocity": _velocity(tr, names)}
+
+    def restore(st):
+        _, p_sh, s_sh, b_sh = tr._out_shardings
+        tr.params = [jax.device_put(jnp.asarray(st["params"][n]), sh)
+                     for n, sh in zip(names, p_sh)]
+        tr.buffers = [jax.device_put(jnp.asarray(st["buffers"][n]), sh)
+                      for n, sh in zip(bnames, b_sh)]
+        v = st["velocity"]
+        if isinstance(tr.opt_states, dict):
+            tr.opt_states = {"velocity": jax.device_put(
+                jnp.asarray(v["slab"]), s_sh["velocity"])}
+        else:
+            tr.opt_states = [{"velocity": jax.device_put(
+                jnp.asarray(v[n]), sh["velocity"])}
+                for n, sh in zip(names, s_sh)]
+        tr._step -= 1
+
+    out = {"names": names, "buffer_names": bnames, "states": [state()],
+           "losses": [], "perturbed": [], "perturbed_losses": [],
+           "zero_manual": bool(tr.zero_manual)}
+    noise = np.random.RandomState(7).randn(*VISION_BATCH).astype(np.float32)
+    for x, y in zip(*vision_batches(steps)):
+        if perturb:
+            before = out["states"][-1]
+            out["perturbed_losses"].append(float(tr.step(
+                x * (1 + perturb * noise), y)))
+            out["perturbed"].append(state())
+            restore(before)
+        out["losses"].append(float(tr.step(x, y)))
+        out["states"].append(state())
+    return out
+
+
+def vision_inputs(traj, cases):
+    """The ``inputs.npz`` dict of a ``vision`` worker job: the batches and,
+    for each case, the reference's states."""
+    xs, ys = vision_batches()
+    d = {"xs": xs, "ys": ys, "cases": json.dumps(cases)}
+    for case in cases:
+        for k, st in enumerate(traj[case["name"]]["states"]):
+            for part in ("params", "buffers", "velocity"):
+                for n, a in st[part].items():
+                    d[f"{case['name']}.{k}.{part}.{n}"] = a
+    return d

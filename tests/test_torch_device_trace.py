@@ -160,6 +160,54 @@ def test_categorize_port_spellings(name, cat):
     assert dt.categorize_op(name) == cat
 
 
+@pytest.mark.parametrize("name,cls", [
+    ("sm90_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+     "conv"),
+    ("sm90_xmma_dgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nchw",
+     "conv"),
+    ("sm90_xmma_wgrad_implicit_gemm_bf16bf16_bf16f32_f32_nhwckrsc_nhwc",
+     "conv"),
+    ("aten::convolution", "conv"),
+    ("nvjet_tst_128x256_64x4_2x1_v_bz_coopA_TNN", "gemm"),
+    ("aten::addmm", "gemm"),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>",
+     "reduction"),
+    ("void at::native::batch_norm_collect_statistics_kernel<float>",
+     "reduction"),
+    ("void cudnn::bn_fw_tr_1C11_kernel_NCHW<__nv_bfloat16, float>",
+     "reduction"),
+    ("aten::var_mean", "reduction"), ("aten::sum", "reduction"),
+    ("aten::normal_", "pointwise"), ("aten::maximum", "pointwise"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::neg>",
+     "pointwise"),
+    ("void cudnn::engines_precompiled::nchwToNhwcKernel<__nv_bfloat16>",
+     "pointwise"),
+    ("void flash_bwd_dkv_tc_kernel<128>(CUtensorMap)", "attention"),
+    ("void at::native::vectorized_gather_kernel<16, long>",
+     "scatter-gather"),
+    ("ncclDevKernel_AllReduce_Sum_f32_RING_LL", "collective")])
+def test_classify_op_nests_in_its_category(name, cls):
+    assert dt.classify_op(name) == cls
+    cat = dt.categorize_op(name)
+    assert cat == {"conv": "matmul", "gemm": "matmul",
+                   "reduction": "elementwise",
+                   "pointwise": "elementwise"}.get(cls, cls)
+
+
+def test_class_table_sums_to_the_category_table():
+    ops = [("aten::convolution", 2.0, 3), ("aten::addmm", 1.5),
+           ("aten::var_mean", 0.25, 2), ("aten::mul", 0.5),
+           ("aten::gather", 0.125)]
+    t = dt.class_table(ops)
+    assert set(t) == set(dt.CLASSES)
+    assert t["conv"] == {"count": 3, "ms": 2.0}
+    assert t["gemm"] == {"count": 1, "ms": 1.5}
+    assert t["reduction"] == {"count": 2, "ms": 0.25}
+    assert t["pointwise"] == {"count": 1, "ms": 0.5}
+    assert t["scatter-gather"] == {"count": 1, "ms": 0.125}
+    assert sum(c["count"] for c in t.values()) == 8
+
+
 # ---------------------------------------------------------------------------
 # summarize over the same Timeline in both packages
 # ---------------------------------------------------------------------------

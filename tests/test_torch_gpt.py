@@ -193,8 +193,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     optimizer, distributed.hybrid and distributed.fleet, the int8
     slice's ops.int8_matmul and quantization and the profiler's trace,
     events, sink, recompile and disttrace and the serving engine, page
-    cache and scheduler (legacy mode, handoff, chains) and the BERT and
-    ERNIE models among them — and
+    cache and scheduler (legacy mode, handoff, chains), the BERT and
+    ERNIE models, and the vision slice's nn (conv, pooling, norms,
+    losses, initializers), io, metric, vision (models and datasets) and
+    quantization among them — and
     chip_smoke.py load in a fresh interpreter without pulling in jax or
     paddle_tpu."""
     code = (
@@ -220,7 +222,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "'paddle_tpu_torch.profiler.instrument', "
         "'paddle_tpu_torch.serving.engine', "
         "'paddle_tpu_torch.serving.paged_cache', "
-        "'paddle_tpu_torch.serving.sched'}\n"
+        "'paddle_tpu_torch.serving.sched', "
+        "'paddle_tpu_torch.nn', 'paddle_tpu_torch.nn.layer.conv', "
+        "'paddle_tpu_torch.nn.functional.pooling', "
+        "'paddle_tpu_torch.nn.functional.norm', "
+        "'paddle_tpu_torch.nn.functional.loss', "
+        "'paddle_tpu_torch.nn.initializer', 'paddle_tpu_torch.io', "
+        "'paddle_tpu_torch.metric', 'paddle_tpu_torch.vision', "
+        "'paddle_tpu_torch.vision.models.resnet', "
+        "'paddle_tpu_torch.vision.datasets'}\n"
         "assert need <= set(mods), sorted(need - set(mods))\n"
         "for m in mods: importlib.import_module(m)\n"
         "runpy.run_path('chip_smoke.py', run_name='not_main')\n"

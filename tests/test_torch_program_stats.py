@@ -310,3 +310,33 @@ def test_note_kernel_counts_only_under_a_counter():
     assert rec["categories"] == {"attention": {"ops": 1, "bytes": 20,
                                                "flops": 10.0}}
     assert math.isclose(rec["flops"], 10.0) and rec["bytes_accessed"] == 20
+
+
+@pytest.mark.parametrize("first", [0, 1])
+def test_counts_on_two_threads_end_in_either_order(first):
+    """Two threads' counts overlap (two in-process ranks' first
+    dispatches): whichever ends first, the counter of the one still open
+    stays active, and none is left active once both have ended."""
+    import threading
+
+    began = [threading.Event(), threading.Event()]
+    go = [threading.Event(), threading.Event()]
+    inner = [None, None]
+
+    def body(i):
+        inner[i] = tps.ACTIVE
+        began[i].set()
+        assert go[i].wait(30)
+
+    threads = [threading.Thread(target=tps.count, args=(body, i))
+               for i in (0, 1)]
+    for i in (0, 1):
+        threads[i].start()
+        assert began[i].wait(30)
+    assert tps.ACTIVE is inner[1] and inner[0] is not inner[1]
+    go[first].set()
+    threads[first].join(30)
+    assert tps.ACTIVE is inner[1 - first]
+    go[1 - first].set()
+    threads[1 - first].join(30)
+    assert tps.ACTIVE is None
